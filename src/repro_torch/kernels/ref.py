@@ -1,0 +1,137 @@
+"""Plain PyTorch versions of the CUDA kernels (the correctness contracts).
+
+Each function here repeats its kernel's arithmetic with tensor ops, on
+any device. The CPU tests hold these against the JAX package, and
+``chip_smoke.py`` holds each kernel against its plain version on the
+card. The wrappers in ``ops.py`` call them only for CPU tensors.
+
+Layouts (channel-FIRST 2D views; callers reshape):
+  quant_pack:  x (C, N) -> packed (C, N*bits/32) uint32, scale (C,), zp (C,)
+  dequant_agg: packed (K, C, Nw) uint32, scale/zp (K, C), weights (K,)
+               -> out (C, N) fp32 = sum_k w_k * dequant_k
+
+Packed words are ``torch.uint32`` tensors. PyTorch implements no
+arithmetic on that type, so packing and unpacking compute in int64 and
+only the stored words are uint32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+WORD_DTYPE = torch.uint32
+# the fp32 sentinel the reference masks invalid columns with
+BIG = float(np.float32(3.4e38))
+
+
+def inv_qmax(bits: int) -> float:
+    """f32(1/qmax), the constant the reference multiplies the range by
+    (a reciprocal multiply, not a division by qmax)."""
+    return float(np.float32(1.0 / ((1 << bits) - 1)))
+
+
+def _as_words(word64: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> uint32 words, bit for bit."""
+    signed = torch.where(word64 >= 2 ** 31, word64 - 2 ** 32, word64)
+    return signed.to(torch.int32).view(WORD_DTYPE)
+
+
+def pack_words(levels: torch.Tensor, bits: int) -> torch.Tensor:
+    """levels (C, N) integers -> (C, N*bits/32) uint32, little-endian."""
+    per = 32 // bits
+    c, n = levels.shape
+    if n % per:
+        raise ValueError(f"N={n} is not a multiple of {per} levels")
+    grp = levels.to(torch.int64).reshape(c, n // per, per)
+    shifts = torch.arange(per, dtype=torch.int64,
+                          device=levels.device) * bits
+    return _as_words(torch.sum(grp << shifts, dim=-1))
+
+
+def unpack_words(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """(..., Nw) uint32 -> (..., Nw*32/bits) int64 levels."""
+    per = 32 // bits
+    mask = (1 << bits) - 1
+    shifts = torch.arange(per, dtype=torch.int64,
+                          device=packed.device) * bits
+    w = packed.to(torch.int64)
+    lv = (w[..., None] >> shifts) & mask
+    return lv.reshape(*packed.shape[:-1], packed.shape[-1] * per)
+
+
+def _positive_zero(zp: torch.Tensor) -> torch.Tensor:
+    """zp is clipped to [0, qmax], so a zero may carry a minus sign
+    (round(-0.0 / scale) = -0.0, and ``clamp`` keeps it). The reference
+    emits +0.0, and the wire carries the sign bit."""
+    return torch.where(zp > 0, zp, torch.zeros_like(zp))
+
+
+def _qparams(xmin: torch.Tensor, xmax: torch.Tensor, bits: int):
+    qmax = (1 << bits) - 1
+    rng = xmax - xmin
+    # an fp32 tensor times a Python float multiplies in fp32, and the
+    # constant is exactly an fp32 value
+    scale = torch.where(rng > 0, rng * inv_qmax(bits), torch.ones_like(rng))
+    zp = torch.clamp(torch.round(-xmin / scale), 0, qmax)
+    return scale, _positive_zero(zp)
+
+
+def quant_pack_rows_ref(x2d: torch.Tensor, n_valid: torch.Tensor,
+                        bits: int):
+    """Ragged-row quantize + pack (the twin of ``ops._quant_pack_rows_jnp``
+    in the JAX package). Row ``c`` is quantized over its first
+    ``n_valid[c]`` columns; levels past that are 0. Returns (packed (C,
+    N*bits/32) uint32, scale (C,) fp32, zp (C,) fp32)."""
+    qmax = (1 << bits) - 1
+    x = x2d.to(torch.float32)
+    col = torch.arange(x.shape[1], device=x.device)[None, :]
+    valid = col < n_valid.to(x.device, torch.int64)[:, None]
+    xmin = torch.clamp(torch.amin(torch.where(valid, x, BIG), dim=1),
+                       max=0.0)
+    xmax = torch.clamp(torch.amax(torch.where(valid, x, -BIG), dim=1),
+                       min=0.0)
+    scale, zp = _qparams(xmin, xmax, bits)
+    q = torch.round(x / scale[:, None]) + zp[:, None]
+    q = torch.where(valid, torch.clamp(q, 0, qmax), torch.zeros_like(q))
+    return pack_words(q.to(torch.int64), bits), scale, zp
+
+
+def quant_pack_ref(x: torch.Tensor, bits: int):
+    """x (C, N) fp32, every column valid. Returns (packed, scale, zp)."""
+    nv = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                    device=x.device)
+    return quant_pack_rows_ref(x, nv, bits)
+
+
+def dequant_agg_rows_ref(packed: torch.Tensor, scale: torch.Tensor,
+                         zp: torch.Tensor, weights: torch.Tensor,
+                         n_valid: torch.Tensor, bits: int) -> torch.Tensor:
+    """Flat-tree cohort aggregate: packed (K, C, Nw), sidecars (K, C),
+    per-row lengths (C,) -> (C, N) fp32.
+
+    Clients fold in strict k order, ``acc += w_k * ((lv - zp_k) *
+    scale_k)``, as the reference's ``_seq_fold`` does; ``zp`` counts as
+    0 where ``scale`` is 0 (phantom rows); columns past a row's length
+    are exact zeros."""
+    k, c, nw = packed.shape
+    n = nw * (32 // bits)
+    w = weights.to(torch.float32)
+    zpz = torch.where(scale > 0, zp, torch.zeros_like(zp))
+    acc = torch.zeros((c, n), dtype=torch.float32, device=packed.device)
+    for i in range(k):
+        lv = unpack_words(packed[i], bits).to(torch.float32)
+        acc = acc + w[i] * ((lv - zpz[i][:, None]) * scale[i][:, None])
+    col = torch.arange(n, device=packed.device)[None, :]
+    valid = col < n_valid.to(packed.device, torch.int64)[:, None]
+    return torch.where(valid, acc, torch.zeros_like(acc))
+
+
+def dequant_agg_ref(packed: torch.Tensor, scale: torch.Tensor,
+                    zp: torch.Tensor, weights: torch.Tensor,
+                    bits: int) -> torch.Tensor:
+    """packed (K, C, Nw); scale/zp (K, C); weights (K,) -> (C, N) fp32,
+    every column valid."""
+    c = packed.shape[1]
+    n = packed.shape[2] * (32 // bits)
+    nv = torch.full((c,), n, dtype=torch.int32, device=packed.device)
+    return dequant_agg_rows_ref(packed, scale, zp, weights, nv, bits)
