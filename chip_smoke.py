@@ -3,20 +3,31 @@
     python3 chip_smoke.py [--profile]
 
 Phases, each of which raises on failure (the script then exits nonzero):
-  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
+  1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
+     one process per source, all at once;
   2. hold each kernel against its plain PyTorch version on the card:
      ``quant_pack_rows`` bit-exact (words, scale and zp bits) at bits
      {2, 4, 8} on the main-path (1610, 2560) buffer and ragged cases;
      ``dequant_agg_rows`` within rtol=atol=1e-5 at K in {1, 5, 64} on
      (K, 1610, 640), and bit-identical across block_k;
-  3. drive the main path: the synchronous FLoCoRA round of
+     ``multi_lora_matmul_packed`` at bits {2, 4, 8} and
+     ``multi_lora_matmul`` within rtol=atol=1e-4 at m in {1, 8, 64},
+     d in {256, 2560}, R in {4, 8}, E=512, plus K=2559, N=2555, R=6;
+  3. drive the FL round: the synchronous FLoCoRA round of
      ``examples/quickstart.py`` ``run_uniform`` (ResNet-8, r=32, alpha=512,
      int8 flat wire, 20 clients with LDA 0.5 over 2000 synthetic images,
      K=5, batch 32, lr 0.01, 1 local epoch) through ``FLServer`` on the
      card, with the kernels' launch counts read around it, then replay
      round 1 on the CPU (plain versions) and compare;
-  4. time each kernel with CUDA events at the main-path shapes beside its
-     plain version and its byte bound.
+  4. drive the serving path: ``benchmarks/round_throughput.py`` run_serve's
+     1024-client int4 store (ranks 4 and 8, 2 layers, seed 0) at
+     d = 2560 (gemma3-4b's hidden width), an m = 64 step on the fused and
+     dequant engines (E = 512 slots) checked against the dense-merge
+     oracle with their launch counts, steady step times, and the
+     continuous-batching simulator on both paths plus the clock-policy
+     churn run at capacity/16;
+  5. time each kernel with CUDA events at its path's shapes beside its
+     plain version and its bound.
 The line before the last is one JSON object with the kernels' numbers;
 the last is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
 round under ``torch.profiler`` and prints the device time by kernel.
@@ -41,7 +52,19 @@ FP32_FLOPS = 67e12
 SOURCES = {"quant_pack_rows": ("src/repro_torch/kernels/csrc/quant_pack.cu",
                                "src/repro/kernels/quant_pack.py:67"),
            "dequant_agg_rows": ("src/repro_torch/kernels/csrc/dequant_agg.cu",
-                                "src/repro/kernels/dequant_agg.py:159")}
+                                "src/repro/kernels/dequant_agg.py:159"),
+           "multi_lora_matmul_packed": (
+               "src/repro_torch/kernels/csrc/multi_lora_matmul.cu",
+               "src/repro/kernels/lora_matmul.py:185"),
+           "multi_lora_matmul": (
+               "src/repro_torch/kernels/csrc/multi_lora_matmul.cu",
+               "src/repro/kernels/lora_matmul.py:119")}
+# the serving path: benchmarks/round_throughput.py run_serve at the
+# hidden width of gemma3-4b (src/repro/configs/gemma3_4b.py d_model)
+SERVE = dict(n_clients=1024, d_model=2560, n_layers=2, ranks=(4, 8), bits=4,
+             seed=0)
+SERVE_SCALE = 0.5
+SERVE_TOL = 1e-4
 
 
 def _card_line() -> str:
@@ -183,6 +206,311 @@ def check_dequant_agg(nv, nw: int, dev) -> float:
     return worst
 
 
+def _serving_slabs(rng, e: int, k: int, n: int, r: int, bits: int, dev):
+    """Random packed serving slabs on the card: words of random bits
+    (their tails past K and R hold nonzero levels, which the kernel must
+    not read), dequantized values within about +-0.2, and a quarter of
+    the slots rank-padded (A rows past r - r/4 with scale = zp = 0 and
+    zero words)."""
+    import numpy as np
+    import torch
+    per = 32 // bits
+    qmax = (1 << bits) - 1
+    kw, rw = -(-k // per), -(-r // per)
+
+    def side(shape):
+        sc = rng.uniform(0.5, 1.5, size=shape) * 0.4 / qmax
+        zp = rng.integers(0, qmax + 1, size=shape)
+        return (torch.from_numpy(sc.astype(np.float32)).to(dev),
+                torch.from_numpy(zp.astype(np.float32)).to(dev))
+
+    def words(shape):
+        return rng.integers(0, 1 << 32, size=shape, dtype=np.uint32)
+
+    pad = slice(0, e // 4)
+    cut = r - max(r // 4, 1)
+    aq, bq = words((e, r, kw)), words((e, n, rw))
+    aq[pad, cut:] = 0
+    aq, bq = torch.from_numpy(aq).to(dev), torch.from_numpy(bq).to(dev)
+    a_s, a_z = side((e, r))
+    b_s, b_z = side((e, n))
+    a_s[pad, cut:] = 0.0
+    a_z[pad, cut:] = 0.0
+    return aq, a_s, a_z, bq, b_s, b_z
+
+
+def check_serving_kernels(dev) -> tuple[float, float]:
+    """``multi_lora_matmul_packed`` (B4) and ``multi_lora_matmul`` (B5)
+    against their plain versions on the card within rtol = atol = 1e-4:
+    m in {1, 8, 64}, d in {256, 2560}, R in {4, 8}, E = 512, bits
+    {2, 4, 8}, plus a ragged K = 2559, N = 2555 with R = 6. Returns the
+    max abs differences (B4, B5)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+
+    rng = np.random.default_rng(5)
+    e = 512
+    shapes = [(d, d, r) for d in (256, 2560) for r in (4, 8)]
+    shapes.append((2559, 2555, 6))
+    worst = [0.0, 0.0]
+
+    def held(got, want, i):
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, rtol=SERVE_TOL, atol=SERVE_TOL))
+        worst[i] = max(worst[i], err)
+        return err, ok
+
+    for k, n, r in shapes:
+        w = torch.from_numpy((rng.standard_normal((k, n)) * 0.05).astype(
+            np.float32)).to(dev)
+        xs = torch.from_numpy((rng.standard_normal((64, k)) * 0.5).astype(
+            np.float32)).to(dev)
+        ms = (1, 8, 64) if (k, n) != (2559, 2555) else (64,)
+        for bits in (2, 4, 8):
+            slab = _serving_slabs(rng, e, k, n, r, bits, dev)
+            line = []
+            for m in ms:
+                ids = rng.integers(0, e, m)
+                x = xs[:m].contiguous()
+                got = kops.multi_lora_matmul_packed(x, w, *slab, ids.tolist(),
+                                                    SERVE_SCALE, bits)
+                want = kref.multi_lora_matmul_q_ref(
+                    x, w, *slab, torch.from_numpy(ids).to(dev), SERVE_SCALE,
+                    bits)
+                err, ok = held(got, want, 0)
+                line.append(f"m={m} {err:.3g}")
+                if not ok:
+                    raise AssertionError(
+                        f"multi_lora_matmul_packed bits={bits} m={m} K={k} "
+                        f"N={n} R={r}: max_abs_err {err}")
+            print(f"check multi_lora_matmul_packed bits={bits} K={k} N={n} "
+                  f"R={r} E={e}: max_abs_err " + ", ".join(line))
+        a = torch.from_numpy((rng.standard_normal((e, k, r)) * 0.1).astype(
+            np.float32)).to(dev)
+        b = torch.from_numpy((rng.standard_normal((e, r, n)) * 0.1).astype(
+            np.float32)).to(dev)
+        line = []
+        for m in ms:
+            ids = rng.integers(0, e, m)
+            x = xs[:m].contiguous()
+            got = kops.multi_lora_matmul(x, w, a, b, ids.tolist(), SERVE_SCALE)
+            want = kref.multi_lora_matmul_ref(
+                x, w, a, b, torch.from_numpy(ids).to(dev), SERVE_SCALE)
+            err, ok = held(got, want, 1)
+            line.append(f"m={m} {err:.3g}")
+            if not ok:
+                raise AssertionError(f"multi_lora_matmul m={m} K={k} N={n} "
+                                     f"R={r}: max_abs_err {err}")
+        print(f"check multi_lora_matmul K={k} N={n} R={r} E={e}: "
+              "max_abs_err " + ", ".join(line))
+    return worst[0], worst[1]
+
+
+def _counted(fn):
+    """(fn's result, the kernels' launch counts during it): the counts
+    are set to 0 just before and read just after."""
+    from repro_torch.kernels import ops as kops
+    kops.reset_launch_counts()
+    out = fn()
+    return out, kops.launch_counts()
+
+
+def _add_counts(total: dict, counts: dict) -> None:
+    for key, v in counts.items():
+        total[key] = total.get(key, 0) + v
+
+
+def serving_phase(dev) -> dict:
+    """The multi-tenant serving path on the card at d = 2560: the
+    1024-client store, an m = 64 step on both paths checked against the
+    dense-merge oracle and each other with its launch counts, steady
+    step times, and the simulator runs of run_serve. Returns what the
+    timing phase and the JSON line need."""
+    import numpy as np
+    import torch
+    from repro_torch import serve
+    from repro_torch.serve.engine import _dequant_stacks
+
+    t0 = time.perf_counter()
+    weights, store = serve.make_store(**SERVE, device=dev)
+    torch.cuda.synchronize()
+    total = sum(store.bytes_of(c) for c in store.cids)
+    print(f"serve store: {SERVE['n_clients']} clients d={SERVE['d_model']} "
+          f"layers={SERVE['n_layers']} ranks={SERVE['ranks']} "
+          f"int{SERVE['bits']}: {total} wire bytes "
+          f"({time.perf_counter() - t0:.1f} s)")
+    cache = serve.AdapterCache(capacity_bytes=2 * total, qcfg=store.qcfg,
+                               device=dev)
+    engines = {p: serve.AdapterServingEngine(
+        weights, SERVE_SCALE, store.qcfg, cache, fetch=store.fetch, path=p,
+        slab_slots=512, device=dev) for p in ("fused", "dequant")}
+    t0 = time.perf_counter()
+    engines["fused"].admit(list(range(SERVE["n_clients"])))
+    print(f"serve admit {SERVE['n_clients']} clients: "
+          f"{time.perf_counter() - t0:.1f} s, cache {cache.stats()}")
+    rng = np.random.default_rng(0)
+    m = 64
+    cids = [int(c) for c in rng.integers(0, SERVE["n_clients"], m)]
+    x = torch.from_numpy((rng.standard_normal((m, SERVE["d_model"])) * 0.5
+                          ).astype(np.float32)).to(dev)
+    buckets = len({store.rank_of(c) for c in cids})
+    want_launches = SERVE["n_layers"] * buckets
+    launches: dict = {}
+
+    y, counts = _counted(lambda: engines["fused"].step(x, cids))
+    _add_counts(launches, counts)
+    if counts["multi_lora_matmul_packed"] != want_launches \
+            or counts["multi_lora_matmul"] != 0:
+        raise AssertionError(f"fused step launch counts {counts}, expected "
+                             f"{want_launches} multi_lora_matmul_packed")
+    yd, counts = _counted(lambda: engines["dequant"].step(x, cids))
+    _add_counts(launches, counts)
+    if counts["multi_lora_matmul"] != want_launches \
+            or counts["multi_lora_matmul_packed"] != 0:
+        raise AssertionError(f"dequant step launch counts {counts}, "
+                             f"expected {want_launches} multi_lora_matmul")
+    y_or = engines["fused"].oracle_step(x, cids)
+    torch.cuda.synchronize()
+    if tuple(y.shape) != (m, SERVE["d_model"]) \
+            or not bool(torch.isfinite(y).all()):
+        raise AssertionError("fused step output is not finite or lost its "
+                             "shape")
+    ymax = float(y_or.abs().max())
+    err_or = float((y - y_or).abs().max())
+    err_fd = float((y - yd).abs().max())
+    print(f"serve step m={m} ({buckets} rank buckets): fused vs oracle "
+          f"max_abs {err_or:.4g}, fused vs dequant {err_fd:.4g}, max|y| "
+          f"{ymax:.4g}, tol {SERVE_TOL * ymax:.4g}; launches fused "
+          f"{want_launches} multi_lora_matmul_packed, dequant "
+          f"{want_launches} multi_lora_matmul")
+    if err_or > SERVE_TOL * ymax or err_fd > SERVE_TOL * ymax:
+        raise AssertionError("serving step disagrees with the oracle or "
+                             "the dequant path")
+
+    step_ms = {}
+    for p, eng in engines.items():
+        ts = []
+        for _ in range(20):
+            t1 = time.perf_counter()
+            eng.step(x, cids)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t1)
+        step_ms[p] = 1e3 * float(np.median(ts))
+        print(f"serve steady step {p} m={m} E=512: median "
+              f"{step_ms[p]:.3f} ms over 20 (min {1e3 * min(ts):.3f} ms), "
+              f"{m / step_ms[p] * 1e3:.0f} rows/s")
+
+    sims = {}
+    wl = serve.WorkloadConfig(n_requests=192, rate_rps=2000.0, gen_tokens=8,
+                              max_batch=8, zipf_a=1.1, seed=0)
+    for p in ("fused", "dequant"):
+        c = serve.AdapterCache(capacity_bytes=2 * total, qcfg=store.qcfg,
+                               device=dev)
+        eng = serve.AdapterServingEngine(weights, SERVE_SCALE, store.qcfg, c,
+                                         fetch=store.fetch, path=p,
+                                         slab_slots=128, device=dev)
+        sims[p], counts = _counted(lambda: serve.simulate(eng, store, wl))
+        _add_counts(launches, counts)
+    c = serve.AdapterCache(capacity_bytes=total // 16, qcfg=store.qcfg,
+                           policy="clock", device=dev)
+    eng = serve.AdapterServingEngine(weights, SERVE_SCALE, store.qcfg, c,
+                                     fetch=store.fetch, device=dev)
+    sims["churn"], counts = _counted(lambda: serve.simulate(
+        eng, store, serve.WorkloadConfig(n_requests=192, rate_rps=2000.0,
+                                         gen_tokens=4, max_batch=8,
+                                         zipf_a=1.0, seed=1)))
+    _add_counts(launches, counts)
+    for name, rep in sims.items():
+        print(f"serve sim {name}: " + json.dumps(
+            {k: rep[k] for k in ("path", "requests", "steps", "wall_s",
+                                 "requests_per_s", "tokens_per_s", "p50_ms",
+                                 "p99_ms", "hit_rate", "hits", "misses",
+                                 "evictions", "cache_entries",
+                                 "store_fetches")}))
+        if rep["requests"] != 192 or rep["hits"] + rep["misses"] != 192:
+            raise AssertionError(f"serve sim {name} did not complete every "
+                                 "request")
+    if sims["churn"]["evictions"] <= 0:
+        raise AssertionError("the capacity/16 churn run evicted nothing")
+    print(f"serving path launches: {launches}")
+    for key in ("multi_lora_matmul_packed", "multi_lora_matmul"):
+        if launches[key] <= 0:
+            raise AssertionError(f"{key} was not launched on the serving "
+                                 "path")
+
+    # the timing inputs: the staged rank-8 slab (E = 512) of the fused
+    # engine, 64 rows over its staged slots, and its fp stacks
+    staged = engines["fused"]._staged[8][1]
+    lyr = staged.layers[0]
+    slots = sorted(staged.slots.values())
+    ids = [int(i) for i in rng.choice(slots, m)]
+    a_stack, b_stack = _dequant_stacks(lyr, SERVE["bits"], SERVE["d_model"],
+                                       staged.rank)
+    return {"launches": launches, "x": x, "w": weights[0], "layer": lyr,
+            "ids": ids, "stacks": (a_stack, b_stack), "rank": staged.rank,
+            "n_slots": staged.n_slots, "step_ms": step_ms}
+
+
+def time_serving_kernels(sv: dict, dev) -> dict:
+    """B4 and B5 with CUDA events at (m = 64, d = 2560, E = 512, rank-8
+    bucket, int4) beside their plain versions, their bounds, and
+    torch.matmul(x, W) alone (TF32 off) as context for the base
+    product."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+
+    x, w, lyr, ids = sv["x"], sv["w"], sv["layer"], sv["ids"]
+    a_stack, b_stack = sv["stacks"]
+    bits, s = SERVE["bits"], SERVE_SCALE
+    m, k = x.shape
+    n, r = w.shape[1], sv["rank"]
+    ids_t = torch.tensor(ids, device=dev)
+    t_q = _time_ms(lambda: kops.multi_lora_matmul_packed(
+        x, w, *lyr, ids, s, bits), 200)
+    t_qp = _time_ms(lambda: kref.multi_lora_matmul_q_ref(
+        x, w, *lyr, ids_t, s, bits), 20)
+    t_f = _time_ms(lambda: kops.multi_lora_matmul(
+        x, w, a_stack, b_stack, ids, s), 200)
+    t_fp = _time_ms(lambda: kref.multi_lora_matmul_ref(
+        x, w, a_stack, b_stack, ids_t, s), 20)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t_mm = _time_ms(lambda: torch.matmul(x, w), 200)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    # what the function must move: x, W and the output once, ids, and
+    # each DISTINCT gathered slot's adapter once (words and sidecars, or
+    # fp stacks); fp32 operations: the base product, h, y, and for B4
+    # the dequant (a subtract and a multiply per level used)
+    distinct = len(set(ids))
+    kw, rw = lyr.aq.shape[2], lyr.bq.shape[2]
+    common = 4 * (m * k + k * n + m * n + m)
+    q_bytes = common + distinct * 4 * (r * kw + 2 * r + n * rw + 2 * n)
+    f_bytes = common + distinct * 4 * (k * r + r * n)
+    base = 2 * m * k * n + 2 * m * r * k + 2 * m * n * r + 2 * m * n
+    q_bound = _bound_ms(q_bytes, base + 2 * m * r * k + 2 * m * n * r)
+    f_bound = _bound_ms(f_bytes, base)
+    mm_bound = _bound_ms(4 * (m * k + k * n + m * n), 2 * m * k * n)
+    for name, t, tp, bound, nbytes in (
+            ("multi_lora_matmul_packed", t_q, t_qp, q_bound, q_bytes),
+            ("multi_lora_matmul", t_f, t_fp, f_bound, f_bytes)):
+        print(f"{name} m={m} K={k} N={n} R={r} E={sv['n_slots']} "
+              f"({distinct} distinct slots): kernel {t[0] * 1e3:.2f} us on "
+              f"the device ({t[1] * 1e3:.2f} us a call from Python), plain "
+              f"{tp[0] * 1e3:.2f} us ({tp[1] * 1e3:.2f} us a call), bound "
+              f"{bound[0] * 1e3:.2f} us by {bound[1]} ({nbytes} B)")
+    print(f"torch.matmul(x, W) alone, TF32 off, ({m}, {k}) x ({k}, {n}): "
+          f"{t_mm[0] * 1e3:.2f} us on the device (bound "
+          f"{mm_bound[0] * 1e3:.2f} us by {mm_bound[1]})")
+    return {"multi_lora_matmul_packed": (t_q, t_qp, q_bound),
+            "multi_lora_matmul": (t_f, t_fp, f_bound), "matmul": t_mm}
+
+
 def quickstart_data():
     """examples/quickstart.py run_uniform: 20 non-IID (LDA 0.5) clients
     over 2000 synthetic 32x32x3 images."""
@@ -313,8 +641,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     err_d = check_dequant_agg(main_layouts[8][1], lo8.nw_max, dev)
     torch.cuda.synchronize()
+    err_mq, err_mf = check_serving_kernels(dev)
 
-    # 3. the main path on the card ---------------------------------------
+    # 3. the FL round on the card ----------------------------------------
     data = quickstart_data()
     server = make_server(resnet.init(0, cfg, device="cuda"), data, "cuda")
     static = messages.message_wire_bytes(server.global_train,
@@ -367,7 +696,12 @@ def main(argv=None) -> int:
             print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
                   f"{e.count:6d}x  {e.key[:90]}")
 
-    # 4. times at the main-path shapes ------------------------------------
+    # 4. the serving path on the card --------------------------------------
+    t0 = time.perf_counter()
+    sv = serving_phase(dev)
+    print(f"serving phase: {time.perf_counter() - t0:.1f} s")
+
+    # 5. times at the paths' shapes ---------------------------------------
     flat, nv = main_layouts[8]
     c, n = flat.shape
     nw = n // 4
@@ -401,14 +735,22 @@ def main(argv=None) -> int:
               f"{tp[0] * 1e3:.2f} us ({tp[1] * 1e3:.2f} us a call), bound "
               f"{bound[0] * 1e3:.2f} us ({nbytes} B)")
     print(f"round wall times (s): {[round(s, 4) for s in round_s]}")
+    t_serve = time_serving_kernels(sv, dev)
 
     rows = []
-    for name, t, tp, bound, err in (
-            ("quant_pack_rows", t_q, t_qp, q_bound, err_q),
-            ("dequant_agg_rows", t_d, t_dp, d_bound, err_d)):
+    for name, t, tp, bound, err, n_launch in (
+            ("quant_pack_rows", t_q, t_qp, q_bound, err_q,
+             launches["quant_pack_rows"]),
+            ("dequant_agg_rows", t_d, t_dp, d_bound, err_d,
+             launches["dequant_agg_rows"]),
+            ("multi_lora_matmul_packed",
+             *t_serve["multi_lora_matmul_packed"], err_mq,
+             sv["launches"]["multi_lora_matmul_packed"]),
+            ("multi_lora_matmul", *t_serve["multi_lora_matmul"], err_mf,
+             sv["launches"]["multi_lora_matmul"])):
         src, replaces = SOURCES[name]
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": n_launch,
                      "max_abs_err": err, "ms": t[0], "plain_ms": tp[0],
                      "bound_ms": bound[0], "bound_by": bound[1],
                      "library_ms": None})

@@ -116,6 +116,13 @@ class TreeLayout:
     def nw_max(self) -> int:
         return self.n_max * self.bits // 32
 
+    def leaf_nw(self, spec: LeafSpec) -> int:
+        """spec's own lane-padded word count (what a per-leaf
+        ``PackedLeaf`` for this leaf would hold)."""
+        lane = kops.lane_levels(self.bits)
+        n_pad = ((spec.n_valid + lane - 1) // lane) * lane
+        return n_pad * self.bits // 32
+
     def n_valid_vec(self) -> np.ndarray:
         nv = np.zeros((self.c_total,), np.int32)
         for s in self.leaves:
@@ -199,6 +206,24 @@ class FlatPackedMessage:
                 out.append(kops.from_channel_first_2d(
                     x[r0:r1, : spec.n_valid], spec.shape,
                     lo.per_stack).to(spec.dtype))
+            else:
+                out.append(self.fp_leaves[fpi])
+                fpi += 1
+        return tree_unflatten(lo.treedef, out)
+
+    def as_tree(self) -> Any:
+        """-> the equivalent per-leaf ``PackedLeaf`` tree: row and column
+        slices of the flat buffer, bit-identical payloads."""
+        from repro_torch.core.messages import PackedLeaf
+        lo = self.layout
+        out, fpi = [], 0
+        for spec in lo.leaves:
+            if spec.quantized:
+                r0, r1 = spec.row_start, spec.row_start + spec.rows
+                out.append(PackedLeaf(
+                    self.payload[r0:r1, : lo.leaf_nw(spec)],
+                    self.scale[r0:r1], self.zp[r0:r1], spec.shape,
+                    spec.dtype, lo.bits, lo.per_stack))
             else:
                 out.append(self.fp_leaves[fpi])
                 fpi += 1

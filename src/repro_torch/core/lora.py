@@ -103,6 +103,27 @@ def dense_lora_init(gen: torch.Generator, d_in: int, d_out: int,
     return {"a": a, "b": b}
 
 
+def dense_lora_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                     scale: float,
+                     compute_dtype: torch.dtype = torch.bfloat16
+                     ) -> torch.Tensor:
+    """(α/r)·(x@a)@b — the low-rank side chain only, computed in
+    ``compute_dtype`` as the JAX package does."""
+    h = torch.einsum("...i,ir->...r", x.to(compute_dtype),
+                     a.to(compute_dtype))
+    y = torch.einsum("...r,ro->...o", h, b.to(compute_dtype))
+    return (scale * y.to(torch.float32)).to(x.dtype)
+
+
+def dense_merge(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                scale: float) -> torch.Tensor:
+    """W + (α/r)·a@b — serving-time merge (no added latency, paper
+    §II-C)."""
+    return (w.to(torch.float32)
+            + (scale * a.to(torch.float32)) @ b.to(torch.float32)
+            ).to(w.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Shape-only adapter detection (message rank for the wire header)
 # ---------------------------------------------------------------------------
@@ -138,6 +159,20 @@ def adapter_rank(node: dict) -> int:
         return int(node["a"].shape[-1])
     raise ValueError("not a LoRA adapter pair: "
                      f"a{tuple(node['a'].shape)} b{tuple(node['b'].shape)}")
+
+
+def _walk_pairs(tree: Any, fn):
+    """Rebuild ``tree``, applying ``fn(pair_dict)`` to every adapter
+    pair, in dict insertion order. Anything that is not a dict, list or
+    tuple is a leaf, wire-form leaves (``PackedLeaf``) included."""
+    if isinstance(tree, dict):
+        if is_adapter_pair(tree):
+            return fn(tree)
+        return {k: _walk_pairs(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [_walk_pairs(v, fn) for v in tree]
+        return type(tree)(out) if isinstance(tree, tuple) else out
+    return tree
 
 
 def tree_ranks(tree: Any) -> tuple[int, ...]:

@@ -4,17 +4,24 @@ Quantization rules (paper §IV): tensors with ndim >= 2 are quantized per
 output channel = last axis; 1-D tensors (norm scales and biases) travel
 fp32; scale and zero-point travel as fp32 sidecars.
 
-The port carries the FLAT-TREE codec (``core/flat.py``): the whole
-message packs as one :class:`~repro_torch.core.flat.FlatPackedMessage`
-in one kernel launch and serializes to the same named buffers, byte for
-byte, as the JAX package. The per-leaf ``PackedLeaf`` codec and the
-sparse wire are not ported.
+Two packed codecs, both byte-identical on the wire to the JAX package's:
+
+  * the FLAT-TREE codec (``core/flat.py``, ``flat=True``): the whole
+    message packs as one :class:`~repro_torch.core.flat.FlatPackedMessage`
+    in one kernel launch;
+  * the PER-LEAF codec (``flat=False``): each quantizable leaf becomes a
+    :class:`PackedLeaf` (uint32 words in the kernel layout + fp32
+    sidecars), packed by one ``quant_pack`` launch per leaf.
+
+Both serialize to the same named buffers. The sparse wire is not
+ported.
 
 ``message_wire_bytes`` is the static accounting; ``packed_wire_bytes``
 measures the serialized buffers.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import numpy as np
@@ -24,9 +31,11 @@ from repro_torch.core import flat as flatcodec
 from repro_torch.core import lora, quant
 from repro_torch.core.flat import FlatPackedMessage, is_flat_message
 from repro_torch.core.quant import QuantConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import flatten_with_names, tree_flatten, \
-    tree_leaves, tree_unflatten
+    tree_leaves, tree_map, tree_unflatten
 
 
 def _dense_only(density: Optional[float]) -> None:
@@ -64,6 +73,94 @@ def tcc_bytes(tree: Any, cfg: QuantConfig, rounds: int) -> int:
     return 2 * rounds * message_wire_bytes(tree, cfg)
 
 
+def quantizable(x) -> bool:
+    """Paper rule: >=2-D tensors are quantized; vectors stay fp."""
+    return len(tuple(x.shape)) >= 2
+
+
+# ---------------------------------------------------------------------------
+# Per-leaf packed wire codec
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PackedLeaf:
+    """One quantized tensor in wire form.
+
+    ``payload`` uses the kernel layout: one row of little-endian uint32
+    words per channel, columns padded to the kernel lane multiple
+    (32/bits * 128 levels). The valid levels are the first
+    ``n_per_channel`` of each row; ``to_wire`` strips the padding so the
+    serialized payload is exactly ``ceil(numel * bits / 8)`` bytes. A
+    PackedLeaf is ONE leaf of a message tree: its wire entry is named by
+    its path."""
+    payload: torch.Tensor     # (channels, Nw) uint32 words
+    scale: torch.Tensor       # (channels,) fp32 sidecar
+    zp: torch.Tensor          # (channels,) fp32 sidecar
+    shape: tuple              # original tensor shape
+    dtype: torch.dtype        # original dtype
+    bits: int
+    per_stack: bool = False   # per-(stack, channel) qparams
+
+    @property
+    def channels(self) -> int:
+        if self.per_stack and len(self.shape) >= 3:
+            return int(np.prod(self.shape[:-2])) * self.shape[-1]
+        return self.shape[-1]
+
+    @property
+    def n_per_channel(self) -> int:
+        return int(np.prod(self.shape)) // self.channels
+
+    def to_wire(self) -> dict[str, np.ndarray]:
+        """Host-side buffers as sent: the valid levels of every channel
+        packed contiguously (no lane or word padding) + fp32 sidecars,
+        so ``sum(buf.nbytes) == leaf_wire_bytes``."""
+        words = kref.words_numpy(self.payload)
+        return {"payload": flatcodec.strip_row_padding(
+                    words, self.bits, self.n_per_channel),
+                "scale": self.scale.cpu().numpy().astype(np.float32),
+                "zp": self.zp.cpu().numpy().astype(np.float32)}
+
+    @classmethod
+    def from_wire(cls, buffers: dict, shape: tuple, dtype, bits: int,
+                  per_stack: bool = False, device="cuda") -> "PackedLeaf":
+        """Rebuild the kernel-layout leaf on ``device`` from serialized
+        wire buffers."""
+        dev = resolve_device(device)
+        n = int(np.prod(shape))
+        leaf = cls(None, None, None, tuple(shape), dtype, bits, per_stack)
+        lv = quant.unpack_levels(torch.from_numpy(
+            np.array(buffers["payload"], np.uint8)), bits, n)
+        lv = lv.reshape(leaf.channels, leaf.n_per_channel)
+        leaf.payload = _pack_rows(lv, bits).to(dev)
+        leaf.scale = torch.from_numpy(
+            np.array(buffers["scale"], np.float32)).to(dev)
+        leaf.zp = torch.from_numpy(
+            np.array(buffers["zp"], np.float32)).to(dev)
+        return leaf
+
+    def wire_bytes(self) -> int:
+        """Real serialized size (measured from the buffers)."""
+        return sum(b.nbytes for b in self.to_wire().values())
+
+
+def _pack_rows(levels: torch.Tensor, bits: int) -> torch.Tensor:
+    """(C, n) levels -> (C, Nw) uint32 kernel-layout words."""
+    pad = (-levels.shape[1]) % kops.lane_levels(bits)
+    lv = torch.nn.functional.pad(levels.to(torch.int64), (0, pad))
+    return kref.pack_words(lv, bits)
+
+
+def is_packed_leaf(t: Any) -> bool:
+    return isinstance(t, PackedLeaf)
+
+
+def is_wire_leaf(t: Any) -> bool:
+    """True for a wire-form leaf: a dense packed leaf or a whole
+    flat-tree message (the sparse wire is not ported)."""
+    return isinstance(t, (PackedLeaf, FlatPackedMessage))
+
+
 # ---------------------------------------------------------------------------
 # Pack / unpack
 # ---------------------------------------------------------------------------
@@ -71,24 +168,49 @@ def tcc_bytes(tree: Any, cfg: QuantConfig, rounds: int) -> int:
 def pack_message(tree: Any, cfg: QuantConfig, *,
                  density: Optional[float] = None,
                  flat: bool = False) -> Any:
-    """Trainable tree -> wire message. ``flat=True`` packs the whole
-    message as one :class:`FlatPackedMessage` in a single kernel launch;
-    quantization off returns the tree itself. ``flat=False`` (the JAX
-    package's per-leaf codec) and ``density < 1`` are not ported."""
+    """Trainable tree -> wire message with real packed payloads.
+
+    ``flat=True`` packs the whole message as one
+    :class:`FlatPackedMessage` in a single kernel launch; ``flat=False``
+    makes each quantizable leaf a :class:`PackedLeaf` (one
+    ``quant_pack`` launch per leaf) and passes 1-D leaves through in
+    fp32. Quantization off returns the tree itself. ``density < 1`` (the
+    sparse wire) is not ported."""
     _dense_only(density)
     if not cfg.enabled:
         return tree
-    if not flat:
-        raise NotImplementedError(
-            "the per-leaf PackedLeaf codec is not ported; pass flat=True")
-    return flatcodec.pack_flat(tree, cfg.bits, cfg.per_stack)
+    if flat:
+        return flatcodec.pack_flat(tree, cfg.bits, cfg.per_stack)
+
+    def pk(x):
+        if not quantizable(x):
+            return x
+        x2d = kops.to_channel_first_2d(x.detach(), cfg.per_stack)
+        payload, scale, zp = kops.quant_pack(x2d, cfg.bits)
+        return PackedLeaf(payload, scale, zp, tuple(x.shape), x.dtype,
+                          cfg.bits, cfg.per_stack)
+
+    return tree_map(pk, tree)
 
 
 def unpack_message(msg: Any) -> Any:
-    """Wire message -> fp tree; an fp tree passes through."""
+    """Wire message -> fp tree (shape and dtype recorded in each leaf);
+    a flat-tree message decodes in one pass, an fp tree passes
+    through."""
     if is_flat_message(msg):
         return msg.unpack()
-    return msg
+
+    def up(t):
+        if is_flat_message(t):     # nested flat messages decode too
+            return t.unpack()
+        if not is_packed_leaf(t):
+            return t
+        lv = kref.unpack_words(t.payload, t.bits)[:, :t.n_per_channel]
+        x2d = (lv.to(torch.float32) - t.zp[:, None]) * t.scale[:, None]
+        return kops.from_channel_first_2d(
+            x2d, t.shape, t.per_stack).to(t.dtype)
+
+    return tree_map(up, msg)
 
 
 # ---------------------------------------------------------------------------
@@ -146,12 +268,18 @@ def message_to_wire(msg: Any, include_header: bool = True
                 message_rank(msg), msg.bits)}))
         out.extend(msg.to_wire_entries())
         return out
+    named = flatten_with_names(msg)
     if include_header:
+        bits = next((leaf.bits for _, leaf in named
+                     if is_wire_leaf(leaf)), None)
         out.append((HEADER_KEY, {"header": wire_header(
-            message_rank(msg), None)}))
-    for name, leaf in flatten_with_names(msg):
-        out.append((name, {"payload": leaf.detach().to(
-            torch.float32).cpu().numpy()}))
+            message_rank(msg), bits)}))
+    for name, leaf in named:
+        if is_packed_leaf(leaf):
+            out.append((name, leaf.to_wire()))
+        else:
+            out.append((name, {"payload": leaf.detach().to(
+                torch.float32).cpu().numpy()}))
     return out
 
 
@@ -169,11 +297,18 @@ def message_from_wire(entries: list[tuple[str, dict]], like: Any,
         return FlatPackedMessage.from_wire_entries(
             [(n, b) for n, b in entries if n != HEADER_KEY], like.layout,
             device=dev)
-    names = flatten_with_names(like)
     _, treedef = tree_flatten(like)
-    leaves = [torch.from_numpy(np.array(bufs[n]["payload"], np.float32))
-              .reshape(tuple(leaf.shape)).to(device=dev, dtype=leaf.dtype)
-              for n, leaf in names]
+    leaves = []
+    for name, leaf in flatten_with_names(like):
+        b = bufs[name]
+        if is_packed_leaf(leaf):
+            leaves.append(PackedLeaf.from_wire(
+                b, leaf.shape, leaf.dtype, leaf.bits, leaf.per_stack,
+                device=dev))
+        else:
+            leaves.append(torch.from_numpy(np.array(
+                b["payload"], np.float32)).reshape(tuple(leaf.shape)).to(
+                    device=dev, dtype=leaf.dtype))
     return tree_unflatten(treedef, leaves)
 
 

@@ -45,6 +45,13 @@ SOURCES = {
         "dequant_agg_rows_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _P),
     },
+    "multi_lora_matmul": {
+        "multi_lora_matmul_q_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                       _I, ctypes.c_float, _P),
+        "multi_lora_matmul_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                     _I, _I, _I, ctypes.c_float, _P),
+    },
 }
 
 

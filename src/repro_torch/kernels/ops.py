@@ -7,9 +7,10 @@ version (``ref.py``) instead. There is no other route: a CUDA tensor
 never reaches the plain version here.
 
 Each kernel wrapper counts its launches in a plain integer attribute
-(``quant_pack_rows.launches``, ``dequant_agg_rows.launches``), added to
-only where the kernel is launched, so a run can show that it went
-through the kernels.
+(``quant_pack_rows.launches``, ``dequant_agg_rows.launches``,
+``multi_lora_matmul.launches``, ``multi_lora_matmul_packed.launches``),
+added to only where the kernel is launched, so a run can show that it
+went through the kernels.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import LIBRARY, check
+from repro_torch.utils.device import upload
 
 
 def lane_levels(bits: int) -> int:
@@ -152,14 +154,140 @@ def dequant_agg_rows(packed: torch.Tensor, scale: torch.Tensor,
 dequant_agg_rows.launches = 0
 
 
+# the serving kernels' split-K depth at most (kMaxSplits in
+# csrc/multi_lora_matmul.cu): the partial-product scratch holds this many
+# (M, N) planes
+SPLIT_K_MAX = 8
+
+
+def _serving_scratch(m: int, n: int, r: int, device):
+    """(h (M, R), partials (SPLIT_K_MAX, M, N)) fp32 scratch."""
+    return (torch.empty((m, r), dtype=torch.float32, device=device),
+            torch.empty((SPLIT_K_MAX, m, n), dtype=torch.float32,
+                        device=device))
+
+
+def _ids(ids, m: int, e: int, device) -> torch.Tensor:
+    """Per-row adapter slots, checked on the host (every id in [0, E))
+    and then uploaded as int32 without stalling the stream. The engine
+    passes a Python list, so the check costs no device round trip; a
+    CUDA tensor is copied back."""
+    host = torch.as_tensor(ids).detach().cpu()
+    if host.dtype.is_floating_point or host.dtype == torch.bool:
+        raise ValueError(f"ids must be integers, got {host.dtype}")
+    host = host.to(torch.int64)
+    if tuple(host.shape) != (m,):
+        raise ValueError(f"ids has shape {tuple(host.shape)}, expected "
+                         f"({m},)")
+    if m and (int(host.min()) < 0 or int(host.max()) >= e):
+        raise ValueError(f"ids must lie in [0, {e}): got "
+                         f"[{int(host.min())}, {int(host.max())}]")
+    return upload(host.to(torch.int32), device)
+
+
+def multi_lora_matmul(x: torch.Tensor, w: torch.Tensor,
+                      a_stack: torch.Tensor, b_stack: torch.Tensor, ids,
+                      s: float) -> torch.Tensor:
+    """Batched multi-adapter ``y[m] = x[m]@w + s*(x[m]@A[ids[m]])@B[ids[m]]``
+    over fp slabs (the dequant-then-matmul baseline's second step):
+    x (M, K), w (K, N), a_stack (E, K, R), b_stack (E, R, N) fp32, ids
+    (M,) slots -> (M, N) fp32. One launch (counted once) enqueues the
+    h = x@A[ids] kernel, the split-K tile kernel and the epilogue, with
+    their scratch allocated here. No padding of M or R is needed: the
+    kernels mask their ragged edges."""
+    m, k = x.shape
+    n = w.shape[1]
+    e, _, r = a_stack.shape
+    dev = x.device
+    idt = _ids(ids, m, e, dev)
+    if _device_kind(x) == "cpu":
+        return ref.multi_lora_matmul_ref(x, w, a_stack, b_stack, idt, s)
+    _require(x, "x", torch.float32, (m, k), dev)
+    _require(w, "w", torch.float32, (k, n), dev)
+    _require(a_stack, "a_stack", torch.float32, (e, k, r), dev)
+    _require(b_stack, "b_stack", torch.float32, (e, r, n), dev)
+    h, part = _serving_scratch(m, n, r, dev)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    fn = LIBRARY.fn("multi_lora_matmul", "multi_lora_matmul_launch")
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), w.data_ptr(), a_stack.data_ptr(),
+                 b_stack.data_ptr(), idt.data_ptr(), h.data_ptr(),
+                 part.data_ptr(), out.data_ptr(), m, k, n, r, float(s),
+                 _stream(dev))
+    check(err, "multi_lora_matmul")
+    multi_lora_matmul.launches += 1
+    return out
+
+
+multi_lora_matmul.launches = 0
+
+
+def multi_lora_matmul_packed(x: torch.Tensor, w: torch.Tensor,
+                             aq: torch.Tensor, a_scale: torch.Tensor,
+                             a_zp: torch.Tensor, bq: torch.Tensor,
+                             b_scale: torch.Tensor, b_zp: torch.Tensor,
+                             ids, s: float, bits: int) -> torch.Tensor:
+    """The FUSED wire-format serving matmul: gather each row's packed
+    adapter words, unpack + dequant inside the product. One launch
+    (counted once) enqueues the h kernel, the split-K tile kernel and
+    the epilogue.
+    Slab layout (channel-first wire rows, compact words): aq (E, R, KW)
+    uint32 with (E, R) fp32 scale/zp; bq (E, N, RW) uint32 with (E, N)
+    scale/zp; KW*32/bits >= K and RW*32/bits >= R. Rank-bucket padding
+    rides rows with scale = zp = 0. x (M, K), w (K, N) fp32 ->
+    (M, N) fp32."""
+    if bits not in (2, 4, 8):
+        raise ValueError(f"bits must be 2, 4 or 8, got {bits}")
+    m, k = x.shape
+    n = w.shape[1]
+    e, r, kw = aq.shape
+    rw = bq.shape[2]
+    per = 32 // bits
+    if kw * per < k or rw * per < r:
+        raise ValueError(f"packed rows too short: KW={kw}, RW={rw} hold "
+                         f"{kw * per} and {rw * per} levels at {bits} bits "
+                         f"for K={k}, R={r}")
+    dev = x.device
+    idt = _ids(ids, m, e, dev)
+    if _device_kind(x) == "cpu":
+        return ref.multi_lora_matmul_q_ref(x, w, aq, a_scale, a_zp, bq,
+                                           b_scale, b_zp, idt, s, bits)
+    _require(x, "x", torch.float32, (m, k), dev)
+    _require(w, "w", torch.float32, (k, n), dev)
+    _require(aq, "aq", ref.WORD_DTYPE, (e, r, kw), dev)
+    _require(a_scale, "a_scale", torch.float32, (e, r), dev)
+    _require(a_zp, "a_zp", torch.float32, (e, r), dev)
+    _require(bq, "bq", ref.WORD_DTYPE, (e, n, rw), dev)
+    _require(b_scale, "b_scale", torch.float32, (e, n), dev)
+    _require(b_zp, "b_zp", torch.float32, (e, n), dev)
+    h, part = _serving_scratch(m, n, r, dev)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    fn = LIBRARY.fn("multi_lora_matmul", "multi_lora_matmul_q_launch")
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), w.data_ptr(), aq.data_ptr(),
+                 a_scale.data_ptr(), a_zp.data_ptr(), bq.data_ptr(),
+                 b_scale.data_ptr(), b_zp.data_ptr(), idt.data_ptr(),
+                 h.data_ptr(), part.data_ptr(), out.data_ptr(), m, k, n, r,
+                 kw, rw, bits, float(s), _stream(dev))
+    check(err, "multi_lora_matmul_packed")
+    multi_lora_matmul_packed.launches += 1
+    return out
+
+
+multi_lora_matmul_packed.launches = 0
+
+
+_COUNTED = (quant_pack_rows, dequant_agg_rows, multi_lora_matmul,
+            multi_lora_matmul_packed)
+
+
 def reset_launch_counts() -> None:
-    quant_pack_rows.launches = 0
-    dequant_agg_rows.launches = 0
+    for fn in _COUNTED:
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"quant_pack_rows": quant_pack_rows.launches,
-            "dequant_agg_rows": dequant_agg_rows.launches}
+    return {fn.__name__: fn.launches for fn in _COUNTED}
 
 
 # ---------------------------------------------------------------------------

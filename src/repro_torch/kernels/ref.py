@@ -9,6 +9,11 @@ Layouts (channel-FIRST 2D views; callers reshape):
   quant_pack:  x (C, N) -> packed (C, N*bits/32) uint32, scale (C,), zp (C,)
   dequant_agg: packed (K, C, Nw) uint32, scale/zp (K, C), weights (K,)
                -> out (C, N) fp32 = sum_k w_k * dequant_k
+  multi_lora_matmul:   x (M, K), w (K, N), A (E, K, R), B (E, R, N),
+               ids (M,) -> y (M, N) = x@w + s * (x @ A[ids]) @ B[ids]
+  multi_lora_matmul_q: the same with A and B as packed wire rows,
+               aq (E, R, KW) / bq (E, N, RW) uint32 + (E, R) / (E, N)
+               fp32 scale and zp sidecars
 
 Packed words are ``torch.uint32`` tensors. PyTorch implements no
 arithmetic on that type, so packing and unpacking compute in int64 and
@@ -34,6 +39,13 @@ def _as_words(word64: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> uint32 words, bit for bit."""
     signed = torch.where(word64 >= 2 ** 31, word64 - 2 ** 32, word64)
     return signed.to(torch.int32).view(WORD_DTYPE)
+
+
+def words_numpy(words: torch.Tensor) -> np.ndarray:
+    """uint32 words (any device, any strides) -> host numpy uint32, bit
+    for bit. The copy goes through an int32 view: PyTorch's CUDA copy
+    kernels do not all take uint32."""
+    return words.view(torch.int32).cpu().numpy().view(np.uint32)
 
 
 def pack_words(levels: torch.Tensor, bits: int) -> torch.Tensor:
@@ -135,3 +147,53 @@ def dequant_agg_ref(packed: torch.Tensor, scale: torch.Tensor,
     n = packed.shape[2] * (32 // bits)
     nv = torch.full((c,), n, dtype=torch.int32, device=packed.device)
     return dequant_agg_rows_ref(packed, scale, zp, weights, nv, bits)
+
+
+def _take(t: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``t[ids]`` along the slot dim. PyTorch has no CUDA gather for
+    uint32, so words are gathered through an int32 view, bit for bit."""
+    if t.dtype == WORD_DTYPE:
+        return t.view(torch.int32)[ids].view(WORD_DTYPE)
+    return t[ids]
+
+
+def multi_lora_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                          a_stack: torch.Tensor, b_stack: torch.Tensor,
+                          ids: torch.Tensor, s: float) -> torch.Tensor:
+    """Multi-adapter ``y[m] = x[m]@w + s*(x[m]@A[ids[m]])@B[ids[m]]``
+    over fp slabs (the twin of ``_multi_lora_matmul_jnp`` in the JAX
+    package): gather, two batched contractions, fp32 throughout."""
+    ids = ids.to(x.device, torch.int64)
+    acc = x.to(torch.float32) @ w.to(torch.float32)
+    am = a_stack[ids].to(torch.float32)                   # (M, K, R)
+    bm = b_stack[ids].to(torch.float32)                   # (M, R, N)
+    h = torch.einsum("mk,mkr->mr", x.to(torch.float32), am)
+    y = torch.einsum("mr,mrn->mn", h, bm)
+    return acc + s * y
+
+
+def multi_lora_matmul_q_ref(x: torch.Tensor, w: torch.Tensor,
+                            aq: torch.Tensor, a_scale: torch.Tensor,
+                            a_zp: torch.Tensor, bq: torch.Tensor,
+                            b_scale: torch.Tensor, b_zp: torch.Tensor,
+                            ids: torch.Tensor, s: float,
+                            bits: int) -> torch.Tensor:
+    """The fused wire-format serving matmul (the twin of
+    ``_multi_lora_matmul_q_jnp``): gather packed words by row id,
+    unpack, keep the first K (A) and R (B) levels of each row, dequant
+    as ``(lv - zp) * scale``, then the same contractions as
+    :func:`multi_lora_matmul_ref`. The slice comes BEFORE the dequant:
+    a zero level past the valid ones dequantizes to ``-zp*scale``, not
+    0."""
+    k = x.shape[1]
+    r = a_scale.shape[1]
+    ids = ids.to(x.device, torch.int64)
+    xf = x.to(torch.float32)
+    acc = xf @ w.to(torch.float32)
+    la = unpack_words(_take(aq, ids), bits)[..., :k].to(torch.float32)
+    adeq = (la - a_zp[ids][..., None]) * a_scale[ids][..., None]
+    lb = unpack_words(_take(bq, ids), bits)[..., :r].to(torch.float32)
+    bdeq = (lb - b_zp[ids][..., None]) * b_scale[ids][..., None]
+    h = torch.einsum("mk,mrk->mr", xf, adeq)              # (M, R)
+    y = torch.einsum("mr,mnr->mn", h, bdeq)               # (M, N)
+    return acc + s * y

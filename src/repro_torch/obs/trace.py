@@ -1,0 +1,156 @@
+"""Span tracer: wall- or virtual-clock timelines, Chrome-trace export.
+
+A :class:`Tracer` records complete spans (``ph: "X"``) and instant
+events (``ph: "i"``) onto one in-memory timeline and exports it two
+ways:
+
+  * ``export_chrome(path)`` — the Chrome trace-event JSON format
+    (load in ``chrome://tracing`` / Perfetto): one ``traceEvents``
+    array of ``{name, ph, ts, dur, pid, tid, args}`` records with
+    microsecond timestamps;
+  * ``export_jsonl(path)`` — one JSON object per line, for grep/pandas.
+
+CLOCKS. ``Tracer(clock=...)`` takes any zero-arg callable returning
+SECONDS. The default is ``time.perf_counter`` (wall time). The async
+engine and the serving simulator instead pass their VIRTUAL clock
+(``lambda: self.clock``), so spans line up on simulated fleet time; and
+events whose begin/end the caller already knows in virtual time go
+through :meth:`Tracer.event` with explicit ``ts``/``dur`` — e.g. one
+dispatch->arrival span per in-flight client update.
+
+Like the metrics registry, a disabled tracer records nothing and costs
+one attribute check per call; ``default_tracer()`` is the process-global
+instance (disabled until someone opts in) and engines take
+``tracer=None`` meaning that default.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import time
+from typing import Any, Callable, Iterator, Optional
+
+
+class Tracer:
+    """In-memory span recorder. ``tid`` groups events into named
+    tracks (Chrome renders one row per tid)."""
+
+    def __init__(self, enabled: bool = True,
+                 clock: Optional[Callable[[], float]] = None,
+                 process: str = "repro_torch"):
+        self.enabled = enabled
+        self.clock = clock if clock is not None else time.perf_counter
+        self.process = process
+        self.events: list[dict] = []
+        self._tids: dict[str, int] = {}
+
+    def _tid(self, track: str) -> int:
+        tid = self._tids.get(track)
+        if tid is None:
+            tid = len(self._tids)
+            self._tids[track] = tid
+        return tid
+
+    # -- recording ---------------------------------------------------------
+    @contextlib.contextmanager
+    def span(self, name: str, track: str = "main",
+             **args) -> Iterator[None]:
+        """``with tracer.span("fl/aggregate", rank=8): ...`` — a
+        complete event from entry to exit on this tracer's clock."""
+        if not self.enabled:
+            yield
+            return
+        t0 = self.clock()
+        try:
+            yield
+        finally:
+            self.event(name, ts=t0, dur=self.clock() - t0, track=track,
+                       **args)
+
+    def event(self, name: str, ts: float, dur: float = 0.0,
+              track: str = "main", **args) -> None:
+        """An explicitly-timestamped complete span: ``ts``/``dur`` in
+        the tracer's clock domain (SECONDS — virtual engines pass their
+        own event times here)."""
+        if not self.enabled:
+            return
+        self.events.append({"name": name, "ph": "X",
+                            "ts": ts * 1e6, "dur": dur * 1e6,
+                            "tid": self._tid(track), "args": args})
+
+    def instant(self, name: str, track: str = "main",
+                ts: Optional[float] = None, **args) -> None:
+        if not self.enabled:
+            return
+        t = self.clock() if ts is None else ts
+        self.events.append({"name": name, "ph": "i", "ts": t * 1e6,
+                            "s": "t", "tid": self._tid(track),
+                            "args": args})
+
+    def with_clock(self, clock: Callable[[], float]) -> "Tracer":
+        """A view of this tracer on another clock: shares the event
+        buffer and reads the enable flag LIVE (enabling the parent
+        after the view was made still turns the view on). The async
+        engine uses this to put its spans on virtual time without the
+        caller wiring a separate tracer."""
+        return _TracerView(self, clock)
+
+    # -- export ------------------------------------------------------------
+    def chrome_trace(self) -> dict:
+        meta = [{"name": "process_name", "ph": "M", "pid": 0, "tid": 0,
+                 "args": {"name": self.process}}]
+        meta += [{"name": "thread_name", "ph": "M", "pid": 0, "tid": tid,
+                  "args": {"name": track}}
+                 for track, tid in sorted(self._tids.items(),
+                                          key=lambda kv: kv[1])]
+        evs = [dict(e, pid=0) for e in self.events]
+        return {"traceEvents": meta + evs, "displayTimeUnit": "ms"}
+
+    def export_chrome(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.chrome_trace(), f)
+
+    def export_jsonl(self, path: str) -> None:
+        inv = {tid: track for track, tid in self._tids.items()}
+        with open(path, "w") as f:
+            for e in self.events:
+                rec = dict(e, track=inv.get(e["tid"], str(e["tid"])))
+                f.write(json.dumps(rec) + "\n")
+
+    def reset(self) -> None:
+        self.events.clear()
+        self._tids.clear()
+
+
+class _TracerView(Tracer):
+    """Same-buffer tracer on a different clock (see ``with_clock``).
+    ``enabled``/``events``/``_tids`` delegate to the parent, so the
+    view tracks the parent's state live."""
+
+    def __init__(self, parent: Tracer, clock: Callable[[], float]):
+        self._parent = parent
+        self.clock = clock
+        self.process = parent.process
+
+    enabled = property(lambda self: self._parent.enabled)
+    events = property(lambda self: self._parent.events)
+    _tids = property(lambda self: self._parent._tids)
+
+
+# -- process-global default (disabled until someone opts in) ---------------
+_DEFAULT = Tracer(enabled=False)
+
+
+def default_tracer() -> Tracer:
+    return _DEFAULT
+
+
+def set_default_tracer(tr: Tracer) -> Tracer:
+    global _DEFAULT
+    prev, _DEFAULT = _DEFAULT, tr
+    return prev
+
+
+def get_tracer(tr: Optional[Tracer]) -> Tracer:
+    """Injection helper mirroring ``metrics.get_registry``."""
+    return _DEFAULT if tr is None else tr

@@ -1,4 +1,4 @@
-from repro_torch.utils.device import resolve_device
+from repro_torch.utils.device import resolve_device, upload
 from repro_torch.utils.tree import (
     flatten_with_names,
     tree_bytes,

@@ -38,3 +38,14 @@ def resolve_device(device) -> torch.device:
             f"device {str(dev)!r} requested but CUDA is not available "
             "(pass device='cpu' to run on the CPU)")
     return dev
+
+
+def upload(t: torch.Tensor, device) -> torch.Tensor:
+    """A small host tensor on ``device`` without stalling the host: to a
+    CUDA device it goes through pinned memory as a non-blocking copy
+    (PyTorch's blocking host-to-device copy synchronizes the stream, so
+    the host would wait for every queued kernel)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)

@@ -78,6 +78,40 @@ def _cohort(k: int, bits: int, seed: int):
     return np.stack(packs), np.stack(scales), np.stack(zps), w, nv
 
 
+def _packed_slabs(e: int, k: int, n: int, r: int, bits: int, seed: int,
+                  r_valid=None):
+    """A rank bucket's serving slabs, numpy-seeded: fp adapters A (E, K,
+    R), B (E, R, N) and their packed wire rows (aq, a_scale, a_zp, bq,
+    b_scale, b_zp), compact words as the serving cache stages them.
+    Each channel row is zero-padded to whole words before packing, so
+    the word tails hold zp levels, which the kernels must not read.
+    With ``r_valid < r`` every slot is a rank-``r_valid`` adapter padded
+    into the rank-``r`` bucket: A rows past it carry scale = zp = 0 and
+    zero words, B words past it are zero."""
+    rng = np.random.default_rng(seed)
+    per = 32 // bits
+    rv = r if r_valid is None else r_valid
+    kw, rw, rwv = -(-k // per), -(-r // per), -(-rv // per)
+    a = (rng.standard_normal((e, k, r)) * 0.2).astype(np.float32)
+    b = (rng.standard_normal((e, r, n)) * 0.2).astype(np.float32)
+    aq = np.zeros((e, r, kw), np.uint32)
+    a_s = np.zeros((e, r), np.float32)
+    a_z = np.zeros((e, r), np.float32)
+    bq = np.zeros((e, n, rw), np.uint32)
+    b_s = np.zeros((e, n), np.float32)
+    b_z = np.zeros((e, n), np.float32)
+
+    def pack(rows, width):
+        xp = np.pad(rows, ((0, 0), (0, width * per - rows.shape[1])))
+        words, scale, zp = kref.quant_pack_ref(torch.from_numpy(xp), bits)
+        return words.numpy(), scale.numpy(), zp.numpy()
+
+    for i in range(e):
+        aq[i, :rv], a_s[i, :rv], a_z[i, :rv] = pack(a[i].T[:rv], kw)
+        bq[i, :, :rwv], b_s[i], b_z[i] = pack(b[i].T[:, :rv], rwv)
+    return a, b, (aq, a_s, a_z, bq, b_s, b_z)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -131,3 +165,68 @@ def test_cuda_wrappers_check_inputs(cuda):
     s = torch.ones((2, 4), device=cuda)
     with pytest.raises(ValueError):
         kops.dequant_agg_rows(p, s, s, torch.ones(2), nv, 8)
+
+
+# (m, k, n, r, e): the serving shapes at a small width, a ragged K and
+# N, one row, and the rank-8 bucket at d=256
+SERVE_SHAPES = [(8, 64, 128, 8, 5), (13, 60, 200, 4, 7), (1, 256, 256, 8, 3),
+                (64, 256, 256, 8, 32)]
+
+
+def _serve_inputs(m, k, n, e, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((m, k)) * 0.5).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+    ids = rng.integers(0, e, m).astype(np.int32)
+    return x, w, ids
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("shape", SERVE_SHAPES)
+def test_cuda_multi_lora_matmul_packed(bits, shape, cuda):
+    m, k, n, r, e = shape
+    _, _, packed = _packed_slabs(e, k, n, r, bits, seed=bits + m,
+                                 r_valid=r - 1)
+    x, w, ids = _serve_inputs(m, k, n, e, seed=m + k)
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    pt = [torch.from_numpy(a).to(cuda) for a in packed]
+    before = kops.multi_lora_matmul_packed.launches
+    got = kops.multi_lora_matmul_packed(xt, wt, *pt, ids.tolist(), 0.5,
+                                        bits)
+    assert kops.multi_lora_matmul_packed.launches == before + 1
+    want = kref.multi_lora_matmul_q_ref(xt, wt, *pt,
+                                        torch.from_numpy(ids).to(cuda),
+                                        0.5, bits)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SERVE_SHAPES)
+def test_cuda_multi_lora_matmul(shape, cuda):
+    m, k, n, r, e = shape
+    a, b, _ = _packed_slabs(e, k, n, r, 8, seed=m)
+    x, w, ids = _serve_inputs(m, k, n, e, seed=m + n)
+    args = [torch.from_numpy(v).to(cuda) for v in (x, w, a, b)]
+    before = kops.multi_lora_matmul.launches
+    got = kops.multi_lora_matmul(*args, ids.tolist(), 0.5)
+    assert kops.multi_lora_matmul.launches == before + 1
+    want = kref.multi_lora_matmul_ref(*args, torch.from_numpy(ids).to(cuda),
+                                      0.5)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_serving_wrappers_check_inputs(cuda):
+    _, _, packed = _packed_slabs(3, 32, 64, 4, 4, seed=0)
+    pt = [torch.from_numpy(a).to(cuda) for a in packed]
+    x = torch.zeros((2, 32), device=cuda)
+    w = torch.zeros((32, 64), device=cuda)
+    with pytest.raises(ValueError, match="ids"):
+        kops.multi_lora_matmul_packed(x, w, *pt, [0, 3], 0.5, 4)
+    with pytest.raises(ValueError):
+        kops.multi_lora_matmul_packed(x.double(), w, *pt, [0, 1], 0.5, 4)
+    with pytest.raises(ValueError):
+        kops.multi_lora_matmul(x, w, torch.zeros((3, 32, 4), device=cuda),
+                               torch.zeros((3, 64, 4), device=cuda)
+                               .transpose(1, 2), [0, 1], 0.5)

@@ -143,7 +143,9 @@ def test_resnet8_round_on_cpu():
     assert rec["up_bytes"] == rec["down_bytes"] == 2 * static
     assert rec["n_agg"] == 2 and np.isfinite(rec["client_loss"])
     assert kops.launch_counts() == {"quant_pack_rows": 0,
-                                    "dequant_agg_rows": 0}
+                                    "dequant_agg_rows": 0,
+                                    "multi_lora_matmul": 0,
+                                    "multi_lora_matmul_packed": 0}
 
 
 @pytest.mark.parametrize("kw", [{"error_feedback": True},

@@ -18,6 +18,7 @@ from repro_torch.core.lora import LoRAConfig
 from repro_torch.fl import ClientConfig, FLServer, ServerConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import resnet
+from repro_torch import serve
 
 torch.set_num_threads(1)
 
@@ -84,12 +85,23 @@ def _no_cuda():
 
 
 @pytest.mark.parametrize("entry", ["resnet_init", "fl_server",
-                                   "params_from_jax"])
+                                   "params_from_jax", "make_store",
+                                   "cache_stage", "serving_engine"])
 def test_default_device_entry_points_raise_without_cuda(entry):
     _no_cuda()
     cfg = resnet.ResNetConfig(lora=LoRAConfig(rank=4, alpha=64.0))
+    if entry in ("cache_stage", "serving_engine"):
+        weights, store = serve.make_store(2, d_model=16, device="cpu")
+        cache = serve.AdapterCache(1 << 20, store.qcfg)
+        cache.put(0, store.msgs[0])
     with pytest.raises(RuntimeError, match="CUDA"):
-        if entry == "resnet_init":
+        if entry == "make_store":
+            serve.make_store(2, d_model=16)
+        elif entry == "cache_stage":
+            cache.stage([0])
+        elif entry == "serving_engine":
+            serve.AdapterServingEngine(weights, 0.5, store.qcfg, cache)
+        elif entry == "resnet_init":
             resnet.init(0, cfg)
         elif entry == "params_from_jax":
             convert.params_from_jax({"w": np.zeros((2, 2), np.float32)})

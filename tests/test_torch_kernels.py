@@ -152,7 +152,9 @@ def test_cpu_wrappers_never_launch():
     x = torch.zeros((2, 512))
     kops.quant_pack_rows(x, torch.tensor([512, 3]), 8)
     assert kops.launch_counts() == {"quant_pack_rows": 0,
-                                    "dequant_agg_rows": 0}
+                                    "dequant_agg_rows": 0,
+                                    "multi_lora_matmul": 0,
+                                    "multi_lora_matmul_packed": 0}
 
 
 @pytest.mark.parametrize("bits", BITS)
