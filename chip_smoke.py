@@ -13,12 +13,28 @@ Phases, each of which raises on failure (the script then exits nonzero):
      ``multi_lora_matmul_packed`` at bits {2, 4, 8} and
      ``multi_lora_matmul`` within rtol=atol=1e-4 at m in {1, 8, 64},
      d in {256, 2560}, R in {4, 8}, E=512, plus K=2559, N=2555, R=6;
+     ``dequant_agg`` (the per-leaf fold) BIT-identical at bits {2, 4, 8},
+     K in {1, 5, 64} on the 18 per-leaf shapes of ResNet-8 r=32 and a
+     C = 37 leaf, with a scalar and a vector n_valid; ``lora_matmul``
+     within 8e-3 * max|y| at tests/test_kernels.py's four shapes,
+     kernel_bench's (256, 512, 512, r=32), a ragged (100, 300, 200, r=6)
+     and the full-width (512, 2560, 2560, r=32);
   3. drive the FL round: the synchronous FLoCoRA round of
      ``examples/quickstart.py`` ``run_uniform`` (ResNet-8, r=32, alpha=512,
      int8 flat wire, 20 clients with LDA 0.5 over 2000 synthetic images,
      K=5, batch 32, lr 0.01, 1 local epoch) through ``FLServer`` on the
      card, with the kernels' launch counts read around it, then replay
-     round 1 on the CPU (plain versions) and compare;
+     round 1 on the CPU (plain versions) and compare. Then the same
+     setting's other options, each with the counts set to 0 around it:
+     the per-leaf wire (``flat_wire=False``, 2 rounds: the flat run's
+     bytes, 18 ``dequant_agg`` launches and no ``dequant_agg_rows`` a
+     round, the flat run's round-1 uplinks aggregated both ways within
+     1e-6 * max|x|); error feedback (int4, oversample 1.4: 7 dispatched,
+     5 kept, 2 rounds, round 1 replayed on the CPU); resume (1 round
+     checkpointed, a fresh server resumes and runs round 2 beside an
+     uninterrupted run, both with cuDNN's deterministic algorithms); and
+     ``lora_matmul``'s entry point, which no
+     round calls, as a 2-layer bf16 chain at gemma3-4b's width;
   4. drive the serving path: ``benchmarks/round_throughput.py`` run_serve's
      1024-client int4 store (ranks 4 and 8, 2 layers, seed 0) at
      d = 2560 (gemma3-4b's hidden width), an m = 64 step on the fused and
@@ -27,7 +43,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
      continuous-batching simulator on both paths plus the clock-policy
      churn run at capacity/16;
   5. time each kernel with CUDA events at its path's shapes beside its
-     plain version and its bound.
+     plain version and its bound (``dequant_agg`` at the largest per-leaf
+     shape and summed over a round's 18 leaves; ``lora_matmul`` at
+     (512, 2560, 2560, r=32) beside ``torch.matmul(x, W)`` in bf16).
 The line before the last is one JSON object with the kernels' numbers;
 the last is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
 round under ``torch.profiler`` and prints the device time by kernel.
@@ -46,9 +64,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 ROUNDS = 2
-# H100 SXM: 3.35 TB/s HBM3, 67 TFLOP/s fp32 outside the tensor cores
+# H100 SXM: 3.35 TB/s HBM3, 67 TFLOP/s fp32 outside the tensor cores,
+# 989 TFLOP/s dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 SOURCES = {"quant_pack_rows": ("src/repro_torch/kernels/csrc/quant_pack.cu",
                                "src/repro/kernels/quant_pack.py:67"),
            "dequant_agg_rows": ("src/repro_torch/kernels/csrc/dequant_agg.cu",
@@ -58,7 +78,21 @@ SOURCES = {"quant_pack_rows": ("src/repro_torch/kernels/csrc/quant_pack.cu",
                "src/repro/kernels/lora_matmul.py:185"),
            "multi_lora_matmul": (
                "src/repro_torch/kernels/csrc/multi_lora_matmul.cu",
-               "src/repro/kernels/lora_matmul.py:119")}
+               "src/repro/kernels/lora_matmul.py:119"),
+           "dequant_agg": ("src/repro_torch/kernels/csrc/dequant_agg.cu",
+                           "src/repro/kernels/dequant_agg.py:231"),
+           "lora_matmul": ("src/repro_torch/kernels/csrc/lora_matmul.cu",
+                           "src/repro/kernels/lora_matmul.py:65")}
+# single-adapter LoRA at gemma3-4b's d_model and LoRA rank
+# (src/repro/configs/gemma3_4b.py: rank 32, alpha 512)
+LORA = dict(m=512, d=2560, r=32, s=512.0 / 32)
+LORA_TOL = 8e-3
+# B6's checked shapes (m, k, n, r): tests/test_kernels.py's four,
+# benchmarks/kernel_bench.py's, a ragged one, the full width
+LORA_SHAPES = [(128, 256, 192, 8), (64, 128, 128, 32), (256, 512, 256, 128),
+               (8, 128, 128, 4), (256, 512, 512, 32), (100, 300, 200, 6),
+               (512, 2560, 2560, 32)]
+LEAF_TOL = 1e-6
 # the serving path: benchmarks/round_throughput.py run_serve at the
 # hidden width of gemma3-4b (src/repro/configs/gemma3_4b.py d_model)
 SERVE = dict(n_clients=1024, d_model=2560, n_layers=2, ranks=(4, 8), bits=4,
@@ -106,8 +140,9 @@ def _time_ms(fn, iters: int, warmup: int = 3) -> tuple[float, float]:
     return out[0], out[1]
 
 
-def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+def _bound_ms(nbytes: float, flops: float,
+              peak: float = FP32_FLOPS) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -202,6 +237,100 @@ def check_dequant_agg(nv, nw: int, dev) -> float:
               f"block_k_bit_identical={same}")
         if not (close and same):
             raise AssertionError(f"dequant_agg_rows K={k} failed its check")
+        worst = max(worst, err)
+    return worst
+
+
+def leaf_shapes(tree, bits: int) -> list:
+    """(C, Nw, n_valid) of each packed leaf of ``tree`` on the per-leaf
+    wire at ``bits``, in flatten order."""
+    from repro_torch.core import flat as flatcodec
+    lo = flatcodec.layout_for(tree, bits)
+    return [(sp.rows, lo.leaf_nw(sp), sp.n_valid) for sp in lo.leaves
+            if sp.quantized]
+
+
+def check_leaf_agg(tree, dev) -> float:
+    """``dequant_agg`` (B3) against its plain version, bit for bit, at
+    bits {2, 4, 8} and K in {1, 5, 64} on every per-leaf shape of the
+    main path's tree plus a C = 37 leaf, with the leaf's own scalar
+    n_valid and a random (C,) vector; random words, two scale = 0 rows,
+    a -0.0 weight. Returns the max abs difference (0.0 when
+    bit-identical)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+
+    rng = np.random.default_rng(13)
+    worst, calls = 0.0, 0
+    for bits in (2, 4, 8):
+        shapes = leaf_shapes(tree, bits) + [(37, 128, 300 * 8 // bits)]
+        for k in (1, 5, 64):
+            for c, nw, nv in shapes:
+                n = nw * (32 // bits)
+                words = torch.from_numpy(rng.integers(
+                    0, 1 << 32, size=(k, c, nw), dtype=np.uint32)).to(dev)
+                scale = torch.from_numpy(rng.uniform(
+                    1e-4, 1e-2, size=(k, c)).astype(np.float32)).to(dev)
+                scale[:, :2] = 0.0
+                zp = torch.from_numpy(rng.integers(
+                    0, 1 << bits, size=(k, c)).astype(np.float32)).to(dev)
+                w = torch.from_numpy(rng.uniform(
+                    0.05, 1.0, size=k).astype(np.float32)).to(dev)
+                w[0] = -0.0
+                vec = torch.from_numpy(rng.integers(
+                    0, n + 1, size=c).astype(np.int32)).to(dev)
+                for n_valid in (nv, vec):
+                    got = kops.dequant_agg(words, scale, zp, w, bits, n_valid)
+                    want = kref.dequant_agg_ref(words, scale, zp, w, bits,
+                                                n_valid)
+                    torch.cuda.synchronize()
+                    calls += 1
+                    if not torch.equal(_f32_bits(got), _f32_bits(want)):
+                        raise AssertionError(
+                            f"dequant_agg bits={bits} K={k} C={c} Nw={nw} "
+                            "differs from its plain version: max_abs_err "
+                            f"{float((got - want).abs().max())}")
+                    worst = max(worst, float((got - want).abs().max()))
+        print(f"check dequant_agg bits={bits}: K in (1, 5, 64) x "
+              f"{len(shapes)} leaves (C, Nw) {sorted({s[:2] for s in shapes})}"
+              " x scalar/vector n_valid: bit-identical")
+    print(f"check dequant_agg: {calls} calls bit-identical")
+    return worst
+
+
+def _bf16_inputs(m: int, k: int, n: int, r: int, seed: int, dev):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def bf(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(torch.bfloat16).to(dev)
+
+    return bf((m, k), 0.5), bf((k, n), 0.1), bf((k, r), 0.1), bf((r, n), 0.1)
+
+
+def check_lora_matmul(dev) -> float:
+    """``lora_matmul`` (B6) against its plain version within
+    8e-3 * max|y| at ``LORA_SHAPES``. Returns the max abs difference."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+
+    worst = 0.0
+    for i, (m, k, n, r) in enumerate(LORA_SHAPES):
+        x, w, a, b = _bf16_inputs(m, k, n, r, 100 + i, dev)
+        got = kops.lora_matmul(x, w, a, b, 2.0).to(torch.float32)
+        want = kref.lora_matmul_ref(x, w, a, b, 2.0).to(torch.float32)
+        torch.cuda.synchronize()
+        err, ymax = float((got - want).abs().max()), float(want.abs().max())
+        print(f"check lora_matmul (M, K, N, r)={(m, k, n, r)}: max_abs_err "
+              f"{err:.4g}, max|y| {ymax:.4g}, tol {LORA_TOL * ymax:.4g}")
+        if not err <= LORA_TOL * ymax:
+            raise AssertionError(f"lora_matmul {(m, k, n, r)} differs from "
+                                 "its plain version")
         worst = max(worst, err)
     return worst
 
@@ -524,7 +653,9 @@ def quickstart_data():
     return [{"x": x[p], "y": y[p].astype(np.int32)} for p in parts]
 
 
-def make_server(model, data, device):
+def make_server(model, data, device, fl=None, server=None):
+    """The quickstart round's FLServer; ``fl``/``server`` override
+    FLoCoRAConfig / ServerConfig fields (the options' phases)."""
     from repro_torch.core.flocora import FLoCoRAConfig
     from repro_torch.core.lora import LoRAConfig
     from repro_torch.fl import ClientConfig, FLServer, ServerConfig
@@ -533,26 +664,50 @@ def make_server(model, data, device):
                               lora=LoRAConfig(rank=32, alpha=512.0))
     return FLServer(
         model, lambda f, t, b: resnet.loss_fn(f, t, cfg, b), data,
-        ServerConfig(n_clients=20, clients_per_round=5),
+        ServerConfig(n_clients=20, clients_per_round=5, **(server or {})),
         ClientConfig(local_epochs=1, batch_size=32, lr=0.01),
-        FLoCoRAConfig(rank=32, alpha=512.0, quant_bits=8), device=device)
+        FLoCoRAConfig(rank=32, alpha=512.0, **{"quant_bits": 8, **(fl or {})}),
+        device=device)
 
 
-def compare_with_cpu(rec_gpu: dict, tree_gpu, model_cpu, data) -> None:
-    """Replay round 1 on the CPU (the kernels' plain versions, CPU convs)
-    and hold the card's round to it: same cohort and bytes, loss within
-    rtol 1e-3, 1-D leaves within 1e-4 + 1e-3 of their magnitude, and each
-    quantized leaf within 4 int8 steps of its range. A round's ~10 SGD
-    steps amplify summation-order differences in the adapters: on the CPU
-    alone, 1 thread against 8 moves the ``a`` factors by up to 0.6 of a
-    step."""
+def hold_trees(tree_a, tree_b, bits: int, what: str) -> float:
+    """Trees of two runs of one round: each quantized leaf within 4
+    quantization steps of its range at ``bits``, 1-D leaves within
+    1e-4 + 1e-3 of their magnitude. A round's ~10 SGD steps amplify
+    summation-order differences in the adapters: on the CPU alone, 1
+    thread against 8 moves the ``a`` factors by up to 0.6 of an int8
+    step. Returns the largest difference."""
     import numpy as np
     from repro_torch.utils.tree import flatten_with_names
+    worst = 0.0
+    for (name, a), (_, b) in zip(flatten_with_names(tree_a),
+                                 flatten_with_names(tree_b)):
+        a, b = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+        if a.ndim >= 2:
+            tol = 4 * (max(a.max(), 0.0) - min(a.min(), 0.0)) \
+                / ((1 << bits) - 1)
+        else:
+            tol = 1e-4 + 1e-3 * np.abs(a).max()
+        d = float(np.abs(a - b).max())
+        worst = max(worst, d)
+        if d > tol:
+            raise AssertionError(f"{what} {name}: max diff {d} > {tol}")
+    return worst
+
+
+BYTE_KEYS = ("down_bytes", "up_bytes", "up_bytes_measured", "n_agg",
+             "n_straggled", "tcc_bytes", "wasted_bytes")
+
+
+def compare_with_cpu(rec_gpu: dict, tree_gpu, model_cpu, data, fl=None,
+                     server=None) -> None:
+    """Replay round 1 on the CPU (the kernels' plain versions, CPU convs)
+    with the same options and hold the card's round to it: the same
+    cohort and bytes, loss within rtol 1e-3, trees as ``hold_trees``."""
     t0 = time.perf_counter()
-    srv = make_server(model_cpu, data, "cpu")
+    srv = make_server(model_cpu, data, "cpu", fl, server)
     rec = srv.run_round()
-    for key in ("down_bytes", "up_bytes", "up_bytes_measured", "n_agg",
-                "tcc_bytes"):
+    for key in BYTE_KEYS:
         if rec[key] != rec_gpu[key]:
             raise AssertionError(f"cpu replay {key}: {rec[key]} != "
                                  f"{rec_gpu[key]}")
@@ -560,21 +715,319 @@ def compare_with_cpu(rec_gpu: dict, tree_gpu, model_cpu, data) -> None:
                         rel_tol=1e-3):
         raise AssertionError(f"cpu replay loss {rec['client_loss']} != "
                              f"{rec_gpu['client_loss']}")
+    bits = srv.fcfg.quant_bits
+    worst = hold_trees(srv.global_train, tree_gpu, bits, "cpu replay")
+    print(f"cpu replay of round 1 {fl or {}} {server or {}}: loss "
+          f"{rec['client_loss']:.6f} vs card {rec_gpu['client_loss']:.6f}, "
+          f"bytes identical, max adapter diff {worst:.3g} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def run_rounds(server, rounds: int, label: str) -> tuple:
+    """Drive ``rounds`` rounds with every launch count set to 0 just
+    before and read just after each. Returns (records, per-round counts,
+    round-1 tree copy, wall seconds per round)."""
+    import torch
+    from repro_torch.utils.tree import tree_map
+    recs, counts, walls, tree1 = [], [], [], None
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        rec, c = _counted(server.run_round)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        recs.append(rec)
+        counts.append(c)
+        print(f"{label} round {rec['round']}: {walls[-1]:.3f} s {rec}; "
+              f"launches {c}")
+        if not math.isfinite(rec["client_loss"]):
+            raise AssertionError(f"{label} round {rec['round']} loss is not "
+                                 "finite")
+        if rec["round"] == 1:
+            tree1 = tree_map(lambda x: x.clone(), server.global_train)
+    return recs, counts, tree1, walls
+
+
+def leaf_round_phase(data, flat_recs, flat_server, captured, dev) -> dict:
+    """The per-leaf wire (``flat_wire=False``) on the card, 2 rounds, and
+    the flat run's round-1 uplinks aggregated both ways. Returns what the
+    timing phase and the JSON line need."""
+    import torch
+    from repro_torch.core import aggregation
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.models import resnet
+    from repro_torch.utils.tree import flatten_with_names
+    cfg = resnet.ResNetConfig(arch="resnet8",
+                              lora=LoRAConfig(rank=32, alpha=512.0))
+    server = make_server(resnet.init(0, cfg, device=dev), data, dev,
+                         fl={"flat_wire": False})
+    n_leaves = len(leaf_shapes(server.global_train, 8))
+    recs, counts, _, walls = run_rounds(server, ROUNDS, "per-leaf")
+    k = server.scfg.clients_per_round
+    for rec, frec, c in zip(recs, flat_recs, counts):
+        for key in BYTE_KEYS:
+            if rec[key] != frec[key]:
+                raise AssertionError(f"per-leaf round {rec['round']} {key}:"
+                                     f" {rec[key]} != flat {frec[key]}")
+        if c["dequant_agg"] != n_leaves or c["dequant_agg_rows"] != 0 \
+                or c["quant_pack_rows"] < n_leaves * (k + 1):
+            raise AssertionError(f"per-leaf round launch counts {c}")
+    # the flat run's round-1 uplinks, both folds
+    msgs, w = captured["msgs"], captured["weights"]
+    (flat_out, c_flat) = _counted(lambda: aggregation.fedavg_packed(msgs, w))
+    leaf_msgs = [m.as_tree() for m in msgs]
+    (leaf_out, c_leaf) = _counted(
+        lambda: aggregation.fedavg_packed(leaf_msgs, w))
+    torch.cuda.synchronize()
+    if c_flat["dequant_agg_rows"] != 1 or c_leaf["dequant_agg"] != n_leaves:
+        raise AssertionError(f"aggregate launch counts {c_flat} {c_leaf}")
     worst = 0.0
-    for (name, a), (_, b) in zip(flatten_with_names(srv.global_train),
-                                 flatten_with_names(tree_gpu)):
-        a, b = a.numpy(), b.cpu().numpy()
-        if a.ndim >= 2:
-            tol = 4 * (max(a.max(), 0.0) - min(a.min(), 0.0)) / 255.0
-        else:
-            tol = 1e-4 + 1e-3 * np.abs(a).max()
-        d = float(np.abs(a - b).max())
-        worst = max(worst, d)
-        if d > tol:
-            raise AssertionError(f"cpu replay {name}: max diff {d} > {tol}")
-    print(f"cpu replay of round 1: loss {rec['client_loss']:.6f} vs card "
-          f"{rec_gpu['client_loss']:.6f}, bytes identical, max adapter "
-          f"diff {worst:.3g} ({time.perf_counter() - t0:.1f} s)")
+    for (name, a), (_, b) in zip(flatten_with_names(flat_out),
+                                 flatten_with_names(leaf_out)):
+        d, xmax = float((a - b).abs().max()), float(a.abs().max())
+        worst = max(worst, d / max(xmax, 1e-30))
+        if d > LEAF_TOL * xmax:
+            raise AssertionError(f"per-leaf vs flat fold {name}: {d} > "
+                                 f"{LEAF_TOL} * {xmax}")
+    print(f"round-1 uplinks aggregated per leaf ({n_leaves} dequant_agg "
+          f"launches) vs flat (1 dequant_agg_rows): worst diff "
+          f"{worst:.3g} of max|x| (tol {LEAF_TOL})")
+    diff = hold_trees(flat_server.global_train, server.global_train, 8,
+                      "per-leaf vs flat run")
+    print(f"per-leaf run vs flat run after {ROUNDS} rounds: max diff "
+          f"{diff:.3g}; round walls {[round(t, 4) for t in walls]} s")
+    launches = {}
+    for c in counts:
+        _add_counts(launches, c)
+    # the timing inputs: each packed leaf's K stacked payloads, as
+    # fedavg_packed hands them to dequant_agg
+    nw = torch.as_tensor(w, dtype=torch.float32).to(dev)
+    nw = nw / nw.sum()
+    per_msg = [[x for _, x in flatten_with_names(m) if hasattr(x, "payload")]
+               for m in leaf_msgs]
+    per_leaf = [(torch.stack([g.payload for g in group]),
+                 torch.stack([g.scale for g in group]),
+                 torch.stack([g.zp for g in group]), nw, group[0].bits,
+                 group[0].n_per_channel) for group in zip(*per_msg)]
+    return {"launches": launches, "walls": walls, "inputs": per_leaf}
+
+
+def ef_phase(data, model_cpu, dev) -> dict:
+    """Error feedback on the card: int4, oversample 1.4 (7 dispatched, 5
+    kept, so the straggler fold runs), 2 rounds, round 1 replayed on the
+    CPU."""
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.models import resnet
+    fl = {"quant_bits": 4, "error_feedback": True}
+    sv = {"oversample": 1.4}
+    cfg = resnet.ResNetConfig(arch="resnet8",
+                              lora=LoRAConfig(rank=32, alpha=512.0))
+    server = make_server(resnet.init(0, cfg, device=dev), data, dev, fl, sv)
+    recs, counts, tree1, walls = run_rounds(server, ROUNDS, "ef")
+    for rec, c in zip(recs, counts):
+        if rec["n_agg"] + rec["n_straggled"] != 7 or rec["n_agg"] != 5:
+            raise AssertionError(f"ef round {rec['round']}: {rec}")
+        if c["quant_pack_rows"] < 8 or c["dequant_agg_rows"] != 1:
+            raise AssertionError(f"ef round launch counts {c}")
+    stored = len(server.aggregator.residuals)
+    if stored < 7:
+        raise AssertionError(f"ef residuals stored for {stored} clients")
+    print(f"ef: residuals stored for {stored} clients (kept and folded "
+          f"stragglers); round walls {[round(t, 4) for t in walls]} s")
+    compare_with_cpu(recs[0], tree1, model_cpu, data, fl, sv)
+    launches = {}
+    for c in counts:
+        _add_counts(launches, c)
+    return {"launches": launches, "walls": walls}
+
+
+def resume_phase(data, dev) -> dict:
+    """Kill/resume on the card with cuDNN's deterministic algorithms: an
+    uninterrupted 2-round run; a run checkpointed every round into a
+    directory under build/ that stops after round 1; a FRESH FLServer
+    (the same frozen base, its adapters zeroed) that resumes it and runs
+    round 2. Held to the uninterrupted run: the same cohort (the
+    sampler's state), the same bytes, loss and trees within the CPU
+    replay's tolerance; whether they came out bit-identical is printed."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.models import resnet
+    from repro_torch.utils.tree import flatten_with_names, tree_map
+    cfg = resnet.ResNetConfig(arch="resnet8",
+                              lora=LoRAConfig(rank=32, alpha=512.0))
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(prefix="ckpt_smoke_", dir=ROOT / "build")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        whole = make_server(resnet.init(0, cfg, device=dev), data, dev)
+        want, _, _, _ = run_rounds(whole, 2, "resume: uninterrupted")
+        sv = {"checkpoint_dir": d, "checkpoint_every": 1}
+        first = make_server(resnet.init(0, cfg, device=dev), data, dev,
+                            server=sv)
+        run_rounds(first, 1, "resume: killed after")
+        del first
+        model = resnet.init(0, cfg, device=dev)
+        model["train"] = tree_map(torch.zeros_like, model["train"])
+        again = make_server(model, data, dev, server=sv)
+        if not again.try_resume() or again.round != 1:
+            raise AssertionError("the fresh server did not resume round 1")
+        recs, counts, _, _ = run_rounds(again, 1, "resume: resumed")
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(d, ignore_errors=True)
+    rec, want = recs[0], want[1]
+    for key in BYTE_KEYS + ("round",):
+        if rec[key] != want[key]:
+            raise AssertionError(f"resumed round 2 {key}: {rec[key]} != "
+                                 f"uninterrupted {want[key]}")
+    if again.rng.bit_generator.state != whole.rng.bit_generator.state:
+        raise AssertionError("resumed run sampled another cohort")
+    if not math.isclose(rec["client_loss"], want["client_loss"],
+                        rel_tol=1e-3):
+        raise AssertionError(f"resumed loss {rec['client_loss']} != "
+                             f"{want['client_loss']}")
+    diff = hold_trees(whole.global_train, again.global_train, 8,
+                      "resumed vs uninterrupted")
+    exact = rec["client_loss"] == want["client_loss"] and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(
+            flatten_with_names(whole.global_train),
+            flatten_with_names(again.global_train)))
+    print(f"resume: round 2 after a restart vs the uninterrupted run: same "
+          f"cohort and bytes, loss {rec['client_loss']:.7f} vs "
+          f"{want['client_loss']:.7f}, max tree diff {diff:.3g}, "
+          f"bit-identical={exact} (cudnn.deterministic=True in this phase)")
+    return {"launches": counts[0], "max_diff": diff, "bit_identical": exact}
+
+
+def lora_chain_phase(dev) -> dict:
+    """``lora_matmul``'s entry point as a user calls it: no round of the
+    JAX package reaches its TPU kernel (only tests and kernel_bench do),
+    so this drives a 2-layer bf16 chain y = lora(gelu(lora(x))) at
+    gemma3-4b's width (m = 512 rows, d = 2560, r = 32, s = alpha/r = 16),
+    weights random from seed 0, and holds it to the plain versions'
+    chain. Returns the launch counts and the first layer's operands."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    m, d, r, s = LORA["m"], LORA["d"], LORA["r"], LORA["s"]
+    layers = [_bf16_inputs(m, d, d, r, 200 + i, dev) for i in range(2)]
+    x = layers[0][0]
+
+    def chain(fn):
+        h = x
+        for i, (_, w, a, b) in enumerate(layers):
+            h = fn(h, w, a, b, s)
+            if i == 0:
+                h = torch.nn.functional.gelu(h)
+        return h
+
+    y, counts = _counted(lambda: chain(kops.lora_matmul))
+    want = chain(kref.lora_matmul_ref).to(torch.float32)
+    torch.cuda.synchronize()
+    y = y.to(torch.float32)
+    err, ymax = float((y - want).abs().max()), float(want.abs().max())
+    print(f"lora_matmul chain (2 layers, m={m}, d={d}, r={r}, s={s}): "
+          f"launches {counts['lora_matmul']}, max_abs_err {err:.4g} vs the "
+          f"plain chain, max|y| {ymax:.4g}")
+    if counts["lora_matmul"] != 2 or not bool(torch.isfinite(y).all()) \
+            or err > 2 * LORA_TOL * ymax:
+        raise AssertionError("the lora_matmul chain failed its check")
+    return {"launches": counts, "operands": layers[0]}
+
+
+def kernel_split(fn, calls: int) -> list:
+    """[(kernel name, device us a call)] of ``calls`` calls of ``fn``
+    under torch.profiler, largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return sorted(((e.key, e.self_device_time_total / calls) for e in ev),
+                  key=lambda t: -t[1])
+
+
+def time_leaf_and_lora(leaf: dict, chain: dict, dev) -> dict:
+    """B3 at the largest per-leaf shape and summed over a round's leaves,
+    and B6 at the full width, beside their plain versions and bounds;
+    ``torch.matmul(x, W)`` in bf16 as context for B6."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    inputs = leaf["inputs"]
+
+    def leaf_cost(pk, sc, zp, w, bits, nv):
+        # bytes the function must move: the words that hold a valid
+        # level, the sidecars and weights once, the whole fp32 output;
+        # 4 operations per valid level and client
+        k, c, nw = pk.shape
+        words = k * c * -(-nv * bits // 32)
+        return (4 * words + 8 * k * c + 4 * k + 4 * c * nw * (32 // bits),
+                4 * k * c * nv)
+
+    big = max(inputs, key=lambda t: t[0].numel())
+    bk, bc, bnw = big[0].shape
+
+    def one():
+        kops.dequant_agg(*big[:5], big[5])
+
+    def plain_one():
+        kref.dequant_agg_ref(*big[:5], big[5])
+
+    def all_leaves():
+        for t in inputs:
+            kops.dequant_agg(*t[:5], t[5])
+
+    t_one = _time_ms(one, 200)
+    t_one_p = _time_ms(plain_one, 10)
+    t_all = _time_ms(all_leaves, 20)
+    # a round of the plain version is ~1,200 small launches, more than
+    # the launch queue holds behind the sleep kernel: sum its leaves
+    per_leaf_p = [_time_ms(lambda t=t: kref.dequant_agg_ref(*t[:5], t[5]),
+                           5) for t in inputs]
+    t_all_p = (sum(t[0] for t in per_leaf_p), sum(t[1] for t in per_leaf_p))
+    b_one = _bound_ms(*leaf_cost(*big))
+    costs = [leaf_cost(*t) for t in inputs]
+    b_all = _bound_ms(sum(c[0] for c in costs), sum(c[1] for c in costs))
+    print(f"dequant_agg largest leaf (K, C, Nw)=({bk}, {bc}, {bnw}) int8: "
+          f"kernel {t_one[0] * 1e3:.2f} us on the device ({t_one[1] * 1e3:.2f}"
+          f" us a call), plain {t_one_p[0] * 1e3:.2f} us, bound "
+          f"{b_one[0] * 1e3:.3f} us by {b_one[1]} "
+          f"({leaf_cost(*big)[0]} B)")
+    print(f"dequant_agg a round ({len(inputs)} leaves, K={bk}): kernels "
+          f"{t_all[0] * 1e3:.2f} us on the device ({t_all[1] * 1e3:.2f} us "
+          f"of calls), plain {t_all_p[0] * 1e3:.2f} us, bound "
+          f"{b_all[0] * 1e3:.3f} us by {b_all[1]} "
+          f"({sum(c[0] for c in costs)} B)")
+
+    x, w, a, b = chain["operands"]
+    m, k = x.shape
+    n, r = w.shape[1], a.shape[1]
+    s = LORA["s"]
+    t_l = _time_ms(lambda: kops.lora_matmul(x, w, a, b, s), 100)
+    t_lp = _time_ms(lambda: kref.lora_matmul_ref(x, w, a, b, s), 20)
+    t_mm = _time_ms(lambda: torch.matmul(x, w), 200)
+    l_bytes = 2 * (m * k + k * n + k * r + r * n + m * n)
+    l_flops = 2 * m * k * n + 2 * m * k * r + 2 * m * r * n + 2 * m * n
+    b_l = _bound_ms(l_bytes, l_flops, BF16_FLOPS)
+    print(f"lora_matmul (M, K, N, r)=({m}, {k}, {n}, {r}) bf16: kernel "
+          f"{t_l[0] * 1e3:.2f} us on the device ({t_l[1] * 1e3:.2f} us a "
+          f"call), plain {t_lp[0] * 1e3:.2f} us, bound {b_l[0] * 1e3:.2f} us "
+          f"by {b_l[1]} ({l_flops / 1e9:.3f} GFLOP, {l_bytes} B); "
+          f"torch.matmul(x, W) bf16 alone {t_mm[0] * 1e3:.2f} us")
+    split = kernel_split(lambda: kops.lora_matmul(x, w, a, b, s), 20)
+    print("lora_matmul device time by kernel (torch.profiler, 20 calls): "
+          + ", ".join(f"{name[:40]} {us:.2f} us" for name, us in split))
+    return {"dequant_agg": (t_one, t_one_p, b_one),
+            "dequant_agg_round": (t_all, t_all_p, b_all),
+            "lora_matmul": (t_l, t_lp, b_l), "matmul_bf16": t_mm}
 
 
 def main(argv=None) -> int:
@@ -642,12 +1095,27 @@ def main(argv=None) -> int:
     err_d = check_dequant_agg(main_layouts[8][1], lo8.nw_max, dev)
     torch.cuda.synchronize()
     err_mq, err_mf = check_serving_kernels(dev)
+    t0 = time.perf_counter()
+    err_b3 = check_leaf_agg(update, dev)
+    err_b6 = check_lora_matmul(dev)
+    print(f"per-leaf and lora_matmul checks: "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # 3. the FL round on the card ----------------------------------------
     data = quickstart_data()
     server = make_server(resnet.init(0, cfg, device="cuda"), data, "cuda")
     static = messages.message_wire_bytes(server.global_train,
                                          QuantConfig(bits=8))
+    # keep round 1's uplinks: the per-leaf phase aggregates them both ways
+    captured = {}
+    flat_aggregate = server.aggregator.aggregate
+
+    def recording_aggregate(msgs, weights):
+        if not captured:
+            captured.update(msgs=list(msgs), weights=weights.clone())
+        return flat_aggregate(msgs, weights)
+
+    server.aggregator.aggregate = recording_aggregate
     kops.reset_launch_counts()
     round_s = []
     for _ in range(ROUNDS):
@@ -677,6 +1145,16 @@ def main(argv=None) -> int:
             raise AssertionError("global adapters are not finite or lost "
                                  "their shape")
     compare_with_cpu(rec1, tree1, model_cpu, data)
+
+    # 3b. the round's options, and lora_matmul's entry point --------------
+    t0 = time.perf_counter()
+    leaf = leaf_round_phase(data, server.history, server, captured, dev)
+    ef = ef_phase(data, model_cpu, dev)
+    resumed = resume_phase(data, dev)
+    chain = lora_chain_phase(dev)
+    print(f"options phases: {time.perf_counter() - t0:.1f} s; launches: "
+          f"per-leaf {leaf['launches']}, ef {ef['launches']}, resume "
+          f"{resumed['launches']}, lora chain {chain['launches']}")
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
@@ -734,8 +1212,11 @@ def main(argv=None) -> int:
               f"({t[1] * 1e3:.2f} us a call from Python), plain "
               f"{tp[0] * 1e3:.2f} us ({tp[1] * 1e3:.2f} us a call), bound "
               f"{bound[0] * 1e3:.2f} us ({nbytes} B)")
-    print(f"round wall times (s): {[round(s, 4) for s in round_s]}")
+    print(f"round wall times (s): flat {[round(s, 4) for s in round_s]}, "
+          f"per-leaf {[round(s, 4) for s in leaf['walls']]}, ef "
+          f"{[round(s, 4) for s in ef['walls']]}")
     t_serve = time_serving_kernels(sv, dev)
+    t_leaf = time_leaf_and_lora(leaf, chain, dev)
 
     rows = []
     for name, t, tp, bound, err, n_launch in (
@@ -747,13 +1228,20 @@ def main(argv=None) -> int:
              *t_serve["multi_lora_matmul_packed"], err_mq,
              sv["launches"]["multi_lora_matmul_packed"]),
             ("multi_lora_matmul", *t_serve["multi_lora_matmul"], err_mf,
-             sv["launches"]["multi_lora_matmul"])):
+             sv["launches"]["multi_lora_matmul"]),
+            ("dequant_agg", *t_leaf["dequant_agg"], err_b3,
+             leaf["launches"]["dequant_agg"]),
+            ("lora_matmul", *t_leaf["lora_matmul"], err_b6,
+             chain["launches"]["lora_matmul"])):
         src, replaces = SOURCES[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": n_launch,
                      "max_abs_err": err, "ms": t[0], "plain_ms": tp[0],
                      "bound_ms": bound[0], "bound_by": bound[1],
                      "library_ms": None})
+    missing = [r["name"] for r in rows if r["launches"] <= 0]
+    if missing:
+        raise AssertionError(f"not launched on their paths: {missing}")
     torch.cuda.synchronize()
     print(card)
     print(json.dumps({"kernels": rows}))

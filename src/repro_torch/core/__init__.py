@@ -3,9 +3,11 @@
 Public API re-exports.
 """
 from repro_torch.core.flocora import FLoCoRAConfig, broadcast, \
-    client_uplink, client_wire_bytes, round_wire_bytes, server_downlink, tcc
-from repro_torch.core.aggregation import FedAvgAggregator, fedavg, \
-    fedavg_packed
+    client_uplink, client_wire_bytes, fleet_tcc_bytes, round_wire_bytes, \
+    server_downlink, server_round, tcc
+from repro_torch.core.aggregation import ErrorFeedbackFedAvg, \
+    FedAvgAggregator, ef_encode_packed, ef_fold_dropped, fedavg, \
+    fedavg_packed, fedavg_quantized
 from repro_torch.core.flat import FlatPackedMessage, fedavg_packed_flat, \
     layout_for, pack_flat
 from repro_torch.core.messages import pack_message, unpack_message, \

@@ -192,6 +192,20 @@ class FlatPackedMessage:
                               [ShapeDtype(s.shape, s.dtype)
                                for s in self.layout.leaves])
 
+    def replace_dtypes(self, like: Any) -> "FlatPackedMessage":
+        """Advertise ``like``'s leaf dtypes: error feedback packs an
+        fp32-compensated tree, but the wire must carry the adapters' own
+        dtypes, or the aggregated global tree silently becomes fp32."""
+        dts = [_dtype_str(x.dtype) for x in tree_leaves(like)]
+        specs = tuple(dataclasses.replace(s, dtype_str=d)
+                      for s, d in zip(self.layout.leaves, dts))
+        layout = dataclasses.replace(self.layout, leaves=specs)
+        fp = tuple(x.to(getattr(torch, d)) for x, d in zip(
+            self.fp_leaves, [d for s, d in zip(self.layout.leaves, dts)
+                             if not s.quantized]))
+        return FlatPackedMessage(self.payload, self.scale, self.zp, fp,
+                                 layout)
+
     # -- decode -------------------------------------------------------------
     def unpack(self) -> Any:
         """-> fp tree (original structure and dtypes): the whole buffer

@@ -9,17 +9,18 @@ One communication round:
 The base model is exchanged once and never updated. Orchestration
 (sampling, stragglers, faults) lives in ``repro_torch.fl``.
 
-The port carries the paper's uniform setting: one rank for every client,
-a dense uplink, the flat-tree wire. Error feedback, sparse uplinks,
-differential privacy, rank schedules and the per-leaf wire are options
-of the JAX package that are not ported; setting one raises.
+The port carries the paper's uniform setting (one rank for every
+client, a dense uplink) on either wire, the flat tree (default) or the
+per-leaf oracle, with optional error feedback on the uplink. Sparse
+uplinks, differential privacy and rank schedules are options of the JAX
+package that are not ported; setting one raises.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
 
-from repro_torch.core import messages
+from repro_torch.core import aggregation, messages
 from repro_torch.core.quant import QuantConfig
 
 
@@ -28,17 +29,18 @@ class FLoCoRAConfig:
     rank: int = 32
     alpha: float = 512.0            # paper default: alpha = 16 * r
     quant_bits: Optional[int] = None  # None | 8 | 4 | 2
-    error_feedback: bool = False
+    error_feedback: bool = False    # EF on the client uplink
     rank_schedule: Any = None
     sparsity: Any = None
+    # flat-tree wire codec: one fused kernel launch per message; False
+    # selects the per-leaf codec (one launch per packed leaf), with
+    # byte-identical wire payloads
     flat_wire: bool = True
     dp: Any = None
 
     def __post_init__(self):
-        unported = {"error_feedback": self.error_feedback,
-                    "rank_schedule": self.rank_schedule is not None,
+        unported = {"rank_schedule": self.rank_schedule is not None,
                     "sparsity": self.sparsity is not None,
-                    "flat_wire=False": not self.flat_wire,
                     "dp": self.dp is not None}
         got = [k for k, on in unported.items() if on]
         if got:
@@ -83,16 +85,32 @@ def broadcast(global_trainable: Any, cfg: FLoCoRAConfig,
 
 
 def client_uplink(trainable: Any, cfg: FLoCoRAConfig,
-                  rnd: int = 0) -> tuple[Any, None]:
-    """Step (3): one client's WIRE message (the packed flat message when
-    quantization is on, the fp tree otherwise). Returns (message, None):
-    the second slot is the JAX package's error-feedback residual, which
-    the port does not carry."""
+                  ef_residual: Optional[Any] = None,
+                  rnd: int = 0) -> tuple[Any, Optional[Any]]:
+    """Step (3): one client's WIRE message (packed when quantization is
+    on, the fp tree otherwise). With error feedback on, the client sends
+    Q(x + e) and keeps e' = (x + e) - deq(message); pass its stored
+    residual (None starts from zeros). Returns (message, residual)."""
+    density = cfg.uplink_density(rnd)
+    if cfg.error_feedback and cfg.qcfg.enabled:
+        if ef_residual is None:
+            ef_residual = aggregation.ef_init(trainable)
+        return aggregation.ef_encode_packed(trainable, ef_residual,
+                                            cfg.qcfg, density=density,
+                                            flat=cfg.flat_wire)
     if not cfg.qcfg.enabled:
-        return trainable, None
-    return messages.pack_message(trainable, cfg.qcfg,
-                                 density=cfg.uplink_density(rnd),
-                                 flat=cfg.flat_wire), None
+        return trainable, ef_residual
+    return messages.pack_message(trainable, cfg.qcfg, density=density,
+                                 flat=cfg.flat_wire), ef_residual
+
+
+def server_round(stacked_client_trainables: Any, weights,
+                 cfg: FLoCoRAConfig) -> Any:
+    """Steps (3) + (4) in fp simulation: each raw client tree of the
+    stacked (K, ...) leaves goes through the quantize/dequantize round
+    trip, then FedAvg."""
+    return aggregation.fedavg_quantized(stacked_client_trainables, weights,
+                                        cfg.qcfg)
 
 
 def client_wire_bytes(trainable: Any, cfg: FLoCoRAConfig,
@@ -116,4 +134,10 @@ def round_wire_bytes(trainable: Any, cfg: FLoCoRAConfig,
 
 def tcc(trainable: Any, cfg: FLoCoRAConfig, rounds: int) -> int:
     """Paper Eq. 2: total communication cost for one client, R rounds."""
+    return messages.tcc_bytes(trainable, cfg.qcfg, rounds)
+
+
+def fleet_tcc_bytes(trainable: Any, cfg: FLoCoRAConfig, rounds: int) -> int:
+    """Fleet-level TCC. In the uniform setting (no rank schedule, a
+    dense uplink; the only one ported) it is Eq. 2."""
     return messages.tcc_bytes(trainable, cfg.qcfg, rounds)

@@ -18,6 +18,8 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.utils.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class LoRAConfig:
@@ -65,8 +67,9 @@ def conv2d_nchw(x: torch.Tensor, w_hwio: torch.Tensor, stride: int,
 
 
 def conv_lora_init(gen: torch.Generator, kh: int, kw: int, c_in: int,
-                   c_out: int, cfg: LoRAConfig, device="cpu") -> dict:
+                   c_out: int, cfg: LoRAConfig, device="cuda") -> dict:
     """b: (kh, kw, c_in, r) ~ N(0, 2/fan_in); a: (1, 1, r, c_out) zeros."""
+    device = resolve_device(device)
     fan_in = kh * kw * c_in
     b_k = _normal(gen, (kh, kw, c_in, cfg.rank), (2.0 / fan_in) ** 0.5,
                   cfg.dtype, device)
@@ -96,8 +99,9 @@ def conv_lora_apply(x: torch.Tensor, b_k: torch.Tensor, a_k: torch.Tensor,
 
 
 def dense_lora_init(gen: torch.Generator, d_in: int, d_out: int,
-                    cfg: LoRAConfig, device="cpu") -> dict:
+                    cfg: LoRAConfig, device="cuda") -> dict:
     """a: (d_in, r) ~ N(0, 1/d_in); b: (r, d_out) = 0."""
+    device = resolve_device(device)
     a = _normal(gen, (d_in, cfg.rank), d_in ** -0.5, cfg.dtype, device)
     b = torch.zeros((cfg.rank, d_out), dtype=cfg.dtype, device=device)
     return {"a": a, "b": b}

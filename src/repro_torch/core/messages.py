@@ -4,6 +4,10 @@ Quantization rules (paper §IV): tensors with ndim >= 2 are quantized per
 output channel = last axis; 1-D tensors (norm scales and biases) travel
 fp32; scale and zero-point travel as fp32 sidecars.
 
+``encode``/``decode``/``roundtrip`` are the fp-simulation view
+(unpacked uint8 levels, the reference quantizer of ``core/quant.py``):
+the numerical oracle for the paper's pipeline (``fedavg_quantized``).
+
 Two packed codecs, both byte-identical on the wire to the JAX package's:
 
   * the FLAT-TREE codec (``core/flat.py``, ``flat=True``): the whole
@@ -41,6 +45,84 @@ from repro_torch.utils.tree import flatten_with_names, tree_flatten, \
 def _dense_only(density: Optional[float]) -> None:
     if density is not None and density < 1.0:
         raise NotImplementedError("the sparse wire is not ported")
+
+
+# ---------------------------------------------------------------------------
+# fp-simulation codec (unpacked levels; the numerical reference)
+# ---------------------------------------------------------------------------
+
+def _encode_leaf(x: torch.Tensor, bits: int, per_stack: bool) -> dict:
+    def enc2d(t):
+        s, z = quant.affine_qparams(t, bits, channel_axis=t.ndim - 1)
+        return quant.quantize(t, s, z, bits, channel_axis=t.ndim - 1), s, z
+
+    if per_stack and x.ndim >= 3:
+        # per-(stack, channel) qparams: the JAX package vmaps over the
+        # leading stack dim
+        q, s, z = (torch.stack(v) for v in zip(*[enc2d(t) for t in x]))
+    else:
+        q, s, z = enc2d(x)
+    return {"q": q, "scale": s, "zp": z}
+
+
+def _decode_leaf(enc: dict, ndim: int, dtype,
+                 per_stack: bool) -> torch.Tensor:
+    def dec2d(q, s, z):
+        return quant.dequantize(q, s, z, channel_axis=q.ndim - 1,
+                                dtype=dtype)
+
+    if per_stack and ndim >= 3:
+        return torch.stack([dec2d(*qsz) for qsz in zip(
+            enc["q"], enc["scale"], enc["zp"])])
+    return dec2d(enc["q"], enc["scale"], enc["zp"])
+
+
+def _map_like(fn, like: Any, msg: Any) -> Any:
+    """``fn(like_leaf, msg_node)`` over ``like``'s structure, where a
+    quantized leaf's node in ``msg`` is its ``{"q", "scale", "zp"}``
+    dict."""
+    if isinstance(like, dict):
+        return {k: _map_like(fn, like[k], msg[k]) for k in like}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_map_like(fn, a, b) for a, b in zip(like, msg))
+    if like is None:
+        return None
+    return fn(like, msg)
+
+
+def encode(tree: Any, cfg: QuantConfig) -> Any:
+    """Trainable tree -> message tree: each quantizable leaf becomes
+    ``{"q": uint8 levels, "scale", "zp"}``; vectors pass through."""
+    if not cfg.enabled:
+        return tree
+
+    def enc(x):
+        if not quantizable(x):
+            return x
+        return _encode_leaf(x, cfg.bits, cfg.per_stack)
+
+    return tree_map(enc, tree)
+
+
+def decode(msg: Any, cfg: QuantConfig, like: Any) -> Any:
+    """Message tree -> fp tree with the dtypes and structure of
+    ``like``."""
+    if not cfg.enabled:
+        return msg
+
+    def dec(ref, m):
+        if not quantizable(ref):
+            return m
+        return _decode_leaf(m, ref.ndim, ref.dtype, cfg.per_stack)
+
+    return _map_like(dec, like, msg)
+
+
+def roundtrip(tree: Any, cfg: QuantConfig) -> Any:
+    """Quantize + dequantize: what the receiver reconstructs."""
+    if not cfg.enabled:
+        return tree
+    return decode(encode(tree, cfg), cfg, tree)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,17 @@
-"""Quantization config and wire-byte accounting for FLoCoRA messages.
+"""Quantization config, the reference quantizer and wire-byte
+accounting for FLoCoRA messages.
 
 The paper's scheme (§IV): per-channel affine (asymmetric) round-to-
 nearest quantization, 2/4/8-bit unsigned levels, fp32 scale and zero-
-point sidecars; norm layers are never quantized. The fused quantizer
-itself is the ``quant_pack_rows`` kernel (``kernels/``), reached through
-the flat-tree codec (``core/flat.py``) and the per-leaf codec
-(``core/messages.py``). ``pack_levels``/``unpack_levels`` are the byte-
-level wire packing the per-leaf codec deserializes with.
+point sidecars; norm layers are never quantized. ``affine_qparams``,
+``quantize``, ``dequantize`` and ``quant_dequant`` are the fp-simulation
+view (unpacked levels), the numerical reference that ``encode``/
+``decode`` and ``fedavg_quantized`` use. The fused quantizer on the wire
+is the ``quant_pack_rows`` kernel (``kernels/``), reached through the
+flat-tree codec (``core/flat.py``) and the per-leaf codec
+(``core/messages.py``); like the JAX package's, the wire pack is always
+asymmetric and ignores ``symmetric``. ``pack_levels``/``unpack_levels``
+are the byte-level wire packing the per-leaf codec deserializes with.
 """
 from __future__ import annotations
 
@@ -22,8 +27,10 @@ class QuantConfig:
     """bits: 2, 4, 8 or None (None = fp32 passthrough, the paper's "FP"
     rows). ``per_stack=True`` gives separate qparams per leading-stack
     slice; False (default) matches the paper: channel = last axis, all
-    other dims flattened. The symmetric quantizer of the JAX package is
-    not ported."""
+    other dims flattened. ``symmetric`` (beyond the paper: zero-point
+    fixed at the middle level) selects the reference quantizer's variant
+    in :func:`quant_dequant`; the wire pack ignores it, as in the JAX
+    package."""
     bits: Optional[int] = None
     symmetric: bool = False
     per_stack: bool = False
@@ -31,9 +38,6 @@ class QuantConfig:
     def __post_init__(self):
         if self.bits not in (None, 2, 4, 8):
             raise ValueError(f"bits must be None, 2, 4 or 8, got {self.bits}")
-        if self.symmetric:
-            raise NotImplementedError(
-                "symmetric quantization is not ported to repro_torch")
 
     @property
     def enabled(self) -> bool:
@@ -44,6 +48,78 @@ class QuantConfig:
         if self.bits is None:
             raise ValueError("quantization is disabled")
         return (1 << self.bits) - 1
+
+
+def _moveaxis_flat(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """(..., C, ...) -> (C, rest) with the channel first."""
+    x = torch.movedim(x, axis, 0)
+    return x.reshape(x.shape[0], -1)
+
+
+def affine_qparams(x: torch.Tensor, bits: int, channel_axis: int = 0,
+                   symmetric: bool = False
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel (scale, zero_point); the zero point is an integer
+    level held in fp32.
+
+    Asymmetric: levels q in [0, 2^bits - 1], x ~= scale * (q - zp), the
+    range widened to hold 0; a degenerate channel (max == min) gets
+    scale = 1. Symmetric (restricted range): levels [0, qmax - 1]
+    centred on zp = (qmax - 1) // 2 with scale = 2*amax / (qmax - 1), so
+    0 and both extremes +-amax are exact. Divisions are true fp32
+    divisions, as in the JAX package's reference (the kernels multiply
+    by a reciprocal instead)."""
+    qmax = (1 << bits) - 1
+    xf = _moveaxis_flat(x.to(torch.float32), channel_axis)
+    xmin = torch.amin(xf, dim=1)
+    xmax = torch.amax(xf, dim=1)
+    if symmetric:
+        amax = torch.maximum(torch.abs(xmin), torch.abs(xmax))
+        scale = torch.where(amax > 0, (2.0 * amax) / (qmax - 1),
+                            torch.ones_like(amax))
+        zp = torch.full_like(scale, float((qmax - 1) // 2))
+        return scale, zp
+    xmin = torch.clamp(xmin, max=0.0)
+    xmax = torch.clamp(xmax, min=0.0)
+    rng = xmax - xmin
+    scale = torch.where(rng > 0, rng / qmax, torch.ones_like(rng))
+    zp = torch.clamp(torch.round(-xmin / scale), 0, qmax)
+    return scale, zp
+
+
+def _per_channel(v: torch.Tensor, ndim: int, axis: int) -> torch.Tensor:
+    shape = [1] * ndim
+    shape[axis] = -1
+    return v.reshape(shape)
+
+
+def quantize(x: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor,
+             bits: int, channel_axis: int = 0) -> torch.Tensor:
+    """fp -> unsigned levels (uint8), round to nearest even."""
+    qmax = (1 << bits) - 1
+    s = _per_channel(scale, x.ndim, channel_axis)
+    z = _per_channel(zp, x.ndim, channel_axis)
+    q = torch.round(x.to(torch.float32) / s) + z
+    return torch.clamp(q, 0, qmax).to(torch.uint8)
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor,
+               channel_axis: int = 0,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    s = _per_channel(scale, q.ndim, channel_axis)
+    z = _per_channel(zp, q.ndim, channel_axis)
+    return ((q.to(torch.float32) - z) * s).to(dtype)
+
+
+def quant_dequant(x: torch.Tensor, cfg: QuantConfig,
+                  channel_axis: int = 0) -> torch.Tensor:
+    """Round to nearest and back: what the receiving end sees. The
+    tensor itself when quantization is off."""
+    if not cfg.enabled:
+        return x
+    scale, zp = affine_qparams(x, cfg.bits, channel_axis, cfg.symmetric)
+    q = quantize(x, scale, zp, cfg.bits, channel_axis)
+    return dequantize(q, scale, zp, channel_axis, x.dtype)
 
 
 FP_BYTES = 4  # paper communicates fp32

@@ -3,9 +3,21 @@
 One round samples K' = oversample*K clients, broadcasts the packed global
 adapters, trains the survivors locally, packs every uplink, keeps the
 first K arrivals (simulated latency order) and FedAvg-reduces their
-packed messages in one fused kernel launch. Client dropout is keyed by
+packed messages: in one fused kernel launch on the flat wire, in one
+launch per packed leaf on the per-leaf wire. Client dropout is keyed by
 (seed, round, cid). Wire bytes are MEASURED from the serialized
-messages.
+messages, and each transfer is also counted in the ``obs`` registry
+(``wire.down_bytes``, ``wire.up_bytes``, ``wire.wasted_bytes``) with
+the round's phases as tracer spans (``fl/broadcast``,
+``fl/client_train``, ``fl/pack``, ``fl/uplink``, ``fl/aggregate``).
+
+With error feedback on (``FLoCoRAConfig(error_feedback=True)``) each
+client's residual rides into its uplink; residuals commit only for the
+kept clients, and a straggler's discarded message folds back into its
+residual. ``ServerConfig(checkpoint_dir=...)`` saves (round, global
+adapters, TCC, sampler RNG state) atomically every ``checkpoint_every``
+rounds in the JAX package's format; ``try_resume`` continues the exact
+run. As in the JAX package, EF residuals are not checkpointed.
 
 The engine's numpy RNG stream is consumed exactly as the JAX package's
 (``repro/fl/server.py``) consumes it: ``rng.choice`` for the cohort, one
@@ -14,22 +26,27 @@ The engine's numpy RNG stream is consumed exactly as the JAX package's
 cohorts and batches from one seed.
 
 Not ported (each raises at construction): a FleetTrace, a lazy
-Population, checkpointing, and the FLoCoRAConfig options listed in
+Population, ``eval_fn``, and the FLoCoRAConfig options listed in
 ``core/flocora.py``.
 """
 from __future__ import annotations
 
+import ast
 import dataclasses
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import flocora, messages
-from repro_torch.core.aggregation import FedAvgAggregator
+from repro_torch.core.aggregation import ErrorFeedbackFedAvg, \
+    FedAvgAggregator, ef_fold_dropped
 from repro_torch.core.flocora import FLoCoRAConfig
 from repro_torch.fl.client import ClientConfig, cohort_steps, \
     make_cohort_trainer, stack_cohort_batches
+from repro_torch.obs import metrics as obsm
+from repro_torch.obs import trace as obst
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_bytes, tree_to
 
@@ -47,19 +64,22 @@ class ServerConfig:
     p_client_failure: float = 0.0  # simulated client dropout
     seed: int = 0
     checkpoint_dir: Optional[str] = None
-
-    def __post_init__(self):
-        if self.checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpointing is not ported to repro_torch")
+    checkpoint_every: int = 25
 
 
 class WireAccounting:
     """Measured wire-byte cache. Message size is fixed by (rank, uplink
-    density), so ONE measured emission per key is exact for the run."""
+    density), so ONE measured emission per key is exact for the run.
 
-    def __init__(self, fcfg: FLoCoRAConfig):
+    ``record_down``/``record_up``/``record_wasted`` also count each
+    actual transfer in the obs registry (``wire.down_bytes`` /
+    ``wire.up_bytes`` / ``wire.wasted_bytes`` by rank, density and
+    reason), so the registry's view matches the TCC accounting."""
+
+    def __init__(self, fcfg: FLoCoRAConfig,
+                 registry: Optional[obsm.MetricsRegistry] = None):
         self.fcfg = fcfg
+        self.registry = obsm.get_registry(registry)
         self.down: dict[int, int] = {}
         self.up: dict[tuple[int, Optional[float]], int] = {}
         self.wasted = 0          # bytes of transfers that never
@@ -82,18 +102,47 @@ class WireAccounting:
             self.up[(rank, density)] = got
         return got
 
+    # -- labeled transfer counters (one call per actual transfer) -----------
+    def record_down(self, rank: int, nbytes: int) -> None:
+        self.registry.inc("wire.down_bytes", nbytes, rank=rank)
+        self.registry.inc("wire.downlinks", rank=rank)
+
+    def record_up(self, rank: int, nbytes: int,
+                  density: Optional[float] = None) -> None:
+        self.registry.inc("wire.up_bytes", nbytes, rank=rank,
+                          density=density)
+        self.registry.inc("wire.uplinks", rank=rank, density=density)
+
+    def record_wasted(self, rank: int, nbytes: int,
+                      reason: str = "straggled") -> None:
+        """Bytes that were transferred but never reached the global
+        model: a dropped client's downlink, a straggler's round trip.
+        Already counted in down/up bytes; this is the waste view."""
+        self.wasted += nbytes
+        self.registry.inc("wire.wasted_bytes", nbytes, rank=rank,
+                          reason=reason)
+
 
 class FLServer:
     """Simulates the paper's FL loop over a model given as
     ``{"frozen": tree, "train": tree}`` of tensors; ``loss_fn(frozen,
     train, batch) -> (loss, metrics)``; ``client_data`` is a list of
     per-client dict datasets (numpy). The model moves to ``device``,
-    which defaults to the card."""
+    which defaults to the card. ``aggregator`` defaults to FedAvg, or its
+    error-feedback variant when ``fcfg.error_feedback`` is set (a given
+    one must agree with that flag). ``registry``/``tracer`` default to
+    the process-global obs instances (off until ``obs.enable()``)."""
 
     def __init__(self, model: dict, loss_fn: Callable,
                  client_data: list[dict], scfg: ServerConfig,
                  ccfg: ClientConfig, fcfg: FLoCoRAConfig,
-                 trace: Optional[Any] = None, device="cuda"):
+                 eval_fn: Optional[Callable] = None,
+                 aggregator: Optional[FedAvgAggregator] = None,
+                 trace: Optional[Any] = None,
+                 registry: Optional[obsm.MetricsRegistry] = None,
+                 tracer: Optional[obst.Tracer] = None, device="cuda"):
+        if eval_fn is not None:
+            raise NotImplementedError("eval_fn is not ported to repro_torch")
         if trace is not None:
             raise NotImplementedError("FleetTrace deadline cohorts are not "
                                       "ported to repro_torch")
@@ -114,8 +163,35 @@ class FLServer:
         # fixed schedule length across ALL clients (smaller clients are
         # masked, not over-trained)
         self.cohort_schedule_steps = cohort_steps(client_data, ccfg)
-        self.aggregator = FedAvgAggregator(fcfg.qcfg, fcfg.rank)
-        self.wire = WireAccounting(fcfg)
+        self.registry = obsm.get_registry(registry)
+        self.tracer = obst.get_tracer(tracer)
+        # EF engages when the uplink is lossy (quantized)
+        ef_wanted = fcfg.error_feedback and fcfg.qcfg.enabled
+        if aggregator is None:
+            aggregator = ErrorFeedbackFedAvg(fcfg.qcfg, fcfg.rank) \
+                if ef_wanted else FedAvgAggregator(fcfg.qcfg, fcfg.rank)
+        elif ef_wanted != isinstance(aggregator, ErrorFeedbackFedAvg):
+            # the uplink encode (fcfg.error_feedback) and the residual
+            # store (the aggregator's type) must agree, or EF silently
+            # degrades to plain rounding or keeps dead residuals
+            raise ValueError(
+                "error_feedback={} (quant {}) requires {} aggregator, got "
+                "{}".format(fcfg.error_feedback,
+                            "on" if fcfg.qcfg.enabled else "off",
+                            "an ErrorFeedbackFedAvg" if ef_wanted
+                            else "a non-EF",
+                            type(aggregator).__name__))
+        if aggregator.r_target is None:
+            # pin the global tree's rank on a copy, so the caller's
+            # instance (and its residual store) is not shared
+            fields: dict[str, Any] = {"r_target": fcfg.rank}
+            if isinstance(aggregator, ErrorFeedbackFedAvg):
+                fields["residuals"] = dict(aggregator.residuals)
+            aggregator = dataclasses.replace(aggregator, **fields)
+        self.aggregator = aggregator
+        self.ckpt = CheckpointManager(scfg.checkpoint_dir) \
+            if scfg.checkpoint_dir else None
+        self.wire = WireAccounting(fcfg, registry=self.registry)
         self.initial_model_bytes = tree_bytes(self.frozen)
         self._tcc_cum = self.initial_model_bytes
 
@@ -147,6 +223,47 @@ class FLServer:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batches.items()}
 
+    # -- fault tolerance ----------------------------------------------------
+    def save(self) -> None:
+        """Checkpoint (round, global adapters, TCC so far, the sampler's
+        bit-generator state) in the JAX package's format."""
+        if self.ckpt is None:
+            return
+        self.ckpt.save(self.round, {"train": self.global_train},
+                       metadata={"round": self.round,
+                                 "tcc_bytes": self._tcc_cum,
+                                 "rng_state": self.rng.bit_generator.state})
+
+    def try_resume(self) -> bool:
+        """Continue from the newest checkpoint, if there is one; the
+        global adapters land on this server's device."""
+        if self.ckpt is None:
+            return False
+        got = self.ckpt.restore_latest({"train": self.global_train},
+                                       device=self.device)
+        if got is None:
+            return False
+        _, trees, man = got
+        self.global_train = trees["train"]
+        self.round = man["metadata"]["round"]
+        # manifests from before measured TCC: rebuild per Eq. 2
+        self._tcc_cum = man["metadata"].get(
+            "tcc_bytes",
+            self.initial_model_bytes
+            + self.round * self.scfg.clients_per_round
+            * self.round_bytes_per_client)
+        st = man["metadata"].get("rng_state")
+        if isinstance(st, str):
+            # older manifests stored repr(state): a plain dict literal
+            st = ast.literal_eval(st)
+        if st:
+            self.rng.bit_generator.state = st
+        return True
+
+    def _maybe_save(self) -> None:
+        if self.ckpt and self.round % self.scfg.checkpoint_every == 0:
+            self.save()
+
     # -- one round (paper Fig. 1) --------------------------------------------
     def run_round(self) -> dict:
         scfg, fcfg = self.scfg, self.fcfg
@@ -157,15 +274,25 @@ class FLServer:
         sampled = self.rng.choice(scfg.n_clients, size=k_dispatch,
                                   replace=False)
         density = fcfg.uplink_density(rnd)
+        self.registry.inc("fl.rounds")
         # (1) broadcast precedes failure: every dispatched client spends
         # its downlink
-        down_bytes = k_dispatch * self._downlink_bytes(rank)
+        down_bytes = 0
+        for _ in range(k_dispatch):
+            b = self._downlink_bytes(rank)
+            down_bytes += b
+            self.wire.record_down(rank, b)
         survivors = [cid for cid in (int(c) for c in sampled)
                      if not self._client_failed(rnd, cid)]
-        wasted_bytes = (k_dispatch - len(survivors)) \
-            * self._downlink_bytes(rank)
+        self.registry.inc("fl.clients_dropped", k_dispatch - len(survivors))
+        self.registry.observe("fl.cohort_size", len(survivors))
+        wasted_bytes = 0
+        for cid in (int(c) for c in sampled):
+            if cid not in survivors:
+                b = self._downlink_bytes(rank)
+                wasted_bytes += b
+                self.wire.record_wasted(rank, b, reason="dropped")
         if not survivors:
-            self.wire.wasted += wasted_bytes
             self.round += 1
             self._tcc_cum += down_bytes
             rec = {"round": self.round, "n_agg": 0,
@@ -176,43 +303,75 @@ class FLServer:
                    "wasted_bytes": wasted_bytes,
                    "uplink_density": density}
             self.history.append(rec)
+            self._maybe_save()
             return rec
 
         # the reference draws one latency per survivor from the sampler
         # stream BEFORE gathering batches; the order is the parity
         # contract
         latency = {cid: self.rng.exponential(1.0) for cid in survivors}
+        ef = isinstance(self.aggregator, ErrorFeedbackFedAvg)
         # (2) local training on the broadcast, (3) packed uplinks
-        g_bcast = flocora.broadcast(self.global_train, fcfg)
-        datas = [self.client_data[cid] for cid in survivors]
-        batches, n_steps = stack_cohort_batches(
-            self.rng, datas, self.ccfg, steps=self.cohort_schedule_steps)
-        trained, losses = self.trainer(self.frozen, g_bcast,
-                                       self._batches_to_device(batches),
-                                       n_steps)
-        losses = losses.cpu().numpy()
+        with self.tracer.span("fl/broadcast", track="fl/round", round=rnd,
+                              rank=rank, clients=len(survivors)):
+            g_bcast = flocora.broadcast(self.global_train, fcfg)
+            datas = [self.client_data[cid] for cid in survivors]
+            batches, n_steps = stack_cohort_batches(
+                self.rng, datas, self.ccfg,
+                steps=self.cohort_schedule_steps)
+            batches = self._batches_to_device(batches)
+        with self.tracer.span("fl/client_train", track="fl/round",
+                              round=rnd, rank=rank, clients=len(survivors)):
+            trained, losses = self.trainer(self.frozen, g_bcast, batches,
+                                           n_steps)
+            losses = losses.cpu().numpy()
         results = []
-        for k, cid in enumerate(survivors):
-            msg, _ = flocora.client_uplink(trained[k], fcfg, rnd=rnd)
-            n_i = len(next(iter(datas[k].values())))
-            results.append((latency[cid], n_i, msg, float(losses[k]),
-                            rank, cid))
+        with self.tracer.span("fl/pack", track="fl/round", round=rnd,
+                              rank=rank, clients=len(survivors)):
+            for k, cid in enumerate(survivors):
+                res = self.aggregator.residual(cid, trained[k]) \
+                    if ef else None
+                msg, res = flocora.client_uplink(trained[k], fcfg, res,
+                                                 rnd=rnd)
+                n_i = len(next(iter(datas[k].values())))
+                results.append((latency[cid], n_i, msg, float(losses[k]),
+                                rank, cid, res))
 
         # every survivor transmitted its uplink (stragglers included)
-        up_bytes = sum(self._uplink_bytes(r_i[4], r_i[2], density)
-                       for r_i in results)
-        # straggler policy: first K arrivals win
+        with self.tracer.span("fl/uplink", track="fl/round", round=rnd,
+                              clients=len(results)):
+            up_bytes = 0
+            for r_i in results:
+                b = self._uplink_bytes(r_i[4], r_i[2], density)
+                up_bytes += b
+                self.wire.record_up(r_i[4], b, density)
+        # straggler policy: first K arrivals win; a straggler's whole
+        # round trip was wasted
         results.sort(key=lambda r: r[0])
         kept = results[:k_target]
-        wasted_bytes += (len(results) - len(kept)) * (
-            self._downlink_bytes(rank)
-            + self._uplink_bytes(rank, density=density))
-        self.wire.wasted += wasted_bytes
+        self.registry.inc("fl.clients_straggled", len(results) - len(kept))
+        for r_i in results[k_target:]:
+            b = self._downlink_bytes(r_i[4]) \
+                + self._uplink_bytes(r_i[4], density=density)
+            wasted_bytes += b
+            self.wire.record_wasted(r_i[4], b, reason="straggled")
+        if ef:
+            # residuals commit AFTER the straggler cut: a kept client's
+            # residual presumes delivery; a straggler's message was
+            # discarded, so its reconstruction folds back into the
+            # residual and the next uplink re-ships the lost mass
+            for rec_i in kept:
+                self.aggregator.store_residual(rec_i[5], rec_i[6])
+            for rec_i in results[k_target:]:
+                self.aggregator.store_residual(
+                    rec_i[5], ef_fold_dropped(rec_i[6], rec_i[2]))
         weights = torch.tensor([float(r[1]) for r in kept],
                                dtype=torch.float32)
-        # (4) FedAvg over the packed messages: one fused kernel launch
-        self.global_train = self.aggregator.aggregate(
-            [r[2] for r in kept], weights)
+        # (4) FedAvg over the packed messages on the fused kernels
+        with self.tracer.span("fl/aggregate", track="fl/round", round=rnd,
+                              n_agg=len(kept)):
+            self.global_train = self.aggregator.aggregate(
+                [r[2] for r in kept], weights)
         self.round += 1
 
         self._tcc_cum += down_bytes + up_bytes
@@ -232,6 +391,7 @@ class FLServer:
             rec["up_bytes_by_rank"] = {
                 r: b for (r, d), b in self.wire.up.items() if d == density}
         self.history.append(rec)
+        self._maybe_save()
         return rec
 
     def run(self, rounds: Optional[int] = None) -> list[dict]:

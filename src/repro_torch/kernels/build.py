@@ -44,6 +44,8 @@ SOURCES = {
     "dequant_agg": {
         "dequant_agg_rows_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _P),
+        "dequant_agg_launch": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                               _P),
     },
     "multi_lora_matmul": {
         "multi_lora_matmul_q_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -51,6 +53,10 @@ SOURCES = {
                                        _I, ctypes.c_float, _P),
         "multi_lora_matmul_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                      _I, _I, _I, ctypes.c_float, _P),
+    },
+    "lora_matmul": {
+        "lora_matmul_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, ctypes.c_float, _P),
     },
 }
 

@@ -1,4 +1,8 @@
 // Fused unpack + dequantize + weighted cohort reduce for Hopper (sm_90a).
+// Two entry points, one per TPU kernel; they fold in different orders, so
+// each has its own body.
+//
+// 1. `dequant_agg_rows_launch` (the flat-tree fold)
 //
 // Replaces the Pallas TPU kernel `dequant_agg_rows_pallas` in
 // src/repro/kernels/dequant_agg.py: both of its programs, the K-tiled
@@ -28,6 +32,29 @@
 // result is deterministic. Each add and multiply is an explicitly rounded
 // intrinsic, so nothing is contracted into an FMA and the kernel gives the
 // same bits as its plain PyTorch version.
+//
+// 2. `dequant_agg_launch` (the per-leaf fold)
+//
+// Replaces the Pallas TPU kernel `dequant_agg_pallas` (body
+// `_dequant_agg_kernel`) in src/repro/kernels/dequant_agg.py, which the
+// per-leaf wire (`FLoCoRAConfig(flat_wire=False)`) calls once per packed
+// leaf. Its grid walks (C/bc, K) with K innermost, and each step computes
+//
+//   contrib_k = (w_k * (lv - zp'[k, c])) * scale[k, c]  for n < n_valid[c],
+//               +0.0 past it
+//   out = contrib_0 at k = 0, then out += contrib_k
+//
+// with zp' = 0 wherever scale <= 0 (the JAX wrapper's `where`, applied here
+// in registers). The association, (w * (lv - zp')) * scale, and the init,
+// out = contrib_0 rather than 0 + contrib_0 (which would turn a -0.0 into
+// +0.0), both differ from the flat fold above, so this body keeps its own
+// loop: one thread per packed word, clients in strict k order, explicitly
+// rounded intrinsics, bit-identical to `dequant_agg_ref` in ref.py.
+//
+// What bounds it: bytes, K words read and 32/bits fp32 values written per
+// thread. At ResNet-8 r=32 int8 the 18 leaves move about 9 MB a round in all
+// (2.7 us at 3.35 TB/s), spread over 18 launches of 10-256 rows, so each
+// launch is far too small to fill the card: expect it to be launch-bound.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,6 +114,59 @@ dequant_agg_rows_kernel(const uint32_t* __restrict__ packed,
   }
 }
 
+constexpr int kLeafThreads = 128;
+constexpr int kMaxGridY = 65535;
+
+// One thread per packed word: blockIdx.x walks the row's words, blockIdx.y
+// (strided by gridDim.y) the rows, so no thread divides to find its row.
+// n_valid may be null: every row then has nv_all valid levels.
+template <int BITS>
+__global__ void __launch_bounds__(kLeafThreads)
+dequant_agg_kernel(const uint32_t* __restrict__ packed,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ zp,
+                   const float* __restrict__ weights,
+                   const int* __restrict__ n_valid, int nv_all,
+                   float* __restrict__ out, int k_clients, int c_rows,
+                   int nw) {
+  constexpr int kPer = 32 / BITS;
+  constexpr uint32_t kMask = (1u << BITS) - 1u;
+  const int w = blockIdx.x * kLeafThreads + threadIdx.x;
+  if (w >= nw) return;
+  const int c0 = w * kPer;
+  for (int c = blockIdx.y; c < c_rows; c += gridDim.y) {
+    const int nv = n_valid != nullptr ? n_valid[c] : nv_all;
+    float acc[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) acc[j] = 0.0f;
+    if (c0 < nv) {
+      for (int k = 0; k < k_clients; ++k) {
+        const int64_t kc = static_cast<int64_t>(k) * c_rows + c;
+        const uint32_t word = packed[kc * nw + w];
+        const float s = scale[kc];
+        const float z = s > 0.0f ? zp[kc] : 0.0f;
+        const float wk = weights[k];
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const float lv = static_cast<float>((word >> (j * BITS)) & kMask);
+          float contrib = __fmul_rn(__fmul_rn(wk, __fsub_rn(lv, z)), s);
+          if (c0 + j >= nv) contrib = 0.0f;
+          acc[j] = k == 0 ? contrib : __fadd_rn(acc[j], contrib);
+        }
+      }
+    }
+    // a word wholly past n_valid holds only masked columns: every
+    // contribution was +0.0, so the sum is +0.0 and no word is read
+    float4* dst = reinterpret_cast<float4*>(
+        out + static_cast<int64_t>(c) * nw * kPer + c0);
+#pragma unroll
+    for (int j = 0; j < kPer / 4; ++j) {
+      dst[j] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                           acc[4 * j + 3]);
+    }
+  }
+}
+
 }  // namespace
 
 // packed (K, C, Nw) uint32; scale, zp (K, C) fp32; weights (K,) fp32;
@@ -115,6 +195,41 @@ extern "C" int dequant_agg_rows_launch(const uint32_t* packed,
     case 8:
       dequant_agg_rows_kernel<8><<<grid, block, 0, s>>>(
           packed, scale, zp, weights, n_valid, out, k, c, nw);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The per-leaf fold (B3). packed (K, C, Nw) uint32; scale, zp (K, C) fp32
+// (zp counts as 0 where scale <= 0); weights (K,) fp32; n_valid (C,) int32,
+// or null for nv_all valid levels in every row; out (C, Nw*32/bits) fp32
+// with a 16-byte aligned base. K = 0 writes zeros. Returns
+// cudaGetLastError() after the launch.
+extern "C" int dequant_agg_launch(const uint32_t* packed, const float* scale,
+                                  const float* zp, const float* weights,
+                                  const int* n_valid, int nv_all, float* out,
+                                  int k, int c, int nw, int bits,
+                                  void* stream) {
+  cudaGetLastError();  // clear a stale error so the return is this launch's
+  if (c <= 0 || nw <= 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid((nw + kLeafThreads - 1) / kLeafThreads,
+                  c < kMaxGridY ? c : kMaxGridY);
+  const dim3 block(kLeafThreads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 2:
+      dequant_agg_kernel<2><<<grid, block, 0, s>>>(
+          packed, scale, zp, weights, n_valid, nv_all, out, k, c, nw);
+      break;
+    case 4:
+      dequant_agg_kernel<4><<<grid, block, 0, s>>>(
+          packed, scale, zp, weights, n_valid, nv_all, out, k, c, nw);
+      break;
+    case 8:
+      dequant_agg_kernel<8><<<grid, block, 0, s>>>(
+          packed, scale, zp, weights, n_valid, nv_all, out, k, c, nw);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -8,9 +8,10 @@ never reaches the plain version here.
 
 Each kernel wrapper counts its launches in a plain integer attribute
 (``quant_pack_rows.launches``, ``dequant_agg_rows.launches``,
-``multi_lora_matmul.launches``, ``multi_lora_matmul_packed.launches``),
-added to only where the kernel is launched, so a run can show that it
-went through the kernels.
+``dequant_agg.launches``, ``multi_lora_matmul.launches``,
+``multi_lora_matmul_packed.launches``, ``lora_matmul.launches``), added
+to only where the kernel is launched, so a run can show that it went
+through the kernels.
 """
 from __future__ import annotations
 
@@ -154,6 +155,113 @@ def dequant_agg_rows(packed: torch.Tensor, scale: torch.Tensor,
 dequant_agg_rows.launches = 0
 
 
+def dequant_agg(packed: torch.Tensor, scale: torch.Tensor,
+                zp: torch.Tensor, weights, bits: int,
+                n_valid=None) -> torch.Tensor:
+    """Per-leaf cohort aggregate (one packed leaf of K clients): packed
+    (K, C, Nw) uint32, sidecars (K, C) fp32, weights (K,) -> (C, N)
+    fp32 in ONE launch. ``n_valid`` (a scalar, a (C,) vector or None =
+    N) masks each row's tail to exact zeros. zp counts as 0 wherever
+    scale <= 0, as the JAX wrapper's ``where`` makes it; the kernel
+    applies that in registers (no extra launch), the plain version with
+    ``torch.where``. Clients fold in the reference kernel's order, which
+    differs from :func:`dequant_agg_rows`' (``ref.dequant_agg_ref``)."""
+    if bits not in (2, 4, 8):
+        raise ValueError(f"bits must be 2, 4 or 8, got {bits}")
+    k, c, nw = packed.shape
+    dev = packed.device
+    w = torch.as_tensor(weights, dtype=torch.float32).to(dev).contiguous()
+    if n_valid is None or isinstance(n_valid, (int, np.integer)):
+        # one length for every row rides as a kernel argument: no vector
+        # to fill (a launch) or copy (a blocking host copy per call would
+        # make the host wait for every queued kernel)
+        nv_all, nv = nw * (32 // bits) if n_valid is None \
+            else int(n_valid), None
+    else:
+        nv = torch.as_tensor(n_valid, dtype=torch.int32)
+        nv = nv.expand(c).contiguous() if nv.ndim == 0 else nv
+        nv_all, nv = 0, _rows(upload(nv, dev), c, dev)
+    if _device_kind(packed) == "cpu":
+        return ref.dequant_agg_ref(packed, scale, zp, w, bits,
+                                   nv_all if nv is None else nv)
+    _require(packed, "packed", ref.WORD_DTYPE, (k, c, nw), dev)
+    _require(scale, "scale", torch.float32, (k, c), dev)
+    _require(zp, "zp", torch.float32, (k, c), dev)
+    _require(w, "weights", torch.float32, (k,), dev)
+    out = torch.empty((c, nw * (32 // bits)), dtype=torch.float32,
+                      device=dev)
+    _aligned(out, "out")
+    fn = LIBRARY.fn("dequant_agg", "dequant_agg_launch")
+    with torch.cuda.device(dev):
+        err = fn(packed.data_ptr(), scale.data_ptr(), zp.data_ptr(),
+                 w.data_ptr(), None if nv is None else nv.data_ptr(), nv_all,
+                 out.data_ptr(), k, c, nw, bits, _stream(dev))
+    check(err, "dequant_agg")
+    dequant_agg.launches += 1
+    return out
+
+
+dequant_agg.launches = 0
+
+
+# the largest adapter rank the single-adapter kernel takes
+LORA_RANK_MAX = 128
+# csrc/lora_matmul.cu: its tiles' side and K slab depth, and the blocks
+# its split-K h product aims for (two per SM of an H100)
+LORA_TILE = 64
+LORA_H_BLOCKS = 264
+
+
+def lora_h_splits(m: int, k: int, r: int) -> tuple[int, int]:
+    """(splits, k_chunk) of the split-K h = x@a product: enough K splits
+    that the (M/64) x (r/64) tiles make about ``LORA_H_BLOCKS`` blocks,
+    each chunk whole 64-deep slabs. A function of the shapes only, so
+    the result is deterministic."""
+    t = LORA_TILE
+    tiles = -(-m // t) * -(-r // t)
+    want = max(1, min(-(-k // t), -(-LORA_H_BLOCKS // tiles)))
+    k_chunk = -(-(-(-k // want)) // t) * t
+    return -(-k // k_chunk), k_chunk
+
+
+def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, s: float) -> torch.Tensor:
+    """Single-adapter ``y = x@w + s*(x@a)@b``: x (M, K), w (K, N),
+    a (K, r), b (r, N) bf16 -> (M, N) bf16, every product accumulated in
+    fp32 and h = x@a rounded to bf16 once. Any M, K, N and r <= 128;
+    nothing is padded. One launch (counted once) enqueues the split-K h
+    kernels and the tensor-core tile kernel, with the (M, r) h and the
+    (splits, M, r) fp32 partial scratch allocated here."""
+    m, k = x.shape
+    n = w.shape[1]
+    r = a.shape[1]
+    if not 1 <= r <= LORA_RANK_MAX:
+        raise ValueError(f"rank must lie in [1, {LORA_RANK_MAX}], got {r}")
+    dev = x.device
+    if _device_kind(x) == "cpu":
+        return ref.lora_matmul_ref(x, w, a, b, s)
+    bf = torch.bfloat16
+    _require(x, "x", bf, (m, k), dev)
+    _require(w, "w", bf, (k, n), dev)
+    _require(a, "a", bf, (k, r), dev)
+    _require(b, "b", bf, (r, n), dev)
+    splits, k_chunk = lora_h_splits(m, k, r)
+    h = torch.empty((m, r), dtype=bf, device=dev)
+    partial = torch.empty((splits, m, r), dtype=torch.float32, device=dev)
+    out = torch.empty((m, n), dtype=bf, device=dev)
+    fn = LIBRARY.fn("lora_matmul", "lora_matmul_launch")
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+                 h.data_ptr(), partial.data_ptr(), out.data_ptr(), m, k, n,
+                 r, splits, k_chunk, float(s), _stream(dev))
+    check(err, "lora_matmul")
+    lora_matmul.launches += 1
+    return out
+
+
+lora_matmul.launches = 0
+
+
 # the serving kernels' split-K depth at most (kMaxSplits in
 # csrc/multi_lora_matmul.cu): the partial-product scratch holds this many
 # (M, N) planes
@@ -277,8 +385,8 @@ def multi_lora_matmul_packed(x: torch.Tensor, w: torch.Tensor,
 multi_lora_matmul_packed.launches = 0
 
 
-_COUNTED = (quant_pack_rows, dequant_agg_rows, multi_lora_matmul,
-            multi_lora_matmul_packed)
+_COUNTED = (quant_pack_rows, dequant_agg_rows, dequant_agg,
+            multi_lora_matmul, multi_lora_matmul_packed, lora_matmul)
 
 
 def reset_launch_counts() -> None:

@@ -9,6 +9,8 @@ Layouts (channel-FIRST 2D views; callers reshape):
   quant_pack:  x (C, N) -> packed (C, N*bits/32) uint32, scale (C,), zp (C,)
   dequant_agg: packed (K, C, Nw) uint32, scale/zp (K, C), weights (K,)
                -> out (C, N) fp32 = sum_k w_k * dequant_k
+  lora_matmul: x (M, K), w (K, N), a (K, r), b (r, N) bf16
+               -> y (M, N) bf16 = x@w + s * (x@a)@b, fp32 accumulation
   multi_lora_matmul:   x (M, K), w (K, N), A (E, K, R), B (E, R, N),
                ids (M,) -> y (M, N) = x@w + s * (x @ A[ids]) @ B[ids]
   multi_lora_matmul_q: the same with A and B as packed wire rows,
@@ -139,14 +141,40 @@ def dequant_agg_rows_ref(packed: torch.Tensor, scale: torch.Tensor,
 
 
 def dequant_agg_ref(packed: torch.Tensor, scale: torch.Tensor,
-                    zp: torch.Tensor, weights: torch.Tensor,
-                    bits: int) -> torch.Tensor:
-    """packed (K, C, Nw); scale/zp (K, C); weights (K,) -> (C, N) fp32,
-    every column valid."""
-    c = packed.shape[1]
-    n = packed.shape[2] * (32 // bits)
-    nv = torch.full((c,), n, dtype=torch.int32, device=packed.device)
-    return dequant_agg_rows_ref(packed, scale, zp, weights, nv, bits)
+                    zp: torch.Tensor, weights: torch.Tensor, bits: int,
+                    n_valid=None) -> torch.Tensor:
+    """Per-leaf cohort aggregate (the plain version of the reference's
+    ``dequant_agg_pallas``): packed (K, C, Nw), sidecars (K, C),
+    weights (K,) -> (C, N) fp32.
+
+    B3's order, step for step: client k contributes ``(w_k * (lv - zp'))
+    * scale_k``, where zp' is zp with 0 wherever scale <= 0 (the JAX
+    wrapper's ``where``); the sum STARTS at client 0's contribution (not
+    at 0.0, which would turn a -0.0 into +0.0) and adds the others in
+    strict k order. Each contribution is masked to +0.0 past its row's
+    length ``n_valid``: a scalar, a (C,) vector or None (every column
+    valid)."""
+    k, c, nw = packed.shape
+    n = nw * (32 // bits)
+    dev = packed.device
+    if n_valid is None or isinstance(n_valid, (int, np.integer)):
+        nv = torch.full((c,), n if n_valid is None else int(n_valid),
+                        dtype=torch.int64, device=dev)
+    else:
+        nv = torch.as_tensor(n_valid).to(dev, torch.int64)
+        nv = nv.expand(c) if nv.ndim == 0 else nv.reshape(c)
+    valid = torch.arange(n, device=dev)[None, :] < nv[:, None]
+    w = weights.to(torch.float32)
+    zpz = torch.where(scale > 0, zp, torch.zeros_like(zp))
+    out = None
+    for i in range(k):
+        lv = unpack_words(packed[i], bits).to(torch.float32)
+        contrib = (w[i] * (lv - zpz[i][:, None])) * scale[i][:, None]
+        contrib = torch.where(valid, contrib, torch.zeros_like(contrib))
+        out = contrib if out is None else out + contrib
+    if out is None:
+        out = torch.zeros((c, n), dtype=torch.float32, device=dev)
+    return out
 
 
 def _take(t: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -197,3 +225,20 @@ def multi_lora_matmul_q_ref(x: torch.Tensor, w: torch.Tensor,
     h = torch.einsum("mk,mrk->mr", xf, adeq)              # (M, R)
     y = torch.einsum("mr,mnr->mn", h, bdeq)               # (M, N)
     return acc + s * y
+
+
+def lora_matmul_ref(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, s: float) -> torch.Tensor:
+    """Single-adapter ``y = x@w + s*(x@a)@b`` (the plain version of the
+    reference's ``lora_matmul_pallas``): fp32 products of the operands,
+    ``h = x@a`` rounded to the operands' dtype ONCE, then
+    ``acc + s*(h@b)`` in fp32, cast to x's dtype.
+
+    This is the Pallas kernel's arithmetic when K fits one K tile (its
+    wrapper's ``blk(k, 512)``); with more tiles the Pallas kernel rounds
+    each tile's partial h, and the JAX package's own ``lora_matmul_ref``
+    never rounds h at all."""
+    xf = x.to(torch.float32)
+    acc = xf @ w.to(torch.float32)
+    h = (xf @ a.to(torch.float32)).to(a.dtype).to(torch.float32)
+    return (acc + s * (h @ b.to(torch.float32))).to(x.dtype)

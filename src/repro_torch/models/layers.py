@@ -4,10 +4,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.utils.device import resolve_device
 
-def groupnorm_init(c: int, device="cpu") -> dict:
-    return {"scale": torch.ones((c,), dtype=torch.float32, device=device),
-            "bias": torch.zeros((c,), dtype=torch.float32, device=device)}
+
+def groupnorm_init(c: int, device="cuda") -> dict:
+    dev = resolve_device(device)
+    return {"scale": torch.ones((c,), dtype=torch.float32, device=dev),
+            "bias": torch.zeros((c,), dtype=torch.float32, device=dev)}
 
 
 def groupnorm_nchw(p: dict, x: torch.Tensor, groups: int = 32,

@@ -230,3 +230,87 @@ def test_cuda_serving_wrappers_check_inputs(cuda):
         kops.multi_lora_matmul(x, w, torch.zeros((3, 32, 4), device=cuda),
                                torch.zeros((3, 64, 4), device=cuda)
                                .transpose(1, 2), [0, 1], 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("k", [1, 3, 7])
+@pytest.mark.parametrize("nv_kind", ["none", "scalar", "vector"])
+def test_cuda_dequant_agg_bit_identical(bits, k, nv_kind, cuda):
+    """B3: one launch per call, the same bits as its plain version, with
+    scale = 0 rows and a -0.0 weight, C = 13 (not a multiple of 8)."""
+    rng = np.random.default_rng(bits * 10 + k)
+    c, nw = 13, 24
+    n = nw * (32 // bits)
+    p = rng.integers(0, 1 << 32, size=(k, c, nw), dtype=np.uint32)
+    s = rng.uniform(1e-3, 1e-1, size=(k, c)).astype(np.float32)
+    s[:, 1:3] = 0.0
+    z = rng.integers(0, 1 << bits, size=(k, c)).astype(np.float32)
+    w = rng.uniform(0.1, 1.0, size=k).astype(np.float32)
+    w[0] = -0.0
+    nv = {"none": None, "scalar": n - 7,
+          "vector": torch.from_numpy(rng.integers(0, n + 1, c).astype(
+              np.int32)).to(cuda)}[nv_kind]
+    args = [torch.from_numpy(a).to(cuda) for a in (p, s, z, w)]
+    before = kops.dequant_agg.launches
+    got = kops.dequant_agg(*args, bits, nv)
+    assert kops.dequant_agg.launches == before + 1
+    want = kref.dequant_agg_ref(*args, bits, nv)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_dequant_agg_checks_inputs(cuda):
+    p = torch.zeros((2, 4, 128), dtype=torch.int32, device=cuda)
+    s = torch.ones((2, 4), device=cuda)
+    w = torch.ones(2, device=cuda)
+    with pytest.raises(ValueError):           # int32 words, not uint32
+        kops.dequant_agg(p, s, s, w, 8)
+    with pytest.raises(ValueError):           # n_valid of the wrong length
+        kops.dequant_agg(p.view(torch.uint32), s, s, w, 8,
+                         torch.ones(5, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):           # fp64 sidecars
+        kops.dequant_agg(p.view(torch.uint32), s.double(), s, w, 8)
+
+
+# (m, k, n, r): tests/test_kernels.py's four shapes, kernel_bench's, a
+# ragged one
+LORA_SHAPES = [(128, 256, 192, 8), (64, 128, 128, 32), (256, 512, 256, 128),
+               (8, 128, 128, 4), (256, 512, 512, 32), (100, 300, 200, 6)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", LORA_SHAPES)
+def test_cuda_lora_matmul(shape, cuda):
+    """B6: one launch per call, within 8e-3 * max|y| of its plain
+    version (bf16 output; h rounded to bf16 once on both sides)."""
+    m, k, n, r = shape
+    rng = np.random.default_rng(m + r)
+
+    def bf(shape_, scale):
+        return torch.from_numpy((rng.normal(size=shape_) * scale).astype(
+            np.float32)).to(torch.bfloat16).to(cuda)
+
+    x, w, a, b = bf((m, k), 0.5), bf((k, n), 0.1), bf((k, r), 0.1), \
+        bf((r, n), 0.1)
+    before = kops.lora_matmul.launches
+    got = kops.lora_matmul(x, w, a, b, 2.0)
+    assert kops.lora_matmul.launches == before + 1
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (m, n)
+    want = kref.lora_matmul_ref(x, w, a, b, 2.0).to(torch.float32)
+    err = float((got.to(torch.float32) - want).abs().max())
+    assert err <= 8e-3 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_cuda_lora_matmul_checks_inputs(cuda):
+    x = torch.zeros((4, 16), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((16, 8), dtype=torch.bfloat16, device=cuda)
+    a = torch.zeros((16, 4), dtype=torch.bfloat16, device=cuda)
+    b = torch.zeros((4, 8), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):           # fp32 x
+        kops.lora_matmul(x.float(), w, a, b, 1.0)
+    with pytest.raises(ValueError):           # b of the wrong rank
+        kops.lora_matmul(x, w, a, b[:3], 1.0)
+    with pytest.raises(ValueError):           # a CPU operand
+        kops.lora_matmul(x, w.cpu(), a, b, 1.0)

@@ -144,15 +144,15 @@ def test_resnet8_round_on_cpu():
     assert rec["n_agg"] == 2 and np.isfinite(rec["client_loss"])
     assert kops.launch_counts() == {"quant_pack_rows": 0,
                                     "dequant_agg_rows": 0,
+                                    "dequant_agg": 0,
                                     "multi_lora_matmul": 0,
-                                    "multi_lora_matmul_packed": 0}
+                                    "multi_lora_matmul_packed": 0,
+                                    "lora_matmul": 0}
 
 
-@pytest.mark.parametrize("kw", [{"error_feedback": True},
-                                {"sparsity": object()},
+@pytest.mark.parametrize("kw", [{"sparsity": object()},
                                 {"dp": object()},
-                                {"rank_schedule": object()},
-                                {"flat_wire": False}])
+                                {"rank_schedule": object()}])
 def test_unported_flocora_options_raise(kw):
     with pytest.raises(NotImplementedError):
         FLoCoRAConfig(quant_bits=8, **kw)
@@ -163,7 +163,8 @@ def test_unported_server_options_raise():
     args = (model, _torch_loss, data)
     cfgs = (ClientConfig(), FLoCoRAConfig(quant_bits=8))
     with pytest.raises(NotImplementedError):
-        ServerConfig(checkpoint_dir="ckpt")
+        FLServer(*args, ServerConfig(n_clients=4), *cfgs,
+                 eval_fn=lambda f, t: {}, device="cpu")
     with pytest.raises(NotImplementedError):
         FLServer(*args, ServerConfig(n_clients=4), *cfgs, trace=object(),
                  device="cpu")
@@ -177,8 +178,6 @@ def test_unported_server_options_raise():
                  ServerConfig(n_clients=4), *cfgs, device="cpu")
     with pytest.raises(NotImplementedError):
         ClientConfig(fedprox_mu=0.1)
-    with pytest.raises(NotImplementedError):
-        QuantConfig(bits=8, symmetric=True)
 
 
 def test_batch_stackers_match_jax():

@@ -13,11 +13,12 @@ import pytest
 import torch
 
 from repro_torch import convert
+from repro_torch.core import lora
 from repro_torch.core.flocora import FLoCoRAConfig
 from repro_torch.core.lora import LoRAConfig
 from repro_torch.fl import ClientConfig, FLServer, ServerConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models import resnet
+from repro_torch.models import layers, resnet
 from repro_torch import serve
 
 torch.set_num_threads(1)
@@ -57,6 +58,59 @@ def test_port_imports_without_jax_or_reference(tmp_path):
     assert int(out.stdout.split()[-1]) >= 20
 
 
+_USE_WITHOUT_JAX = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.path.insert(0, {src!r})
+{body}
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro")
+             and sys.modules[m] is not None)
+assert not bad, bad
+print("ok")
+"""
+
+_USES = {
+    "checkpoint": """
+import tempfile, torch
+from repro_torch import checkpoint
+d = tempfile.mkdtemp()
+checkpoint.CheckpointManager(d).save(1, {"train": {"w": torch.ones(2)}})
+assert checkpoint.latest_step(d) == 1
+""",
+    "leaf_kernels": """
+import torch
+from repro_torch.kernels import ops
+ops.dequant_agg(torch.zeros((2, 3, 4), dtype=torch.int32).view(torch.uint32),
+                torch.ones((2, 3)), torch.zeros((2, 3)), [1.0, 1.0], 8)
+x = torch.zeros((4, 8), dtype=torch.bfloat16)
+ops.lora_matmul(x, torch.zeros((8, 8), dtype=torch.bfloat16),
+                torch.zeros((8, 2), dtype=torch.bfloat16),
+                torch.zeros((2, 8), dtype=torch.bfloat16), 1.0)
+""",
+    "error_feedback": """
+import torch
+from repro_torch.core import flocora
+tree = {"w": torch.randn(4, 6), "b": torch.zeros(6)}
+for flat in (True, False):
+    cfg = flocora.FLoCoRAConfig(quant_bits=4, error_feedback=True,
+                                flat_wire=flat)
+    msg, res = flocora.client_uplink(tree, cfg)
+""",
+}
+
+
+@pytest.mark.parametrize("use", sorted(_USES))
+def test_slice_modules_run_without_jax_or_reference(use, tmp_path):
+    """The checkpoint subpackage, the per-leaf and LoRA kernel wrappers
+    and the EF uplink run (on the CPU) with jax and repro unimportable."""
+    out = _run(_USE_WITHOUT_JAX.format(src=str(ROOT / "src"),
+                                       body=_USES[use]), tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
+
+
 def test_port_sources_never_name_jax_or_reference():
     pat = ("import jax", "from jax", "import repro.", "from repro.",
            "import repro\n", "from repro ")
@@ -86,7 +140,9 @@ def _no_cuda():
 
 @pytest.mark.parametrize("entry", ["resnet_init", "fl_server",
                                    "params_from_jax", "make_store",
-                                   "cache_stage", "serving_engine"])
+                                   "cache_stage", "serving_engine",
+                                   "groupnorm_init", "conv_lora_init",
+                                   "dense_lora_init"])
 def test_default_device_entry_points_raise_without_cuda(entry):
     _no_cuda()
     cfg = resnet.ResNetConfig(lora=LoRAConfig(rank=4, alpha=64.0))
@@ -105,6 +161,12 @@ def test_default_device_entry_points_raise_without_cuda(entry):
             resnet.init(0, cfg)
         elif entry == "params_from_jax":
             convert.params_from_jax({"w": np.zeros((2, 2), np.float32)})
+        elif entry == "groupnorm_init":
+            layers.groupnorm_init(8)
+        elif entry == "conv_lora_init":
+            lora.conv_lora_init(torch.Generator(), 3, 3, 4, 8, cfg.lora)
+        elif entry == "dense_lora_init":
+            lora.dense_lora_init(torch.Generator(), 4, 8, cfg.lora)
         else:
             model = resnet.init(0, cfg, device="cpu")
             data = [{"x": np.zeros((4, 8, 8, 3), np.float32),

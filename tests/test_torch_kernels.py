@@ -153,8 +153,10 @@ def test_cpu_wrappers_never_launch():
     kops.quant_pack_rows(x, torch.tensor([512, 3]), 8)
     assert kops.launch_counts() == {"quant_pack_rows": 0,
                                     "dequant_agg_rows": 0,
+                                    "dequant_agg": 0,
                                     "multi_lora_matmul": 0,
-                                    "multi_lora_matmul_packed": 0}
+                                    "multi_lora_matmul_packed": 0,
+                                    "lora_matmul": 0}
 
 
 @pytest.mark.parametrize("bits", BITS)
