@@ -11,8 +11,10 @@ Phases, each of which raises on failure (the script then exits nonzero):
      ``dequant_agg_rows`` within rtol=atol=1e-5 at K in {1, 5, 64} on
      (K, 1610, 640), and bit-identical across block_k;
      ``multi_lora_matmul_packed`` at bits {2, 4, 8} and
-     ``multi_lora_matmul`` within rtol=atol=1e-4 at m in {1, 8, 64},
-     d in {256, 2560}, R in {4, 8}, E=512, plus K=2559, N=2555, R=6;
+     ``multi_lora_matmul`` within rtol=atol=1e-4 at m in {1, 8, 32, 64},
+     d in {256, 2560}, R in {4, 8}, E=512, plus K=2559, N=2555, R=6,
+     each call repeated and bit-identical; their SASS holds tensor-core
+     MMA instructions (``cuobjdump -sass``, where the toolkit has it);
      ``dequant_agg`` (the per-leaf fold) BIT-identical at bits {2, 4, 8},
      K in {1, 5, 64} on the 18 per-leaf shapes of ResNet-8 r=32 and a
      C = 37 leaf, with a scalar and a vector n_valid; ``lora_matmul``
@@ -45,7 +47,11 @@ Phases, each of which raises on failure (the script then exits nonzero):
   5. time each kernel with CUDA events at its path's shapes beside its
      plain version and its bound (``dequant_agg`` at the largest per-leaf
      shape and summed over a round's 18 leaves; ``lora_matmul`` at
-     (512, 2560, 2560, r=32) beside ``torch.matmul(x, W)`` in bf16).
+     (512, 2560, 2560, r=32) beside ``torch.matmul(x, W)`` in bf16; the
+     serving kernels at m in {8, 32, 64}, warm and cold (rotating through
+     4 distinct (x, W) sets, more than the L2 holds), beside
+     ``torch.matmul(x, W)`` in fp32 and ``torch.sum(W)`` timed the same
+     ways).
 The line before the last is one JSON object with the kernels' numbers;
 the last is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
 round under ``torch.profiler`` and prints the device time by kernel.
@@ -99,6 +105,12 @@ SERVE = dict(n_clients=1024, d_model=2560, n_layers=2, ranks=(4, 8), bits=4,
              seed=0)
 SERVE_SCALE = 0.5
 SERVE_TOL = 1e-4
+# the serving kernels' timed row counts: the simulator's batch (8), a
+# rank bucket of the m = 64 step (32) and the whole step (64); cold
+# timing rotates through this many distinct (x, W) sets (3 x 26.2 MB of
+# W exceeds the 50 MB L2)
+SERVE_TIMED_M = (8, 32, 64)
+SERVE_COLD_SETS = 4
 
 
 def _card_line() -> str:
@@ -138,6 +150,97 @@ def _time_ms(fn, iters: int, warmup: int = 3) -> tuple[float, float]:
                                " longer than the sleep: fewer iterations")
         out.append(t0.elapsed_time(t1) / iters)
     return out[0], out[1]
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per kernel function of an ``nvcc -Xptxas -v`` log: its
+    name (with the serving kernels' source, row tile MT and VEC read off
+    the mangled name), registers, spill stores/loads and static shared
+    memory."""
+    import re
+    rows, cur = [], None
+    for line in log.splitlines():
+        got = re.search(r"Compiling entry function '(\S+)'", line)
+        if got:
+            name = got.group(1)
+            # the mangled name's length-prefixed identifiers (a length
+            # may follow other digits)
+            idents = [name[d.end():d.end() + int(d.group()[i:])]
+                      for d in re.finditer(r"\d+", name)
+                      for i in range(len(d.group()))]
+            kern = [i for i in idents if i.endswith("_kernel")
+                    and i.isidentifier()]
+            label = kern[-1] if kern else name[:40]
+            if "FpSource" in name:
+                label += " fp"
+            bits = re.search(r"PackedSourceILi(\d)E", name)
+            if bits:
+                label += f" int{bits.group(1)}"
+            tile = re.search(r"Li(\d)ELb([01])E", name)
+            if tile:
+                label += f" MT={tile.group(1)} VEC={tile.group(2)}"
+            cur = {"label": label, "spill": "?", "regs": "?", "smem": "0"}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        got = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        line)
+        if got:
+            cur["spill"] = f"{got.group(1)}/{got.group(2)} B"
+        got = re.search(r"Used (\d+) registers", line)
+        if got:
+            cur["regs"] = got.group(1)
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = smem.group(1) if smem else "0"
+    return [f"{r['label']}: {r['regs']} registers, spill stores/loads "
+            f"{r['spill']}, static smem {r['smem']} B" for r in rows]
+
+
+def sass_mma_counts(source: str) -> dict:
+    """{kernel function: (HMMA, HGMMA) instruction counts} in the SASS of
+    ``source``'s built library, read with ``cuobjdump -sass``; {} when the
+    toolkit has no cuobjdump."""
+    import os
+    import re
+    import shutil
+    from repro_torch.kernels.build import LIBRARY, _lib_path
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(_lib_path(
+        source, LIBRARY.build_dir))], capture_output=True, text=True,
+        check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        got = re.search(r"Function : (\S+)", line)
+        if got:
+            fn = got.group(1)
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += bool(re.search(r"\bHMMA\b", line))
+            counts[fn][1] += bool(re.search(r"\bHGMMA\b", line))
+    return {f: tuple(c) for f, c in counts.items()}
+
+
+def check_serving_sass() -> None:
+    """Every instance of the serving product kernel holds tensor-core
+    MMA instructions (the split-bf16 base product)."""
+    counts = sass_mma_counts("multi_lora_matmul")
+    if not counts:
+        print("sass multi_lora_matmul: cuobjdump not found, not checked")
+        return
+    prod = {f: c for f, c in counts.items() if "lora_product_kernel" in f}
+    other = {f: c for f, c in counts.items() if f not in prod}
+    hmma = sorted(c[0] for c in prod.values())
+    print(f"sass multi_lora_matmul: {len(prod)} lora_product_kernel "
+          f"instances, HMMA per instance {hmma[0]}..{hmma[-1]}, HGMMA "
+          f"{sum(c[1] for c in prod.values())}; other kernels' HMMA "
+          f"{sum(c[0] for c in other.values())} ({len(other)} kernels)")
+    if not prod or hmma[0] == 0:
+        raise AssertionError("a serving product kernel has no tensor-core "
+                             "MMA in its SASS")
 
 
 def _bound_ms(nbytes: float, flops: float,
@@ -371,9 +474,10 @@ def _serving_slabs(rng, e: int, k: int, n: int, r: int, bits: int, dev):
 def check_serving_kernels(dev) -> tuple[float, float]:
     """``multi_lora_matmul_packed`` (B4) and ``multi_lora_matmul`` (B5)
     against their plain versions on the card within rtol = atol = 1e-4:
-    m in {1, 8, 64}, d in {256, 2560}, R in {4, 8}, E = 512, bits
-    {2, 4, 8}, plus a ragged K = 2559, N = 2555 with R = 6. Returns the
-    max abs differences (B4, B5)."""
+    m in {1, 8, 32, 64}, d in {256, 2560}, R in {4, 8}, E = 512, bits
+    {2, 4, 8}, plus a ragged K = 2559, N = 2555 with R = 6; a second call
+    on the same inputs must give the same bits. Returns the max abs
+    differences (B4, B5)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops as kops
@@ -385,38 +489,43 @@ def check_serving_kernels(dev) -> tuple[float, float]:
     shapes.append((2559, 2555, 6))
     worst = [0.0, 0.0]
 
-    def held(got, want, i):
+    def held(fn, want, i, what):
+        got = fn()
+        again = fn()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         ok = bool(torch.allclose(got, want, rtol=SERVE_TOL, atol=SERVE_TOL))
+        if not torch.equal(_f32_bits(got), _f32_bits(again)):
+            raise AssertionError(f"{what}: two calls on the same inputs "
+                                 "differ")
+        if not ok:
+            raise AssertionError(f"{what}: max_abs_err {err}")
         worst[i] = max(worst[i], err)
-        return err, ok
+        return err
 
     for k, n, r in shapes:
         w = torch.from_numpy((rng.standard_normal((k, n)) * 0.05).astype(
             np.float32)).to(dev)
         xs = torch.from_numpy((rng.standard_normal((64, k)) * 0.5).astype(
             np.float32)).to(dev)
-        ms = (1, 8, 64) if (k, n) != (2559, 2555) else (64,)
+        ms = (1, 8, 32, 64) if (k, n) != (2559, 2555) else (32, 64)
         for bits in (2, 4, 8):
             slab = _serving_slabs(rng, e, k, n, r, bits, dev)
             line = []
             for m in ms:
                 ids = rng.integers(0, e, m)
                 x = xs[:m].contiguous()
-                got = kops.multi_lora_matmul_packed(x, w, *slab, ids.tolist(),
-                                                    SERVE_SCALE, bits)
                 want = kref.multi_lora_matmul_q_ref(
                     x, w, *slab, torch.from_numpy(ids).to(dev), SERVE_SCALE,
                     bits)
-                err, ok = held(got, want, 0)
+                err = held(lambda: kops.multi_lora_matmul_packed(
+                    x, w, *slab, ids.tolist(), SERVE_SCALE, bits), want, 0,
+                    f"multi_lora_matmul_packed bits={bits} m={m} K={k} "
+                    f"N={n} R={r}")
                 line.append(f"m={m} {err:.3g}")
-                if not ok:
-                    raise AssertionError(
-                        f"multi_lora_matmul_packed bits={bits} m={m} K={k} "
-                        f"N={n} R={r}: max_abs_err {err}")
             print(f"check multi_lora_matmul_packed bits={bits} K={k} N={n} "
-                  f"R={r} E={e}: max_abs_err " + ", ".join(line))
+                  f"R={r} E={e}: max_abs_err " + ", ".join(line)
+                  + "; repeat bit-identical")
         a = torch.from_numpy((rng.standard_normal((e, k, r)) * 0.1).astype(
             np.float32)).to(dev)
         b = torch.from_numpy((rng.standard_normal((e, r, n)) * 0.1).astype(
@@ -425,16 +534,14 @@ def check_serving_kernels(dev) -> tuple[float, float]:
         for m in ms:
             ids = rng.integers(0, e, m)
             x = xs[:m].contiguous()
-            got = kops.multi_lora_matmul(x, w, a, b, ids.tolist(), SERVE_SCALE)
             want = kref.multi_lora_matmul_ref(
                 x, w, a, b, torch.from_numpy(ids).to(dev), SERVE_SCALE)
-            err, ok = held(got, want, 1)
+            err = held(lambda: kops.multi_lora_matmul(
+                x, w, a, b, ids.tolist(), SERVE_SCALE), want, 1,
+                f"multi_lora_matmul m={m} K={k} N={n} R={r}")
             line.append(f"m={m} {err:.3g}")
-            if not ok:
-                raise AssertionError(f"multi_lora_matmul m={m} K={k} N={n} "
-                                     f"R={r}: max_abs_err {err}")
         print(f"check multi_lora_matmul K={k} N={n} R={r} E={e}: "
-              "max_abs_err " + ", ".join(line))
+              "max_abs_err " + ", ".join(line) + "; repeat bit-identical")
     return worst[0], worst[1]
 
 
@@ -583,61 +690,138 @@ def serving_phase(dev) -> dict:
             "n_slots": staged.n_slots, "step_ms": step_ms}
 
 
+def _rotating(calls):
+    """A function that runs ``calls[i % len(calls)]`` on its i-th call."""
+    state = [0]
+
+    def fn():
+        calls[state[0] % len(calls)]()
+        state[0] += 1
+    return fn
+
+
 def time_serving_kernels(sv: dict, dev) -> dict:
-    """B4 and B5 with CUDA events at (m = 64, d = 2560, E = 512, rank-8
-    bucket, int4) beside their plain versions, their bounds, and
-    torch.matmul(x, W) alone (TF32 off) as context for the base
-    product."""
+    """B4 and B5 with CUDA events at m in ``SERVE_TIMED_M`` (d = 2560,
+    E = 512, rank-8 bucket, int4), each warm (one (x, W) set, W held in
+    L2) and cold (rotating through ``SERVE_COLD_SETS`` distinct (x, W)
+    sets, more bytes than the 50 MB L2 holds), beside torch.matmul(x, W)
+    in fp32 (TF32 off) and torch.sum(W) (a plain streaming read of W)
+    timed the same ways, the plain versions and the bounds; then where
+    the device time goes (prep and product kernels) at m = 64 and m = 8.
+    Returns the m = 64 cold figures for the JSON line."""
+    import numpy as np
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
 
-    x, w, lyr, ids = sv["x"], sv["w"], sv["layer"], sv["ids"]
+    x64, w0, lyr, ids64 = sv["x"], sv["w"], sv["layer"], sv["ids"]
     a_stack, b_stack = sv["stacks"]
     bits, s = SERVE["bits"], SERVE_SCALE
-    m, k = x.shape
-    n, r = w.shape[1], sv["rank"]
-    ids_t = torch.tensor(ids, device=dev)
-    t_q = _time_ms(lambda: kops.multi_lora_matmul_packed(
-        x, w, *lyr, ids, s, bits), 200)
-    t_qp = _time_ms(lambda: kref.multi_lora_matmul_q_ref(
-        x, w, *lyr, ids_t, s, bits), 20)
-    t_f = _time_ms(lambda: kops.multi_lora_matmul(
-        x, w, a_stack, b_stack, ids, s), 200)
-    t_fp = _time_ms(lambda: kref.multi_lora_matmul_ref(
-        x, w, a_stack, b_stack, ids_t, s), 20)
+    k, n = w0.shape
+    r = sv["rank"]
+    rng = np.random.default_rng(17)
+    sets = [(x64, w0)] + [
+        (torch.from_numpy((rng.standard_normal(x64.shape) * 0.5).astype(
+            np.float32)).to(dev),
+         torch.from_numpy((rng.standard_normal((k, n)) * 0.05).astype(
+             np.float32)).to(dev)) for _ in range(SERVE_COLD_SETS - 1)]
+    kw, rw = lyr.aq.shape[2], lyr.bq.shape[2]
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
     try:
-        t_mm = _time_ms(lambda: torch.matmul(x, w), 200)
+        for m in SERVE_TIMED_M:
+            ids = ids64[:m]
+            ids_t = torch.tensor(ids, device=dev)
+            xw = [(x[:m].contiguous(), w) for x, w in sets]
+            fns = {
+                "multi_lora_matmul_packed": lambda x, w: \
+                    kops.multi_lora_matmul_packed(x, w, *lyr, ids, s, bits),
+                "multi_lora_matmul": lambda x, w: kops.multi_lora_matmul(
+                    x, w, a_stack, b_stack, ids, s),
+                "matmul": lambda x, w: torch.matmul(x, w),
+                "read_w": lambda x, w: torch.sum(w)}
+            t = {}
+            for name, f in fns.items():
+                warm = _time_ms(lambda f=f: f(*xw[0]), 200)
+                cold = _time_ms(_rotating(
+                    [lambda f=f, a=a: f(*a) for a in xw]), 200)
+                t[name] = {"warm": warm, "cold": cold}
+            x = xw[0][0]
+            t["multi_lora_matmul_packed"]["plain"] = _time_ms(
+                lambda: kref.multi_lora_matmul_q_ref(x, w0, *lyr, ids_t, s,
+                                                     bits), 20)
+            t["multi_lora_matmul"]["plain"] = _time_ms(
+                lambda: kref.multi_lora_matmul_ref(x, w0, a_stack, b_stack,
+                                                   ids_t, s), 20)
+            # what the function must move: x, W and the output once, ids,
+            # and each DISTINCT gathered slot's adapter once (words and
+            # sidecars, or fp stacks). Operations: the base product as
+            # the split-bf16 kernel computes it (3 tensor-core passes),
+            # h, y and B4's dequant in fp32; the old figure counted the
+            # base product as fp32 FMA on the CUDA cores
+            distinct = len(set(ids))
+            common = 4 * (m * k + k * n + m * n + m)
+            q_bytes = common + distinct * 4 * (r * kw + 2 * r + n * rw
+                                               + 2 * n)
+            f_bytes = common + distinct * 4 * (k * r + r * n)
+            lora_ops = 2 * m * r * k + 2 * m * n * r + 2 * m * n
+            tc_ms = 3 * 2 * m * k * n / BF16_FLOPS * 1e3
+            for name, nbytes, extra in (
+                    ("multi_lora_matmul_packed", q_bytes,
+                     2 * m * r * k + 2 * m * n * r),
+                    ("multi_lora_matmul", f_bytes, 0)):
+                ops_ms = tc_ms + (lora_ops + extra) / FP32_FLOPS * 1e3
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                t[name]["bound"] = (bytes_ms, "bytes") if bytes_ms >= ops_ms \
+                    else (ops_ms, "operations")
+                t[name]["fp32_fma_bound"] = _bound_ms(
+                    nbytes, 2 * m * k * n + lora_ops + extra)
+                t[name]["bytes"] = nbytes
+            t["matmul"]["bound"] = _bound_ms(4 * (m * k + k * n + m * n),
+                                             2 * m * k * n)
+            for name in ("multi_lora_matmul_packed", "multi_lora_matmul"):
+                v = t[name]
+                print(f"{name} m={m} K={k} N={n} R={r} E={sv['n_slots']} "
+                      f"({distinct} distinct slots): kernel cold "
+                      f"{v['cold'][0] * 1e3:.2f} us, warm "
+                      f"{v['warm'][0] * 1e3:.2f} us on the device "
+                      f"({v['cold'][1] * 1e3:.2f} us a call from Python); "
+                      f"plain {v['plain'][0] * 1e3:.2f} us; bound "
+                      f"{v['bound'][0] * 1e3:.2f} us by {v['bound'][1]} "
+                      f"({v['bytes']} B; split-bf16 tensor-core product "
+                      f"{tc_ms * 1e3:.2f} us); as fp32 FMA the bound "
+                      f"would be {v['fp32_fma_bound'][0] * 1e3:.2f} us by "
+                      f"{v['fp32_fma_bound'][1]}")
+            v = t["matmul"]
+            print(f"torch.matmul(x, W) alone, fp32, TF32 off, ({m}, {k}) x "
+                  f"({k}, {n}): cold {v['cold'][0] * 1e3:.2f} us, warm "
+                  f"{v['warm'][0] * 1e3:.2f} us on the device (bound "
+                  f"{v['bound'][0] * 1e3:.2f} us by {v['bound'][1]})")
+            out[m] = t
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    # what the function must move: x, W and the output once, ids, and
-    # each DISTINCT gathered slot's adapter once (words and sidecars, or
-    # fp stacks); fp32 operations: the base product, h, y, and for B4
-    # the dequant (a subtract and a multiply per level used)
-    distinct = len(set(ids))
-    kw, rw = lyr.aq.shape[2], lyr.bq.shape[2]
-    common = 4 * (m * k + k * n + m * n + m)
-    q_bytes = common + distinct * 4 * (r * kw + 2 * r + n * rw + 2 * n)
-    f_bytes = common + distinct * 4 * (k * r + r * n)
-    base = 2 * m * k * n + 2 * m * r * k + 2 * m * n * r + 2 * m * n
-    q_bound = _bound_ms(q_bytes, base + 2 * m * r * k + 2 * m * n * r)
-    f_bound = _bound_ms(f_bytes, base)
-    mm_bound = _bound_ms(4 * (m * k + k * n + m * n), 2 * m * k * n)
-    for name, t, tp, bound, nbytes in (
-            ("multi_lora_matmul_packed", t_q, t_qp, q_bound, q_bytes),
-            ("multi_lora_matmul", t_f, t_fp, f_bound, f_bytes)):
-        print(f"{name} m={m} K={k} N={n} R={r} E={sv['n_slots']} "
-              f"({distinct} distinct slots): kernel {t[0] * 1e3:.2f} us on "
-              f"the device ({t[1] * 1e3:.2f} us a call from Python), plain "
-              f"{tp[0] * 1e3:.2f} us ({tp[1] * 1e3:.2f} us a call), bound "
-              f"{bound[0] * 1e3:.2f} us by {bound[1]} ({nbytes} B)")
-    print(f"torch.matmul(x, W) alone, TF32 off, ({m}, {k}) x ({k}, {n}): "
-          f"{t_mm[0] * 1e3:.2f} us on the device (bound "
-          f"{mm_bound[0] * 1e3:.2f} us by {mm_bound[1]})")
-    return {"multi_lora_matmul_packed": (t_q, t_qp, q_bound),
-            "multi_lora_matmul": (t_f, t_fp, f_bound), "matmul": t_mm}
+    v = out[SERVE_TIMED_M[-1]]["read_w"]
+    print(f"torch.sum(W), a plain streaming read of W ({4 * k * n} B): cold "
+          f"{v['cold'][0] * 1e3:.2f} us "
+          f"({4 * k * n / v['cold'][0] / 1e9:.2f} TB/s), warm "
+          f"{v['warm'][0] * 1e3:.2f} us")
+    for m in (64, 8):
+        x = sets[0][0][:m].contiguous()
+        ids = ids64[:m]
+        for name, f in (
+                ("multi_lora_matmul_packed", lambda: \
+                    kops.multi_lora_matmul_packed(x, w0, *lyr, ids, s,
+                                                  bits)),
+                ("multi_lora_matmul", lambda: kops.multi_lora_matmul(
+                    x, w0, a_stack, b_stack, ids, s))):
+            split = kernel_split(f, 20)
+            print(f"{name} m={m} device time by kernel (torch.profiler, 20 "
+                  "warm calls): " + ", ".join(
+                      f"{nm[:48]} {us:.2f} us" for nm, us in split))
+    t64 = out[64]
+    return {name: (t64[name]["cold"], t64[name]["plain"], t64[name]["bound"])
+            for name in ("multi_lora_matmul_packed", "multi_lora_matmul")}
 
 
 def quickstart_data():
@@ -1065,12 +1249,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = LIBRARY.build()
     for name, info in built.items():
-        ptxas = [ln for ln in info["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"built {name} in {info['seconds']:.1f} s: " + " | ".join(
-            ln.strip() for ln in ptxas))
+        print(f"built {name} in {info['seconds']:.1f} s")
+        for line in ptxas_summary(info["log"]):
+            print(f"  ptxas {name}: {line}")
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({len(built)} sources compiled)")
+    check_serving_sass()
 
     # 2. kernels vs plain versions at the main path's shapes --------------
     cfg = resnet.ResNetConfig(arch="resnet8",

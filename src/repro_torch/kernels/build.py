@@ -50,9 +50,9 @@ SOURCES = {
     "multi_lora_matmul": {
         "multi_lora_matmul_q_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                       _I, ctypes.c_float, _P),
-        "multi_lora_matmul_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                     _I, _I, _I, ctypes.c_float, _P),
+                                       _I, _I, _I, _I, ctypes.c_float, _P),
+        "multi_lora_matmul_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _I, _I, ctypes.c_float, _P),
     },
     "lora_matmul": {
         "lora_matmul_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -262,17 +262,54 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 lora_matmul.launches = 0
 
 
-# the serving kernels' split-K depth at most (kMaxSplits in
-# csrc/multi_lora_matmul.cu): the partial-product scratch holds this many
-# (M, N) planes
-SPLIT_K_MAX = 8
+# csrc/multi_lora_matmul.cu: the largest adapter rank the serving kernels
+# take, the h = x@A[ids] blocks their first kernel aims for (two per SM of
+# an H100), at most this many k chunks (the product kernel sums a row's
+# chunks in order), and the chunks' granularity (32 levels: whole packed
+# words at every bit width)
+SERVE_RANK_MAX = 128
+SERVE_H_BLOCKS = 264
+SERVE_H_SPLITS_MAX = 8
+SERVE_H_CHUNK = 32
 
 
-def _serving_scratch(m: int, n: int, r: int, device):
-    """(h (M, R), partials (SPLIT_K_MAX, M, N)) fp32 scratch."""
-    return (torch.empty((m, r), dtype=torch.float32, device=device),
-            torch.empty((SPLIT_K_MAX, m, n), dtype=torch.float32,
-                        device=device))
+def serving_h_splits(m: int, k: int) -> tuple[int, int]:
+    """(splits, k_chunk) of the serving kernels' h kernel: enough k chunks
+    (at most ``SERVE_H_SPLITS_MAX``) that the M x splits blocks number
+    about ``SERVE_H_BLOCKS``, each chunk a whole number of
+    ``SERVE_H_CHUNK`` levels. A function of the shapes only, so the
+    result is deterministic."""
+    q = SERVE_H_CHUNK
+    want = max(1, min(-(-k // q), SERVE_H_SPLITS_MAX,
+                      -(-SERVE_H_BLOCKS // max(m, 1))))
+    k_chunk = -(-(-(-k // want)) // q) * q
+    return -(-k // k_chunk), k_chunk
+
+
+def serving_row_tile(m: int) -> int:
+    """The 8-row MMA tiles in the product kernel's row tile: the least
+    power of two with 8 * tiles >= M, from 1 to 8 (64 rows; more rows
+    take several row tiles)."""
+    tiles = 1
+    while tiles < 8 and 8 * tiles < m:
+        tiles *= 2
+    return tiles
+
+
+def _serving_scratch(m: int, k: int, r: int, device):
+    """The serving kernels' scratch and launch shapes: (hpart (splits, M,
+    R) fp32 for h's k chunks, xfrag (x's bf16 MMA fragments: the padded
+    row tiles by K padded to 32, in 32-bit words), splits, k_chunk, row
+    tile)."""
+    if not 1 <= r <= SERVE_RANK_MAX:
+        raise ValueError(f"rank must lie in [1, {SERVE_RANK_MAX}], got {r}")
+    splits, k_chunk = serving_h_splits(m, k)
+    mt = serving_row_tile(m)
+    rows = -(-max(m, 1) // (8 * mt)) * 8 * mt
+    return (torch.empty((splits, m, r), dtype=torch.float32, device=device),
+            torch.empty((rows * -(-k // 32) * 32,), dtype=torch.int32,
+                        device=device),
+            splits, k_chunk, mt)
 
 
 def _ids(ids, m: int, e: int, device) -> torch.Tensor:
@@ -299,10 +336,14 @@ def multi_lora_matmul(x: torch.Tensor, w: torch.Tensor,
     """Batched multi-adapter ``y[m] = x[m]@w + s*(x[m]@A[ids[m]])@B[ids[m]]``
     over fp slabs (the dequant-then-matmul baseline's second step):
     x (M, K), w (K, N), a_stack (E, K, R), b_stack (E, R, N) fp32, ids
-    (M,) slots -> (M, N) fp32. One launch (counted once) enqueues the
-    h = x@A[ids] kernel, the split-K tile kernel and the epilogue, with
-    their scratch allocated here. No padding of M or R is needed: the
-    kernels mask their ragged edges."""
+    (M,) slots -> (M, N) fp32. One launch (counted once) enqueues two
+    kernels: the first computes h = x@A[ids] in k chunks and splits x
+    into bf16 hi/lo MMA fragments; the second computes x@W as a
+    three-pass split-bf16 product on the tensor cores (fp32-accurate),
+    reduces its k splits inside a thread-block cluster and adds the
+    adapter term in its epilogue. Their scratch is allocated here. No
+    padding of M or R is needed: the kernels mask their ragged edges;
+    R <= ``SERVE_RANK_MAX`` on the card."""
     m, k = x.shape
     n = w.shape[1]
     e, _, r = a_stack.shape
@@ -314,14 +355,14 @@ def multi_lora_matmul(x: torch.Tensor, w: torch.Tensor,
     _require(w, "w", torch.float32, (k, n), dev)
     _require(a_stack, "a_stack", torch.float32, (e, k, r), dev)
     _require(b_stack, "b_stack", torch.float32, (e, r, n), dev)
-    h, part = _serving_scratch(m, n, r, dev)
+    hpart, xfrag, splits, k_chunk, mt = _serving_scratch(m, k, r, dev)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     fn = LIBRARY.fn("multi_lora_matmul", "multi_lora_matmul_launch")
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), w.data_ptr(), a_stack.data_ptr(),
-                 b_stack.data_ptr(), idt.data_ptr(), h.data_ptr(),
-                 part.data_ptr(), out.data_ptr(), m, k, n, r, float(s),
-                 _stream(dev))
+                 b_stack.data_ptr(), idt.data_ptr(), hpart.data_ptr(),
+                 xfrag.data_ptr(), out.data_ptr(), m, k, n, r, splits,
+                 k_chunk, mt, float(s), _stream(dev))
     check(err, "multi_lora_matmul")
     multi_lora_matmul.launches += 1
     return out
@@ -336,14 +377,14 @@ def multi_lora_matmul_packed(x: torch.Tensor, w: torch.Tensor,
                              b_scale: torch.Tensor, b_zp: torch.Tensor,
                              ids, s: float, bits: int) -> torch.Tensor:
     """The FUSED wire-format serving matmul: gather each row's packed
-    adapter words, unpack + dequant inside the product. One launch
-    (counted once) enqueues the h kernel, the split-K tile kernel and
-    the epilogue.
+    adapter words, unpack + dequant inside the kernels. One launch
+    (counted once) enqueues the prep kernel and the product kernel (see
+    :func:`multi_lora_matmul`).
     Slab layout (channel-first wire rows, compact words): aq (E, R, KW)
     uint32 with (E, R) fp32 scale/zp; bq (E, N, RW) uint32 with (E, N)
     scale/zp; KW*32/bits >= K and RW*32/bits >= R. Rank-bucket padding
     rides rows with scale = zp = 0. x (M, K), w (K, N) fp32 ->
-    (M, N) fp32."""
+    (M, N) fp32; R <= ``SERVE_RANK_MAX`` on the card."""
     if bits not in (2, 4, 8):
         raise ValueError(f"bits must be 2, 4 or 8, got {bits}")
     m, k = x.shape
@@ -368,15 +409,16 @@ def multi_lora_matmul_packed(x: torch.Tensor, w: torch.Tensor,
     _require(bq, "bq", ref.WORD_DTYPE, (e, n, rw), dev)
     _require(b_scale, "b_scale", torch.float32, (e, n), dev)
     _require(b_zp, "b_zp", torch.float32, (e, n), dev)
-    h, part = _serving_scratch(m, n, r, dev)
+    hpart, xfrag, splits, k_chunk, mt = _serving_scratch(m, k, r, dev)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     fn = LIBRARY.fn("multi_lora_matmul", "multi_lora_matmul_q_launch")
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), w.data_ptr(), aq.data_ptr(),
                  a_scale.data_ptr(), a_zp.data_ptr(), bq.data_ptr(),
                  b_scale.data_ptr(), b_zp.data_ptr(), idt.data_ptr(),
-                 h.data_ptr(), part.data_ptr(), out.data_ptr(), m, k, n, r,
-                 kw, rw, bits, float(s), _stream(dev))
+                 hpart.data_ptr(), xfrag.data_ptr(), out.data_ptr(), m, k, n,
+                 r, kw, rw, bits, splits, k_chunk, mt, float(s),
+                 _stream(dev))
     check(err, "multi_lora_matmul_packed")
     multi_lora_matmul_packed.launches += 1
     return out

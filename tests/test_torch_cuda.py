@@ -168,9 +168,12 @@ def test_cuda_wrappers_check_inputs(cuda):
 
 
 # (m, k, n, r, e): the serving shapes at a small width, a ragged K and
-# N, one row, and the rank-8 bucket at d=256
+# N, one row, the rank-8 bucket at d=256, then the serving width
+# (d=2560, E=512): a rank-8 bucket of the m=64 step, the whole step at
+# rank 4, and a ragged K, N and R with few rows
 SERVE_SHAPES = [(8, 64, 128, 8, 5), (13, 60, 200, 4, 7), (1, 256, 256, 8, 3),
-                (64, 256, 256, 8, 32)]
+                (64, 256, 256, 8, 32), (32, 2560, 2560, 8, 512),
+                (64, 2560, 2560, 4, 512), (5, 2559, 2555, 6, 9)]
 
 
 def _serve_inputs(m, k, n, e, seed):
@@ -214,6 +217,41 @@ def test_cuda_multi_lora_matmul(shape, cuda):
     want = kref.multi_lora_matmul_ref(*args, torch.from_numpy(ids).to(cuda),
                                       0.5)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, None], ids=["packed", "fp"])
+def test_cuda_serving_repeat_bit_identical(bits, cuda):
+    """Two calls on the same inputs give the same bits: the split-K
+    partials are summed in a fixed order, with no atomics."""
+    m, k, n, r, e = 64, 2560, 2560, 8, 16
+    a, b, packed = _packed_slabs(e, k, n, r, 4, seed=21)
+    x, w, ids = _serve_inputs(m, k, n, e, seed=22)
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    if bits is None:
+        ab = [torch.from_numpy(v).to(cuda) for v in (a, b)]
+        outs = [kops.multi_lora_matmul(xt, wt, *ab, ids.tolist(), 0.5)
+                for _ in range(2)]
+    else:
+        pt = [torch.from_numpy(v).to(cuda) for v in packed]
+        outs = [kops.multi_lora_matmul_packed(xt, wt, *pt, ids.tolist(), 0.5,
+                                              bits) for _ in range(2)]
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_serving_rank_limit(cuda):
+    """The kernels take R <= SERVE_RANK_MAX; a larger rank raises before
+    any launch."""
+    r = kops.SERVE_RANK_MAX + 1
+    x = torch.zeros((2, 32), device=cuda)
+    w = torch.zeros((32, 64), device=cuda)
+    before = kops.multi_lora_matmul.launches
+    with pytest.raises(ValueError, match="rank"):
+        kops.multi_lora_matmul(x, w, torch.zeros((3, 32, r), device=cuda),
+                               torch.zeros((3, r, 64), device=cuda), [0, 1],
+                               0.5)
+    assert kops.multi_lora_matmul.launches == before
 
 
 @pytest.mark.gpu
