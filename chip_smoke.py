@@ -18,9 +18,14 @@ Phases, each of which raises on failure (the script then exits nonzero):
      ``dequant_agg`` (the per-leaf fold) BIT-identical at bits {2, 4, 8},
      K in {1, 5, 64} on the 18 per-leaf shapes of ResNet-8 r=32 and a
      C = 37 leaf, with a scalar and a vector n_valid; ``lora_matmul``
-     within 8e-3 * max|y| at tests/test_kernels.py's four shapes,
-     kernel_bench's (256, 512, 512, r=32), a ragged (100, 300, 200, r=6)
-     and the full-width (512, 2560, 2560, r=32);
+     within 8e-3 * max|y| at ``LORA_SHAPES`` (tests/test_kernels.py's
+     four shapes, kernel_bench's (256, 512, 512, r=32), a ragged (100,
+     300, 200, r=6), the full width (512, 2560, 2560, r=32), M = 130,
+     r = 128 at full width, K = 2600), each call repeated bit-identical
+     and on the path ``ops.lora_plan`` names (wgmma at full width, the
+     masked WMMA tile for the ragged shape); its SASS holds HGMMA and
+     UTMALDG in every TMA-path instance; ``quant_pack_rows`` also on rows
+     of every length in ``QUANT_ROW_LEVELS``;
   3. drive the FL round: the synchronous FLoCoRA round of
      ``examples/quickstart.py`` ``run_uniform`` (ResNet-8, r=32, alpha=512,
      int8 flat wire, 20 clients with LDA 0.5 over 2000 synthetic images,
@@ -47,7 +52,10 @@ Phases, each of which raises on failure (the script then exits nonzero):
   5. time each kernel with CUDA events at its path's shapes beside its
      plain version and its bound (``dequant_agg`` at the largest per-leaf
      shape and summed over a round's 18 leaves; ``lora_matmul`` at
-     (512, 2560, 2560, r=32) beside ``torch.matmul(x, W)`` in bf16; the
+     (512, 2560, 2560, r=32), warm and cold (rotating through 4 distinct
+     operand sets), beside ``torch.matmul(x, W)`` in bf16 and the library
+     composition ``torch.addmm(x@W, x@a, b, alpha=s)`` timed the same
+     ways, with its device time by kernel; the
      serving kernels at m in {8, 32, 64}, warm and cold (rotating through
      4 distinct (x, W) sets, more than the L2 holds), beside
      ``torch.matmul(x, W)`` in fp32 and ``torch.sum(W)`` timed the same
@@ -94,10 +102,22 @@ SOURCES = {"quant_pack_rows": ("src/repro_torch/kernels/csrc/quant_pack.cu",
 LORA = dict(m=512, d=2560, r=32, s=512.0 / 32)
 LORA_TOL = 8e-3
 # B6's checked shapes (m, k, n, r): tests/test_kernels.py's four,
-# benchmarks/kernel_bench.py's, a ragged one, the full width
+# benchmarks/kernel_bench.py's, a ragged one, the full width, an M that
+# is not a multiple of the 128-row tile, r = 128 at full width, and an
+# aligned K that is not a multiple of the 64-deep stage
 LORA_SHAPES = [(128, 256, 192, 8), (64, 128, 128, 32), (256, 512, 256, 128),
                (8, 128, 128, 4), (256, 512, 512, 32), (100, 300, 200, 6),
-               (512, 2560, 2560, 32)]
+               (512, 2560, 2560, 32), (130, 2560, 2560, 32),
+               (512, 2560, 2560, 128), (256, 2600, 512, 32)]
+# B6 timed cold rotates through this many distinct operand sets (4 x
+# 15.7 MB exceeds the 50 MB L2)
+LORA_COLD_SETS = 4
+# B6's other timed ranks at the full width (warm)
+LORA_TIMED_RANKS = (8, 16, 64, 128)
+# B1's checked row lengths: the main path's (ResNet-8 r=32 flat layout:
+# 32, 576, 1152, 27, 64, 2304, 128, 256 levels), and 0, 1, 31, 33, 2560
+QUANT_ROW_LEVELS = (32, 576, 1152, 27, 64, 2304, 128, 256, 0, 1, 31, 33,
+                    2560)
 LEAF_TOL = 1e-6
 # the serving path: benchmarks/round_throughput.py run_serve at the
 # hidden width of gemma3-4b (src/repro/configs/gemma3_4b.py d_model)
@@ -198,9 +218,9 @@ def ptxas_summary(log: str) -> list:
 
 
 def sass_mma_counts(source: str) -> dict:
-    """{kernel function: (HMMA, HGMMA) instruction counts} in the SASS of
-    ``source``'s built library, read with ``cuobjdump -sass``; {} when the
-    toolkit has no cuobjdump."""
+    """{kernel function: (HMMA, HGMMA, UTMALDG) instruction counts} in
+    the SASS of ``source``'s built library, read with ``cuobjdump -sass``;
+    {} when the toolkit has no cuobjdump."""
     import os
     import re
     import shutil
@@ -217,10 +237,11 @@ def sass_mma_counts(source: str) -> dict:
         got = re.search(r"Function : (\S+)", line)
         if got:
             fn = got.group(1)
-            counts[fn] = [0, 0]
+            counts[fn] = [0, 0, 0]
         elif fn is not None:
             counts[fn][0] += bool(re.search(r"\bHMMA\b", line))
             counts[fn][1] += bool(re.search(r"\bHGMMA\b", line))
+            counts[fn][2] += bool(re.search(r"\bUTMALDG\b", line))
     return {f: tuple(c) for f, c in counts.items()}
 
 
@@ -241,6 +262,27 @@ def check_serving_sass() -> None:
     if not prod or hmma[0] == 0:
         raise AssertionError("a serving product kernel has no tensor-core "
                              "MMA in its SASS")
+
+
+def check_lora_sass() -> None:
+    """Every instance of B6's TMA-path kernel (one a padded rank) holds
+    wgmma (HGMMA) and TMA loads (UTMALDG); the masked path's h kernel and
+    tile hold mma.sync (HMMA)."""
+    counts = sass_mma_counts("lora_matmul")
+    if not counts:
+        print("sass lora_matmul: cuobjdump not found, not checked")
+        return
+    for f, c in sorted(counts.items()):
+        print(f"sass lora_matmul {f}: HMMA {c[0]}, HGMMA {c[1]}, "
+              f"UTMALDG {c[2]}")
+    wg = [c for f, c in counts.items() if "lora_wgmma_kernel" in f]
+    rest = [c for f, c in counts.items()
+            if "lora_h_kernel" in f or "lora_tile_kernel" in f]
+    if not wg or min(min(c[1], c[2]) for c in wg) == 0:
+        raise AssertionError("an instance of lora_wgmma_kernel lacks HGMMA "
+                             "or UTMALDG in its SASS")
+    if len(rest) < 2 or min(c[0] for c in rest) == 0:
+        raise AssertionError("lora_h_kernel or lora_tile_kernel lacks HMMA")
 
 
 def _bound_ms(nbytes: float, flops: float,
@@ -276,6 +318,18 @@ def check_quant_pack(main_layouts, dev) -> float:
         nv = rng.integers(0, n + 1, size=c)
         nv[:6] = [n, n, n, 0, 1, per + 1]
         cases.append((f"ragged bits={bits}",
+                      torch.tensor(x, dtype=torch.float32, device=dev),
+                      torch.tensor(nv, dtype=torch.int32, device=dev), bits))
+        # every checked row length, three rows each, in a buffer as wide
+        # as the flat layout makes one for 2560 levels
+        lane = kops.lane_levels(bits)
+        n = -(-max(QUANT_ROW_LEVELS) // lane) * lane
+        nv = np.repeat(np.array(QUANT_ROW_LEVELS), 3)
+        x = rng.normal(size=(nv.size, n)) * rng.uniform(
+            1e-3, 10.0, size=(nv.size, 1))
+        x[np.arange(n)[None, :] >= nv[:, None]] = 7.0   # never read
+        x[1::3] = np.abs(x[1::3])
+        cases.append((f"row lengths bits={bits}",
                       torch.tensor(x, dtype=torch.float32, device=dev),
                       torch.tensor(nv, dtype=torch.int32, device=dev), bits))
     worst = 0.0
@@ -417,7 +471,11 @@ def _bf16_inputs(m: int, k: int, n: int, r: int, seed: int, dev):
 
 def check_lora_matmul(dev) -> float:
     """``lora_matmul`` (B6) against its plain version within
-    8e-3 * max|y| at ``LORA_SHAPES``. Returns the max abs difference."""
+    8e-3 * max|y| at ``LORA_SHAPES``, a second call bit-identical to the
+    first, and each call on the path ``ops.lora_plan`` names (counted by
+    the wrapper): the wgmma path wherever TMA can read the operands,
+    the full width included, the masked path for the ragged shape.
+    Returns the max abs difference."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
@@ -425,16 +483,39 @@ def check_lora_matmul(dev) -> float:
     worst = 0.0
     for i, (m, k, n, r) in enumerate(LORA_SHAPES):
         x, w, a, b = _bf16_inputs(m, k, n, r, 100 + i, dev)
-        got = kops.lora_matmul(x, w, a, b, 2.0).to(torch.float32)
+        before = dict(kops.lora_matmul.paths)
+        got = kops.lora_matmul(x, w, a, b, 2.0)
+        again = kops.lora_matmul(x, w, a, b, 2.0)
         want = kref.lora_matmul_ref(x, w, a, b, 2.0).to(torch.float32)
         torch.cuda.synchronize()
+        took = [p for p, c in kops.lora_matmul.paths.items()
+                if c != before[p]]
+        plan = kops.lora_plan(m, k, n, r)
+        same = torch.equal(got.view(torch.int16), again.view(torch.int16))
+        got = got.to(torch.float32)
         err, ymax = float((got - want).abs().max()), float(want.abs().max())
-        print(f"check lora_matmul (M, K, N, r)={(m, k, n, r)}: max_abs_err "
-              f"{err:.4g}, max|y| {ymax:.4g}, tol {LORA_TOL * ymax:.4g}")
+        how = "h in the mainloop" if plan.path == "wgmma" else \
+            f"h in {plan.h_splits} K splits"
+        print(f"check lora_matmul (M, K, N, r)={(m, k, n, r)}: path {took} "
+              f"(tile {plan.tile}, {plan.blocks} blocks, {how}), "
+              f"max_abs_err {err:.4g}, max|y| "
+              f"{ymax:.4g}, tol {LORA_TOL * ymax:.4g}, repeat "
+              f"bit-identical={same}")
+        if took != [plan.path] or kops.lora_matmul.paths[plan.path] \
+                != before[plan.path] + 2:
+            raise AssertionError(f"lora_matmul {(m, k, n, r)} took {took}, "
+                                 f"planned {plan.path}")
         if not err <= LORA_TOL * ymax:
             raise AssertionError(f"lora_matmul {(m, k, n, r)} differs from "
                                  "its plain version")
+        if not same:
+            raise AssertionError(f"lora_matmul {(m, k, n, r)}: two calls on "
+                                 "the same inputs differ")
         worst = max(worst, err)
+    if kops.lora_plan(LORA["m"], LORA["d"], LORA["d"], LORA["r"]).path \
+            != "wgmma" or kops.lora_plan(100, 300, 200, 6).path != "masked":
+        raise AssertionError("the full width must take the wgmma path and "
+                             "(100, 300, 200, 6) the masked path")
     return worst
 
 
@@ -1140,8 +1221,10 @@ def kernel_split(fn, calls: int) -> list:
 
 def time_leaf_and_lora(leaf: dict, chain: dict, dev) -> dict:
     """B3 at the largest per-leaf shape and summed over a round's leaves,
-    and B6 at the full width, beside their plain versions and bounds;
-    ``torch.matmul(x, W)`` in bf16 as context for B6."""
+    and B6 at the full width warm and cold, beside their plain versions
+    and bounds; ``torch.matmul(x, W)`` in bf16 and the three-call library
+    composition as context for B6, timed the same two ways. The JSON
+    line takes B6 cold."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
@@ -1195,23 +1278,55 @@ def time_leaf_and_lora(leaf: dict, chain: dict, dev) -> dict:
     m, k = x.shape
     n, r = w.shape[1], a.shape[1]
     s = LORA["s"]
-    t_l = _time_ms(lambda: kops.lora_matmul(x, w, a, b, s), 100)
+    # warm: one operand set, resident in L2; cold: rotating through
+    # LORA_COLD_SETS distinct sets, more than the L2 holds
+    sets = [(x, w, a, b)] + [_bf16_inputs(m, k, n, r, 300 + i, dev)
+                             for i in range(LORA_COLD_SETS - 1)]
+    fns = {"lora_matmul": lambda x, w, a, b: kops.lora_matmul(x, w, a, b, s),
+           "matmul": lambda x, w, a, b: torch.matmul(x, w),
+           "library composition": lambda x, w, a, b: torch.addmm(
+               torch.matmul(x, w), torch.matmul(x, a), b, alpha=s)}
+    t = {name: {"warm": _time_ms(lambda f=f: f(*sets[0]), 100),
+                "cold": _time_ms(_rotating([lambda f=f, o=o: f(*o)
+                                            for o in sets]), 100)}
+         for name, f in fns.items()}
     t_lp = _time_ms(lambda: kref.lora_matmul_ref(x, w, a, b, s), 20)
-    t_mm = _time_ms(lambda: torch.matmul(x, w), 200)
     l_bytes = 2 * (m * k + k * n + k * r + r * n + m * n)
     l_flops = 2 * m * k * n + 2 * m * k * r + 2 * m * r * n + 2 * m * n
     b_l = _bound_ms(l_bytes, l_flops, BF16_FLOPS)
-    print(f"lora_matmul (M, K, N, r)=({m}, {k}, {n}, {r}) bf16: kernel "
-          f"{t_l[0] * 1e3:.2f} us on the device ({t_l[1] * 1e3:.2f} us a "
-          f"call), plain {t_lp[0] * 1e3:.2f} us, bound {b_l[0] * 1e3:.2f} us "
-          f"by {b_l[1]} ({l_flops / 1e9:.3f} GFLOP, {l_bytes} B); "
-          f"torch.matmul(x, W) bf16 alone {t_mm[0] * 1e3:.2f} us")
+    v = t["lora_matmul"]
+    print(f"lora_matmul (M, K, N, r)=({m}, {k}, {n}, {r}) bf16, path "
+          f"{kops.lora_plan(m, k, n, r).path}: kernel cold "
+          f"{v['cold'][0] * 1e3:.2f} us, warm {v['warm'][0] * 1e3:.2f} us on "
+          f"the device ({v['cold'][1] * 1e3:.2f} us a call from Python), "
+          f"plain {t_lp[0] * 1e3:.2f} us, bound {b_l[0] * 1e3:.2f} us by "
+          f"{b_l[1]} ({l_flops / 1e9:.3f} GFLOP, {l_bytes} B): "
+          f"{b_l[0] / v['cold'][0]:.1%} of the bound cold, "
+          f"{b_l[0] / v['warm'][0]:.1%} warm")
+    for name in ("matmul", "library composition"):
+        u = t[name]
+        what = "torch.matmul(x, W) bf16 alone" if name == "matmul" else \
+            "library composition torch.addmm(torch.matmul(x, W), " \
+            "torch.matmul(x, a), b, alpha=s) (three calls, context)"
+        print(f"{what}: cold {u['cold'][0] * 1e3:.2f} us, warm "
+              f"{u['warm'][0] * 1e3:.2f} us on the device; lora_matmul / "
+              f"this: cold {v['cold'][0] / u['cold'][0]:.2f}x, warm "
+              f"{v['warm'][0] / u['warm'][0]:.2f}x")
     split = kernel_split(lambda: kops.lora_matmul(x, w, a, b, s), 20)
-    print("lora_matmul device time by kernel (torch.profiler, 20 calls): "
-          + ", ".join(f"{name[:40]} {us:.2f} us" for name, us in split))
+    print("lora_matmul device time by kernel (torch.profiler, 20 warm "
+          "calls): " + ", ".join(f"{name[:40]} {us:.2f} us"
+                                 for name, us in split))
+    # other adapter ranks at the full width, warm: the TMA path pads r to
+    # 32, 64 or 128 and fills the padding with zeros
+    for rr in LORA_TIMED_RANKS:
+        o = _bf16_inputs(m, k, n, rr, 400 + rr, dev)
+        t_r = _time_ms(lambda o=o: kops.lora_matmul(*o, s), 100)
+        print(f"lora_matmul (M, K, N, r)=({m}, {k}, {n}, {rr}) warm: "
+              f"{t_r[0] * 1e3:.2f} us on the device, path "
+              f"{kops.lora_plan(m, k, n, rr).path}")
     return {"dequant_agg": (t_one, t_one_p, b_one),
             "dequant_agg_round": (t_all, t_all_p, b_all),
-            "lora_matmul": (t_l, t_lp, b_l), "matmul_bf16": t_mm}
+            "lora_matmul": (t["lora_matmul"]["cold"], t_lp, b_l)}
 
 
 def main(argv=None) -> int:
@@ -1255,6 +1370,7 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({len(built)} sources compiled)")
     check_serving_sass()
+    check_lora_sass()
 
     # 2. kernels vs plain versions at the main path's shapes --------------
     cfg = resnet.ResNetConfig(arch="resnet8",
@@ -1395,7 +1511,8 @@ def main(argv=None) -> int:
         print(f"{name} {shape}: kernel {t[0] * 1e3:.2f} us on the device "
               f"({t[1] * 1e3:.2f} us a call from Python), plain "
               f"{tp[0] * 1e3:.2f} us ({tp[1] * 1e3:.2f} us a call), bound "
-              f"{bound[0] * 1e3:.2f} us ({nbytes} B)")
+              f"{bound[0] * 1e3:.2f} us ({nbytes} B), "
+              f"{bound[0] / t[0]:.1%} of the bound")
     print(f"round wall times (s): flat {[round(s, 4) for s in round_s]}, "
           f"per-leaf {[round(s, 4) for s in leaf['walls']]}, ef "
           f"{[round(s, 4) for s in ef['walls']]}")

@@ -55,7 +55,7 @@ SOURCES = {
                                      _I, _I, _I, _I, _I, ctypes.c_float, _P),
     },
     "lora_matmul": {
-        "lora_matmul_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        "lora_matmul_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, ctypes.c_float, _P),
     },
 }

@@ -4,20 +4,33 @@
 // (src/repro/kernels/quant_pack.py), as reached through
 // `ops.quant_pack_rows`: the flat-tree codec packs a whole message, every
 // leaf's channel rows stacked in one ragged (C, N) fp32 buffer, in one
-// launch. Row c is valid over its first n_valid[c] columns.
+// launch. Row c is valid over its first n_valid[c] columns. The per-leaf
+// wire (`ops.quant_pack`) calls it once a leaf with every row full.
 //
 // What bounds it: bytes. Each level costs one fp32 read and bits/8 bytes of
 // output, a few flops apiece, far below the card's ~20 flops per byte.
-// On the main path (ResNet-8, r=32, int8) only ~6% of the (1610, 2560)
-// buffer is real levels, so the design never reads a column past
-// n_valid[c]: the min/max pass and the pack pass stop at the row's length
-// and words past it are written as zeros without a read. What the kernel
-// must move is then the valid levels (~1 MB) plus the whole (C, N*bits/32)
-// word buffer (~4 MB at int8).
+// The kernel never reads a column past n_valid[c], so what it must move is
+// the valid levels in, the whole (C, N*bits/32) word buffer and the two
+// sidecars out. On the main path (ResNet-8, r=32, int8: a (1610, 2560)
+// buffer, 640 words a row) that is 254,144 valid levels (1.02 MB) + 4.12
+// MB of words + 12.9 KB of sidecars = 5,157,496 B, 1.54 us at 3.35 TB/s.
 //
-// Layout: one block per row. Pass 1 is a masked min/max (warp shuffles,
-// then shared memory). Pass 2 has each thread build whole uint32 words,
-// 32/bits levels little-endian per word, reading its levels as float4.
+// Layout: one block of 128 threads per row. Pass 1 is a masked min/max
+// (warp shuffles, then shared memory); thread 0 derives scale and zp.
+// Pass 2 has each thread build whole uint32 words, 32/bits levels
+// little-endian per word, reading its levels as float4; neighbouring
+// threads take neighbouring words, so reads and stores coalesce.
+//
+// Designs measured against this one on the card (PERF.md), all
+// bit-exact, none faster: a warp per row (8 rows a block, no block
+// barrier, 16-byte stores), several independent warps per row, and a
+// block per row with one barrier, float4 pass-1 batches and 16-byte
+// stores. A warp per row leaves one warp to do a 2304-level row's 576
+// words and 2304 correctly rounded divisions; spreading the row wider
+// brings back the barrier this layout has. At ~5 us the kernel sits near
+// the card's fixed cost for a dependent chain of two global reads, a
+// barrier and a store; the 256-thread blocks of the first design took
+// 1.5 waves.
 //
 // Numerics: bit-exact against the reference. Build WITHOUT --use_fast_math.
 // x/scale and -xmin/scale are correctly rounded divisions (__fdiv_rn), the
@@ -29,7 +42,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+// threads a row: 1610 blocks of 4 warps are one wave on 132 SMs (16
+// blocks an SM); blocks of 8 warps took 1.5 waves
+constexpr int kThreads = 128;
 constexpr float kBig = 3.4e38f;
 
 __device__ __forceinline__ uint32_t level_of(float x, float scale, float zp,

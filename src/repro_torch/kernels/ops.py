@@ -11,9 +11,12 @@ Each kernel wrapper counts its launches in a plain integer attribute
 ``dequant_agg.launches``, ``multi_lora_matmul.launches``,
 ``multi_lora_matmul_packed.launches``, ``lora_matmul.launches``), added
 to only where the kernel is launched, so a run can show that it went
-through the kernels.
+through the kernels. ``lora_matmul.paths`` counts its calls by the path
+they took on the card (``lora_plan``).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -69,8 +72,11 @@ def _rows(n_valid, c: int, device) -> torch.Tensor:
 def quant_pack_rows(x2d: torch.Tensor, n_valid, bits: int):
     """Ragged-row quantize + pack for the flat-tree codec: ``x2d`` (C, N)
     fp32 with N a multiple of 32/bits; ``n_valid`` (C,) per-row true
-    lengths. ONE launch packs the whole message. Returns (packed (C,
-    N*bits/32) uint32, scale (C,) fp32, zp (C,) fp32)."""
+    lengths. ONE launch packs the whole message, a 128-thread block per
+    row; each row's levels past ``n_valid`` are never read and its words
+    there are stored as zeros. Returns (packed (C, N*bits/32) uint32,
+    scale (C,) fp32, zp (C,) fp32), bit-exact against
+    ``ref.quant_pack_rows_ref``."""
     if bits not in (2, 4, 8):
         raise ValueError(f"bits must be 2, 4 or 8, got {bits}")
     c, n = x2d.shape
@@ -206,32 +212,69 @@ dequant_agg.launches = 0
 
 # the largest adapter rank the single-adapter kernel takes
 LORA_RANK_MAX = 128
-# csrc/lora_matmul.cu: its tiles' side and K slab depth, and the blocks
-# its split-K h product aims for (two per SM of an H100)
+# csrc/lora_matmul.cu: the TMA path's tile (two consumer warpgroups of 64
+# rows by 80 columns), the masked path's square tile and K slab depth, the
+# most K splits of its h kernel (one thread-block cluster), and the SMs of
+# an H100 SXM that a wave fills
+LORA_WG_TILE = (128, 80)
 LORA_TILE = 64
-LORA_H_BLOCKS = 264
+LORA_H_SPLITS_MAX = 8
+LORA_SMS = 132
 
 
-def lora_h_splits(m: int, k: int, r: int) -> tuple[int, int]:
-    """(splits, k_chunk) of the split-K h = x@a product: enough K splits
-    that the (M/64) x (r/64) tiles make about ``LORA_H_BLOCKS`` blocks,
-    each chunk whole 64-deep slabs. A function of the shapes only, so
-    the result is deterministic."""
-    t = LORA_TILE
-    tiles = -(-m // t) * -(-r // t)
-    want = max(1, min(-(-k // t), -(-LORA_H_BLOCKS // tiles)))
-    k_chunk = -(-(-(-k // want)) // t) * t
+class LoraPlan(NamedTuple):
+    """How :func:`lora_matmul` runs on the card: ``path`` "wgmma" (one
+    kernel: TMA loads into a ring, wgmma on two warpgroups, h in the
+    mainloop) or "masked" (h's split-K kernel, then a WMMA tile that reads
+    ragged edges itself), its (rows, columns) ``tile``, the GEMM's
+    ``blocks`` and ``waves`` on ``LORA_SMS`` SMs, and the masked path's
+    ``h_splits`` K chunks of ``h_k_chunk`` for h."""
+    path: str
+    tile: tuple
+    blocks: int
+    waves: int
+    h_splits: int
+    h_k_chunk: int
+
+
+def lora_h_splits(k: int) -> tuple[int, int]:
+    """(splits, k_chunk) of h = x@a: K cut into at most
+    ``LORA_H_SPLITS_MAX`` chunks of whole 64-deep slabs, summed across
+    one cluster in split order; no chunk is empty."""
+    slabs = -(-k // LORA_TILE)
+    want = max(1, min(slabs, LORA_H_SPLITS_MAX))
+    k_chunk = -(-slabs // want) * LORA_TILE
     return -(-k // k_chunk), k_chunk
+
+
+def lora_plan(m: int, k: int, n: int, r: int,
+              aligned: bool = True) -> LoraPlan:
+    """The path and tiling of :func:`lora_matmul` on the card, from the
+    shapes and whether every operand starts on a 16-byte boundary, and
+    nothing else. TMA needs 16-byte row strides: K, N and r multiples
+    of 8 (bf16) and aligned bases take the wgmma path; any other shape
+    takes the masked path, still a kernel on the card."""
+    tma = aligned and k % 8 == 0 and n % 8 == 0 and r % 8 == 0
+    tile = LORA_WG_TILE if tma else (LORA_TILE, LORA_TILE)
+    blocks = -(-m // tile[0]) * -(-n // tile[1])
+    splits, k_chunk = lora_h_splits(k)
+    return LoraPlan("wgmma" if tma else "masked", tile, blocks,
+                    -(-blocks // LORA_SMS), splits, k_chunk)
 
 
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor, s: float) -> torch.Tensor:
     """Single-adapter ``y = x@w + s*(x@a)@b``: x (M, K), w (K, N),
     a (K, r), b (r, N) bf16 -> (M, N) bf16, every product accumulated in
-    fp32 and h = x@a rounded to bf16 once. Any M, K, N and r <= 128;
-    nothing is padded. One launch (counted once) enqueues the split-K h
-    kernels and the tensor-core tile kernel, with the (M, r) h and the
-    (splits, M, r) fp32 partial scratch allocated here."""
+    fp32, h = x@a summed over all of K and rounded to bf16 once, and the
+    low-rank term added as ``acc + s*low``. Any M, K, N and r <= 128;
+    nothing is padded. One launch, counted once. :func:`lora_plan` picks
+    the path: on the wgmma path ONE kernel computes x@W and x@a in its
+    mainloop (TMA loads into a shared-memory ring, wgmma on two
+    warpgroups) and bf16(h)@b from registers in its epilogue; the masked
+    path, for shapes TMA cannot read, enqueues h's split-K kernel and a
+    WMMA tile kernel, with h (M, r) allocated here.
+    ``lora_matmul.paths`` counts the calls of each path."""
     m, k = x.shape
     n = w.shape[1]
     r = a.shape[1]
@@ -245,21 +288,27 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     _require(w, "w", bf, (k, n), dev)
     _require(a, "a", bf, (k, r), dev)
     _require(b, "b", bf, (r, n), dev)
-    splits, k_chunk = lora_h_splits(m, k, r)
-    h = torch.empty((m, r), dtype=bf, device=dev)
-    partial = torch.empty((splits, m, r), dtype=torch.float32, device=dev)
+    plan = lora_plan(m, k, n, r, all(t.data_ptr() % 16 == 0
+                                     for t in (x, w, a, b)))
+    # the masked path's h kernel writes bf16(x@a) here; the wgmma path
+    # keeps h in registers
+    h = torch.empty((m, r), dtype=bf, device=dev) \
+        if plan.path == "masked" else None
     out = torch.empty((m, n), dtype=bf, device=dev)
     fn = LIBRARY.fn("lora_matmul", "lora_matmul_launch")
     with torch.cuda.device(dev):
         err = fn(x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
-                 h.data_ptr(), partial.data_ptr(), out.data_ptr(), m, k, n,
-                 r, splits, k_chunk, float(s), _stream(dev))
+                 None if h is None else h.data_ptr(), out.data_ptr(), m, k,
+                 n, r, plan.h_splits, plan.h_k_chunk,
+                 int(plan.path == "wgmma"), float(s), _stream(dev))
     check(err, "lora_matmul")
     lora_matmul.launches += 1
+    lora_matmul.paths[plan.path] += 1
     return out
 
 
 lora_matmul.launches = 0
+lora_matmul.paths = {"wgmma": 0, "masked": 0}
 
 
 # csrc/multi_lora_matmul.cu: the largest adapter rank the serving kernels
@@ -434,6 +483,7 @@ _COUNTED = (quant_pack_rows, dequant_agg_rows, dequant_agg,
 def reset_launch_counts() -> None:
     for fn in _COUNTED:
         fn.launches = 0
+    lora_matmul.paths = dict.fromkeys(lora_matmul.paths, 0)
 
 
 def launch_counts() -> dict:

@@ -137,6 +137,25 @@ def test_cuda_quant_pack_rows_bit_exact(bits, cuda):
     assert _bits(got[2])[[0, 1, 3]].tolist() == [0, 0, 0]
 
 
+# the main path's row lengths (ResNet-8 r=32 flat layout), and 1, 31, 33,
+# 2560 levels
+QUANT_ROW_LEVELS = [32, 576, 1152, 27, 64, 2304, 128, 256, 1, 31, 33, 2560]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", BITS)
+def test_cuda_quant_pack_rows_bit_exact_row_lengths(bits, cuda):
+    """Three rows of every length in QUANT_ROW_LEVELS, in a buffer as wide
+    as the flat layout makes one for 2560 levels."""
+    lane = kops.lane_levels(bits)
+    n = -(-max(QUANT_ROW_LEVELS) // lane) * lane
+    nv_np = np.repeat(np.array(QUANT_ROW_LEVELS, np.int32), 3)
+    nv = torch.from_numpy(nv_np).to(cuda)
+    x = torch.from_numpy(_ragged_rows(nv_np, n, seed=10 + bits)).to(cuda)
+    _assert_pack_equal(kops.quant_pack_rows(x, nv, bits),
+                       kref.quant_pack_rows_ref(x, nv, bits))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("bits", BITS)
 @pytest.mark.parametrize("k", [1, 3, 7])
@@ -312,32 +331,55 @@ def test_cuda_dequant_agg_checks_inputs(cuda):
 
 
 # (m, k, n, r): tests/test_kernels.py's four shapes, kernel_bench's, a
-# ragged one
+# ragged one, the full width (gemma3-4b's d = 2560, r = 32), an M that is
+# not a multiple of the 128-row tile, r = 128 at full width, and an
+# aligned K that is not a multiple of the 64-deep stage
 LORA_SHAPES = [(128, 256, 192, 8), (64, 128, 128, 32), (256, 512, 256, 128),
-               (8, 128, 128, 4), (256, 512, 512, 32), (100, 300, 200, 6)]
+               (8, 128, 128, 4), (256, 512, 512, 32), (100, 300, 200, 6),
+               (512, 2560, 2560, 32), (130, 2560, 2560, 32),
+               (512, 2560, 2560, 128), (256, 2600, 512, 32)]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", LORA_SHAPES)
-def test_cuda_lora_matmul(shape, cuda):
-    """B6: one launch per call, within 8e-3 * max|y| of its plain
-    version (bf16 output; h rounded to bf16 once on both sides)."""
+def _lora_operands(shape, device):
     m, k, n, r = shape
     rng = np.random.default_rng(m + r)
 
     def bf(shape_, scale):
         return torch.from_numpy((rng.normal(size=shape_) * scale).astype(
-            np.float32)).to(torch.bfloat16).to(cuda)
+            np.float32)).to(torch.bfloat16).to(device)
 
-    x, w, a, b = bf((m, k), 0.5), bf((k, n), 0.1), bf((k, r), 0.1), \
-        bf((r, n), 0.1)
+    return bf((m, k), 0.5), bf((k, n), 0.1), bf((k, r), 0.1), bf((r, n), 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", LORA_SHAPES)
+def test_cuda_lora_matmul(shape, cuda):
+    """B6: one launch per call on the path ``ops.lora_plan`` names,
+    within 8e-3 * max|y| of its plain version (bf16 output; h rounded to
+    bf16 once on both sides)."""
+    m, k, n, r = shape
+    x, w, a, b = _lora_operands(shape, cuda)
     before = kops.lora_matmul.launches
+    paths = dict(kops.lora_matmul.paths)
     got = kops.lora_matmul(x, w, a, b, 2.0)
     assert kops.lora_matmul.launches == before + 1
+    path = kops.lora_plan(m, k, n, r).path
+    assert kops.lora_matmul.paths[path] == paths[path] + 1
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (m, n)
     want = kref.lora_matmul_ref(x, w, a, b, 2.0).to(torch.float32)
     err = float((got.to(torch.float32) - want).abs().max())
     assert err <= 8e-3 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(512, 2560, 2560, 32), (100, 300, 200, 6)],
+                         ids=["wgmma", "masked"])
+def test_cuda_lora_matmul_repeat_bit_identical(shape, cuda):
+    """No atomics on either path: a second call gives the same bits."""
+    ops_ = _lora_operands(shape, cuda)
+    first = kops.lora_matmul(*ops_, 3.0)
+    again = kops.lora_matmul(*ops_, 3.0)
+    assert torch.equal(first.view(torch.int16), again.view(torch.int16))
 
 
 @pytest.mark.gpu
