@@ -13,19 +13,26 @@ Phases, each of which raises on failure (the script then exits nonzero):
      ``multi_lora_matmul_packed`` at bits {2, 4, 8} and
      ``multi_lora_matmul`` within rtol=atol=1e-4 at m in {1, 8, 32, 64},
      d in {256, 2560}, R in {4, 8}, E=512, plus K=2559, N=2555, R=6,
-     each call repeated and bit-identical; their SASS holds tensor-core
-     MMA instructions (``cuobjdump -sass``, where the toolkit has it);
-     ``dequant_agg`` (the per-leaf fold) BIT-identical at bits {2, 4, 8},
-     K in {1, 5, 64} on the 18 per-leaf shapes of ResNet-8 r=32 and a
-     C = 37 leaf, with a scalar and a vector n_valid; ``lora_matmul``
+     and R in {136, 160} at d = 2560 (E = 64), each call repeated and
+     bit-identical; their SASS holds tensor-core MMA instructions
+     (``cuobjdump -sass``, where the toolkit has it); ``dequant_agg``
+     (the per-leaf fold, one leaf a call) BIT-identical at bits {2, 4,
+     8}, K in {1, 5, 64} on the 18 per-leaf shapes of ResNet-8 r=32 and a
+     C = 37 leaf, with a scalar and a vector n_valid; its grouped form
+     ``dequant_agg_leaves`` BIT-identical over all 18 leaves in ONE call
+     at bits {2, 4, 8} and K in {1, 5, 20, 64} (the table in the kernel's
+     parameters up to K = 11, uploaded at K = 20 and 64), on strided
+     ``as_tree`` row slices of random flat buffers; ``lora_matmul``
      within 8e-3 * max|y| at ``LORA_SHAPES`` (tests/test_kernels.py's
      four shapes, kernel_bench's (256, 512, 512, r=32), a ragged (100,
      300, 200, r=6), the full width (512, 2560, 2560, r=32), M = 130,
-     r = 128 at full width, K = 2600), each call repeated bit-identical
+     r = 128 at full width, K = 2600, r = 160 at full width and
+     (256, 512, 256, r=256)), each call repeated bit-identical
      and on the path ``ops.lora_plan`` names (wgmma at full width, the
-     masked WMMA tile for the ragged shape); its SASS holds HGMMA and
-     UTMALDG in every TMA-path instance; ``quant_pack_rows`` also on rows
-     of every length in ``QUANT_ROW_LEVELS``;
+     masked WMMA tile for the ragged shape and ranks past 128); its SASS
+     holds HGMMA and UTMALDG in every TMA-path instance;
+     ``quant_pack_rows`` also on rows of every length in
+     ``QUANT_ROW_LEVELS``;
   3. drive the FL round: the synchronous FLoCoRA round of
      ``examples/quickstart.py`` ``run_uniform`` (ResNet-8, r=32, alpha=512,
      int8 flat wire, 20 clients with LDA 0.5 over 2000 synthetic images,
@@ -34,9 +41,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
      round 1 on the CPU (plain versions) and compare. Then the same
      setting's other options, each with the counts set to 0 around it:
      the per-leaf wire (``flat_wire=False``, 2 rounds: the flat run's
-     bytes, 18 ``dequant_agg`` launches and no ``dequant_agg_rows`` a
-     round, the flat run's round-1 uplinks aggregated both ways within
-     1e-6 * max|x|); error feedback (int4, oversample 1.4: 7 dispatched,
+     bytes, ONE grouped ``dequant_agg`` launch and no
+     ``dequant_agg_rows`` a round, the flat run's round-1 uplinks
+     aggregated both ways within 1e-6 * max|x|); error feedback (int4, oversample 1.4: 7 dispatched,
      5 kept, 2 rounds, round 1 replayed on the CPU); resume (1 round
      checkpointed, a fresh server resumes and runs round 2 beside an
      uninterrupted run, both with cuDNN's deterministic algorithms); and
@@ -50,16 +57,23 @@ Phases, each of which raises on failure (the script then exits nonzero):
      continuous-batching simulator on both paths plus the clock-policy
      churn run at capacity/16;
   5. time each kernel with CUDA events at its path's shapes beside its
-     plain version and its bound (``dequant_agg`` at the largest per-leaf
-     shape and summed over a round's 18 leaves; ``lora_matmul`` at
+     plain version and its bound (``dequant_agg``: the per-leaf round's
+     one grouped launch over the flat run's round-1 uplinks as the path
+     calls it, beside the 18-call form the path made before (a stack of
+     the K payloads and one launch a leaf, with and without the stacks),
+     the whole per-leaf ``fedavg_packed`` by CUDA events and by host wall
+     time, the bounds with the padded and the compact output, and the
+     round at K = 20, whose table is uploaded;
+     ``lora_matmul`` at
      (512, 2560, 2560, r=32), warm and cold (rotating through 4 distinct
      operand sets), beside ``torch.matmul(x, W)`` in bf16 and the library
      composition ``torch.addmm(x@W, x@a, b, alpha=s)`` timed the same
-     ways, with its device time by kernel; the
+     ways, with its device time by kernel, and warm at the other ranks
+     of ``LORA_TIMED_RANKS`` (160 and 256 on the masked path); the
      serving kernels at m in {8, 32, 64}, warm and cold (rotating through
      4 distinct (x, W) sets, more than the L2 holds), beside
      ``torch.matmul(x, W)`` in fp32 and ``torch.sum(W)`` timed the same
-     ways).
+     ways, and warm at R = 160, m = 64).
 The line before the last is one JSON object with the kernels' numbers;
 the last is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
 round under ``torch.profiler`` and prints the device time by kernel.
@@ -69,6 +83,7 @@ Imports nothing of JAX. Needs one CUDA device and ``nvcc``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -103,17 +118,20 @@ LORA = dict(m=512, d=2560, r=32, s=512.0 / 32)
 LORA_TOL = 8e-3
 # B6's checked shapes (m, k, n, r): tests/test_kernels.py's four,
 # benchmarks/kernel_bench.py's, a ragged one, the full width, an M that
-# is not a multiple of the 128-row tile, r = 128 at full width, and an
-# aligned K that is not a multiple of the 64-deep stage
+# is not a multiple of the 128-row tile, r = 128 at full width, an
+# aligned K that is not a multiple of the 64-deep stage, and ranks past
+# 128 (the masked path) at full width and at a small width
 LORA_SHAPES = [(128, 256, 192, 8), (64, 128, 128, 32), (256, 512, 256, 128),
                (8, 128, 128, 4), (256, 512, 512, 32), (100, 300, 200, 6),
                (512, 2560, 2560, 32), (130, 2560, 2560, 32),
-               (512, 2560, 2560, 128), (256, 2600, 512, 32)]
+               (512, 2560, 2560, 128), (256, 2600, 512, 32),
+               (512, 2560, 2560, 160), (256, 512, 256, 256)]
 # B6 timed cold rotates through this many distinct operand sets (4 x
 # 15.7 MB exceeds the 50 MB L2)
 LORA_COLD_SETS = 4
-# B6's other timed ranks at the full width (warm)
-LORA_TIMED_RANKS = (8, 16, 64, 128)
+# B6's other timed ranks at the full width (warm); 160 and 256 take the
+# masked path
+LORA_TIMED_RANKS = (8, 16, 64, 128, 160, 256)
 # B1's checked row lengths: the main path's (ResNet-8 r=32 flat layout:
 # 32, 576, 1152, 27, 64, 2304, 128, 256 levels), and 0, 1, 31, 33, 2560
 QUANT_ROW_LEVELS = (32, 576, 1152, 27, 64, 2304, 128, 256, 0, 1, 31, 33,
@@ -131,6 +149,13 @@ SERVE_TOL = 1e-4
 # W exceeds the 50 MB L2)
 SERVE_TIMED_M = (8, 32, 64)
 SERVE_COLD_SETS = 4
+# the serving kernels past rank 128: checked and timed (warm, m = 64) at
+# d = 2560 with this rank and this many slots
+SERVE_HIGH_RANK = 160
+SERVE_HIGH_RANK_SLOTS = 64
+# ... and checked at this rank too: four whole 32-rank chunks, then a
+# partial one
+SERVE_PARTIAL_CHUNK_RANK = 136
 
 
 def _card_line() -> str:
@@ -147,28 +172,36 @@ def _time_ms(fn, iters: int, warmup: int = 3) -> tuple[float, float]:
     start event fires and the events time the device's work back to
     back. Call time: the same loop without the sleep, so the host's
     per-call cost (Python, checks, allocation, launch) shows when it
-    exceeds the device's."""
+    exceeds the device's. The garbage collector is off while the loops
+    run: a full collection would stall the host past the sleep."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     out = []
-    for sleep in (True, False):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        if sleep:
-            torch.cuda._sleep(200_000_000)
-        host = time.perf_counter()
-        t0.record()
-        for _ in range(iters):
-            fn()
-        t1.record()
-        host = time.perf_counter() - host
-        torch.cuda.synchronize()
-        if sleep and host > 0.08:
-            raise RuntimeError(f"host queued {iters} calls in {host:.3f} s,"
-                               " longer than the sleep: fewer iterations")
-        out.append(t0.elapsed_time(t1) / iters)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        for sleep in (True, False):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            if sleep:
+                torch.cuda._sleep(200_000_000)
+            host = time.perf_counter()
+            t0.record()
+            for _ in range(iters):
+                fn()
+            t1.record()
+            host = time.perf_counter() - host
+            torch.cuda.synchronize()
+            if sleep and host > 0.08:
+                raise RuntimeError(f"host queued {iters} calls in "
+                                   f"{host:.3f} s, longer than the sleep: "
+                                   "fewer iterations")
+            out.append(t0.elapsed_time(t1) / iters)
+    finally:
+        if collecting:
+            gc.enable()
     return out[0], out[1]
 
 
@@ -457,6 +490,80 @@ def check_leaf_agg(tree, dev) -> float:
     return worst
 
 
+def random_leaf_cohort(tree, bits: int, k: int, rng, dev) -> tuple:
+    """K clients' random flat buffers in the per-leaf layout of ``tree``
+    (``FlatPackedMessage.as_tree``: each leaf's rows a strided slice, the
+    words past its valid levels random too, so a read of them shows),
+    the last client's every fifth row at scale = 0 with a nonzero zp.
+    Returns (the packed leaves' (clients, n) as ``dequant_agg_leaves``
+    takes them, weights with a -0.0)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import flat as flatcodec
+    from repro_torch.utils.tree import tree_flatten, tree_leaves
+    lo = flatcodec.layout_for(tree, bits)
+    fp = tuple(x for x, sp in zip(tree_leaves(tree), lo.leaves)
+               if not sp.quantized)
+    words = rng.integers(0, 1 << 32, size=(k, lo.c_total, lo.nw_max),
+                         dtype=np.uint32)
+    scale = rng.uniform(1e-4, 1e-2, size=(k, lo.c_total)).astype(np.float32)
+    zp = rng.integers(0, 1 << bits, size=(k, lo.c_total)).astype(np.float32)
+    scale[-1, ::5] = 0.0
+    zp[-1, ::5] = 3.0
+    trees = [tree_flatten(flatcodec.FlatPackedMessage(
+        torch.from_numpy(words[i]).to(dev), torch.from_numpy(scale[i]).to(dev),
+        torch.from_numpy(zp[i]).to(dev), fp, lo).as_tree())[0]
+        for i in range(k)]
+    leaves = [([(m.payload, m.scale, m.zp) for m in col],
+               col[0].n_per_channel)
+              for col in zip(*trees) if hasattr(col[0], "payload")]
+    w = torch.from_numpy(rng.uniform(0.05, 1.0, size=k).astype(
+        np.float32)).to(dev)
+    w[0] = -0.0
+    return leaves, w
+
+
+def check_leaf_agg_grouped(tree, dev) -> float:
+    """The grouped ``dequant_agg_leaves`` (B3 as the per-leaf round calls
+    it): all of the main path's 18 packed leaves in ONE launch, bit for
+    bit against its plain version, at bits {2, 4, 8} and K in {1, 5, 20,
+    64} on strided ``as_tree`` slices of random flat buffers: tables of
+    235 and 523 int64 words ride in the kernel's parameters, K = 20's
+    1,603 and K = 64's 4,771 are uploaded. Returns the max abs difference
+    (0.0 when bit-identical)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    rng = np.random.default_rng(19)
+    worst = 0.0
+    for bits in (2, 4, 8):
+        for k in (1, 5, 20, 64):
+            leaves, w = random_leaf_cohort(tree, bits, k, rng, dev)
+            before = kops.dequant_agg.launches
+            got = kops.dequant_agg_leaves(leaves, w, bits)
+            launched = kops.dequant_agg.launches - before
+            want = kref.dequant_agg_leaves_ref(leaves, w, bits)
+            torch.cuda.synchronize()
+            strided = sum(cl[0][0].stride(0) != cl[0][0].shape[1]
+                          for cl, _ in leaves)
+            for (cl, n), g, v in zip(leaves, got, want):
+                if not torch.equal(_f32_bits(g), _f32_bits(v)):
+                    raise AssertionError(
+                        f"dequant_agg_leaves bits={bits} K={k} leaf "
+                        f"(C, n)=({cl[0][1].shape[0]}, {n}) differs from "
+                        "its plain version: max_abs_err "
+                        f"{float((g - v).abs().max())}")
+                worst = max(worst, float((g - v).abs().max()))
+            if launched != 1:
+                raise AssertionError(f"dequant_agg_leaves made {launched} "
+                                     "launches, expected 1")
+            print(f"check dequant_agg_leaves bits={bits} K={k}: "
+                  f"{len(leaves)} leaves ({strided} strided views) in 1 "
+                  "launch, bit-identical")
+    return worst
+
+
 def _bf16_inputs(m: int, k: int, n: int, r: int, seed: int, dev):
     import numpy as np
     import torch
@@ -556,18 +663,21 @@ def check_serving_kernels(dev) -> tuple[float, float]:
     """``multi_lora_matmul_packed`` (B4) and ``multi_lora_matmul`` (B5)
     against their plain versions on the card within rtol = atol = 1e-4:
     m in {1, 8, 32, 64}, d in {256, 2560}, R in {4, 8}, E = 512, bits
-    {2, 4, 8}, plus a ragged K = 2559, N = 2555 with R = 6; a second call
-    on the same inputs must give the same bits. Returns the max abs
-    differences (B4, B5)."""
+    {2, 4, 8}, plus a ragged K = 2559, N = 2555 with R = 6 and R in
+    {136, 160} at d = 2560 (E = 64: h walked in rank chunks, the last
+    one partial at 136); a second call on the
+    same inputs must give the same bits. Returns the max abs differences
+    (B4, B5)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
 
     rng = np.random.default_rng(5)
-    e = 512
-    shapes = [(d, d, r) for d in (256, 2560) for r in (4, 8)]
-    shapes.append((2559, 2555, 6))
+    shapes = [(d, d, r, 512) for d in (256, 2560) for r in (4, 8)]
+    shapes += [(2559, 2555, 6, 512),
+               (2560, 2560, SERVE_PARTIAL_CHUNK_RANK, SERVE_HIGH_RANK_SLOTS),
+               (2560, 2560, SERVE_HIGH_RANK, SERVE_HIGH_RANK_SLOTS)]
     worst = [0.0, 0.0]
 
     def held(fn, want, i, what):
@@ -584,7 +694,7 @@ def check_serving_kernels(dev) -> tuple[float, float]:
         worst[i] = max(worst[i], err)
         return err
 
-    for k, n, r in shapes:
+    for k, n, r, e in shapes:
         w = torch.from_numpy((rng.standard_normal((k, n)) * 0.05).astype(
             np.float32)).to(dev)
         xs = torch.from_numpy((rng.standard_normal((64, k)) * 0.5).astype(
@@ -900,9 +1010,43 @@ def time_serving_kernels(sv: dict, dev) -> dict:
             print(f"{name} m={m} device time by kernel (torch.profiler, 20 "
                   "warm calls): " + ", ".join(
                       f"{nm[:48]} {us:.2f} us" for nm, us in split))
+    time_serving_high_rank(sv, out, dev)
     t64 = out[64]
     return {name: (t64[name]["cold"], t64[name]["plain"], t64[name]["bound"])
             for name in ("multi_lora_matmul_packed", "multi_lora_matmul")}
+
+
+def time_serving_high_rank(sv: dict, timed: dict, dev) -> None:
+    """B4 and B5 warm at m = 64, d = 2560 past rank 128
+    (``SERVE_HIGH_RANK`` over ``SERVE_HIGH_RANK_SLOTS`` random int4
+    slots: h walked in rank chunks, one block an SM), beside the
+    rank-8 bucket's warm times from ``time_serving_kernels``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops as kops
+    rng = np.random.default_rng(23)
+    x, w = sv["x"], sv["w"]
+    k, n = w.shape
+    r, e, bits = SERVE_HIGH_RANK, SERVE_HIGH_RANK_SLOTS, SERVE["bits"]
+    slab = _serving_slabs(rng, e, k, n, r, bits, dev)
+    a = torch.from_numpy((rng.standard_normal((e, k, r)) * 0.1).astype(
+        np.float32)).to(dev)
+    b = torch.from_numpy((rng.standard_normal((e, r, n)) * 0.1).astype(
+        np.float32)).to(dev)
+    ids = [int(i) for i in rng.integers(0, e, x.shape[0])]
+    for name, f in (
+            ("multi_lora_matmul_packed", lambda: kops.multi_lora_matmul_packed(
+                x, w, *slab, ids, SERVE_SCALE, bits)),
+            ("multi_lora_matmul", lambda: kops.multi_lora_matmul(
+                x, w, a, b, ids, SERVE_SCALE))):
+        t = _time_ms(f, 50)
+        base = timed[64][name]["warm"][0]
+        split = kernel_split(f, 10)
+        print(f"{name} m={x.shape[0]} K={k} N={n} R={r} E={e} warm: "
+              f"{t[0] * 1e3:.2f} us on the device ({t[1] * 1e3:.2f} us a "
+              f"call from Python); R={sv['rank']} warm {base * 1e3:.2f} us "
+              f"({t[0] / base:.2f}x); by kernel (torch.profiler, 10 calls): "
+              + ", ".join(f"{nm[:48]} {us:.2f} us" for nm, us in split))
 
 
 def quickstart_data():
@@ -1033,7 +1177,7 @@ def leaf_round_phase(data, flat_recs, flat_server, captured, dev) -> dict:
             if rec[key] != frec[key]:
                 raise AssertionError(f"per-leaf round {rec['round']} {key}:"
                                      f" {rec[key]} != flat {frec[key]}")
-        if c["dequant_agg"] != n_leaves or c["dequant_agg_rows"] != 0 \
+        if c["dequant_agg"] != 1 or c["dequant_agg_rows"] != 0 \
                 or c["quant_pack_rows"] < n_leaves * (k + 1):
             raise AssertionError(f"per-leaf round launch counts {c}")
     # the flat run's round-1 uplinks, both folds
@@ -1043,7 +1187,7 @@ def leaf_round_phase(data, flat_recs, flat_server, captured, dev) -> dict:
     (leaf_out, c_leaf) = _counted(
         lambda: aggregation.fedavg_packed(leaf_msgs, w))
     torch.cuda.synchronize()
-    if c_flat["dequant_agg_rows"] != 1 or c_leaf["dequant_agg"] != n_leaves:
+    if c_flat["dequant_agg_rows"] != 1 or c_leaf["dequant_agg"] != 1:
         raise AssertionError(f"aggregate launch counts {c_flat} {c_leaf}")
     worst = 0.0
     for (name, a), (_, b) in zip(flatten_with_names(flat_out),
@@ -1053,8 +1197,8 @@ def leaf_round_phase(data, flat_recs, flat_server, captured, dev) -> dict:
         if d > LEAF_TOL * xmax:
             raise AssertionError(f"per-leaf vs flat fold {name}: {d} > "
                                  f"{LEAF_TOL} * {xmax}")
-    print(f"round-1 uplinks aggregated per leaf ({n_leaves} dequant_agg "
-          f"launches) vs flat (1 dequant_agg_rows): worst diff "
+    print(f"round-1 uplinks aggregated per leaf ({n_leaves} leaves in 1 "
+          f"dequant_agg launch) vs flat (1 dequant_agg_rows): worst diff "
           f"{worst:.3g} of max|x| (tol {LEAF_TOL})")
     diff = hold_trees(flat_server.global_train, server.global_train, 8,
                       "per-leaf vs flat run")
@@ -1063,17 +1207,19 @@ def leaf_round_phase(data, flat_recs, flat_server, captured, dev) -> dict:
     launches = {}
     for c in counts:
         _add_counts(launches, c)
-    # the timing inputs: each packed leaf's K stacked payloads, as
-    # fedavg_packed hands them to dequant_agg
+    # the timing inputs: the round-1 uplinks as per-leaf messages (strided
+    # as_tree views of the flat buffers), their weights on the card, and
+    # each packed leaf's K clients as fedavg_packed hands them to
+    # dequant_agg_leaves
     nw = torch.as_tensor(w, dtype=torch.float32).to(dev)
-    nw = nw / nw.sum()
     per_msg = [[x for _, x in flatten_with_names(m) if hasattr(x, "payload")]
                for m in leaf_msgs]
-    per_leaf = [(torch.stack([g.payload for g in group]),
-                 torch.stack([g.scale for g in group]),
-                 torch.stack([g.zp for g in group]), nw, group[0].bits,
-                 group[0].n_per_channel) for group in zip(*per_msg)]
-    return {"launches": launches, "walls": walls, "inputs": per_leaf}
+    groups = [[(g.payload, g.scale, g.zp) for g in group]
+              for group in zip(*per_msg)]
+    ns = [group[0].n_per_channel for group in zip(*per_msg)]
+    return {"launches": launches, "walls": walls, "msgs": leaf_msgs,
+            "weights": nw, "leaves": list(zip(groups, ns)),
+            "bits": per_msg[0][0].bits}
 
 
 def ef_phase(data, model_cpu, dev) -> dict:
@@ -1220,59 +1366,108 @@ def kernel_split(fn, calls: int) -> list:
 
 
 def time_leaf_and_lora(leaf: dict, chain: dict, dev) -> dict:
-    """B3 at the largest per-leaf shape and summed over a round's leaves,
-    and B6 at the full width warm and cold, beside their plain versions
-    and bounds; ``torch.matmul(x, W)`` in bf16 and the three-call library
-    composition as context for B6, timed the same two ways. The JSON
-    line takes B6 cold."""
+    """B3 as the per-leaf round calls it (one grouped launch over the
+    flat run's round-1 uplinks, read where they lie) beside the 18-call
+    form the round made before (a stack of the K payloads and one launch
+    a leaf writing the padded width), the whole per-leaf
+    ``fedavg_packed`` by CUDA events and by host wall time, and both
+    bounds; B6 at the full width warm and cold, beside its plain version
+    and bound, ``torch.matmul(x, W)`` in bf16 and the three-call library
+    composition as context, timed the same two ways. The JSON line takes
+    the grouped B3 call and B6 cold."""
+    import numpy as np
     import torch
+    from repro_torch.core import aggregation
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
-    inputs = leaf["inputs"]
+    leaves, w, bits = leaf["leaves"], leaf["weights"], leaf["bits"]
+    wn = w / w.sum()
+    per = 32 // bits
+    k = len(leaves[0][0])
 
-    def leaf_cost(pk, sc, zp, w, bits, nv):
-        # bytes the function must move: the words that hold a valid
-        # level, the sidecars and weights once, the whole fp32 output;
-        # 4 operations per valid level and client
-        k, c, nw = pk.shape
-        words = k * c * -(-nv * bits // 32)
-        return (4 * words + 8 * k * c + 4 * k + 4 * c * nw * (32 // bits),
-                4 * k * c * nv)
+    def stacked(clients):
+        return [torch.stack([c[i] for c in clients]) for i in range(3)]
 
-    big = max(inputs, key=lambda t: t[0].numel())
-    bk, bc, bnw = big[0].shape
+    pre = [stacked(cl) for cl, _ in leaves]
 
-    def one():
-        kops.dequant_agg(*big[:5], big[5])
+    def grouped():
+        kops.dequant_agg_leaves(leaves, wn, bits)
 
-    def plain_one():
-        kref.dequant_agg_ref(*big[:5], big[5])
+    def per_leaf_calls():
+        for t in pre:
+            kops.dequant_agg(*t, wn, bits)
 
-    def all_leaves():
-        for t in inputs:
-            kops.dequant_agg(*t[:5], t[5])
+    def per_leaf_with_stacks():
+        for cl, n in leaves:
+            kops.dequant_agg(*stacked(cl), wn, bits)[:, :n]
 
-    t_one = _time_ms(one, 200)
-    t_one_p = _time_ms(plain_one, 10)
-    t_all = _time_ms(all_leaves, 20)
-    # a round of the plain version is ~1,200 small launches, more than
-    # the launch queue holds behind the sleep kernel: sum its leaves
-    per_leaf_p = [_time_ms(lambda t=t: kref.dequant_agg_ref(*t[:5], t[5]),
-                           5) for t in inputs]
-    t_all_p = (sum(t[0] for t in per_leaf_p), sum(t[1] for t in per_leaf_p))
-    b_one = _bound_ms(*leaf_cost(*big))
-    costs = [leaf_cost(*t) for t in inputs]
-    b_all = _bound_ms(sum(c[0] for c in costs), sum(c[1] for c in costs))
-    print(f"dequant_agg largest leaf (K, C, Nw)=({bk}, {bc}, {bnw}) int8: "
-          f"kernel {t_one[0] * 1e3:.2f} us on the device ({t_one[1] * 1e3:.2f}"
-          f" us a call), plain {t_one_p[0] * 1e3:.2f} us, bound "
-          f"{b_one[0] * 1e3:.3f} us by {b_one[1]} "
-          f"({leaf_cost(*big)[0]} B)")
-    print(f"dequant_agg a round ({len(inputs)} leaves, K={bk}): kernels "
-          f"{t_all[0] * 1e3:.2f} us on the device ({t_all[1] * 1e3:.2f} us "
-          f"of calls), plain {t_all_p[0] * 1e3:.2f} us, bound "
-          f"{b_all[0] * 1e3:.3f} us by {b_all[1]} "
-          f"({sum(c[0] for c in costs)} B)")
+    t_grp = _time_ms(grouped, 50)
+    # a round of the 18-call form is 18 launches (72 with the stacks):
+    # few iterations, so all of them fit the launch queue behind the sleep
+    t_18 = _time_ms(per_leaf_calls, 5)
+    t_18s = _time_ms(per_leaf_with_stacks, 5)
+    # the same round at K = 20 (the K = 5 clients four times): its
+    # 1,603-word table goes through pinned memory, and queued behind the
+    # sleep no pinned block frees, so each call allocates one: few
+    # iterations
+    leaves20 = [(cl * 4, n) for cl, n in leaves]
+    w20 = wn.repeat(4) / 4
+    t_grp20 = _time_ms(lambda: kops.dequant_agg_leaves(leaves20, w20, bits),
+                       5)
+    # a round of the plain version is ~1,200 small launches, more than the
+    # launch queue holds behind the sleep kernel: sum its leaves
+    per_leaf_p = [_time_ms(lambda lf=lf: kref.dequant_agg_leaves_ref(
+        [lf], wn, bits), 5) for lf in leaves]
+    t_grp_p = (sum(t[0] for t in per_leaf_p), sum(t[1] for t in per_leaf_p))
+    t_fed = _time_ms(lambda: aggregation.fedavg_packed(leaf["msgs"], w), 10)
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        aggregation.fedavg_packed(leaf["msgs"], w)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    # bytes the function must move: the words that hold a valid level
+    # (K clients), the sidecars and weights once, and the output: the
+    # compact (C, n) blocks the round keeps, or (the old count) the whole
+    # lane-padded (C, Nw*32/bits) rows the 18-call form wrote; 4
+    # operations per valid level and client
+    words = sum(cl[0][1].shape[0] * -(-n // per) for cl, n in leaves)
+    side = sum(8 * k * cl[0][1].shape[0] for cl, _ in leaves) + 4 * k
+    levels = sum(cl[0][1].shape[0] * n for cl, n in leaves)
+    padded = sum(cl[0][1].shape[0] * cl[0][0].shape[1] * per
+                 for cl, _ in leaves)
+    compact_bytes = 4 * k * words + side + 4 * levels
+    padded_bytes = 4 * k * words + side + 4 * padded
+    b_grp = _bound_ms(compact_bytes, 4 * k * levels)
+    b_old = _bound_ms(padded_bytes, 4 * k * levels)
+    print(f"dequant_agg a per-leaf round ({len(leaves)} leaves, K={k}, "
+          f"int{bits}), grouped: 1 launch {t_grp[0] * 1e3:.2f} us on the "
+          f"device ({t_grp[1] * 1e3:.2f} us a call from Python), plain "
+          f"{t_grp_p[0] * 1e3:.2f} us; bound {b_grp[0] * 1e3:.3f} us by "
+          f"{b_grp[1]} ({compact_bytes} B, compact output), "
+          f"{b_grp[0] / t_grp[0]:.1%} of it")
+    # at K = 20 the words are read four times as often, and each client
+    # has its sidecars and weight
+    bytes20 = 4 * (4 * k) * words + 4 * side + 4 * levels
+    b_grp20 = _bound_ms(bytes20, 4 * (4 * k) * levels)
+    print(f"dequant_agg the same round at K={4 * k} (its table uploaded): "
+          f"1 launch {t_grp20[0] * 1e3:.2f} us on the device "
+          f"({t_grp20[1] * 1e3:.2f} us a call from Python); bound "
+          f"{b_grp20[0] * 1e3:.3f} us by {b_grp20[1]} ({bytes20} B)")
+    split = kernel_split(grouped, 20)
+    print("dequant_agg grouped call by kernel (torch.profiler, 20 calls): "
+          + ", ".join(f"{nm[:48]} {us:.2f} us" for nm, us in split))
+    print(f"dequant_agg the 18-call form (one launch a leaf, padded rows "
+          f"written): kernels alone {t_18[0] * 1e3:.2f} us on the device "
+          f"({t_18[1] * 1e3:.2f} us of calls), with the stacks "
+          f"{t_18s[0] * 1e3:.2f} us ({t_18s[1] * 1e3:.2f} us of calls); "
+          f"bound {b_old[0] * 1e3:.3f} us by {b_old[1]} ({padded_bytes} B, "
+          f"padded output)")
+    print(f"fedavg_packed per-leaf round (the whole call): "
+          f"{t_fed[0] * 1e3:.2f} us on the device by CUDA events, "
+          f"{t_fed[1] * 1e3:.2f} us a call queued from Python; host wall "
+          f"with a synchronize median {1e3 * float(np.median(walls)):.3f} ms"
+          f" over 20 (min {1e3 * min(walls):.3f} ms)")
 
     x, w, a, b = chain["operands"]
     m, k = x.shape
@@ -1324,8 +1519,7 @@ def time_leaf_and_lora(leaf: dict, chain: dict, dev) -> dict:
         print(f"lora_matmul (M, K, N, r)=({m}, {k}, {n}, {rr}) warm: "
               f"{t_r[0] * 1e3:.2f} us on the device, path "
               f"{kops.lora_plan(m, k, n, rr).path}")
-    return {"dequant_agg": (t_one, t_one_p, b_one),
-            "dequant_agg_round": (t_all, t_all_p, b_all),
+    return {"dequant_agg": (t_grp, t_grp_p, b_grp),
             "lora_matmul": (t["lora_matmul"]["cold"], t_lp, b_l)}
 
 
@@ -1396,7 +1590,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     err_mq, err_mf = check_serving_kernels(dev)
     t0 = time.perf_counter()
-    err_b3 = check_leaf_agg(update, dev)
+    err_b3 = max(check_leaf_agg(update, dev),
+                 check_leaf_agg_grouped(update, dev))
     err_b6 = check_lora_matmul(dev)
     print(f"per-leaf and lora_matmul checks: "
           f"{time.perf_counter() - t0:.1f} s")

@@ -10,8 +10,8 @@ Ported here:
     before the weighted mean;
   * ``fedavg_packed`` — the wire-true path: flat messages reduce the
     whole K-client cohort in ONE ``dequant_agg_rows`` launch
-    (``core/flat.py``); per-leaf messages take one ``dequant_agg`` launch
-    per packed leaf;
+    (``core/flat.py``); per-leaf messages reduce every packed leaf in ONE
+    grouped ``dequant_agg`` launch;
   * error feedback — ``ef_init``/``ef_encode``/``ef_encode_packed``/
     ``ef_fold_dropped`` and ``ErrorFeedbackFedAvg``, which keeps each
     client's residual (EF21-style memory) as host numpy;
@@ -35,7 +35,8 @@ from repro_torch.core.flat import is_flat_message
 from repro_torch.core.messages import is_packed_leaf, is_wire_leaf
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map, \
+    tree_unflatten
 
 
 def stack_trees(trees: list[Any]) -> Any:
@@ -74,18 +75,24 @@ def fedavg_quantized(stacked: Any, weights, qcfg: QuantConfig) -> Any:
     return fedavg(stacked, weights)
 
 
-def _agg_leaf(leaves: list, w: torch.Tensor) -> torch.Tensor:
-    """One position of K per-leaf messages: a packed leaf reduces in one
-    ``dequant_agg`` launch, an fp leaf takes the weighted mean."""
-    l0 = leaves[0]
-    if is_packed_leaf(l0):
-        out = kops.dequant_agg(
-            torch.stack([m.payload for m in leaves]),
-            torch.stack([m.scale for m in leaves]),
-            torch.stack([m.zp for m in leaves]), w, l0.bits)  # (C, N_pad)
-        return kops.from_channel_first_2d(
-            out[:, : l0.n_per_channel], l0.shape, l0.per_stack).to(l0.dtype)
-    return _weighted_mean(leaves, w)
+def _agg_packed(columns: list, w: torch.Tensor) -> list:
+    """Every packed leaf position of K per-leaf messages (``columns``: the
+    K leaves at each position) in ONE grouped ``dequant_agg`` launch a
+    bit width, reading the payloads where they lie (no stack) and
+    computing only each leaf's valid columns. Returns each packed
+    position's fold in its leaf's shape and dtype, None elsewhere."""
+    out = [None] * len(columns)
+    packed = [i for i, col in enumerate(columns) if is_packed_leaf(col[0])]
+    for bits in sorted({columns[i][0].bits for i in packed}):
+        idx = [i for i in packed if columns[i][0].bits == bits]
+        folds = kops.dequant_agg_leaves(
+            [([(m.payload, m.scale, m.zp) for m in columns[i]],
+              columns[i][0].n_per_channel) for i in idx], w, bits)
+        for i, fold in zip(idx, folds):
+            l0 = columns[i][0]
+            out[i] = kops.from_channel_first_2d(
+                fold, l0.shape, l0.per_stack).to(l0.dtype)
+    return out
 
 
 def fedavg_packed(msgs: list[Any], weights) -> Any:
@@ -95,18 +102,26 @@ def fedavg_packed(msgs: list[Any], weights) -> Any:
     ``dequant_agg_rows`` launch. Otherwise (per-leaf messages, or a
     buffer mixing flat and per-leaf ones: flat messages re-expose their
     per-leaf tree through ``as_tree``, bit-identical payload slices)
-    each packed leaf's K payloads reduce in one ``dequant_agg`` launch
-    with normalized weights, never materializing the K fp32 trees, and
-    fp leaves take the plain weighted mean. Sparse leaves are not
-    ported."""
+    every packed leaf's K payloads reduce in ONE grouped ``dequant_agg``
+    launch with normalized weights, never materializing the K fp32
+    trees, and fp leaves take the plain weighted mean. Sparse leaves are
+    not ported."""
     if msgs and all(is_flat_message(m) for m in msgs) \
             and len({m.layout for m in msgs}) == 1:
         return flatcodec.fedavg_packed_flat(msgs, weights)
     msgs = [m.as_tree() if is_flat_message(m) else m for m in msgs]
-    l0 = tree_leaves(msgs[0])[0]
+    flats = [tree_flatten(m) for m in msgs]
+    treedef = flats[0][1]
+    if any(td != treedef for _, td in flats):
+        raise ValueError("fedavg_packed over messages of different "
+                         "structure")
+    columns = [list(col) for col in zip(*(leaves for leaves, _ in flats))]
+    l0 = columns[0][0]
     dev = l0.payload.device if is_packed_leaf(l0) else l0.device
     w = _normalized(weights, dev)
-    return tree_map(lambda *leaves: _agg_leaf(list(leaves), w), *msgs)
+    return tree_unflatten(treedef, [
+        _weighted_mean(col, w) if fold is None else fold
+        for fold, col in zip(_agg_packed(columns, w), columns)])
 
 
 def message_is_packed(msg: Any) -> bool:

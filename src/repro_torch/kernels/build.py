@@ -44,8 +44,7 @@ SOURCES = {
     "dequant_agg": {
         "dequant_agg_rows_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _P),
-        "dequant_agg_launch": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-                               _P),
+        "dequant_agg_leaves_launch": (_P, _I, _I, _P, _I, _I, _I, _I, _P),
     },
     "multi_lora_matmul": {
         "multi_lora_matmul_q_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -3,7 +3,7 @@
 //   y = x @ W + s * bf16(x @ a) @ b
 //
 // x (M, K), W (K, N), a (K, r), b (r, N) bf16, row-major; y (M, N) bf16,
-// every product accumulated in fp32. Any M, K, N; 1 <= r <= 128.
+// every product accumulated in fp32. Any M, K, N and r >= 1.
 //
 // Replaces the Pallas TPU kernel `lora_matmul_pallas` (body
 // `_lora_matmul_kernel`) in src/repro/kernels/lora_matmul.py. h = x @ a is
@@ -16,7 +16,8 @@
 // bf16, and must move x, W, a, b and y once, 18,677,760 B, 5.6 us at
 // 3.35 TB/s.
 //
-// The TMA path (K, N, r multiples of 8, 16-byte aligned operands) is ONE
+// The TMA path (K, N, r multiples of 8, r <= 128, 16-byte aligned
+// operands) is ONE
 // kernel, `lora_wgmma_kernel<RP>`, a warp-specialised wgmma GEMM with h in
 // its mainloop, as the TPU kernel computes it:
 //   - a producer warp keeps a ring of 4-6 shared-memory stages (as many
@@ -59,6 +60,13 @@
 // summed in distributed shared memory in split order; then
 // `lora_tile_kernel`, a 64 x 64 WMMA tile of y whose loads zero-fill
 // ragged edges. Still on the card; never the plain version.
+//
+// Ranks above 128 (more than the wgmma path's m64nRP accumulator holds)
+// take the masked path too, which has no rank limit: the h kernel's grid
+// walks r in 64-wide column tiles, each element of h summed over all of K
+// and rounded to bf16 once, and the tile kernel adds h @ b over r in
+// 64-deep slabs into ONE fp32 accumulator, so y is rounded to bf16 once,
+// after the last rank chunk, as the plain version does.
 //
 // The wrapper (ops.lora_plan) picks the path from shapes and alignment
 // alone and passes it here; this file checks it. No atomics: repeated
@@ -918,8 +926,9 @@ cudaError_t launch_masked(const bf16* x, const bf16* w, const bf16* h,
 }  // namespace
 
 // x (M, K), w (K, N), a (K, r), b (r, N) bf16 row-major; y (M, N) bf16.
-// `path` 1 enqueues the TMA + wgmma kernel (K, N, r multiples of 8, every
-// base 16-byte aligned: checked here); `path` 0 enqueues h's kernel, into
+// `path` 1 enqueues the TMA + wgmma kernel (K, N, r multiples of 8,
+// r <= 128, every base 16-byte aligned: checked here); `path` 0 (any
+// r >= 1) enqueues h's kernel, into
 // the (M, r) bf16 scratch h, in `splits` (<= 8) K chunks of `k_chunk` (a
 // multiple of 64, no chunk empty), then the masked WMMA tile. h is unused
 // on path 1 and may be null there. Returns cudaGetLastError() after the
@@ -931,14 +940,14 @@ extern "C" int lora_matmul_launch(const bf16* x, const bf16* w, const bf16* a,
                                   void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
   if (m <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
-  if (r < 1 || r > 128 || k < 1 || splits < 1 || splits > kMaxSplits ||
+  if (r < 1 || k < 1 || splits < 1 || splits > kMaxSplits ||
       k_chunk % kBK != 0 || static_cast<int64_t>(splits) * k_chunk < k ||
       static_cast<int64_t>(splits - 1) * k_chunk >= k) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool tma = k % 8 == 0 && n % 8 == 0 && r % 8 == 0 && aligned16(x) &&
-                   aligned16(w) && aligned16(a) && aligned16(b) &&
-                   aligned16(h) && aligned16(y);
+  const bool tma = k % 8 == 0 && n % 8 == 0 && r % 8 == 0 && r <= 128 &&
+                   aligned16(x) && aligned16(w) && aligned16(a) &&
+                   aligned16(b) && aligned16(h) && aligned16(y);
   if ((path == 0 && h == nullptr) || (path != 0 && (path != 1 || !tma))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -49,13 +49,15 @@
 // Design. Each launch entry enqueues two kernels on the caller's stream:
 //   1. lora_prep_kernel, two jobs in one grid:
 //      - h = x A[ids], once per row, split over K so that there are
-//        blocks enough at M = 8: block (m, q) writes the partial
-//        hpart[q, m, :] over the q-th k chunk (whole 32-level chunks, so
-//        packed words never straddle two chunks). Packed A: one warp per
-//        r walks the row's words (coalesced), unpacks and dequantizes in
-//        registers, then a warp sum. fp A: the gathered (chunk, R) slab
-//        is walked as ONE contiguous array, thread -> r = idx mod R, then
-//        the threads that share an r are summed in order.
+//        blocks enough at M = 8, and over R in groups of kPrepRanks = 32
+//        ranks so that a block's serial work does not grow with R:
+//        block (m, q, g) writes the partial hpart[q, m, 32g .. 32g + 32)
+//        over the q-th k chunk (whole 32-level chunks, so packed words
+//        never straddle two chunks). Packed A: one warp per r walks the
+//        row's words (coalesced), unpacks and dequantizes in registers,
+//        then a warp sum. fp A: the gathered (chunk, R) slab is walked as
+//        one array, thread -> r = 32g + idx mod RC (RC = the group's
+//        ranks), then the threads that share an r are summed in order.
 //      - x split into bf16 hi/lo MMA fragments ONCE for the whole product
 //        (xfrag), in the order the product reads them: a 32-deep slab of
 //        a row tile is one contiguous piece.
@@ -85,9 +87,20 @@
 //      reference's association (packed B unpacked and dequantized in
 //      registers, fp B read as floats); h's k partials are summed in
 //      order once per block, while the ring fills.
+// Any rank R >= 1. h lives in shared memory a chunk of at most
+// kRankChunk = 32 ranks at a time (MC x 32 fp32 beside the ring, the
+// opt-in sized for it), so shared memory does not grow with R and two
+// blocks fit an SM at every rank (at R = 64 or 128 a whole h would leave
+// room for one, and the clusters would run in two waves): at R <= 32
+// there is one chunk, loaded while the ring fills; past it the epilogue
+// walks R chunk by chunk, each thread carrying its rows' running
+// sum_r h B through shared memory (in the ring's free space beside the
+// partial tile) into the next chunk, so the fma chain over r is the same
+// as in one pass and the bits do not depend on the chunk. The prep
+// kernel sums h a group of 32 ranks a block.
 // Rank-bucket padding is exact: padded A rows carry scale = zp = 0, so
 // their h lanes are exact zeros that multiply finite padded-B values.
-// Row ids must lie below E and R <= 128; the wrapper checks both.
+// Row ids must lie below E; the wrapper checks them.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,6 +111,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kHThreads = 256;      // lora_prep_kernel: 8 warps
+constexpr int kPrepRanks = 32;      // ranks of h a prep block sums
 constexpr int kTN = 128;            // columns of N a product block owns
 constexpr int kWarpN = 32;          // a warp's columns: two 16-row MMA
 constexpr int kWarpTiles = kWarpN / 16;   // tiles
@@ -112,7 +126,7 @@ constexpr int kWSlab = kTK * kWStride;
 constexpr int kMaxRows = 64;        // request rows a product block covers
 constexpr int kMaxSplits = 8;       // the largest portable cluster
 constexpr int kTargetBlocks = 264;  // product blocks: two an SM of an H100
-constexpr int kMaxRank = 128;
+constexpr int kRankChunk = 32;      // ranks of h in shared memory at a time
 constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -145,15 +159,16 @@ struct PackedSource {
   const float* b_zp;
   int KW, RW;
 
-  // dst[r] = sum_{k0 <= k < k1} x[k] * A_{id}[k, r]; k0 is a multiple of
-  // 32, so the chunk starts on a word; one warp per r
+  // dst[r] = sum_{k0 <= k < k1} x[k] * A_{id}[k, r] for r_lo <= r < r_hi;
+  // k0 is a multiple of 32, so the chunk starts on a word; one warp per r
   __device__ __forceinline__ void h_chunk(const float* __restrict__ xr,
                                           int id, int k0, int k1, int K,
-                                          int R, float* __restrict__ dst)
-      const {
+                                          int R, int r_lo, int r_hi,
+                                          float* __restrict__ dst) const {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int w0 = k0 / kPer, w1 = (k1 + kPer - 1) / kPer;
-    for (int r = warp; r < R; r += kHThreads / 32) {
+#pragma unroll 4
+    for (int r = r_lo + warp; r < r_hi; r += kHThreads / 32) {
       const int64_t row = static_cast<int64_t>(id) * R + r;
       const uint32_t* words = aq + row * KW;
       const float sc = a_scale[row], zp = a_zp[row];
@@ -174,18 +189,39 @@ struct PackedSource {
     }
   }
 
-  // sum_{r<R} h[r] * B_{id}[r, n]
+  // acc + sum_{r0 <= r < r1} h[r - r0] * B_{id}[r, n], r in order, over
+  // one rank chunk (r0 a multiple of kRankChunk, r1 - r0 <= kRankChunk).
+  // A whole chunk (R >= 32) loads its words first, all in flight together,
+  // which cut the R = 160 call by a third on an H100; a partial one keeps
+  // the loop: the words loaded first made the R = 8, m = 8 call slower
   __device__ __forceinline__ float y(const float* h, int id, int n, int N,
-                                     int R) const {
+                                     int R, int r0, int r1,
+                                     float acc) const {
     const int64_t row = static_cast<int64_t>(id) * N + n;
     const uint32_t* words = bq + row * RW;
     const float sc = b_scale[row], zp = b_zp[row];
-    float acc = 0.0f;
-    for (int r = 0; r < R; ++r) {
+    if (r1 - r0 == kRankChunk) {
+      constexpr int kWords = kRankChunk / kPer;
+      uint32_t wv[kWords];
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) wv[i] = words[r0 / kPer + i];
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) {
+#pragma unroll
+        for (int t = 0; t < kPer; ++t) {
+          const float lv =
+              static_cast<float>((wv[i] >> (t * BITS)) & kMask);
+          acc = fmaf(h[i * kPer + t], (lv - zp) * sc, acc);
+        }
+      }
+      return acc;
+    }
+#pragma unroll 4
+    for (int r = r0; r < r1; ++r) {
       const uint32_t word = words[r / kPer];
       const float lv =
           static_cast<float>((word >> ((r % kPer) * BITS)) & kMask);
-      acc = fmaf(h[r], (lv - zp) * sc, acc);
+      acc = fmaf(h[r - r0], (lv - zp) * sc, acc);
     }
     return acc;
   }
@@ -196,39 +232,45 @@ struct FpSource {
   const float* a;
   const float* b;
 
-  // dst[r] = sum_{k0 <= k < k1} x[k] * A_{id}[k, r]: the (k1 - k0, R)
-  // slab is one contiguous array; thread i < G*R (G = 256 / R groups)
-  // always reads r = i mod R, coalesced, then each r's G sums add in order
+  // dst[r] = sum_{k0 <= k < k1} x[k] * A_{id}[k, r] for the RC =
+  // r_hi - r_lo <= 256 ranks from r_lo: the (k1 - k0, R) slab's columns
+  // r_lo .. r_hi; thread i < G*RC (G = 256 / RC groups) always reads
+  // r = r_lo + i mod RC, coalesced, then each r's G sums add in order
   __device__ __forceinline__ void h_chunk(const float* __restrict__ xr,
                                           int id, int k0, int k1, int K,
-                                          int R, float* __restrict__ dst)
-      const {
+                                          int R, int r_lo, int r_hi,
+                                          float* __restrict__ dst) const {
     __shared__ float red[kHThreads];
     const int tid = threadIdx.x;
-    const int groups = kHThreads / R;
     const float* slab = a + (static_cast<int64_t>(id) * K + k0) * R;
+    const int rc = r_hi - r_lo;
+    const int groups = kHThreads / rc;
     float part = 0.0f;
-    if (tid < groups * R) {
-      const int r = tid % R;
+    if (tid < groups * rc) {
+      const int r = r_lo + tid % rc;
 #pragma unroll 4
-      for (int k = tid / R; k < k1 - k0; k += groups)
+      for (int k = tid / rc; k < k1 - k0; k += groups)
         part = fmaf(xr[k0 + k], slab[static_cast<int64_t>(k) * R + r], part);
     }
     red[tid] = part;
     __syncthreads();
-    if (tid < R) {
+    if (tid < rc) {
       float v = red[tid];
-      for (int q = 1; q < groups; ++q) v += red[q * R + tid];
-      dst[tid] = v;
+      for (int q = 1; q < groups; ++q) v += red[q * rc + tid];
+      dst[r_lo + tid] = v;
     }
   }
 
+  // acc + sum_{r0 <= r < r1} h[r - r0] * B_{id}[r, n], r in order (B's
+  // values loaded ahead of their products, a chunk or eight at a time,
+  // made the call slower on an H100 at R = 8 and at R = 160)
   __device__ __forceinline__ float y(const float* h, int id, int n, int N,
-                                     int R) const {
+                                     int R, int r0, int r1,
+                                     float acc) const {
     const float* bm = b + static_cast<int64_t>(id) * R * N + n;
-    float acc = 0.0f;
-    for (int r = 0; r < R; ++r)
-      acc = fmaf(h[r], bm[static_cast<int64_t>(r) * N], acc);
+#pragma unroll 4
+    for (int r = r0; r < r1; ++r)
+      acc = fmaf(h[r - r0], bm[static_cast<int64_t>(r) * N], acc);
     return acc;
   }
 };
@@ -245,8 +287,9 @@ __device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
 }
 
 // One launch of the first kernel does two jobs:
-//  - blocks [0, M * h_splits): hpart (h_splits, M, R), block (m, q)
-//    summing the q-th k chunk of row m;
+//  - blocks [0, M * h_splits * G): hpart (h_splits, M, R), block
+//    (m, q, g) summing the q-th k chunk of row m for ranks
+//    [32g, 32g + 32), G = ceil(R / 32) rank groups;
 //  - the rest: x split into the product's bf16 MMA fragments, once for
 //    all blocks of the product. Entry (row tile, 16-deep k step s, 8-row
 //    tile j, lane) is {hi(x[r][k], x[r][k+1]), hi(x[r][k+8], x[r][k+9]),
@@ -260,11 +303,13 @@ lora_prep_kernel(const float* __restrict__ x, const Source src,
                  uint4* __restrict__ xfrag, int M, int K, int R, int h_splits,
                  int k_chunk, int MT, int k_steps, int64_t frags) {
   griddep_launch_dependents();   // the product kernel may start streaming W
-  const int nh = M * h_splits;
+  const int nh = M * h_splits * ((R + kPrepRanks - 1) / kPrepRanks);
   if (static_cast<int>(blockIdx.x) < nh) {
-    const int m = blockIdx.x % M, q = blockIdx.x / M;
+    const int m = blockIdx.x % M, q = blockIdx.x / M % h_splits;
+    const int r_lo = blockIdx.x / (M * h_splits) * kPrepRanks;
     const int k0 = q * k_chunk, k1 = min(K, k0 + k_chunk);
-    src.h_chunk(x + static_cast<int64_t>(m) * K, ids[m], k0, k1, K, R,
+    src.h_chunk(x + static_cast<int64_t>(m) * K, ids[m], k0, k1, K, R, r_lo,
+                min(R, r_lo + kPrepRanks),
                 hpart + (static_cast<int64_t>(q) * M + m) * R);
     return;
   }
@@ -335,8 +380,8 @@ __host__ __device__ constexpr int xslab_frags() {
   return kKHalves * MT * 32;
 }
 
-// bytes of the W ring (fp32) and the x-fragment ring; h (8MT x R fp32)
-// follows them
+// bytes of the W ring (fp32) and the x-fragment ring; h (8MT x at most
+// kRankChunk fp32) follows them
 template <int MT>
 __host__ __device__ constexpr int ring_bytes() {
   return kStages * kWSlab * 4 + kStages * xslab_frags<MT>() * 16;
@@ -367,7 +412,7 @@ lora_product_kernel(const float* __restrict__ w,
   constexpr int kJB = MT >= 2 ? 2 : 1;   // 8-row tiles per MMA round
   extern __shared__ __align__(16) float smem[];
   uint4* xring = reinterpret_cast<uint4*>(smem + kStages * kWSlab);
-  float* hs = smem + ring_bytes<MT>() / 4;   // h (rows, R)
+  float* hs = smem + ring_bytes<MT>() / 4;   // h (rows, <= kRankChunk)
 
   const int n0 = blockIdx.x * kTN;
   const int m0 = blockIdx.y * MC;
@@ -424,16 +469,22 @@ lora_product_kernel(const float* __restrict__ w,
     if (st < n_slabs) issue_x(st);
     cp_async_commit();
   }
-  // h[m, r] = its k chunks' partials summed in chunk order, spread over
-  // the block (the loads overlap the ring's)
-  for (int i = tid; i < rows * R; i += kThreads) {
-    const int mm = i / R, r = i - mm * R;
-    const float* hp = hpart + static_cast<int64_t>(m0 + mm) * R + r;
-    float v = hp[0];
-    for (int q = 1; q < h_splits; ++q)
-      v += hp[static_cast<int64_t>(q) * M * R];
-    hs[i] = v;
-  }
+  // h[m0 + mm, h0 .. h0 + hc) for tile rows lo <= mm < hi into hs (rows,
+  // hc): each element its k chunks' partials summed in chunk order,
+  // spread over the block
+  auto load_h = [&](int lo, int hi, int h0, int hc) {
+    for (int i = lo * hc + tid; i < hi * hc; i += kThreads) {
+      const int mm = i / hc, r = i - mm * hc;
+      const float* hp =
+          hpart + static_cast<int64_t>(m0 + mm) * R + h0 + r;
+      float v = hp[0];
+      for (int q = 1; q < h_splits; ++q)
+        v += hp[static_cast<int64_t>(q) * M * R];
+      hs[i] = v;
+    }
+  };
+  // the first rank chunk, every row of the tile, overlaps the ring
+  load_h(0, rows, 0, min(R, kRankChunk));
 
   float acc[kPassAcc][kWarpTiles][MT][4];
 #pragma unroll
@@ -525,22 +576,39 @@ lora_product_kernel(const float* __restrict__ w,
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();   // every split's partial tile is in place
 
-  // this block's share of the tile's rows, a column a thread: the S
-  // partials in split order, then the adapter term
+  // this block's share of the tile's rows, a column a thread: the
+  // adapter term sum_r h B over the rank chunks in order (its running sum
+  // in ysum, the ring's free space past the partial tile, between
+  // chunks), then the S partials in split order
   const int share = (rows + splits - 1) / splits;
   const int r1 = min(rows, (split + 1) * share);
   const int nl = tid % kTN, n = n0 + nl;
-  if (n < N) {
+  float* ysum = part + MC * kWStride;
+  for (int h0 = 0; h0 < R; h0 += kRankChunk) {
+    const int h1 = min(R, h0 + kRankChunk);
+    if (h0 > 0) {
+      __syncthreads();   // the previous chunk of h is no longer read
+      load_h(split * share, r1, h0, h1 - h0);   // this block's rows only
+      __syncthreads();
+    }
+    if (n < N) {
 #pragma unroll 2
-    for (int mm = split * share + tid / kTN; mm < r1;
-         mm += kThreads / kTN) {
-      float* mine = part + mm * kWStride + nl;
-      float v = *cluster.map_shared_rank(mine, 0);
-      for (int q = 1; q < splits; ++q)
-        v += *cluster.map_shared_rank(mine, q);
-      const int m = m0 + mm;
-      out[static_cast<int64_t>(m) * N + n] =
-          v + s * src.y(hs + mm * R, ids[m], n, N, R);
+      for (int mm = split * share + tid / kTN; mm < r1;
+           mm += kThreads / kTN) {
+        const int m = m0 + mm;
+        float* ys = ysum + mm * kTN + nl;
+        const float ya = src.y(hs + mm * (h1 - h0), ids[m], n, N, R, h0, h1,
+                               h0 == 0 ? 0.0f : *ys);
+        if (h1 < R) {
+          *ys = ya;
+          continue;
+        }
+        float* mine = part + mm * kWStride + nl;
+        float v = *cluster.map_shared_rank(mine, 0);
+        for (int q = 1; q < splits; ++q)
+          v += *cluster.map_shared_rank(mine, q);
+        out[static_cast<int64_t>(m) * N + n] = v + s * ya;
+      }
     }
   }
   cluster.sync();   // no block leaves while another reads its partial
@@ -554,11 +622,12 @@ cudaError_t launch_product(const float* w, const uint4* xfrag,
                            cudaStream_t st) {
   constexpr int MC = MT * 8;
   auto kernel = lora_product_kernel<Source, MT, VEC>;
-  static_assert(kStages * kWSlab >= MC * kWStride,
-                "the W ring holds the epilogue's partial tile");
-  const int smem = ring_bytes<MT>() + MC * R * 4;
-  // the shared-memory opt-in for the largest rank, once per device (it
-  // costs a CUDA runtime call)
+  static_assert(kStages * kWSlab >= MC * (kWStride + kTN),
+                "the W ring holds the epilogue's partial tile and the "
+                "running adapter sums");
+  const int smem = ring_bytes<MT>() + MC * min(R, kRankChunk) * 4;
+  // the shared-memory opt-in for a whole rank chunk of h, once per device
+  // (it costs a CUDA runtime call)
   static bool opted[kMaxDevices] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -567,7 +636,7 @@ cudaError_t launch_product(const float* w, const uint4* xfrag,
   if (!opted[device]) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               ring_bytes<MT>() + MC * kMaxRank * 4);
+                               ring_bytes<MT>() + MC * kRankChunk * 4);
     if (err != cudaSuccess) return err;
     opted[device] = true;
   }
@@ -621,7 +690,8 @@ int launch(const float* x, const float* w, const Source& src, const int* ids,
   const int m_tiles = (M + MT * 8 - 1) / (MT * 8);
   const int64_t frags = static_cast<int64_t>(m_tiles) * k_steps * MT * 32;
   const int64_t blocks =
-      static_cast<int64_t>(M) * h_splits + (frags + kHThreads - 1) / kHThreads;
+      static_cast<int64_t>(M) * h_splits * ((R + kPrepRanks - 1) / kPrepRanks)
+      + (frags + kHThreads - 1) / kHThreads;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   lora_prep_kernel<Source><<<static_cast<unsigned>(blocks), kHThreads, 0,
                              st>>>(x, src, ids, hpart, xfrag, M, K, R,
@@ -656,7 +726,7 @@ bool bad_shape(int M, int K, int R, int h_splits, int h_chunk, int MT) {
   const int rows = min(max(M, 1), kMaxRows);
   int want = 1;
   while (want * 8 < rows) want *= 2;
-  return R < 1 || R > kMaxRank || K < 1 || h_splits < 1 || h_chunk < 1 ||
+  return R < 1 || K < 1 || h_splits < 1 || h_chunk < 1 ||
          h_chunk % 32 != 0 ||
          static_cast<int64_t>(h_splits) * h_chunk < K ||
          static_cast<int64_t>(h_splits - 1) * h_chunk >= K || MT != want;
@@ -669,8 +739,8 @@ bool bad_shape(int M, int K, int R, int h_splits, int h_chunk, int MT) {
 // hpart (h_splits, M, R) fp32 for h's k chunks of h_chunk levels (a
 // multiple of 32) and xfrag (ceil(M / 8MT) * 8MT * ceil(K / 32) * 32)
 // fp32-sized words for x's MMA fragments, MT = the 8-row tiles of a row
-// tile; out (M, N) fp32; R <= 128. Returns cudaGetLastError() after the
-// launches.
+// tile; out (M, N) fp32; any R >= 1. Returns cudaGetLastError() after
+// the launches.
 extern "C" int multi_lora_matmul_q_launch(
     const float* x, const float* w, const uint32_t* aq, const float* a_scale,
     const float* a_zp, const uint32_t* bq, const float* b_scale,
@@ -705,7 +775,7 @@ extern "C" int multi_lora_matmul_q_launch(
 }
 
 // x (M, K), w (K, N), a (E, K, R), b (E, R, N) fp32; ids (M,) int32 < E;
-// scratch hpart and xfrag as above; out (M, N) fp32; R <= 128. Returns
+// scratch hpart and xfrag as above; out (M, N) fp32; any R >= 1. Returns
 // cudaGetLastError() after the launches.
 extern "C" int multi_lora_matmul_launch(const float* x, const float* w,
                                         const float* a, const float* b,

@@ -161,28 +161,105 @@ def dequant_agg_rows(packed: torch.Tensor, scale: torch.Tensor,
 dequant_agg_rows.launches = 0
 
 
+# csrc/dequant_agg.cu, the grouped per-leaf fold: threads a block, packed
+# words a thread (one 16-byte load), and the int64 words of the largest
+# table it takes in its kernel parameters (a larger one is uploaded)
+AGG_THREADS = 64
+AGG_WORDS = 4
+AGG_INLINE_WORDS = 1024
+
+
+def _client_row(payload: torch.Tensor, scale: torch.Tensor,
+                zp: torch.Tensor, c: int, nw: int, dev) -> tuple:
+    """One client's (words, row stride in words, scale, zp) addresses for
+    the descriptor table, after checking what the kernel reads: a (C, nw)
+    uint32 view with unit column stride, (C,) contiguous fp32 sidecars,
+    all on ``dev``. One pass of cheap checks: this runs K times a leaf."""
+    st = payload.stride()
+    if not (payload.dtype == ref.WORD_DTYPE and payload.device == dev
+            and payload.shape == (c, nw) and st[1] == 1
+            and scale.dtype == zp.dtype == torch.float32
+            and scale.device == zp.device == dev
+            and scale.shape == zp.shape == (c,)
+            and scale.is_contiguous() and zp.is_contiguous()):
+        raise ValueError(
+            f"a client needs a ({c}, {nw}) uint32 payload view with unit "
+            f"column stride and ({c},) contiguous fp32 scale and zp on "
+            f"{dev}; got {payload.dtype} {tuple(payload.shape)} strides "
+            f"{st} on {payload.device}, {scale.dtype} "
+            f"{tuple(scale.shape)} on {scale.device}, {zp.dtype} "
+            f"{tuple(zp.shape)} on {zp.device}")
+    return payload.data_ptr(), st[0], scale.data_ptr(), zp.data_ptr()
+
+
+def _launch_leaves(heads: list, clients: list, w: torch.Tensor, k: int,
+                   bits: int, dev) -> None:
+    """ONE launch of the grouped fold. ``heads`` holds a leaf's (C, words
+    a row, valid levels, n_valid vector address or 0, output address,
+    output row stride, 16-byte loads allowed); ``clients`` its K rows of
+    :func:`_client_row`, leaf by leaf. The int64 table the kernel reads:
+    L + 1 block starts, 8 fields a leaf (its head, with a flags word: 1 =
+    16-byte loads, 2 = float4 stores), 4 a (leaf, client). Up to
+    ``AGG_INLINE_WORDS`` it rides in the launch's parameters (no copy on
+    the stream); a larger one goes to the card in one non-blocking
+    pinned copy first."""
+    per = 32 // bits
+    starts = [0]
+    for c, _, _, _, _, n_out, _ in heads:
+        words_out = -(-n_out // per)            # words a row that are stored
+        groups = -(-words_out // AGG_WORDS)     # threads a row
+        starts.append(starts[-1] + -(-(c * groups) // AGG_THREADS))
+    if starts[-1] == 0:
+        return
+    n_leaves = len(heads)
+    flags = [int(vec) | 2 * int(n_out % 4 == 0 and out % 16 == 0)
+             for _, _, _, _, out, n_out, vec in heads]
+    table = np.concatenate([
+        np.asarray(starts, np.int64),
+        np.asarray([h[:6] + (f, 0) for h, f in zip(heads, flags)],
+                   np.int64).reshape(-1),
+        np.asarray(clients, np.int64).reshape(-1)])
+    inline = table.size <= AGG_INLINE_WORDS
+    dt = None if inline else upload(torch.from_numpy(table), dev)
+    fn = LIBRARY.fn("dequant_agg", "dequant_agg_leaves_launch")
+    with torch.cuda.device(dev):
+        err = fn(table.ctypes.data if inline else dt.data_ptr(), table.size,
+                 int(not inline), w.data_ptr(), n_leaves, k, starts[-1], bits,
+                 _stream(dev))
+    check(err, "dequant_agg")
+    dequant_agg.launches += 1
+
+
+def _vec_loads(rows: list) -> bool:
+    """Every client's words start on 16 bytes and its row stride is a
+    multiple of 4 words: whole 16-byte loads."""
+    return all(p % 16 == 0 and st % AGG_WORDS == 0 for p, st, _, _ in rows)
+
+
 def dequant_agg(packed: torch.Tensor, scale: torch.Tensor,
                 zp: torch.Tensor, weights, bits: int,
                 n_valid=None) -> torch.Tensor:
     """Per-leaf cohort aggregate (one packed leaf of K clients): packed
     (K, C, Nw) uint32, sidecars (K, C) fp32, weights (K,) -> (C, N)
-    fp32 in ONE launch. ``n_valid`` (a scalar, a (C,) vector or None =
-    N) masks each row's tail to exact zeros. zp counts as 0 wherever
-    scale <= 0, as the JAX wrapper's ``where`` makes it; the kernel
-    applies that in registers (no extra launch), the plain version with
-    ``torch.where``. Clients fold in the reference kernel's order, which
-    differs from :func:`dequant_agg_rows`' (``ref.dequant_agg_ref``)."""
+    fp32 in ONE launch: the grouped kernel of :func:`dequant_agg_leaves`
+    with one leaf, writing every one of the N columns. ``n_valid`` (a
+    scalar, a (C,) vector or None = N) masks each row's tail to exact
+    +0.0. zp counts as 0 wherever scale <= 0, as the JAX wrapper's
+    ``where`` makes it; the kernel applies that in registers, the plain
+    version with ``torch.where``. Clients fold in the reference kernel's
+    order, which differs from :func:`dequant_agg_rows`'
+    (``ref.dequant_agg_ref``)."""
     if bits not in (2, 4, 8):
         raise ValueError(f"bits must be 2, 4 or 8, got {bits}")
     k, c, nw = packed.shape
+    n = nw * (32 // bits)
     dev = packed.device
     w = torch.as_tensor(weights, dtype=torch.float32).to(dev).contiguous()
     if n_valid is None or isinstance(n_valid, (int, np.integer)):
-        # one length for every row rides as a kernel argument: no vector
-        # to fill (a launch) or copy (a blocking host copy per call would
-        # make the host wait for every queued kernel)
-        nv_all, nv = nw * (32 // bits) if n_valid is None \
-            else int(n_valid), None
+        # one length for every row rides in the table: no vector to fill
+        # (a launch) or copy (a blocking host copy per call would make the
+        # host wait for every queued kernel)
+        nv_all, nv = n if n_valid is None else int(n_valid), None
     else:
         nv = torch.as_tensor(n_valid, dtype=torch.int32)
         nv = nv.expand(c).contiguous() if nv.ndim == 0 else nv
@@ -194,23 +271,70 @@ def dequant_agg(packed: torch.Tensor, scale: torch.Tensor,
     _require(scale, "scale", torch.float32, (k, c), dev)
     _require(zp, "zp", torch.float32, (k, c), dev)
     _require(w, "weights", torch.float32, (k,), dev)
-    out = torch.empty((c, nw * (32 // bits)), dtype=torch.float32,
-                      device=dev)
-    _aligned(out, "out")
-    fn = LIBRARY.fn("dequant_agg", "dequant_agg_launch")
-    with torch.cuda.device(dev):
-        err = fn(packed.data_ptr(), scale.data_ptr(), zp.data_ptr(),
-                 w.data_ptr(), None if nv is None else nv.data_ptr(), nv_all,
-                 out.data_ptr(), k, c, nw, bits, _stream(dev))
-    check(err, "dequant_agg")
-    dequant_agg.launches += 1
+    out = torch.empty((c, n), dtype=torch.float32, device=dev)
+    # client i's rows lie at fixed offsets of the three stacks
+    p0, s0, z0 = packed.data_ptr(), scale.data_ptr(), zp.data_ptr()
+    rows = [(p0 + 4 * i * c * nw, nw, s0 + 4 * i * c, z0 + 4 * i * c)
+            for i in range(k)]
+    _launch_leaves([(c, nw, nv_all, 0 if nv is None else nv.data_ptr(),
+                     out.data_ptr(), n, _vec_loads(rows))], rows, w, k,
+                   bits, dev)
     return out
 
 
 dequant_agg.launches = 0
 
 
-# the largest adapter rank the single-adapter kernel takes
+def dequant_agg_leaves(leaves, weights, bits: int) -> list:
+    """A round's per-leaf aggregate in ONE launch: ``leaves`` is a list
+    of ``(clients, n)``, ``clients`` the K clients' ``(payload, scale,
+    zp)`` of one packed leaf (payload a (C, Nw) uint32 view with any row
+    stride, such as a row slice of a flat buffer; scale and zp (C,)
+    fp32) and ``n`` its valid levels a row; weights (K,). Returns each
+    leaf's compact (C, n) fp32 fold, the columns past ``n`` never
+    computed or stored, bit-identical to ``dequant_agg(stacked, n)[:,
+    :n]``. On the card the outputs are views into one fp32 buffer, the
+    words are read where they lie (no stack), and the launch counts once
+    on ``dequant_agg.launches``; CPU tensors take
+    ``ref.dequant_agg_leaves_ref``."""
+    if bits not in (2, 4, 8):
+        raise ValueError(f"bits must be 2, 4 or 8, got {bits}")
+    per = 32 // bits
+    leaves = [(list(cl), int(n)) for cl, n in leaves]
+    if not leaves:
+        return []
+    first = leaves[0][0][0][0]
+    dev = first.device
+    w = torch.as_tensor(weights, dtype=torch.float32).to(dev).contiguous()
+    k = w.shape[0]
+    for cl, n in leaves:
+        if len(cl) != k or k < 1:
+            raise ValueError(f"every leaf needs one (payload, scale, zp) "
+                             f"per weight: {len(cl)} clients, {k} weights")
+        if not 0 <= n <= cl[0][0].shape[1] * per:
+            raise ValueError(f"n={n} levels do not fit {cl[0][0].shape[1]} "
+                             f"words at {bits} bits")
+    if _device_kind(first) == "cpu":
+        return ref.dequant_agg_leaves_ref(leaves, w, bits)
+    _require(w, "weights", torch.float32, (k,), dev)
+    # each output starts on 16 bytes: whole float4 stores where n % 4 == 0
+    sizes = [cl[0][1].shape[0] * n for cl, n in leaves]
+    offs = np.concatenate([[0], np.cumsum([-(-s // 4) * 4 for s in sizes])])
+    buf = torch.empty((int(offs[-1]),), dtype=torch.float32, device=dev)
+    outs, heads, rows = [], [], []
+    for (cl, n), off, size in zip(leaves, offs, sizes):
+        c, nw = cl[0][1].shape[0], cl[0][0].shape[1]
+        out = buf[int(off): int(off) + size].view(c, n)
+        mine = [_client_row(p, s, z, c, nw, dev) for p, s, z in cl]
+        heads.append((c, nw, n, 0, out.data_ptr(), n, _vec_loads(mine)))
+        rows += mine
+        outs.append(out)
+    _launch_leaves(heads, rows, w, k, bits, dev)
+    return outs
+
+
+# the largest adapter rank the wgmma path holds (one m64nRP accumulator);
+# larger ranks take the masked path, whose kernels walk r in 64-wide tiles
 LORA_RANK_MAX = 128
 # csrc/lora_matmul.cu: the TMA path's tile (two consumer warpgroups of 64
 # rows by 80 columns), the masked path's square tile and K slab depth, the
@@ -226,7 +350,8 @@ class LoraPlan(NamedTuple):
     """How :func:`lora_matmul` runs on the card: ``path`` "wgmma" (one
     kernel: TMA loads into a ring, wgmma on two warpgroups, h in the
     mainloop) or "masked" (h's split-K kernel, then a WMMA tile that reads
-    ragged edges itself), its (rows, columns) ``tile``, the GEMM's
+    ragged edges itself, and the path of every r > ``LORA_RANK_MAX``),
+    its (rows, columns) ``tile``, the GEMM's
     ``blocks`` and ``waves`` on ``LORA_SMS`` SMs, and the masked path's
     ``h_splits`` K chunks of ``h_k_chunk`` for h."""
     path: str
@@ -252,9 +377,11 @@ def lora_plan(m: int, k: int, n: int, r: int,
     """The path and tiling of :func:`lora_matmul` on the card, from the
     shapes and whether every operand starts on a 16-byte boundary, and
     nothing else. TMA needs 16-byte row strides: K, N and r multiples
-    of 8 (bf16) and aligned bases take the wgmma path; any other shape
-    takes the masked path, still a kernel on the card."""
-    tma = aligned and k % 8 == 0 and n % 8 == 0 and r % 8 == 0
+    of 8 (bf16) and aligned bases take the wgmma path, up to
+    ``LORA_RANK_MAX``; any other shape takes the masked path, still a
+    kernel on the card."""
+    tma = aligned and k % 8 == 0 and n % 8 == 0 and r % 8 == 0 \
+        and r <= LORA_RANK_MAX
     tile = LORA_WG_TILE if tma else (LORA_TILE, LORA_TILE)
     blocks = -(-m // tile[0]) * -(-n // tile[1])
     splits, k_chunk = lora_h_splits(k)
@@ -267,19 +394,21 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     """Single-adapter ``y = x@w + s*(x@a)@b``: x (M, K), w (K, N),
     a (K, r), b (r, N) bf16 -> (M, N) bf16, every product accumulated in
     fp32, h = x@a summed over all of K and rounded to bf16 once, and the
-    low-rank term added as ``acc + s*low``. Any M, K, N and r <= 128;
+    low-rank term added as ``acc + s*low``. Any M, K, N and r >= 1;
     nothing is padded. One launch, counted once. :func:`lora_plan` picks
     the path: on the wgmma path ONE kernel computes x@W and x@a in its
     mainloop (TMA loads into a shared-memory ring, wgmma on two
     warpgroups) and bf16(h)@b from registers in its epilogue; the masked
-    path, for shapes TMA cannot read, enqueues h's split-K kernel and a
-    WMMA tile kernel, with h (M, r) allocated here.
-    ``lora_matmul.paths`` counts the calls of each path."""
+    path, for shapes TMA cannot read and for r > ``LORA_RANK_MAX``,
+    enqueues h's split-K kernel (h (M, r) allocated here, each element
+    rounded to bf16 once) and a WMMA tile kernel that adds h@b over
+    64-deep rank slabs into one fp32 accumulator before y's single bf16
+    rounding. ``lora_matmul.paths`` counts the calls of each path."""
     m, k = x.shape
     n = w.shape[1]
     r = a.shape[1]
-    if not 1 <= r <= LORA_RANK_MAX:
-        raise ValueError(f"rank must lie in [1, {LORA_RANK_MAX}], got {r}")
+    if r < 1:
+        raise ValueError(f"rank must be at least 1, got {r}")
     dev = x.device
     if _device_kind(x) == "cpu":
         return ref.lora_matmul_ref(x, w, a, b, s)
@@ -311,12 +440,10 @@ lora_matmul.launches = 0
 lora_matmul.paths = {"wgmma": 0, "masked": 0}
 
 
-# csrc/multi_lora_matmul.cu: the largest adapter rank the serving kernels
-# take, the h = x@A[ids] blocks their first kernel aims for (two per SM of
-# an H100), at most this many k chunks (the product kernel sums a row's
-# chunks in order), and the chunks' granularity (32 levels: whole packed
-# words at every bit width)
-SERVE_RANK_MAX = 128
+# csrc/multi_lora_matmul.cu: the h = x@A[ids] blocks the serving kernels'
+# first kernel aims for (two per SM of an H100), at most this many k
+# chunks (the product kernel sums a row's chunks in order), and the
+# chunks' granularity (32 levels: whole packed words at every bit width)
 SERVE_H_BLOCKS = 264
 SERVE_H_SPLITS_MAX = 8
 SERVE_H_CHUNK = 32
@@ -350,8 +477,8 @@ def _serving_scratch(m: int, k: int, r: int, device):
     R) fp32 for h's k chunks, xfrag (x's bf16 MMA fragments: the padded
     row tiles by K padded to 32, in 32-bit words), splits, k_chunk, row
     tile)."""
-    if not 1 <= r <= SERVE_RANK_MAX:
-        raise ValueError(f"rank must lie in [1, {SERVE_RANK_MAX}], got {r}")
+    if r < 1:
+        raise ValueError(f"rank must be at least 1, got {r}")
     splits, k_chunk = serving_h_splits(m, k)
     mt = serving_row_tile(m)
     rows = -(-max(m, 1) // (8 * mt)) * 8 * mt
@@ -390,9 +517,9 @@ def multi_lora_matmul(x: torch.Tensor, w: torch.Tensor,
     into bf16 hi/lo MMA fragments; the second computes x@W as a
     three-pass split-bf16 product on the tensor cores (fp32-accurate),
     reduces its k splits inside a thread-block cluster and adds the
-    adapter term in its epilogue. Their scratch is allocated here. No
-    padding of M or R is needed: the kernels mask their ragged edges;
-    R <= ``SERVE_RANK_MAX`` on the card."""
+    adapter term in its epilogue, walking R in chunks of at most 128.
+    Their scratch is allocated here. No padding of M or R is needed: the
+    kernels mask their ragged edges; any R >= 1."""
     m, k = x.shape
     n = w.shape[1]
     e, _, r = a_stack.shape
@@ -433,7 +560,7 @@ def multi_lora_matmul_packed(x: torch.Tensor, w: torch.Tensor,
     uint32 with (E, R) fp32 scale/zp; bq (E, N, RW) uint32 with (E, N)
     scale/zp; KW*32/bits >= K and RW*32/bits >= R. Rank-bucket padding
     rides rows with scale = zp = 0. x (M, K), w (K, N) fp32 ->
-    (M, N) fp32; R <= ``SERVE_RANK_MAX`` on the card."""
+    (M, N) fp32; any R >= 1."""
     if bits not in (2, 4, 8):
         raise ValueError(f"bits must be 2, 4 or 8, got {bits}")
     m, k = x.shape

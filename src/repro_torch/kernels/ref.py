@@ -9,6 +9,8 @@ Layouts (channel-FIRST 2D views; callers reshape):
   quant_pack:  x (C, N) -> packed (C, N*bits/32) uint32, scale (C,), zp (C,)
   dequant_agg: packed (K, C, Nw) uint32, scale/zp (K, C), weights (K,)
                -> out (C, N) fp32 = sum_k w_k * dequant_k
+  dequant_agg_leaves: L leaves of K (payload, scale, zp) views each
+               -> L compact (C_l, n_l) fp32 blocks, one fold each
   lora_matmul: x (M, K), w (K, N), a (K, r), b (r, N) bf16
                -> y (M, N) bf16 = x@w + s * (x@a)@b, fp32 accumulation
   multi_lora_matmul:   x (M, K), w (K, N), A (E, K, R), B (E, R, N),
@@ -174,6 +176,29 @@ def dequant_agg_ref(packed: torch.Tensor, scale: torch.Tensor,
         out = contrib if out is None else out + contrib
     if out is None:
         out = torch.zeros((c, n), dtype=torch.float32, device=dev)
+    return out
+
+
+def dequant_agg_leaves_ref(leaves, weights: torch.Tensor,
+                           bits: int) -> list:
+    """The grouped per-leaf fold (the plain version of the grouped B3
+    kernel): ``leaves`` is a list of ``(clients, n)``, ``clients`` the K
+    clients' ``(payload, scale, zp)`` of one leaf, payload a (C, >= Nw)
+    word view with any row stride whose first ``n`` levels a row are
+    valid, scale and zp (C,); weights (K,). Returns each leaf's compact
+    (C, n) fp32 block, bit for bit ``dequant_agg_ref`` of the stacked
+    payloads with ``n_valid = n``, sliced to its first n columns: a
+    column depends only on the word that holds it, so only the words
+    that hold a level are stacked."""
+    per = 32 // bits
+    out = []
+    for clients, n in leaves:
+        nw = -(-n // per)
+        out.append(dequant_agg_ref(
+            torch.stack([p[:, :nw] for p, _, _ in clients]),
+            torch.stack([s for _, s, _ in clients]),
+            torch.stack([z for _, _, z in clients]), weights, bits,
+            n)[:, :n])
     return out
 
 

@@ -259,18 +259,30 @@ def test_cuda_serving_repeat_bit_identical(bits, cuda):
 
 
 @pytest.mark.gpu
-def test_cuda_serving_rank_limit(cuda):
-    """The kernels take R <= SERVE_RANK_MAX; a larger rank raises before
-    any launch."""
-    r = kops.SERVE_RANK_MAX + 1
-    x = torch.zeros((2, 32), device=cuda)
-    w = torch.zeros((32, 64), device=cuda)
-    before = kops.multi_lora_matmul.launches
-    with pytest.raises(ValueError, match="rank"):
-        kops.multi_lora_matmul(x, w, torch.zeros((3, 32, r), device=cuda),
-                               torch.zeros((3, r, 64), device=cuda), [0, 1],
-                               0.5)
-    assert kops.multi_lora_matmul.launches == before
+@pytest.mark.parametrize("r", [136, 160, 256])
+@pytest.mark.parametrize("bits", [4, None], ids=["packed", "fp"])
+def test_cuda_serving_ranks_past_128(bits, r, cuda):
+    """R past 128 (h walked in rank chunks in the product's epilogue, the
+    prep kernel's fp h in chunks of its threads; R = 136 ends in a partial
+    chunk of 8 after four whole ones) within 1e-4 of the plain versions
+    at d = 2560, m = 64; a repeated call gives the same bits."""
+    m, k, n, e = 64, 2560, 2560, 6
+    a, b, packed = _packed_slabs(e, k, n, r, 4, seed=r, r_valid=r - 10)
+    x, w, ids = _serve_inputs(m, k, n, e, seed=r + 1)
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    idt = torch.from_numpy(ids).to(cuda)
+    if bits is None:
+        ab = [torch.from_numpy(v).to(cuda) for v in (a, b)]
+        outs = [kops.multi_lora_matmul(xt, wt, *ab, ids.tolist(), 0.5)
+                for _ in range(2)]
+        want = kref.multi_lora_matmul_ref(xt, wt, *ab, idt, 0.5)
+    else:
+        pt = [torch.from_numpy(v).to(cuda) for v in packed]
+        outs = [kops.multi_lora_matmul_packed(xt, wt, *pt, ids.tolist(), 0.5,
+                                              bits) for _ in range(2)]
+        want = kref.multi_lora_matmul_q_ref(xt, wt, *pt, idt, 0.5, bits)
+    torch.testing.assert_close(outs[0], want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -332,12 +344,14 @@ def test_cuda_dequant_agg_checks_inputs(cuda):
 
 # (m, k, n, r): tests/test_kernels.py's four shapes, kernel_bench's, a
 # ragged one, the full width (gemma3-4b's d = 2560, r = 32), an M that is
-# not a multiple of the 128-row tile, r = 128 at full width, and an
-# aligned K that is not a multiple of the 64-deep stage
+# not a multiple of the 128-row tile, r = 128 at full width, an aligned K
+# that is not a multiple of the 64-deep stage, and ranks past 128 (the
+# masked path) at full width and at a small width
 LORA_SHAPES = [(128, 256, 192, 8), (64, 128, 128, 32), (256, 512, 256, 128),
                (8, 128, 128, 4), (256, 512, 512, 32), (100, 300, 200, 6),
                (512, 2560, 2560, 32), (130, 2560, 2560, 32),
-               (512, 2560, 2560, 128), (256, 2600, 512, 32)]
+               (512, 2560, 2560, 128), (256, 2600, 512, 32),
+               (512, 2560, 2560, 160), (256, 512, 256, 256)]
 
 
 def _lora_operands(shape, device):
@@ -372,8 +386,9 @@ def test_cuda_lora_matmul(shape, cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(512, 2560, 2560, 32), (100, 300, 200, 6)],
-                         ids=["wgmma", "masked"])
+@pytest.mark.parametrize("shape", [(512, 2560, 2560, 32), (100, 300, 200, 6),
+                                   (512, 2560, 2560, 160)],
+                         ids=["wgmma", "masked", "masked-r160"])
 def test_cuda_lora_matmul_repeat_bit_identical(shape, cuda):
     """No atomics on either path: a second call gives the same bits."""
     ops_ = _lora_operands(shape, cuda)
@@ -394,3 +409,65 @@ def test_cuda_lora_matmul_checks_inputs(cuda):
         kops.lora_matmul(x, w, a, b[:3], 1.0)
     with pytest.raises(ValueError):           # a CPU operand
         kops.lora_matmul(x, w.cpu(), a, b, 1.0)
+
+
+def _resnet8_leaf_cohort(bits: int, k: int, seed: int, device):
+    """K clients' flat messages of ResNet-8 r=32's adapters (18 packed
+    leaves, 10 to 256 rows), seen per leaf through ``as_tree``: strided
+    row slices of each flat buffer. The last client's every fifth row has
+    scale = 0 and a nonzero zp; the weights hold a -0.0."""
+    from repro_torch.utils.tree import tree_flatten, tree_map
+    rng = np.random.default_rng(seed)
+    cfg = resnet.ResNetConfig(arch="resnet8",
+                              lora=LoRAConfig(rank=32, alpha=512.0))
+    base = resnet.init(0, cfg, device="cpu")["train"]
+    msgs = [tflat.pack_flat(tree_map(lambda p: (p + torch.from_numpy(
+        (rng.standard_normal(tuple(p.shape)) * 0.02).astype(np.float32)))
+        .to(device), base), bits) for _ in range(k)]
+    msgs[-1].scale[::5] = 0.0
+    msgs[-1].zp[::5] = 3.0
+    w = torch.from_numpy(rng.uniform(0.1, 1.0, k).astype(np.float32))
+    w[0] = -0.0
+    trees = [tree_flatten(m.as_tree())[0] for m in msgs]
+    cols = [list(c) for c in zip(*trees) if hasattr(c[0], "payload")]
+    return msgs, cols, w.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("k", [1, 5, 20])
+def test_cuda_dequant_agg_leaves_resnet8(bits, k, cuda):
+    """The grouped B3 over ResNet-8 r=32's 18 leaf shapes in ONE launch,
+    reading strided ``as_tree`` payloads where they lie: every leaf
+    bit-identical to the plain version (the table: 235 and 523 int64
+    words at K = 1 and 5 ride in the kernel's parameters, K = 20's 1,603
+    are uploaded)."""
+    _, cols, w = _resnet8_leaf_cohort(bits, k, seed=bits + k, device=cuda)
+    assert len(cols) == 18
+    leaves = [([(m.payload, m.scale, m.zp) for m in col],
+               col[0].n_per_channel) for col in cols]
+    before = kops.dequant_agg.launches
+    got = kops.dequant_agg_leaves(leaves, w, bits)
+    assert kops.dequant_agg.launches == before + 1
+    want = kref.dequant_agg_leaves_ref(leaves, w, bits)
+    for g, v in zip(got, want):
+        assert torch.equal(g.view(torch.int32), v.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_per_leaf_fedavg_packed_one_launch(cuda):
+    """A per-leaf round's aggregate is ONE dequant_agg launch and no
+    dequant_agg_rows, within 1e-6 * max|x| of the flat fold (B2) of the
+    same messages."""
+    from repro_torch.core import aggregation
+    from repro_torch.utils.tree import flatten_with_names
+    msgs, _, _ = _resnet8_leaf_cohort(8, 5, seed=3, device=cuda)
+    w = torch.tensor([3.0, 1.0, 4.0, 1.0, 5.0])
+    flat = aggregation.fedavg_packed(msgs, w)
+    kops.reset_launch_counts()
+    leaf = aggregation.fedavg_packed([m.as_tree() for m in msgs], w)
+    counts = kops.launch_counts()
+    assert counts["dequant_agg"] == 1 and counts["dequant_agg_rows"] == 0
+    for (_, a), (_, b) in zip(flatten_with_names(flat),
+                              flatten_with_names(leaf)):
+        assert float((a - b).abs().max()) <= 1e-6 * float(a.abs().max())

@@ -74,6 +74,8 @@ def test_ragged_shape_takes_the_masked_path():
     ((64, 256, 200, 8), "wgmma"),           # N % 8 == 0 though N % 80 != 0
     ((64, 256, 202, 8), "masked"),          # N % 8
     ((1, 8, 8, 8), "wgmma"),
+    ((512, 2560, 2560, 160), "masked"),     # r past the wgmma accumulator
+    ((256, 512, 256, 256), "masked"),
 ])
 def test_path_depends_on_shape_alignment(shape, path):
     assert kops.lora_plan(*shape).path == path

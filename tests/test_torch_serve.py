@@ -368,6 +368,43 @@ def test_rank_bucket_padding_and_restaging():
     assert eng._staged[8][1].slots == {0: 0, 1: 1, 2: 2, 3: 3}
 
 
+@pytest.mark.parametrize("path", ["fused", "dequant"])
+def test_rank_bucket_above_128_stages_and_steps(path):
+    """Rank-160 adapters stage into the pow2-256 bucket and step, within
+    the engine contract of the JAX engine and of the dense-merge
+    oracle."""
+    bits, d, r = 4, 32, 160
+    rng = np.random.default_rng(16)
+    w = (rng.standard_normal((d, d)) * 0.05).astype(np.float32)
+    trees = [{"layers": [{
+        "a": (rng.standard_normal((d, r)) * 0.1).astype(np.float32),
+        "b": (rng.standard_normal((r, d)) * 0.1).astype(np.float32)}]}
+        for _ in range(3)]
+    tm = [tmsg.pack_message(_map(torch.from_numpy, t), QuantConfig(bits=bits),
+                            flat=False) for t in trees]
+    jm = [jmsg.pack_message(_map(jnp.asarray, t), JQuantConfig(bits=bits),
+                            flat=False) for t in trees]
+    te = T.AdapterServingEngine(
+        [torch.from_numpy(w)], 0.5, QuantConfig(bits=bits),
+        T.AdapterCache(1 << 22, QuantConfig(bits=bits), device="cpu"),
+        fetch=tm.__getitem__, path=path, device="cpu")
+    je = J.AdapterServingEngine(
+        [jnp.asarray(w)], 0.5, JQuantConfig(bits=bits),
+        J.AdapterCache(1 << 22, JQuantConfig(bits=bits)),
+        fetch=jm.__getitem__, path=path)
+    cids = [0, 2, 1, 2, 0]
+    x = (rng.standard_normal((5, d)) * 0.5).astype(np.float32)
+    te.admit(cids)
+    je.admit(cids)
+    y = te.step(torch.from_numpy(x), cids)
+    assert te._staged[256][1].rank == 256
+    np.testing.assert_allclose(y.numpy(), np.asarray(
+        je.step(jnp.asarray(x), cids)), **ENGINE_TOL)
+    np.testing.assert_allclose(
+        y.numpy(), te.oracle_step(torch.from_numpy(x), cids).numpy(),
+        **ENGINE_TOL)
+
+
 def test_engine_rejects_unported_and_bad_options(stores):
     _, _, tw, ts = stores
     cache = T.AdapterCache(1 << 20, ts.qcfg, device="cpu")

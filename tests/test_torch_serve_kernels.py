@@ -123,3 +123,42 @@ def test_cpu_wrappers_launch_nothing_and_check_ids():
     with pytest.raises(ValueError, match="too short"):
         kops.multi_lora_matmul_packed(xt, wt, pt[0][..., :1], *pt[1:],
                                       ids.tolist(), 0.5, 4)
+
+
+# adapter ranks past 128, which the JAX wrappers compute (the fp one pads R
+# to a multiple of 128 on the TPU; the packed one takes any R): m, k, n,
+# R, E, with R = 150 valid ranks padded into the R = 160 bucket for the
+# packed slabs
+HIGH_RANK = (8, 64, 128, 160, 3)
+HIGH_RANK_TOL = dict(atol=5e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_packed_rank_160_matches_jax(bits):
+    m, k, n, r, e = HIGH_RANK
+    _, _, packed = _packed_slabs(e, k, n, r, bits, seed=bits + 40,
+                                 r_valid=150)
+    x, w, ids = _serve_inputs(m, k, n, e, seed=41)
+    got = kops.multi_lora_matmul_packed(
+        torch.from_numpy(x), torch.from_numpy(w),
+        *[torch.from_numpy(a) for a in packed], ids.tolist(), 0.5, bits)
+    jargs = [jnp.asarray(v) for v in (x, w, *packed)]
+    for want in (jops.multi_lora_matmul_packed(*jargs, jnp.asarray(ids), 0.5,
+                                               bits),
+                 jops._multi_lora_matmul_q_jnp(*jargs, jnp.asarray(ids), 0.5,
+                                               bits)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **HIGH_RANK_TOL)
+
+
+def test_fp_rank_160_matches_jax():
+    m, k, n, r, e = HIGH_RANK
+    a, b, _ = _packed_slabs(e, k, n, r, 8, seed=42)
+    x, w, ids = _serve_inputs(m, k, n, e, seed=43)
+    got = kops.multi_lora_matmul(*[torch.from_numpy(v) for v in
+                                   (x, w, a, b)], ids.tolist(), 0.5)
+    jargs = [jnp.asarray(v) for v in (x, w, a, b, ids)]
+    for want in (jops.multi_lora_matmul(*jargs, 0.5),
+                 jops._multi_lora_matmul_jnp(*jargs, 0.5)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **HIGH_RANK_TOL)
