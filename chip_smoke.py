@@ -7,9 +7,11 @@ Phases, each of which raises on failure (the script then exits nonzero):
      one process per source, all at once;
   2. hold each kernel against its plain PyTorch version on the card:
      ``quant_pack_rows`` bit-exact (words, scale and zp bits) at bits
-     {2, 4, 8} on the main-path (1610, 2560) buffer and ragged cases;
-     ``dequant_agg_rows`` within rtol=atol=1e-5 at K in {1, 5, 64} on
-     (K, 1610, 640), and bit-identical across block_k;
+     {2, 4, 8} on the main-path (1610, 2560) buffer, at bits {4, 8} on
+     Table IV's ResNet-18 r=64 buffer (6026, 4608 / 5120), and ragged
+     cases; ``dequant_agg_rows`` within rtol=atol=1e-5 at K in {1, 5,
+     64} on (K, 1610, 640) and at K = 4 on ResNet-18's (4, 6026, 1152 /
+     640), and bit-identical across block_k;
      ``multi_lora_matmul_packed`` at bits {2, 4, 8} and
      ``multi_lora_matmul`` within rtol=atol=1e-4 at m in {1, 8, 32, 64},
      d in {256, 2560}, R in {4, 8}, E=512, plus K=2559, N=2555, R=6,
@@ -46,9 +48,22 @@ Phases, each of which raises on failure (the script then exits nonzero):
      aggregated both ways within 1e-6 * max|x|); error feedback (int4, oversample 1.4: 7 dispatched,
      5 kept, 2 rounds, round 1 replayed on the CPU); resume (1 round
      checkpointed, a fresh server resumes and runs round 2 beside an
-     uninterrupted run, both with cuDNN's deterministic algorithms); and
+     uninterrupted run, both with cuDNN's deterministic algorithms);
      ``lora_matmul``'s entry point, which no
-     round calls, as a 2-layer bf16 chain at gemma3-4b's width;
+     round calls, as a 2-layer bf16 chain at gemma3-4b's width; the
+     vmapped cohort engine against ``make_local_trainer`` client by
+     client (two servers, 3 rounds each, round 1's trained trees and
+     every round's global trees held to each other); FedProx (mu =
+     0.01, 2 rounds, round 1 replayed on the CPU) and the staggered
+     engine (4 clients from 4 start trees, each held to
+     ``make_local_trainer`` from its own start); then the paper's Table
+     IV training row (``benchmarks/table4_comparison.py --train`` (64,
+     8) through ``fl_experiment``'s settings: ResNet-18, r=64,
+     alpha=1024, int8, 20 clients with LDA 1.0 over 2000 synthetic
+     images, K=4, eval every 2 rounds on 1000 held-out images), 4 of
+     its 12 rounds: every uplink 2,379,064 B, test_acc in rounds 2 and
+     4, one B1 launch a message and one B2 launch a round, round 1
+     replayed on the CPU;
   4. drive the serving path: ``benchmarks/round_throughput.py`` run_serve's
      1024-client int4 store (ranks 4 and 8, 2 layers, seed 0) at
      d = 2560 (gemma3-4b's hidden width), an m = 64 step on the fused and
@@ -57,7 +72,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
      continuous-batching simulator on both paths plus the clock-policy
      churn run at capacity/16;
   5. time each kernel with CUDA events at its path's shapes beside its
-     plain version and its bound (``dequant_agg``: the per-leaf round's
+     plain version and its bound (B1 and B2, and the ``flat_rows``
+     staging before B1, at ResNet-8's and ResNet-18's layouts;
+     ``dequant_agg``: the per-leaf round's
      one grouped launch over the flat run's round-1 uplinks as the path
      calls it, beside the 18-call form the path made before (a stack of
      the K payloads and one launch a leaf, with and without the stacks),
@@ -76,7 +93,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
      ways, and warm at R = 160, m = 64).
 The line before the last is one JSON object with the kernels' numbers;
 the last is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
-round under ``torch.profiler`` and prints the device time by kernel.
+quickstart round (the vmapped cohort engine) under ``torch.profiler``
+and prints its launch count, busy share and device time by kernel.
 
 Imports nothing of JAX. Needs one CUDA device and ``nvcc``.
 """
@@ -137,6 +155,14 @@ LORA_TIMED_RANKS = (8, 16, 64, 128, 160, 256)
 QUANT_ROW_LEVELS = (32, 576, 1152, 27, 64, 2304, 128, 256, 0, 1, 31, 33,
                     2560)
 LEAF_TOL = 1e-6
+# rounds of each engine in the vmapped-vs-per-client phase
+ENGINE_ROUNDS = 3
+# the paper's Table IV training row (ResNet-18, r=64, alpha=16r, int8):
+# benchmarks/table4_comparison.py --train through
+# benchmarks/common.py fl_experiment, cut from 12 rounds to 4; its
+# uplink (paper: 2.4 MB) as the JAX package's message_wire_bytes counts
+# it
+TABLE4 = dict(rank=64, alpha=1024.0, rounds=4, up_bytes=2_379_064)
 # the serving path: benchmarks/round_throughput.py run_serve at the
 # hidden width of gemma3-4b (src/repro/configs/gemma3_4b.py d_model)
 SERVE = dict(n_clients=1024, d_model=2560, n_layers=2, ranks=(4, 8), bits=4,
@@ -329,17 +355,17 @@ def _f32_bits(t):
     return t.contiguous().view(torch.int32)
 
 
-def check_quant_pack(main_layouts, dev) -> float:
-    """Kernel vs plain, bit for bit. Returns the max abs difference over
-    levels, scale and zp (0.0 when bit-exact)."""
+def check_quant_pack(layouts, dev) -> float:
+    """Kernel vs plain, bit for bit, on ``layouts`` ({label: (flat, nv,
+    bits)}, the paths' buffers) and ragged cases. Returns the max abs
+    difference over levels, scale and zp (0.0 when bit-exact)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
 
-    cases = []
-    for bits, (flat, nv) in main_layouts.items():
-        cases.append((f"main bits={bits}", flat, nv, bits))
+    cases = [(label, flat, nv, bits)
+             for label, (flat, nv, bits) in layouts.items()]
     rng = np.random.default_rng(7)
     for bits in (2, 4, 8):
         per = 32 // bits
@@ -387,9 +413,11 @@ def check_quant_pack(main_layouts, dev) -> float:
     return worst
 
 
-def check_dequant_agg(nv, nw: int, dev) -> float:
-    """Kernel vs plain within rtol=atol=1e-5, and the kernel bit-identical
-    to itself across block_k. Returns the max abs difference."""
+def check_dequant_agg(nv, nw: int, dev, bits: int = 8, ks=(1, 5, 64),
+                      label: str = "resnet8") -> float:
+    """Kernel vs plain within rtol=atol=1e-5 at each K of ``ks``, and the
+    kernel bit-identical to itself across block_k. Returns the max abs
+    difference."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops as kops
@@ -398,35 +426,37 @@ def check_dequant_agg(nv, nw: int, dev) -> float:
     rng = np.random.default_rng(11)
     c = nv.shape[0]
     worst = 0.0
-    for k in (1, 5, 64):
+    for k in ks:
         words = torch.from_numpy(rng.integers(
             0, 1 << 32, size=(k, c, nw), dtype=np.uint32)).to(dev)
         scale = torch.from_numpy(rng.uniform(
             1e-4, 1e-2, size=(k, c)).astype(np.float32)).to(dev)
         scale[:, -3:] = 0.0                      # phantom rows
         zp = torch.from_numpy(rng.integers(
-            0, 256, size=(k, c)).astype(np.float32)).to(dev)
+            0, 1 << bits, size=(k, c)).astype(np.float32)).to(dev)
         w = torch.from_numpy(rng.uniform(1, 100, size=k).astype(
             np.float32)).to(dev)
         w = w / w.sum()
-        got = kops.dequant_agg_rows(words, scale, zp, w, nv, 8)
-        want = kref.dequant_agg_rows_ref(words, scale, zp, w, nv, 8)
+        got = kops.dequant_agg_rows(words, scale, zp, w, nv, bits)
+        want = kref.dequant_agg_rows_ref(words, scale, zp, w, nv, bits)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         close = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
         same = True
         for bk in sorted({1, 2, 4, k}):
-            again = kops.dequant_agg_rows(words, scale, zp, w, nv, 8,
+            again = kops.dequant_agg_rows(words, scale, zp, w, nv, bits,
                                           block_k=bk)
             same &= torch.equal(_f32_bits(again), _f32_bits(got))
         same &= torch.equal(_f32_bits(kops.dequant_agg_rows(
-            words, scale, zp, w, nv, 8, whole_k=True)), _f32_bits(got))
+            words, scale, zp, w, nv, bits, whole_k=True)), _f32_bits(got))
         torch.cuda.synchronize()
-        print(f"check dequant_agg_rows K={k} {tuple(words.shape)}: "
+        print(f"check dequant_agg_rows {label} bits={bits} K={k} "
+              f"{tuple(words.shape)}: "
               f"max_abs_err={err} within_1e-5={close} "
               f"block_k_bit_identical={same}")
         if not (close and same):
-            raise AssertionError(f"dequant_agg_rows K={k} failed its check")
+            raise AssertionError(f"dequant_agg_rows {label} bits={bits} "
+                                 f"K={k} failed its check")
         worst = max(worst, err)
     return worst
 
@@ -1062,9 +1092,10 @@ def quickstart_data():
     return [{"x": x[p], "y": y[p].astype(np.int32)} for p in parts]
 
 
-def make_server(model, data, device, fl=None, server=None):
-    """The quickstart round's FLServer; ``fl``/``server`` override
-    FLoCoRAConfig / ServerConfig fields (the options' phases)."""
+def make_server(model, data, device, fl=None, server=None, client=None):
+    """The quickstart round's FLServer; ``fl``/``server``/``client``
+    override FLoCoRAConfig / ServerConfig / ClientConfig fields (the
+    options' phases)."""
     from repro_torch.core.flocora import FLoCoRAConfig
     from repro_torch.core.lora import LoRAConfig
     from repro_torch.fl import ClientConfig, FLServer, ServerConfig
@@ -1074,7 +1105,8 @@ def make_server(model, data, device, fl=None, server=None):
     return FLServer(
         model, lambda f, t, b: resnet.loss_fn(f, t, cfg, b), data,
         ServerConfig(n_clients=20, clients_per_round=5, **(server or {})),
-        ClientConfig(local_epochs=1, batch_size=32, lr=0.01),
+        ClientConfig(local_epochs=1, batch_size=32, lr=0.01,
+                     **(client or {})),
         FLoCoRAConfig(rank=32, alpha=512.0, **{"quant_bits": 8, **(fl or {})}),
         device=device)
 
@@ -1108,13 +1140,12 @@ BYTE_KEYS = ("down_bytes", "up_bytes", "up_bytes_measured", "n_agg",
              "n_straggled", "tcc_bytes", "wasted_bytes")
 
 
-def compare_with_cpu(rec_gpu: dict, tree_gpu, model_cpu, data, fl=None,
-                     server=None) -> None:
-    """Replay round 1 on the CPU (the kernels' plain versions, CPU convs)
-    with the same options and hold the card's round to it: the same
-    cohort and bytes, loss within rtol 1e-3, trees as ``hold_trees``."""
+def compare_with_cpu(rec_gpu: dict, tree_gpu, srv, what: str) -> None:
+    """Replay round 1 on the CPU with ``srv`` (a fresh server of the same
+    run on the CPU: the kernels' plain versions, CPU convs) and hold the
+    card's round to it: the same cohort and bytes, loss within rtol
+    1e-3, trees as ``hold_trees``."""
     t0 = time.perf_counter()
-    srv = make_server(model_cpu, data, "cpu", fl, server)
     rec = srv.run_round()
     for key in BYTE_KEYS:
         if rec[key] != rec_gpu[key]:
@@ -1126,7 +1157,7 @@ def compare_with_cpu(rec_gpu: dict, tree_gpu, model_cpu, data, fl=None,
                              f"{rec_gpu['client_loss']}")
     bits = srv.fcfg.quant_bits
     worst = hold_trees(srv.global_train, tree_gpu, bits, "cpu replay")
-    print(f"cpu replay of round 1 {fl or {}} {server or {}}: loss "
+    print(f"cpu replay of round 1 ({what}): loss "
           f"{rec['client_loss']:.6f} vs card {rec_gpu['client_loss']:.6f}, "
           f"bytes identical, max adapter diff {worst:.3g} "
           f"({time.perf_counter() - t0:.1f} s)")
@@ -1244,7 +1275,9 @@ def ef_phase(data, model_cpu, dev) -> dict:
         raise AssertionError(f"ef residuals stored for {stored} clients")
     print(f"ef: residuals stored for {stored} clients (kept and folded "
           f"stragglers); round walls {[round(t, 4) for t in walls]} s")
-    compare_with_cpu(recs[0], tree1, model_cpu, data, fl, sv)
+    compare_with_cpu(recs[0], tree1,
+                     make_server(model_cpu, data, "cpu", fl, sv),
+                     f"ef {fl} {sv}")
     launches = {}
     for c in counts:
         _add_counts(launches, c)
@@ -1312,6 +1345,311 @@ def resume_phase(data, dev) -> dict:
     return {"launches": counts[0], "max_diff": diff, "bit_identical": exact}
 
 
+def _stack_trees(trees):
+    import torch
+    from repro_torch.utils.tree import tree_map
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def per_client_trainer(loss_fn, ccfg):
+    """The cohort trained client by client through ``make_local_trainer``
+    (each over its own natural steps) and stacked as the vmapped engine
+    returns it: the sequential baseline, the structure the port's round
+    had before its engine was vmapped."""
+    import torch
+    from repro_torch.fl import make_local_trainer
+    run = make_local_trainer(loss_fn, ccfg)
+
+    def trainer(frozen, train0, batches, n_steps):
+        outs = [run(frozen, train0,
+                    {key: v[k, :n] for key, v in batches.items()})
+                for k, n in enumerate(n_steps.tolist())]
+        return (_stack_trees([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
+
+    return trainer
+
+
+def engine_phase(data, dev) -> dict:
+    """The vmapped cohort engine against the per-client baseline on the
+    card: two quickstart servers from one init and seed, one training
+    through ``make_cohort_trainer``, the other client by client through
+    ``make_local_trainer``, ``ENGINE_ROUNDS`` rounds each. Round 1 starts
+    both from the same broadcast and batches: each client's trained tree
+    is held to its twin by ``hold_trees`` and its loss within rtol 1e-3;
+    every round's bytes are equal and the global trees held the same
+    way. Returns both engines' round walls."""
+    import torch
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.models import resnet
+    from repro_torch.utils.tree import tree_map
+    cfg = resnet.ResNetConfig(arch="resnet8",
+                              lora=LoRAConfig(rank=32, alpha=512.0))
+    runs = {}
+    for name in ("vmapped", "per-client"):
+        srv = make_server(resnet.init(0, cfg, device=dev), data, dev)
+        train = srv.trainer if name == "vmapped" \
+            else per_client_trainer(srv.loss_fn, srv.ccfg)
+        first = []
+
+        def recording(*args, train=train, first=first):
+            out = train(*args)
+            if not first:
+                first.append((tree_map(torch.clone, out[0]), out[1].clone()))
+            return out
+
+        srv.trainer = recording
+        recs, _, _, walls = run_rounds(srv, ENGINE_ROUNDS, f"engine {name}")
+        runs[name] = (recs, first[0], walls, srv)
+    (v_recs, (v_tr, v_loss), v_walls, v_srv), \
+        (p_recs, (p_tr, p_loss), p_walls, p_srv) = \
+        runs["vmapped"], runs["per-client"]
+    worst = 0.0
+    for k in range(v_loss.shape[0]):
+        worst = max(worst, hold_trees(
+            tree_map(lambda x: x[k], p_tr), tree_map(lambda x: x[k], v_tr),
+            8, f"engine round 1 client {k}"))
+    if not torch.allclose(v_loss, p_loss, rtol=1e-3, atol=0.0):
+        raise AssertionError(f"engine losses {v_loss} != {p_loss}")
+    for a, b in zip(v_recs, p_recs):
+        for key in BYTE_KEYS:
+            if a[key] != b[key]:
+                raise AssertionError(f"engine round {a['round']} {key}: "
+                                     f"{a[key]} != {b[key]}")
+    glob = hold_trees(p_srv.global_train, v_srv.global_train, 8,
+                      "engine global trees")
+    print(f"engine: round 1's {v_loss.shape[0]} clients, vmapped vs "
+          f"make_local_trainer from the same broadcast and batches: max "
+          f"tree diff {worst:.3g}, losses {v_loss.tolist()} vs "
+          f"{p_loss.tolist()}; global trees after {ENGINE_ROUNDS} rounds "
+          f"max diff {glob:.3g}; round walls (s) vmapped "
+          f"{[round(t, 4) for t in v_walls]}, per-client "
+          f"{[round(t, 4) for t in p_walls]}")
+    return {"vmapped": v_walls, "per-client": p_walls,
+            "per-client server": p_srv}
+
+
+def fedprox_phase(data, model_cpu, dev) -> dict:
+    """FedProx (mu = 0.01) on the card: 2 quickstart rounds with round 1
+    replayed on the CPU; then the staggered engine trains 4 clients,
+    each from its own start tree (the global adapters moved by
+    0.01 * k * noise), with FedProx pulling each to its own start, and
+    each client is held to ``make_local_trainer`` from that start."""
+    import numpy as np
+    import torch
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.fl import make_local_trainer, \
+        make_staggered_cohort_trainer, stack_cohort_batches
+    from repro_torch.models import resnet
+    from repro_torch.utils.tree import tree_map
+    client = {"fedprox_mu": 0.01}
+    cfg = resnet.ResNetConfig(arch="resnet8",
+                              lora=LoRAConfig(rank=32, alpha=512.0))
+    server = make_server(resnet.init(0, cfg, device=dev), data, dev,
+                         client=client)
+    recs, counts, tree1, walls = run_rounds(server, ROUNDS, "fedprox")
+    k = server.scfg.clients_per_round
+    for c in counts:
+        if c["quant_pack_rows"] < k + 1 or c["dequant_agg_rows"] != 1:
+            raise AssertionError(f"fedprox round launch counts {c}")
+    compare_with_cpu(recs[0], tree1,
+                     make_server(model_cpu, data, "cpu", client=client),
+                     f"fedprox {client}")
+    ccfg = server.ccfg
+    batches, n_steps = stack_cohort_batches(np.random.default_rng(1),
+                                            data[:4], ccfg)
+    bd = {key: torch.from_numpy(v).to(dev) for key, v in batches.items()}
+    gen = torch.Generator().manual_seed(2)
+    starts = [tree_map(lambda p, i=i: p + 0.01 * i * torch.randn(
+        p.shape, generator=gen).to(dev), server.global_train)
+        for i in range(4)]
+    t0 = time.perf_counter()
+    trained, losses = make_staggered_cohort_trainer(server.loss_fn, ccfg)(
+        server.frozen, _stack_trees(starts), bd,
+        torch.from_numpy(n_steps).to(dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    local = make_local_trainer(server.loss_fn, ccfg)
+    worst = 0.0
+    for i, n in enumerate(n_steps.tolist()):
+        t_i, l_i = local(server.frozen, starts[i],
+                         {key: v[i, :n] for key, v in bd.items()})
+        worst = max(worst, hold_trees(t_i, tree_map(lambda x: x[i],
+                                                    trained),
+                                      8, f"staggered client {i}"))
+        if not math.isclose(float(l_i), float(losses[i]), rel_tol=1e-3):
+            raise AssertionError(f"staggered client {i} loss "
+                                 f"{float(losses[i])} != {float(l_i)}")
+    print(f"staggered engine (FedProx mu=0.01, 4 clients from 4 start "
+          f"trees, n_steps {n_steps.tolist()}): {wall:.3f} s, each client "
+          f"vs make_local_trainer from its own start: max tree diff "
+          f"{worst:.3g}; fedprox round walls {[round(t, 4) for t in walls]}"
+          f" s")
+    launches = {}
+    for c in counts:
+        _add_counts(launches, c)
+    return {"launches": launches, "walls": walls}
+
+
+def table4_data():
+    """benchmarks/common.py fl_experiment at table4_comparison.py's
+    --train settings: 2000 synthetic 32x32x3 images over 20 clients (LDA
+    1.0, partition seed 0), then 1000 held-out test images drawn after
+    them from the same rng."""
+    import numpy as np
+    from repro_torch.data import SyntheticVision, lda_partition
+    rng = np.random.default_rng(0)
+    sv = SyntheticVision(seed=0)
+    y = rng.integers(0, 10, 2000)
+    x = sv.sample(rng, y).astype(np.float32)
+    parts = lda_partition(y, 20, alpha=1.0, seed=0)
+    data = [{"x": x[p], "y": y[p].astype(np.int32)} for p in parts]
+    yt = rng.integers(0, 10, 1000)
+    return data, sv.sample(rng, yt), yt
+
+
+def table4_cfg():
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.models import resnet
+    return resnet.ResNetConfig(arch="resnet18", lora=LoRAConfig(
+        rank=TABLE4["rank"], alpha=TABLE4["alpha"]))
+
+
+def make_table4_server(model, data, device, eval_fn=None):
+    """fl_experiment's FLServer for Table IV's (r=64, int8) row: K=4 a
+    round, batch 32, lr 0.01, momentum 0.9, 1 local epoch, seed 0,
+    eval every 2 rounds."""
+    from repro_torch.core.flocora import FLoCoRAConfig
+    from repro_torch.fl import ClientConfig, FLServer, ServerConfig
+    from repro_torch.models import resnet
+    cfg = table4_cfg()
+    return FLServer(
+        model, lambda f, t, b: resnet.loss_fn(f, t, cfg, b), data,
+        ServerConfig(rounds=TABLE4["rounds"], n_clients=20,
+                     clients_per_round=4, seed=0, eval_every=2),
+        ClientConfig(local_epochs=1, batch_size=32, lr=0.01, momentum=0.9),
+        FLoCoRAConfig(rank=TABLE4["rank"], alpha=TABLE4["alpha"],
+                      quant_bits=8),
+        eval_fn, device=device)
+
+
+def table4_phase(dev) -> dict:
+    """The paper's Table IV training run (ResNet-18, r=64, alpha=1024,
+    int8 flat wire) on the card at full width, TABLE4["rounds"] rounds of
+    the table's 12, with fl_experiment's test accuracy every 2 rounds.
+    Checks each uplink's measured bytes against the static accounting
+    and 2,379,064 B, test_acc in exactly the even rounds and finite, one
+    B1 launch a message and one B2 launch a round, and round 1 against
+    its CPU replay."""
+    import torch
+    from repro_torch.core import messages
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.models import resnet
+    data, xt, yt = table4_data()
+    cfg = table4_cfg()
+    xt_dev = torch.from_numpy(xt).to(dev)
+
+    def eval_fn(frozen, train):
+        with torch.no_grad():
+            pred = torch.argmax(resnet.apply(frozen, train, cfg, xt_dev), -1)
+        return {"test_acc": float((pred.cpu().numpy() == yt).mean())}
+
+    server = make_table4_server(resnet.init(0, cfg, device=dev), data, dev,
+                                eval_fn)
+    static = messages.message_wire_bytes(server.global_train,
+                                         QuantConfig(bits=8))
+    recs, counts, tree1, walls = run_rounds(server, TABLE4["rounds"],
+                                            "table4")
+    k = server.scfg.clients_per_round
+    for rec, c in zip(recs, counts):
+        if rec["up_bytes_measured"] != TABLE4["up_bytes"] \
+                or static != TABLE4["up_bytes"]:
+            raise AssertionError(f"table4 uplink bytes "
+                                 f"{rec['up_bytes_measured']} (static "
+                                 f"{static}) != {TABLE4['up_bytes']}")
+        evaluated = rec["round"] % 2 == 0
+        if ("test_acc" in rec) != evaluated or (
+                evaluated and not math.isfinite(rec["test_acc"])):
+            raise AssertionError(f"table4 round {rec['round']} eval: {rec}")
+        # one pack a message: the broadcast and K uplinks, plus round 1's
+        # measured downlink; one reduce a round
+        packs = k + 1 + (rec["round"] == 1)
+        if c["quant_pack_rows"] != packs or c["dequant_agg_rows"] != 1:
+            raise AssertionError(f"table4 round {rec['round']} launch "
+                                 f"counts {c}, want {packs} packs")
+    compare_with_cpu(recs[0], tree1, make_table4_server(
+        resnet.init(0, cfg, device="cpu"), data, "cpu"), "table4")
+    accs = {rec["round"]: rec["test_acc"] for rec in recs
+            if "test_acc" in rec}
+    print(f"table4 (ResNet-18 r=64 int8, {TABLE4['rounds']} of 12 rounds): "
+          f"uplink {static} B a message, test_acc by round {accs}, round "
+          f"walls (s) {[round(t, 4) for t in walls]}")
+    launches = {}
+    for c in counts:
+        _add_counts(launches, c)
+    return {"launches": launches, "walls": walls, "accs": accs, "k": k}
+
+
+def time_flat_kernels(update, k: int, dev, label: str) -> dict:
+    """B1 and B2 at ``update``'s int8 flat layout (B2 over K packed
+    messages), beside their plain versions and bounds, and the fp32
+    staging (``flat_rows``) each message builds before B1. Returns
+    {kernel: ((ms, call ms), (plain ms, plain call ms), (bound ms, by))}."""
+    import numpy as np
+    import torch
+    from repro_torch.core import flat as flatcodec
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    lo = flatcodec.layout_for(update, 8)
+    leaves = tree_leaves(update)
+    flat = flatcodec.flat_rows(leaves, lo)
+    nv = torch.from_numpy(lo.n_valid_vec()).to(dev)
+    c, n = flat.shape
+    nw = n // 4
+    nvv = lo.n_valid_vec().astype(np.int64)
+    t_s = _time_ms(lambda: flatcodec.flat_rows(leaves, lo), 20)
+    # the staging reads each valid value once and writes the whole buffer
+    s_bytes = 4 * nvv.sum() + 4 * c * n
+    s_bound = _bound_ms(s_bytes, 0)
+    t_q = _time_ms(lambda: kops.quant_pack_rows(flat, nv, 8), 200)
+    t_qp = _time_ms(lambda: kref.quant_pack_rows_ref(flat, nv, 8), 10)
+    # bytes the function must move: the valid levels in, every word and
+    # the sidecars out (the kernel never reads a column past n_valid)
+    q_bytes = 4 * nvv.sum() + 4 * c + 4 * c * nw + 8 * c
+    q_bound = _bound_ms(q_bytes, 9 * nvv.sum())
+    gen = torch.Generator().manual_seed(3)
+    msgs = [flatcodec.pack_flat(tree_map(
+        lambda p: (p + 0.02 * torch.randn(p.shape, generator=gen).to(dev)),
+        update), 8) for _ in range(k)]
+    pk = torch.stack([m.payload for m in msgs])
+    sc = torch.stack([m.scale for m in msgs])
+    zp = torch.stack([m.zp for m in msgs])
+    w = torch.full((k,), 1.0 / k, device=dev)
+    t_d = _time_ms(lambda: kops.dequant_agg_rows(pk, sc, zp, w, nv, 8), 200)
+    t_dp = _time_ms(lambda: kref.dequant_agg_rows_ref(pk, sc, zp, w, nv, 8),
+                    10)
+    words_read = int(((nvv + 3) // 4).sum())
+    d_bytes = 4 * k * words_read + 8 * k * c + 4 * k + 4 * c + 4 * c * n
+    d_bound = _bound_ms(d_bytes, 4 * k * nvv.sum())
+    print(f"flat_rows staging {label} int8 {(c, n)}: {t_s[0] * 1e3:.2f} us "
+          f"on the device ({t_s[1] * 1e3:.2f} us a call from Python), "
+          f"bound {s_bound[0] * 1e3:.2f} us ({s_bytes} B), "
+          f"{s_bound[0] / t_s[0]:.1%} of the bound")
+    for name, shape, t, tp, bound, nbytes in (
+            ("quant_pack_rows int8", tuple(flat.shape), t_q, t_qp, q_bound,
+             q_bytes),
+            (f"dequant_agg_rows K={k}", tuple(pk.shape), t_d, t_dp, d_bound,
+             d_bytes)):
+        print(f"{name} {label} {shape}: kernel {t[0] * 1e3:.2f} us on the "
+              f"device ({t[1] * 1e3:.2f} us a call from Python), plain "
+              f"{tp[0] * 1e3:.2f} us ({tp[1] * 1e3:.2f} us a call), bound "
+              f"{bound[0] * 1e3:.2f} us ({nbytes} B), "
+              f"{bound[0] / t[0]:.1%} of the bound")
+    return {"quant_pack_rows": (t_q, t_qp, q_bound),
+            "dequant_agg_rows": (t_d, t_dp, d_bound)}
+
+
 def lora_chain_phase(dev) -> dict:
     """``lora_matmul``'s entry point as a user calls it: no round of the
     JAX package reaches its TPU kernel (only tests and kernel_bench do),
@@ -1346,6 +1684,30 @@ def lora_chain_phase(dev) -> dict:
             or err > 2 * LORA_TOL * ymax:
         raise AssertionError("the lora_matmul chain failed its check")
     return {"launches": counts, "operands": layers[0]}
+
+
+def profile_round(server, label: str) -> None:
+    """One more round of ``server`` under torch.profiler: its wall time,
+    device busy share, kernel launches and the 15 kernels with the most
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.run_round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type.name == "CUDA"),
+                     key=lambda e: -e.self_device_time_total)
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    print(f"profiled round ({label}): wall {wall * 1e3:.1f} ms, device "
+          f"busy {dev_us / 1e3:.1f} ms ({100 * dev_us / 1e6 / wall:.1f}%), "
+          f"{sum(e.count for e in kernels)} kernel launches")
+    for e in kernels[:15]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
 
 
 def kernel_split(fn, calls: int) -> list:
@@ -1537,12 +1899,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    import numpy as np
     from repro_torch.core import flat as flatcodec
     from repro_torch.core import messages
     from repro_torch.core.quant import QuantConfig
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels import ref as kref
     from repro_torch.kernels.build import LIBRARY
     from repro_torch.core.lora import LoRAConfig
     from repro_torch.models import resnet
@@ -1575,18 +1935,29 @@ def main(argv=None) -> int:
     update = tree_map(
         lambda p: (p + 0.02 * torch.randn(p.shape, generator=gen)).to(dev),
         model_cpu["train"])
-    main_layouts = {}
-    for bits in (2, 4, 8):
-        lo = flatcodec.layout_for(update, bits)
-        main_layouts[bits] = (
-            flatcodec.flat_rows(tree_leaves(update), lo),
-            torch.from_numpy(lo.n_valid_vec()).to(dev))
-    lo8 = flatcodec.layout_for(update, 8)
-    print(f"main-path layout int8: C_total={lo8.c_total} N_max={lo8.n_max} "
-          f"Nw_max={lo8.nw_max} valid levels={int(lo8.n_valid_vec().sum())}")
-    err_q = check_quant_pack(main_layouts, dev)
+    update18 = tree_map(
+        lambda p: (p + 0.02 * torch.randn(p.shape, generator=gen)).to(dev),
+        resnet.init(0, table4_cfg(), device="cpu")["train"])
+    layouts, n_valid = {}, {}
+    for label, tree, all_bits in (("resnet8", update, (2, 4, 8)),
+                                  ("resnet18", update18, (4, 8))):
+        for bits in all_bits:
+            lo = flatcodec.layout_for(tree, bits)
+            nv = torch.from_numpy(lo.n_valid_vec()).to(dev)
+            layouts[f"{label} bits={bits}"] = (
+                flatcodec.flat_rows(tree_leaves(tree), lo), nv, bits)
+            n_valid[(label, bits)] = (nv, lo.nw_max)
+            print(f"{label} layout bits={bits}: C_total={lo.c_total} "
+                  f"N_max={lo.n_max} Nw_max={lo.nw_max} valid levels="
+                  f"{int(lo.n_valid_vec().sum())}")
+    err_q = check_quant_pack(layouts, dev)
     torch.cuda.synchronize()
-    err_d = check_dequant_agg(main_layouts[8][1], lo8.nw_max, dev)
+    err_d = check_dequant_agg(*n_valid[("resnet8", 8)], dev)
+    for bits in (8, 4):
+        err_d = max(err_d, check_dequant_agg(
+            *n_valid[("resnet18", bits)], dev, bits=bits, ks=(4,),
+            label="resnet18"))
+    del layouts
     torch.cuda.synchronize()
     err_mq, err_mf = check_serving_kernels(dev)
     t0 = time.perf_counter()
@@ -1639,7 +2010,8 @@ def main(argv=None) -> int:
         if leaf.shape != init.shape or not bool(torch.isfinite(leaf).all()):
             raise AssertionError("global adapters are not finite or lost "
                                  "their shape")
-    compare_with_cpu(rec1, tree1, model_cpu, data)
+    compare_with_cpu(rec1, tree1, make_server(model_cpu, data, "cpu"),
+                     "quickstart")
 
     # 3b. the round's options, and lora_matmul's entry point --------------
     t0 = time.perf_counter()
@@ -1647,27 +2019,22 @@ def main(argv=None) -> int:
     ef = ef_phase(data, model_cpu, dev)
     resumed = resume_phase(data, dev)
     chain = lora_chain_phase(dev)
+    engines = engine_phase(data, dev)
+    prox = fedprox_phase(data, model_cpu, dev)
     print(f"options phases: {time.perf_counter() - t0:.1f} s; launches: "
           f"per-leaf {leaf['launches']}, ef {ef['launches']}, resume "
-          f"{resumed['launches']}, lora chain {chain['launches']}")
+          f"{resumed['launches']}, lora chain {chain['launches']}, fedprox "
+          f"{prox['launches']}")
+
+    # 3c. the paper's Table IV run: ResNet-18 r=64 int8 at full width --
+    t0 = time.perf_counter()
+    table4 = table4_phase(dev)
+    print(f"table4 phase: {time.perf_counter() - t0:.1f} s; launches "
+          f"{table4['launches']}")
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            server.run_round()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        ev = prof.key_averages()
-        kernels = sorted((e for e in ev if e.device_type.name == "CUDA"),
-                         key=lambda e: -e.self_device_time_total)
-        dev_us = sum(e.self_device_time_total for e in kernels)
-        print(f"profiled round: wall {wall * 1e3:.1f} ms, device busy "
-              f"{dev_us / 1e3:.1f} ms ({100 * dev_us / 1e6 / wall:.1f}%), "
-              f"{sum(e.count for e in kernels)} kernel launches")
-        for e in kernels[:15]:
-            print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
-                  f"{e.count:6d}x  {e.key[:90]}")
+        profile_round(server, "vmapped cohort engine, quickstart")
+        profile_round(engines["per-client server"],
+                      "make_local_trainer client by client, quickstart")
 
     # 4. the serving path on the card --------------------------------------
     t0 = time.perf_counter()
@@ -1675,50 +2042,23 @@ def main(argv=None) -> int:
     print(f"serving phase: {time.perf_counter() - t0:.1f} s")
 
     # 5. times at the paths' shapes ---------------------------------------
-    flat, nv = main_layouts[8]
-    c, n = flat.shape
-    nw = n // 4
-    nvv = nv.cpu().numpy().astype(np.int64)
-    t_q = _time_ms(lambda: kops.quant_pack_rows(flat, nv, 8), 200)
-    t_qp = _time_ms(lambda: kref.quant_pack_rows_ref(flat, nv, 8), 10)
-    # bytes the function must move: the valid levels in, every word and
-    # the sidecars out (the kernel never reads a column past n_valid)
-    q_bytes = 4 * nvv.sum() + 4 * c + 4 * c * nw + 8 * c
-    q_bound = _bound_ms(q_bytes, 9 * nvv.sum())
-    msgs = [flatcodec.pack_flat(tree_map(
-        lambda p: (p + 0.02 * torch.randn(p.shape, generator=gen).to(dev)),
-        update), 8) for _ in range(k)]
-    pk = torch.stack([m.payload for m in msgs])
-    sc = torch.stack([m.scale for m in msgs])
-    zp = torch.stack([m.zp for m in msgs])
-    w = torch.full((k,), 1.0 / k, device=dev)
-    t_d = _time_ms(lambda: kops.dequant_agg_rows(pk, sc, zp, w, nv, 8), 200)
-    t_dp = _time_ms(lambda: kref.dequant_agg_rows_ref(pk, sc, zp, w, nv, 8),
-                    10)
-    words_read = int(((nvv + 3) // 4).sum())
-    d_bytes = 4 * k * words_read + 8 * k * c + 4 * k + 4 * c + 4 * c * n
-    d_bound = _bound_ms(d_bytes, 4 * k * nvv.sum())
-    for name, shape, t, tp, bound, nbytes in (
-            ("quant_pack_rows int8", tuple(flat.shape), t_q, t_qp, q_bound,
-             q_bytes),
-            (f"dequant_agg_rows K={k}", tuple(pk.shape), t_d, t_dp, d_bound,
-             d_bytes)):
-        print(f"{name} {shape}: kernel {t[0] * 1e3:.2f} us on the device "
-              f"({t[1] * 1e3:.2f} us a call from Python), plain "
-              f"{tp[0] * 1e3:.2f} us ({tp[1] * 1e3:.2f} us a call), bound "
-              f"{bound[0] * 1e3:.2f} us ({nbytes} B), "
-              f"{bound[0] / t[0]:.1%} of the bound")
+    t_flat = time_flat_kernels(update, k, dev, "resnet8")
+    time_flat_kernels(update18, table4["k"], dev, "resnet18")
     print(f"round wall times (s): flat {[round(s, 4) for s in round_s]}, "
           f"per-leaf {[round(s, 4) for s in leaf['walls']]}, ef "
-          f"{[round(s, 4) for s in ef['walls']]}")
+          f"{[round(s, 4) for s in ef['walls']]}, fedprox "
+          f"{[round(s, 4) for s in prox['walls']]}; engine phase vmapped "
+          f"{[round(s, 4) for s in engines['vmapped']]}, per-client "
+          f"{[round(s, 4) for s in engines['per-client']]}; table4 "
+          f"{[round(s, 4) for s in table4['walls']]}")
     t_serve = time_serving_kernels(sv, dev)
     t_leaf = time_leaf_and_lora(leaf, chain, dev)
 
     rows = []
     for name, t, tp, bound, err, n_launch in (
-            ("quant_pack_rows", t_q, t_qp, q_bound, err_q,
+            ("quant_pack_rows", *t_flat["quant_pack_rows"], err_q,
              launches["quant_pack_rows"]),
-            ("dequant_agg_rows", t_d, t_dp, d_bound, err_d,
+            ("dequant_agg_rows", *t_flat["dequant_agg_rows"], err_d,
              launches["dequant_agg_rows"]),
             ("multi_lora_matmul_packed",
              *t_serve["multi_lora_matmul_packed"], err_mq,

@@ -14,7 +14,7 @@ from repro_torch.core.messages import pack_message, unpack_message, \
     packed_wire_bytes, message_wire_bytes, message_rank, message_to_wire, \
     message_from_wire, parse_wire_header
 from repro_torch.core.lora import LoRAConfig, conv_lora_init, \
-    conv_lora_apply, dense_lora_init, adapter_rank, is_adapter_pair, \
-    tree_ranks, tree_max_rank
+    conv_lora_apply, conv_merge, dense_lora_init, dense_lora_apply, \
+    dense_merge, adapter_rank, is_adapter_pair, tree_ranks, tree_max_rank
 from repro_torch.core.quant import QuantConfig
 from repro_torch.core import messages, aggregation

@@ -30,6 +30,7 @@ class FLoCoRAConfig:
     alpha: float = 512.0            # paper default: alpha = 16 * r
     quant_bits: Optional[int] = None  # None | 8 | 4 | 2
     error_feedback: bool = False    # EF on the client uplink
+    head_mode: str = "dense"        # 'dense' (paper) | 'lora' | 'frozen'
     rank_schedule: Any = None
     sparsity: Any = None
     # flat-tree wire codec: one fused kernel launch per message; False

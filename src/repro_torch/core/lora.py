@@ -51,19 +51,35 @@ def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv2d_nchw(x: torch.Tensor, w_hwio: torch.Tensor, stride: int,
-                padding: str = "SAME") -> torch.Tensor:
-    """x (N, C, H, W), kernel HWIO -> (N, O, H', W')."""
+def _pair(stride) -> tuple[int, int]:
+    if isinstance(stride, int):
+        return stride, stride
+    sh, sw = stride
+    return int(sh), int(sw)
+
+
+def conv2d_nchw(x: torch.Tensor, w_hwio: torch.Tensor, stride,
+                padding="SAME") -> torch.Tensor:
+    """x (N, C, H, W), kernel HWIO -> (N, O, H', W'). ``stride`` is an
+    int or an (sh, sw) pair; ``padding`` is ``"SAME"`` (XLA's split, per
+    axis), ``"VALID"`` or explicit ``((lo, hi), (lo, hi))`` pairs, as
+    ``lax.conv_general_dilated`` takes them."""
     kh, kw = int(w_hwio.shape[0]), int(w_hwio.shape[1])
+    sh, sw = _pair(stride)
     if padding == "SAME":
-        ph = _same_pads(int(x.shape[2]), kh, stride)
-        pw = _same_pads(int(x.shape[3]), kw, stride)
-        if any(ph + pw):
-            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-    elif padding != "VALID":
-        raise ValueError(f"padding must be 'SAME' or 'VALID': {padding!r}")
+        ph = _same_pads(int(x.shape[-2]), kh, sh)
+        pw = _same_pads(int(x.shape[-1]), kw, sw)
+    elif padding == "VALID":
+        ph = pw = (0, 0)
+    elif isinstance(padding, str):
+        raise ValueError(f"padding must be 'SAME', 'VALID' or pairs: "
+                         f"{padding!r}")
+    else:
+        ph, pw = (tuple(int(p) for p in pair) for pair in padding)
+    if any(ph + pw):
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
     return F.conv2d(x, w_hwio.permute(3, 2, 0, 1).to(x.dtype),
-                    stride=stride)
+                    stride=(sh, sw))
 
 
 def conv_lora_init(gen: torch.Generator, kh: int, kw: int, c_in: int,
@@ -79,23 +95,29 @@ def conv_lora_init(gen: torch.Generator, kh: int, kw: int, c_in: int,
 
 
 def conv_lora_apply_nchw(x: torch.Tensor, b_k: torch.Tensor,
-                         a_k: torch.Tensor, scale: float, stride: int,
-                         padding: str = "SAME") -> torch.Tensor:
+                         a_k: torch.Tensor, scale: float, stride,
+                         padding="SAME") -> torch.Tensor:
     """(α/r) · conv1x1(conv(x, B), A) on NCHW activations."""
     h = conv2d_nchw(x, b_k, stride, padding)
     return scale * conv2d_nchw(h, a_k, 1, "VALID")
 
 
 def conv_lora_apply(x: torch.Tensor, b_k: torch.Tensor, a_k: torch.Tensor,
-                    scale: float, stride: tuple[int, int],
-                    padding: str = "SAME") -> torch.Tensor:
-    """The JAX package's signature: NHWC in and out, ``stride`` a pair
-    of equal ints."""
-    if stride[0] != stride[1]:
-        raise NotImplementedError("unequal strides are not ported")
+                    scale: float, stride, padding="SAME") -> torch.Tensor:
+    """The JAX package's signature: NHWC in and out; ``stride`` and
+    ``padding`` as ``conv2d_nchw`` takes them."""
     y = conv_lora_apply_nchw(x.permute(0, 3, 1, 2), b_k, a_k, scale,
-                             stride[0], padding)
+                             stride, padding)
     return y.permute(0, 2, 3, 1)
+
+
+def conv_merge(p: torch.Tensor, b_k: torch.Tensor, a_k: torch.Tensor,
+               scale: float) -> torch.Tensor:
+    """Fold the adapter back into the base kernel:
+    P[h,w,i,o] + (α/r) · Σ_r B[h,w,i,r]·A[0,0,r,o], in fp32."""
+    delta = torch.einsum("hwir,ro->hwio", b_k.to(torch.float32),
+                         a_k[0, 0].to(torch.float32))
+    return (p.to(torch.float32) + scale * delta).to(p.dtype)
 
 
 def dense_lora_init(gen: torch.Generator, d_in: int, d_out: int,

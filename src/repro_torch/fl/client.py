@@ -1,12 +1,22 @@
 """Client-side local training (paper §IV setup).
 
 Defaults match the paper: SGD momentum 0.9, lr 0.01, batch 32, 5 local
-epochs. ``make_cohort_trainer`` runs K clients' local runs over stacked
-(K, steps, B, ...) batches, one client after another. Each local run has
-a fixed-length schedule with a per-client active step count: steps past
-``n_steps`` leave params, momentum and loss untouched (here they are not
-computed at all, which gives the same result), and the loss is
-``sum / max(n_steps, 1)``, as in the JAX package's masked run.
+epochs. Three engines over one local-step body, as in the JAX package:
+
+  * ``make_local_trainer``: one client per call, over its natural
+    schedule (the sequential baseline);
+  * ``make_cohort_trainer``: the COHORT ENGINE, ``torch.func.vmap`` of
+    one client's masked run over stacked (K, steps, B, ...) batches, so
+    each operation of a step carries the K clients at once (per-client
+    adapters become grouped convolutions). Every client computes the
+    cohort's whole schedule; steps past its own ``n_steps`` leave its
+    params, momenta and loss untouched (``torch.where``), and the loss
+    is ``sum / max(n_steps, 1)``;
+  * ``make_staggered_cohort_trainer``: the same with a per-client start
+    tree (asynchronous arrivals trained from different global versions).
+
+``fedprox_mu`` adds the FedProx proximal term
+``0.5 * mu * sum ||train - train0||^2`` to every client's loss.
 
 Batches are gathered host-side with numpy (``stack_cohort_batches``),
 consuming the engine's RNG stream exactly as the JAX package does.
@@ -21,7 +31,7 @@ import torch
 
 from repro_torch.optim import sgd
 from repro_torch.utils.device import fp32_precision
-from repro_torch.utils.tree import tree_flatten, tree_unflatten
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,62 +42,106 @@ class ClientConfig:
     momentum: float = 0.9
     fedprox_mu: float = 0.0
 
-    def __post_init__(self):
-        if self.fedprox_mu != 0.0:
-            raise NotImplementedError("FedProx is not ported to repro_torch")
+
+def _local_step(loss_fn: Callable, cfg: ClientConfig):
+    """``step(frozen, train0, train, opt_state, batch) -> (train,
+    opt_state, loss)``: one SGD step on one client, functional, so it
+    runs under ``torch.func.vmap``."""
+    opt = sgd(momentum=cfg.momentum)
+
+    def objective(train, frozen, train0, batch):
+        loss, metrics = loss_fn(frozen, train, batch)
+        if cfg.fedprox_mu > 0.0:
+            prox = sum(torch.sum(torch.square(
+                a.to(torch.float32) - b.to(torch.float32)))
+                for a, b in zip(tree_leaves(train), tree_leaves(train0)))
+            loss = loss + 0.5 * cfg.fedprox_mu * prox
+        return loss, metrics
+
+    grad_and_loss = torch.func.grad_and_value(objective, has_aux=True)
+
+    def step(frozen, train0, train, opt_state, batch):
+        grads, (loss, _) = grad_and_loss(train, frozen, train0, batch)
+        train, opt_state = opt.update(grads, opt_state, train, cfg.lr)
+        return train, opt_state, loss
+
+    return opt, step
+
+
+def _n_steps(batches: dict) -> int:
+    return int(next(iter(batches.values())).shape[0])
+
+
+def _local_run(loss_fn: Callable, cfg: ClientConfig):
+    """``run(frozen, train0, batches) -> (train, mean_loss)`` for one
+    client; ``batches`` leaves have leading (steps, B) dims, every step
+    trained."""
+    opt, step = _local_step(loss_fn, cfg)
+
+    def run(frozen, train0, batches):
+        train, opt_state = train0, opt.init(train0)
+        losses = []
+        with fp32_precision():
+            for t in range(_n_steps(batches)):
+                train, opt_state, loss = step(
+                    frozen, train0, train, opt_state,
+                    {k: v[t] for k, v in batches.items()})
+                losses.append(loss)
+        return train, torch.mean(torch.stack(losses))
+
+    return run
+
+
+def make_local_trainer(loss_fn: Callable, cfg: ClientConfig):
+    """``loss_fn(frozen, train, batch) -> (loss, metrics)``. Returns
+    ``run(frozen, train0, batches) -> (train, mean_loss)``: one client
+    a call (the sequential baseline)."""
+    return _local_run(loss_fn, cfg)
 
 
 def _masked_local_run(loss_fn: Callable, cfg: ClientConfig):
-    """``run(frozen, train0, batches, n_steps) -> (train, mean_loss)``
-    for one client; ``batches`` leaves have leading (steps, B) dims."""
-    opt = sgd(momentum=cfg.momentum)
+    """One client's run over a FIXED-length schedule with an active step
+    count ``n_steps`` (a 0-d int tensor): every step is computed, and
+    steps past ``n_steps`` keep params, momenta and loss as they were.
+    No value is read on the host, so the run can be vmapped."""
+    opt, step = _local_step(loss_fn, cfg)
 
-    def run(frozen, train0, batches, n_steps: int):
-        n_steps = int(n_steps)
-        leaves0, treedef = tree_flatten(train0)
-        train = [p.detach() for p in leaves0]
-        opt_state = opt.init(tree_unflatten(treedef, train))
-        total = torch.zeros((), dtype=torch.float32,
-                            device=leaves0[0].device)
+    def run(frozen, train0, batches, n_steps):
+        train, opt_state = train0, opt.init(train0)
+        total = 0.0
+        keep = lambda active, new, old: tree_map(
+            lambda a, b: torch.where(active, a, b), new, old)
         with fp32_precision():
-            for t in range(n_steps):
-                batch = {k: v[t] for k, v in batches.items()}
-                params = [p.detach().requires_grad_(True) for p in train]
-                loss, _ = loss_fn(frozen, tree_unflatten(treedef, params),
-                                  batch)
-                grads = torch.autograd.grad(loss, params)
-                with torch.no_grad():
-                    new, opt_state = opt.update(
-                        tree_unflatten(treedef, list(grads)), opt_state,
-                        tree_unflatten(treedef, [p.detach()
-                                                 for p in params]),
-                        cfg.lr)
-                train = tree_flatten(new)[0]
-                total = total + loss.detach()
-        return tree_unflatten(treedef, train), total / max(n_steps, 1)
+            for t in range(_n_steps(batches)):
+                train2, opt2, loss = step(
+                    frozen, train0, train, opt_state,
+                    {k: v[t] for k, v in batches.items()})
+                active = t < n_steps
+                train = keep(active, train2, train)
+                opt_state = keep(active, opt2, opt_state)
+                total = total + torch.where(active, loss, 0.0)
+        return train, total / torch.clamp(n_steps, min=1)
 
     return run
 
 
 def make_cohort_trainer(loss_fn: Callable, cfg: ClientConfig):
-    """``run(frozen, train0, batches, n_steps) -> (trained, losses)``:
-    batches have leading (K, steps, B) dims, ``n_steps`` is the (K,)
-    per-client active step count, ``trained`` is a list of K trees and
-    ``losses`` a (K,) tensor. ``frozen``/``train0`` are shared by the
-    cohort."""
-    run1 = _masked_local_run(loss_fn, cfg)
+    """The vmapped cohort engine. Returns ``run(frozen, train0, batches,
+    n_steps) -> (trained, losses)``: batches have leading (K, steps, B)
+    dims, ``n_steps`` is the (K,) int tensor of per-client active step
+    counts (masked no-ops beyond it), ``trained`` leaves carry a leading
+    K dim and ``losses`` is (K,). ``frozen``/``train0`` are shared by
+    the cohort."""
+    return torch.func.vmap(_masked_local_run(loss_fn, cfg),
+                           in_dims=(None, None, 0, 0))
 
-    def run(frozen, train0, batches, n_steps):
-        trained, losses = [], []
-        for k in range(len(n_steps)):
-            t, loss = run1(frozen, train0,
-                           {key: v[k] for key, v in batches.items()},
-                           int(n_steps[k]))
-            trained.append(t)
-            losses.append(loss)
-        return trained, torch.stack(losses)
 
-    return run
+def make_staggered_cohort_trainer(loss_fn: Callable, cfg: ClientConfig):
+    """Like ``make_cohort_trainer``, but ``train0`` carries a leading K
+    dim: each client starts from its OWN adapter tree (asynchronous
+    arrivals trained from different global versions)."""
+    return torch.func.vmap(_masked_local_run(loss_fn, cfg),
+                           in_dims=(None, 0, 0, 0))
 
 
 def stack_local_batches(rng: np.random.Generator, data: dict,

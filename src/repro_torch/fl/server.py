@@ -25,8 +25,13 @@ The engine's numpy RNG stream is consumed exactly as the JAX package's
 ``stack_cohort_batches``. Both packages therefore sample the same
 cohorts and batches from one seed.
 
+Local training runs the cohort as ONE vmapped program
+(``fl/client.make_cohort_trainer``). ``eval_fn(frozen, train) -> dict``
+is called on the new global adapters every ``eval_every`` rounds and
+merged into the round's record, as in the JAX package.
+
 Not ported (each raises at construction): a FleetTrace, a lazy
-Population, ``eval_fn``, and the FLoCoRAConfig options listed in
+Population, and the FLoCoRAConfig options listed in
 ``core/flocora.py``.
 """
 from __future__ import annotations
@@ -48,7 +53,7 @@ from repro_torch.fl.client import ClientConfig, cohort_steps, \
 from repro_torch.obs import metrics as obsm
 from repro_torch.obs import trace as obst
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.tree import tree_bytes, tree_to
+from repro_torch.utils.tree import tree_bytes, tree_map, tree_to
 
 # rng key domain for client dropout draws: keyed by (seed, round, cid), as
 # in the JAX package
@@ -63,6 +68,7 @@ class ServerConfig:
     oversample: float = 1.0        # straggler mitigation: dispatch K'=o*K
     p_client_failure: float = 0.0  # simulated client dropout
     seed: int = 0
+    eval_every: int = 5
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 25
 
@@ -127,7 +133,8 @@ class FLServer:
     """Simulates the paper's FL loop over a model given as
     ``{"frozen": tree, "train": tree}`` of tensors; ``loss_fn(frozen,
     train, batch) -> (loss, metrics)``; ``client_data`` is a list of
-    per-client dict datasets (numpy). The model moves to ``device``,
+    per-client dict datasets (numpy); ``eval_fn(frozen, train) ->
+    metrics dict``. The model moves to ``device``,
     which defaults to the card. ``aggregator`` defaults to FedAvg, or its
     error-feedback variant when ``fcfg.error_feedback`` is set (a given
     one must agree with that flag). ``registry``/``tracer`` default to
@@ -141,8 +148,6 @@ class FLServer:
                  trace: Optional[Any] = None,
                  registry: Optional[obsm.MetricsRegistry] = None,
                  tracer: Optional[obst.Tracer] = None, device="cuda"):
-        if eval_fn is not None:
-            raise NotImplementedError("eval_fn is not ported to repro_torch")
         if trace is not None:
             raise NotImplementedError("FleetTrace deadline cohorts are not "
                                       "ported to repro_torch")
@@ -156,6 +161,7 @@ class FLServer:
         self.loss_fn = loss_fn
         self.client_data = client_data
         self.scfg, self.ccfg, self.fcfg = scfg, ccfg, fcfg
+        self.eval_fn = eval_fn
         self.rng = np.random.default_rng(scfg.seed)
         self.round = 0
         self.history: list[dict] = []
@@ -322,17 +328,17 @@ class FLServer:
             batches = self._batches_to_device(batches)
         with self.tracer.span("fl/client_train", track="fl/round",
                               round=rnd, rank=rank, clients=len(survivors)):
-            trained, losses = self.trainer(self.frozen, g_bcast, batches,
-                                           n_steps)
+            trained, losses = self.trainer(
+                self.frozen, g_bcast, batches,
+                torch.from_numpy(n_steps).to(self.device))
             losses = losses.cpu().numpy()
         results = []
         with self.tracer.span("fl/pack", track="fl/round", round=rnd,
                               rank=rank, clients=len(survivors)):
             for k, cid in enumerate(survivors):
-                res = self.aggregator.residual(cid, trained[k]) \
-                    if ef else None
-                msg, res = flocora.client_uplink(trained[k], fcfg, res,
-                                                 rnd=rnd)
+                t_k = tree_map(lambda x: x[k], trained)
+                res = self.aggregator.residual(cid, t_k) if ef else None
+                msg, res = flocora.client_uplink(t_k, fcfg, res, rnd=rnd)
                 n_i = len(next(iter(datas[k].values())))
                 results.append((latency[cid], n_i, msg, float(losses[k]),
                                 rank, cid, res))
@@ -390,6 +396,8 @@ class FLServer:
                                                           density=density)
             rec["up_bytes_by_rank"] = {
                 r: b for (r, d), b in self.wire.up.items() if d == density}
+        if self.eval_fn and self.round % self.scfg.eval_every == 0:
+            rec.update(self.eval_fn(self.frozen, self.global_train))
         self.history.append(rec)
         self._maybe_save()
         return rec

@@ -15,9 +15,13 @@ def groupnorm_init(c: int, device="cuda") -> dict:
 
 def groupnorm_nchw(p: dict, x: torch.Tensor, groups: int = 32,
                    eps: float = 1e-5) -> torch.Tensor:
-    """x: (N, C, H, W). Contiguous channel groups, biased variance."""
+    """x: (N, C, H, W). Contiguous channel groups, biased variance. The
+    input is made contiguous first: a channels-last input (a convolution
+    of NHWC images gives one) makes ``group_norm`` clone it in that
+    format, which ``torch.func.vmap`` refuses."""
     g = min(groups, int(x.shape[1]))
-    y = F.group_norm(x.to(torch.float32), g, p["scale"], p["bias"], eps)
+    y = F.group_norm(x.to(torch.float32).contiguous(), g, p["scale"],
+                     p["bias"], eps)
     return y.to(x.dtype)
 
 

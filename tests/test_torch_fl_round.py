@@ -163,9 +163,6 @@ def test_unported_server_options_raise():
     args = (model, _torch_loss, data)
     cfgs = (ClientConfig(), FLoCoRAConfig(quant_bits=8))
     with pytest.raises(NotImplementedError):
-        FLServer(*args, ServerConfig(n_clients=4), *cfgs,
-                 eval_fn=lambda f, t: {}, device="cpu")
-    with pytest.raises(NotImplementedError):
         FLServer(*args, ServerConfig(n_clients=4), *cfgs, trace=object(),
                  device="cpu")
 
@@ -176,8 +173,6 @@ def test_unported_server_options_raise():
     with pytest.raises(NotImplementedError):
         FLServer(model, _torch_loss, LazyPopulation(data),
                  ServerConfig(n_clients=4), *cfgs, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ClientConfig(fedprox_mu=0.1)
 
 
 def test_batch_stackers_match_jax():

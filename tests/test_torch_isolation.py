@@ -98,13 +98,39 @@ for flat in (True, False):
                                 flat_wire=flat)
     msg, res = flocora.client_uplink(tree, cfg)
 """,
+    "optim_schedule": """
+import torch
+from repro_torch import optim
+f = optim.cosine_warmup(0.1, 2, 10)
+assert isinstance(f(3), float) and f(torch.tensor(3)).shape == ()
+opt = optim.adamw(weight_decay=0.1)
+p = {"w": torch.ones(3)}
+g, _ = optim.clip_by_global_norm({"w": torch.ones(3)}, 1.0)
+p, st = opt.update(g, opt.init(p), p, optim.constant(0.01)(0))
+""",
+    "cohort_engines": """
+import torch
+from repro_torch.fl import ClientConfig, make_cohort_trainer, \
+    make_local_trainer, make_staggered_cohort_trainer
+def loss(frozen, train, batch):
+    return torch.mean((batch["x"] @ train["w"] - batch["y"]) ** 2), {}
+cfg = ClientConfig(fedprox_mu=0.1)
+tr = {"w": torch.ones(4, 2)}
+b = {"x": torch.ones(3, 2, 5, 4), "y": torch.zeros(3, 2, 5, 2)}
+n = torch.tensor([2, 1, 0])
+t, l = make_cohort_trainer(loss, cfg)({}, tr, b, n)
+assert t["w"].shape == (3, 4, 2) and l.shape == (3,)
+t, l = make_staggered_cohort_trainer(loss, cfg)({}, t, b, n)
+t, l = make_local_trainer(loss, cfg)({}, tr, {k: v[0] for k, v in b.items()})
+""",
 }
 
 
 @pytest.mark.parametrize("use", sorted(_USES))
 def test_slice_modules_run_without_jax_or_reference(use, tmp_path):
-    """The checkpoint subpackage, the per-leaf and LoRA kernel wrappers
-    and the EF uplink run (on the CPU) with jax and repro unimportable."""
+    """The checkpoint subpackage, the per-leaf and LoRA kernel wrappers,
+    the EF uplink, the optimizers and schedules and the local-training
+    engines run (on the CPU) with jax and repro unimportable."""
     out = _run(_USE_WITHOUT_JAX.format(src=str(ROOT / "src"),
                                        body=_USES[use]), tmp_path)
     assert out.returncode == 0, out.stderr
