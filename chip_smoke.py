@@ -56,7 +56,21 @@ Phases, each of which raises on failure (the script then exits nonzero):
      every round's global trees held to each other); FedProx (mu =
      0.01, 2 rounds, round 1 replayed on the CPU) and the staggered
      engine (4 clients from 4 start trees, each held to
-     ``make_local_trainer`` from its own start); then the paper's Table
+     ``make_local_trainer`` from its own start); then the quickstart's
+     other synchronous modes, each 2 rounds with round 1 replayed on the
+     CPU: ``run_sparse`` (int4, EF, top-k density 0.1: every uplink
+     55,419 B and every downlink 150,744 B, every uplink's sparse pack
+     bit-exact against the plain version, the scatter-add aggregate
+     bit-identical over two calls), ``run_hetero`` (10 clients in rank
+     tiers {4, 8, 16}, server r=16, K=6: tier bytes 57,400 / 88,888 /
+     151,864 B, one B2 launch a rank bucket and B2 held to its plain
+     version at each bucket's layout, then a round on the SVD
+     recombination with its served ranks and adapter products held to
+     the CPU's recombination of the same uplinks) and
+     ``run_uniform(dp_noise=0.3)`` (uplinks 277,816 B, dp_epsilon
+     21.559841619903807 / 33.736868528818945 after rounds 1 / 2, every
+     privatized delta held to the CPU's with the same noise); then the
+     paper's Table
      IV training row (``benchmarks/table4_comparison.py --train`` (64,
      8) through ``fl_experiment``'s settings: ResNet-18, r=64,
      alpha=1024, int8, 20 clients with LDA 1.0 over 2000 synthetic
@@ -93,14 +107,17 @@ Phases, each of which raises on failure (the script then exits nonzero):
      ways, and warm at R = 160, m = 64).
 The line before the last is one JSON object with the kernels' numbers;
 the last is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
-quickstart round (the vmapped cohort engine) under ``torch.profiler``
-and prints its launch count, busy share and device time by kernel.
+quickstart round (the vmapped cohort engine, and the per-client one) and
+one round of each of the sparse, mixed-rank and DP modes under
+``torch.profiler`` and prints each one's launch count, busy share and
+device time by kernel.
 
 Imports nothing of JAX. Needs one CUDA device and ``nvcc``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -163,6 +180,15 @@ ENGINE_ROUNDS = 3
 # uplink (paper: 2.4 MB) as the JAX package's message_wire_bytes counts
 # it
 TABLE4 = dict(rank=64, alpha=1024.0, rounds=4, up_bytes=2_379_064)
+# the quickstart's other synchronous modes (examples/quickstart.py
+# run_sparse, run_hetero, run_uniform(dp_noise=0.3)) and the bytes and
+# epsilons the JAX package gives them
+SPARSE = dict(density=0.1, up_bytes=55_419, down_bytes=150_744)
+HETERO = dict(tiers=(4, 8, 16), n_clients=10, k=6, rank=16, alpha=256.0,
+              tier_bytes={4: 57_400, 8: 88_888, 16: 151_864})
+DP = dict(clip_norm=1.0, noise_multiplier=0.3, up_bytes=277_816,
+          epsilon=(21.559841619903807, 33.736868528818945))
+B2_TOL = 1e-5
 # the serving path: benchmarks/round_throughput.py run_serve at the
 # hidden width of gemma3-4b (src/repro/configs/gemma3_4b.py d_model)
 SERVE = dict(n_clients=1024, d_model=2560, n_layers=2, ranks=(4, 8), bits=4,
@@ -355,6 +381,22 @@ def _f32_bits(t):
     return t.contiguous().view(torch.int32)
 
 
+def pack_diff(got, want, bits: int) -> tuple[bool, float]:
+    """Two packs (words, scale, zp), on any devices: whether they are
+    bit-identical, and the max abs difference over the unpacked levels,
+    scale and zp (0.0 when bit-exact)."""
+    import torch
+    from repro_torch.kernels import ref as kref
+    got = [_f32_bits(t).cpu() for t in got]       # the bits, on the CPU
+    want = [_f32_bits(t).cpu() for t in want]
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    err = max(float((kref.unpack_words(got[0], bits)
+                     - kref.unpack_words(want[0], bits)).abs().max()),
+              *(float((g.view(torch.float32) - w.view(torch.float32))
+                      .abs().max()) for g, w in zip(got[1:], want[1:])))
+    return same, err
+
+
 def check_quant_pack(layouts, dev) -> float:
     """Kernel vs plain, bit for bit, on ``layouts`` ({label: (flat, nv,
     bits)}, the paths' buffers) and ragged cases. Returns the max abs
@@ -396,14 +438,7 @@ def check_quant_pack(layouts, dev) -> float:
         got = kops.quant_pack_rows(x, nv, bits)
         want = kref.quant_pack_rows_ref(x, nv, bits)
         torch.cuda.synchronize()
-        same = (torch.equal(got[0], want[0])
-                and torch.equal(_f32_bits(got[1]), _f32_bits(want[1]))
-                and torch.equal(_f32_bits(got[2]), _f32_bits(want[2])))
-        err = max(
-            float((kref.unpack_words(got[0], bits)
-                   - kref.unpack_words(want[0], bits)).abs().max()),
-            float((got[1] - want[1]).abs().max()),
-            float((got[2] - want[2]).abs().max()))
+        same, err = pack_diff(got, want, bits)
         print(f"check quant_pack_rows {name} {tuple(x.shape)}: "
               f"bit-exact={same} max_abs_err={err}")
         if not same:
@@ -1140,14 +1175,16 @@ BYTE_KEYS = ("down_bytes", "up_bytes", "up_bytes_measured", "n_agg",
              "n_straggled", "tcc_bytes", "wasted_bytes")
 
 
-def compare_with_cpu(rec_gpu: dict, tree_gpu, srv, what: str) -> None:
+def compare_with_cpu(rec_gpu: dict, tree_gpu, srv, what: str,
+                     keys: tuple = (), trees: bool = True) -> dict:
     """Replay round 1 on the CPU with ``srv`` (a fresh server of the same
     run on the CPU: the kernels' plain versions, CPU convs) and hold the
-    card's round to it: the same cohort and bytes, loss within rtol
-    1e-3, trees as ``hold_trees``."""
+    card's round to it: the same cohort and bytes (and ``keys``), loss
+    within rtol 1e-3, trees as ``hold_trees`` unless ``trees`` is False.
+    Returns the CPU's record."""
     t0 = time.perf_counter()
     rec = srv.run_round()
-    for key in BYTE_KEYS:
+    for key in BYTE_KEYS + tuple(keys):
         if rec[key] != rec_gpu[key]:
             raise AssertionError(f"cpu replay {key}: {rec[key]} != "
                                  f"{rec_gpu[key]}")
@@ -1155,12 +1192,14 @@ def compare_with_cpu(rec_gpu: dict, tree_gpu, srv, what: str) -> None:
                         rel_tol=1e-3):
         raise AssertionError(f"cpu replay loss {rec['client_loss']} != "
                              f"{rec_gpu['client_loss']}")
-    bits = srv.fcfg.quant_bits
-    worst = hold_trees(srv.global_train, tree_gpu, bits, "cpu replay")
+    worst = hold_trees(srv.global_train, tree_gpu, srv.fcfg.quant_bits,
+                       "cpu replay") if trees else float("nan")
     print(f"cpu replay of round 1 ({what}): loss "
           f"{rec['client_loss']:.6f} vs card {rec_gpu['client_loss']:.6f}, "
-          f"bytes identical, max adapter diff {worst:.3g} "
+          f"bytes{' and ' + ', '.join(keys) if keys else ''} identical, "
+          f"max adapter diff {worst:.3g} "
           f"({time.perf_counter() - t0:.1f} s)")
+    return rec
 
 
 def run_rounds(server, rounds: int, label: str) -> tuple:
@@ -1212,7 +1251,7 @@ def leaf_round_phase(data, flat_recs, flat_server, captured, dev) -> dict:
                 or c["quant_pack_rows"] < n_leaves * (k + 1):
             raise AssertionError(f"per-leaf round launch counts {c}")
     # the flat run's round-1 uplinks, both folds
-    msgs, w = captured["msgs"], captured["weights"]
+    msgs, w = captured[0][0]
     (flat_out, c_flat) = _counted(lambda: aggregation.fedavg_packed(msgs, w))
     leaf_msgs = [m.as_tree() for m in msgs]
     (leaf_out, c_leaf) = _counted(
@@ -1489,6 +1528,449 @@ def fedprox_phase(data, model_cpu, dev) -> dict:
     for c in counts:
         _add_counts(launches, c)
     return {"launches": launches, "walls": walls}
+
+
+@contextlib.contextmanager
+def recorded(owner, name: str, keep=None):
+    """``owner.name`` (a module's function or an object's method) wrapped
+    for the duration: each call's (args, kwargs, result) is appended to
+    the list yielded (only the calls ``keep(args, kwargs)`` accepts, when
+    given)."""
+    calls, real = [], getattr(owner, name)
+    own = name in vars(owner)
+
+    def wrapper(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if keep is None or keep(args, kwargs):
+            calls.append((args, kwargs, out))
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield calls
+    finally:
+        if own:
+            setattr(owner, name, real)
+        else:
+            delattr(owner, name)
+
+
+def to_cpu_messages(msgs) -> list:
+    """Wire messages moved to the CPU through their serialized form (a
+    round trip of the exact bytes)."""
+    from repro_torch.core import messages
+    return [messages.message_from_wire(messages.message_to_wire(m), m,
+                                       device="cpu") for m in msgs]
+
+
+def sparse_phase(data, model_cpu, dev) -> dict:
+    """``examples/quickstart.py`` run_sparse on the card: the quickstart's
+    fleet at int4 with error feedback and top-k uplinks at density 0.1,
+    2 rounds. Checks every uplink's measured and static bytes (55,419 B
+    against 150,744 B dense int4) and every downlink's, the launches (one
+    B1 pack a message, no B2 or B3: the sparse aggregate is a
+    scatter-add), every uplink's sparse pack bit-exact against the plain
+    version on the CPU (indices, words, scale, zp), the round-1 scatter-add
+    aggregate bit-identical over two calls and within 1e-6 * max|x| of
+    the CPU's, and round 1 against its CPU replay."""
+    import torch
+    from repro_torch.core import aggregation, messages
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.core.sparse import SparsityConfig, is_sparse_leaf
+    from repro_torch.models import resnet
+    from repro_torch.utils.tree import flatten_with_names, tree_to
+    density = SPARSE["density"]
+    fl = {"quant_bits": 4, "error_feedback": True,
+          "sparsity": SparsityConfig(density=density)}
+    cfg = resnet.ResNetConfig(arch="resnet8",
+                              lora=LoRAConfig(rank=32, alpha=512.0))
+    server = make_server(resnet.init(0, cfg, device=dev), data, dev, fl)
+    static = messages.message_wire_bytes(server.global_train,
+                                         QuantConfig(bits=4), density)
+    with recorded(server.aggregator, "aggregate") as captured, \
+            recorded(messages, "pack_message",
+                     lambda a, kw: (kw.get("density") or 1.0) < 1.0) as packs:
+        recs, counts, tree1, walls = run_rounds(server, ROUNDS, "sparse")
+    k = server.scfg.clients_per_round
+    for rec, c in zip(recs, counts):
+        if (rec["up_bytes_measured"], static, rec["up_bytes"],
+                rec["down_bytes"], rec["uplink_density"]) != (
+                SPARSE["up_bytes"], SPARSE["up_bytes"],
+                k * SPARSE["up_bytes"], k * SPARSE["down_bytes"], density):
+            raise AssertionError(f"sparse round {rec['round']} bytes: {rec}"
+                                 f" (static {static})")
+        # one pack a message (the broadcast, K uplinks, round 1's
+        # measured downlink); the aggregate is a scatter-add
+        packs_want = k + 1 + (rec["round"] == 1)
+        if c["quant_pack_rows"] != packs_want or c["dequant_agg_rows"] \
+                or c["dequant_agg"]:
+            raise AssertionError(f"sparse round {rec['round']} launch "
+                                 f"counts {c}, want {packs_want} packs")
+    # every uplink's pack against the plain version on the same input
+    n_leaves, err_b1 = 0, 0.0
+    for args, kw, got in packs:
+        want = messages.pack_message(tree_to(args[0], "cpu"), args[1], **kw)
+        for (name, g), (_, w) in zip(flatten_with_names(got),
+                                     flatten_with_names(want)):
+            if not is_sparse_leaf(w):
+                continue
+            n_leaves += 1
+            same, err = pack_diff((g.payload, g.scale, g.zp),
+                                  (w.payload, w.scale, w.zp), w.bits)
+            err_b1 = max(err_b1, err)
+            if not (same and torch.equal(g.idx.cpu(), w.idx)):
+                raise AssertionError(f"sparse pack {name} differs from its "
+                                     "plain version")
+    if len(packs) != ROUNDS * k or n_leaves != 18 * len(packs):
+        raise AssertionError(f"sparse packs checked: {len(packs)} messages,"
+                             f" {n_leaves} leaves")
+    # the scatter-add aggregate: repeatable, and the CPU's
+    msgs, w = captured[0][0]
+    first = aggregation.fedavg_packed(msgs, w)
+    again = aggregation.fedavg_packed(msgs, w)
+    cpu = aggregation.fedavg_packed(to_cpu_messages(msgs), w.cpu())
+    worst = 0.0
+    for (name, a), (_, b), (_, x) in zip(flatten_with_names(first),
+                                         flatten_with_names(again),
+                                         flatten_with_names(cpu)):
+        if not torch.equal(_f32_bits(a), _f32_bits(b)):
+            raise AssertionError(f"sparse aggregate {name} differs between "
+                                 "two calls")
+        d = float((a.cpu() - x).abs().max())
+        worst = max(worst, d / max(float(x.abs().max()), 1e-30))
+        if d > LEAF_TOL * float(x.abs().max()):
+            raise AssertionError(f"sparse aggregate {name} vs the CPU: {d}")
+    compare_with_cpu(recs[0], tree1, make_server(model_cpu, data, "cpu", fl),
+                     f"sparse {SPARSE}", keys=("uplink_density",))
+    launches = {}
+    for c in counts:
+        _add_counts(launches, c)
+    print(f"sparse phase: uplink {static} B a message (dense int4 "
+          f"{SPARSE['down_bytes']}), downlink {SPARSE['down_bytes']} B; "
+          f"{len(packs)} uplinks' sparse packs ({n_leaves} leaves) "
+          f"bit-exact vs plain; round-1 scatter-add aggregate bit-identical"
+          f" over two calls, {worst:.3g} of max|x| from the CPU's; round-2 "
+          f"wall {walls[-1]:.4f} s; launches {launches}")
+    time_sparse(packs[0][0][0], msgs, w, dev)
+    return {"launches": launches, "walls": walls, "err_b1": err_b1,
+            "server": server}
+
+
+def _host_ms(fn, iters: int) -> tuple[float, float]:
+    """(host ms, wall ms) a call of ``fn`` run ``iters`` times back to
+    back after a synchronize: the host's time to enqueue the calls, and
+    the time until the card has finished them. For calls whose host cost
+    exceeds their device time (``_time_ms``'s sleep would not cover
+    them)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return host * 1e3 / iters, wall * 1e3 / iters
+
+
+def time_sparse(tree, msgs, w, dev) -> None:
+    """The sparse path's costs: one uplink's whole sparse pack (the
+    top-k selection, the staging and its one B1 launch) and the round's
+    scatter-add aggregate, each as host time and wall time a call
+    (``_host_ms``: both are host-bound), and B1 alone at the pack's
+    ragged layout beside its plain version and its bound (valid levels
+    in, words and sidecars out)."""
+    import torch
+    from repro_torch.core import aggregation, messages, sparse
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.utils.tree import tree_leaves
+    q = QuantConfig(bits=4)
+    density = SPARSE["density"]
+    pack = _host_ms(lambda: messages.pack_message(tree, q, density=density),
+                    iters=20)
+    wd = w.to(dev)
+    agg = _host_ms(lambda: aggregation.fedavg_packed(msgs, wd), iters=10)
+    xs = [x for x in tree_leaves(tree) if x.ndim >= 2]
+    ks = [sparse.keep_count(x.numel(), density) for x in xs]
+    nv = torch.tensor(ks, dtype=torch.int32, device=dev)
+    _, vals = sparse._top_k_rows(xs, ks, nv)
+    lane = kops.lane_levels(4)
+    rows = torch.nn.functional.pad(
+        vals, (0, -(-max(ks) // lane) * lane - vals.shape[1])).contiguous()
+    b1 = _time_ms(lambda: kops.quant_pack_rows(rows, nv, 4), iters=200)
+    plain = _time_ms(lambda: kref.quant_pack_rows_ref(rows, nv, 4), iters=20)
+    nbytes = 4 * sum(ks) + rows.numel() // 2 + 8 * len(ks)
+    bound = _bound_ms(nbytes, 0.0)
+    print(f"sparse timing: one uplink's pack {pack[0]:.3f} ms of host a call"
+          f" ({pack[1]:.3f} ms a call to its end); the round's scatter-add "
+          f"aggregate (K={len(msgs)}) {agg[0]:.3f} ms of host a call "
+          f"({agg[1]:.3f} ms to its end); B1 alone at "
+          f"{tuple(rows.shape)} int4 ({sum(ks)} valid levels) "
+          f"{b1[0] * 1e3:.2f} us, plain {plain[0] * 1e3:.2f} us, bound "
+          f"{bound[0] * 1e3:.3f} us ({nbytes} B, {bound[1]})")
+
+
+def hetero_data():
+    """examples/quickstart.py run_hetero: 10 non-IID (LDA 0.5) clients
+    over 1000 synthetic 32x32x3 images."""
+    import numpy as np
+    from repro_torch.data import SyntheticVision, lda_partition
+    rng = np.random.default_rng(0)
+    sv = SyntheticVision(seed=0)
+    y = rng.integers(0, 10, 1000)
+    x = sv.sample(rng, y)
+    parts = lda_partition(y, 10, alpha=0.5)
+    return [{"x": x[p], "y": y[p].astype(np.int32)} for p in parts]
+
+
+def hetero_cfg():
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.models import resnet
+    return resnet.ResNetConfig(arch="resnet8", lora=LoRAConfig(
+        rank=HETERO["rank"], alpha=HETERO["alpha"]))
+
+
+def make_hetero_server(model, data, device, aggregator=None):
+    """run_hetero's FLServer: ResNet-8 at server rank 16 (alpha 256),
+    int8, ``RankSchedule.tiered((4, 8, 16), 10)``, K = 6 a round, batch
+    32, lr 0.01, 1 local epoch."""
+    from repro_torch.core.flocora import FLoCoRAConfig, RankSchedule
+    from repro_torch.fl import ClientConfig, FLServer, ServerConfig
+    from repro_torch.models import resnet
+    cfg = hetero_cfg()
+    return FLServer(
+        model, lambda f, t, b: resnet.loss_fn(f, t, cfg, b), data,
+        ServerConfig(n_clients=HETERO["n_clients"],
+                     clients_per_round=HETERO["k"]),
+        ClientConfig(local_epochs=1, batch_size=32, lr=0.01),
+        FLoCoRAConfig(rank=HETERO["rank"], alpha=HETERO["alpha"],
+                      quant_bits=8, rank_schedule=RankSchedule.tiered(
+                          HETERO["tiers"], HETERO["n_clients"])),
+        aggregator=aggregator, device=device)
+
+
+def adapter_products(tree) -> list:
+    """down @ up (fp32) of every adapter pair of ``tree``, walk order."""
+    import torch
+    from repro_torch.core import lora
+    out = []
+
+    def product(pair):
+        down, up, _ = lora._dense_factors(pair)
+        out.append(down.to(torch.float32) @ up.to(torch.float32))
+        return pair
+
+    lora._walk_pairs(tree, product)
+    return out
+
+
+def check_bucket_folds(captured, dev) -> float:
+    """B2 at each rank bucket's flat layout, on the rounds' own uplinks:
+    the kernel within rtol = atol = 1e-5 of its plain version. Returns
+    the max abs difference."""
+    import torch
+    from repro_torch.core import aggregation
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    worst = 0.0
+    for rnd, ((msgs, w), _, _) in enumerate(captured, 1):
+        for r, idx in aggregation.bucket_by_rank(msgs).items():
+            ms = [msgs[i] for i in idx]
+            lo = ms[0].layout
+            bw = w[idx].to(dev)
+            bw = bw / torch.sum(bw)
+            args = (torch.stack([m.payload for m in ms]),
+                    torch.stack([m.scale for m in ms]),
+                    torch.stack([m.zp for m in ms]), bw,
+                    torch.from_numpy(lo.n_valid_vec()).to(dev), lo.bits)
+            got = kops.dequant_agg_rows(*args)
+            want = kref.dequant_agg_rows_ref(*args)
+            err = float((got - want).abs().max())
+            print(f"check dequant_agg_rows hetero round {rnd} bucket r={r}"
+                  f" K={len(ms)} {tuple(args[0].shape)}: max_abs_err={err}")
+            if not torch.allclose(got, want, rtol=B2_TOL, atol=B2_TOL):
+                raise AssertionError(f"dequant_agg_rows at the r={r} "
+                                     "bucket's layout failed its check")
+            worst = max(worst, err)
+    return worst
+
+
+def hetero_phase(dev) -> dict:
+    """``examples/quickstart.py`` run_hetero on the card: 10 clients in
+    rank tiers {4, 8, 16}, server rank 16, int8, K = 6, 2 rounds on the
+    rank-bucketed engine. Checks the tiers' one-way bytes (57,400 /
+    88,888 / 151,864 B) statically and as measured, ONE B2 launch a rank
+    bucket and one B1 launch a flat pack (a broadcast a bucket, K
+    uplinks, a downlink measured for each rank seen the first time),
+    every pack bit-exact against the plain version on the CPU at its
+    rank's layout, B2 at each bucket's layout against its plain version,
+    round 1 against its CPU replay (cohort ranks included). Then one round
+    with ``SVDRecombinationAggregator``: replayed on the CPU (bytes,
+    cohort ranks, loss: the served factors may differ in sign, so the
+    trees are held by their products below), and the card's
+    recombination of that round's uplinks against the CPU's of the same
+    uplinks: the same served ranks, adapter products within 1e-4 *
+    max|p|."""
+    import torch
+    from repro_torch.core import flocora, messages
+    from repro_torch.core.aggregation import SVDRecombinationAggregator
+    from repro_torch.core.flat import FlatPackedMessage
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.models import resnet
+    from repro_torch.utils.tree import tree_to
+    data, cfg = hetero_data(), hetero_cfg()
+    server = make_hetero_server(resnet.init(0, cfg, device=dev), data, dev)
+    tiers = {r: flocora.client_wire_bytes(server.global_train, server.fcfg,
+                                          r) for r in HETERO["tiers"]}
+    if tiers != HETERO["tier_bytes"]:
+        raise AssertionError(f"tier bytes {tiers} != {HETERO['tier_bytes']}")
+    with recorded(server.aggregator, "aggregate") as captured, \
+            recorded(messages, "pack_message") as packs:
+        recs, counts, tree1, walls = run_rounds(server, ROUNDS, "hetero")
+    k = server.scfg.clients_per_round
+    seen = set()
+    for rec, c in zip(recs, counts):
+        ranks = set(rec["cohort_ranks"])
+        if any(HETERO["tier_bytes"][r] != b
+               for r, b in rec["up_bytes_by_rank"].items()):
+            raise AssertionError(f"hetero measured bytes by rank "
+                                 f"{rec['up_bytes_by_rank']}")
+        # a broadcast a bucket and K uplinks, plus a downlink measured
+        # once for each rank seen the first time
+        packs_want = len(ranks) + k + len(ranks - seen)
+        seen |= ranks
+        if c["dequant_agg_rows"] != len(ranks) or c["dequant_agg"] \
+                or c["quant_pack_rows"] != packs_want:
+            raise AssertionError(f"hetero round {rec['round']} launch counts"
+                                 f" {c}, want {len(ranks)} folds and "
+                                 f"{packs_want} packs")
+    # every pack against the plain version on the same tree
+    err_b1, layouts = 0.0, set()
+    for args, kw, got in packs:
+        want = messages.pack_message(tree_to(args[0], "cpu"), args[1], **kw)
+        if not isinstance(got, FlatPackedMessage):
+            raise AssertionError(f"hetero pack is a {type(got).__name__}")
+        lo = got.layout
+        same, err = pack_diff((got.payload, got.scale, got.zp),
+                              (want.payload, want.scale, want.zp), lo.bits)
+        err_b1 = max(err_b1, err)
+        if not same or lo != want.layout:
+            raise AssertionError(f"hetero pack at {lo.c_total} rows differs "
+                                 "from its plain version")
+        layouts.add((lo.c_total, lo.nw_max))
+    if len(packs) != sum(c["quant_pack_rows"] for c in counts) \
+            or len(layouts) != len(HETERO["tiers"]):
+        raise AssertionError(f"hetero packs checked: {len(packs)} at "
+                             f"layouts {sorted(layouts)}")
+    err_b2 = check_bucket_folds(captured, dev)
+    compare_with_cpu(recs[0], tree1, make_hetero_server(
+        resnet.init(0, cfg, device="cpu"), data, "cpu"), "hetero",
+        keys=("cohort_ranks", "up_bytes_by_rank"))
+    # one more round, served by the SVD recombination
+    svd = make_hetero_server(resnet.init(0, cfg, device=dev), data, dev,
+                             SVDRecombinationAggregator(QuantConfig(bits=8)))
+    with recorded(svd.aggregator, "aggregate") as svd_in:
+        recs_s, counts_s, tree_s, walls_s = run_rounds(svd, 1, "hetero svd")
+    cpu_svd = make_hetero_server(
+        resnet.init(0, cfg, device="cpu"), data, "cpu",
+        SVDRecombinationAggregator(QuantConfig(bits=8)))
+    compare_with_cpu(recs_s[0], tree_s, cpu_svd, "hetero svd",
+                     keys=("cohort_ranks",), trees=False)
+    msgs, w = svd_in[0][0]
+    ref = SVDRecombinationAggregator(QuantConfig(bits=8), HETERO["rank"])
+    want = ref.aggregate(to_cpu_messages(msgs), w.cpu())
+    served = svd.aggregator.served_ranks
+    if served != ref.served_ranks or not served:
+        raise AssertionError(f"served ranks on the card {served} != the "
+                             f"CPU's {ref.served_ranks}")
+    worst = 0.0
+    for p, q in zip(adapter_products(tree_s), adapter_products(want)):
+        d, pmax = float((p.cpu() - q).abs().max()), float(q.abs().max())
+        worst = max(worst, d / max(pmax, 1e-30))
+        if d > 1e-4 * pmax:
+            raise AssertionError(f"svd recombination product: {d} > 1e-4 "
+                                 f"* {pmax}")
+    torch.cuda.synchronize()
+    launches = {}
+    for c in counts + counts_s:
+        _add_counts(launches, c)
+    print(f"hetero phase: tier bytes {tiers}; cohort ranks "
+          f"{[r['cohort_ranks'] for r in recs]}; {len(packs)} flat packs "
+          f"bit-exact vs plain at layouts (rows, words) {sorted(layouts)}"
+          f" (max {err_b1:.3g}); one B2 launch a bucket, "
+          f"B2 at each bucket's layout within {B2_TOL} (max {err_b2:.3g});"
+          f" svd round served ranks {served} (the CPU replay's "
+          f"{cpu_svd.aggregator.served_ranks}), products within "
+          f"{worst:.3g} of max|p| of the CPU's recombination; round-2 wall "
+          f"{walls[-1]:.4f} s (svd round {walls_s[0]:.4f} s); launches "
+          f"{launches}")
+    return {"launches": launches, "walls": walls, "err_b1": err_b1,
+            "err_b2": err_b2, "server": server}
+
+
+def dp_phase(data, model_cpu, dev) -> dict:
+    """``examples/quickstart.py`` run_uniform(dp_noise=0.3) on the card:
+    the quickstart at int8 with each uplink's delta clipped to L2 norm 1
+    and noised at 0.3 before quantization, 2 rounds. Checks the uplinks
+    (277,816 B), dp_epsilon after rounds 1 and 2 equal to the JAX
+    package's values, one B1 launch a message and one B2 a round, every
+    privatized delta within 1e-6 * max|x| of ``dp_privatize`` replayed
+    on the CPU from the same delta and key (the same noise), and round 1
+    against its CPU replay."""
+    from repro_torch.core import flocora, quant
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.models import resnet
+    from repro_torch.utils.tree import flatten_with_names, tree_leaves, \
+        tree_to
+    fl = {"dp": quant.DPConfig(clip_norm=DP["clip_norm"],
+                               noise_multiplier=DP["noise_multiplier"])}
+    cfg = resnet.ResNetConfig(arch="resnet8",
+                              lora=LoRAConfig(rank=32, alpha=512.0))
+    server = make_server(resnet.init(0, cfg, device=dev), data, dev, fl)
+    with recorded(flocora, "dp_privatize") as calls:
+        recs, counts, tree1, walls = run_rounds(server, ROUNDS, "dp")
+    k = server.scfg.clients_per_round
+    for rec, c, eps in zip(recs, counts, DP["epsilon"]):
+        if rec["dp_epsilon"] != eps \
+                or rec["up_bytes_measured"] != DP["up_bytes"]:
+            raise AssertionError(f"dp round {rec['round']}: {rec}")
+        packs = k + 1 + (rec["round"] == 1)
+        if c["quant_pack_rows"] != packs or c["dequant_agg_rows"] != 1:
+            raise AssertionError(f"dp round {rec['round']} launch counts "
+                                 f"{c}, want {packs} packs")
+    worst = 0.0
+    for args, kw, got in calls:
+        want = quant.dp_privatize(tree_to(args[0], "cpu"), args[1], **kw)
+        for (name, g), (_, x) in zip(flatten_with_names(got),
+                                     flatten_with_names(want)):
+            d, xmax = float((g.cpu() - x).abs().max()), float(x.abs().max())
+            worst = max(worst, d / max(xmax, 1e-30))
+            if d > LEAF_TOL * xmax:
+                raise AssertionError(f"privatized delta {name} key "
+                                     f"{kw['key']}: {d} > {LEAF_TOL} * {xmax}")
+    if len(calls) != ROUNDS * k:
+        raise AssertionError(f"{len(calls)} privatized uplinks checked")
+    compare_with_cpu(recs[0], tree1, make_server(model_cpu, data, "cpu", fl),
+                     "dp", keys=("dp_epsilon",))
+    args, kw, _ = calls[0]
+    t_dp = _host_ms(lambda: quant.dp_privatize(*args, **kw), iters=10)
+    print(f"dp timing: one uplink's privatization (clip, "
+          f"{sum(x.numel() for x in tree_leaves(args[0]))} normals drawn in "
+          f"numpy, one upload) {t_dp[0]:.3f} ms of host a call "
+          f"({t_dp[1]:.3f} ms a call to its end)")
+    launches = {}
+    for c in counts:
+        _add_counts(launches, c)
+    print(f"dp phase: uplink {recs[0]['up_bytes_measured']} B, dp_epsilon "
+          f"{[rec['dp_epsilon'] for rec in recs]}; {len(calls)} privatized "
+          f"deltas within {worst:.3g} of max|x| of the CPU's (same noise); "
+          f"round-2 wall {walls[-1]:.4f} s; launches {launches}")
+    return {"launches": launches, "walls": walls, "server": server}
 
 
 def table4_data():
@@ -1972,27 +2454,20 @@ def main(argv=None) -> int:
     server = make_server(resnet.init(0, cfg, device="cuda"), data, "cuda")
     static = messages.message_wire_bytes(server.global_train,
                                          QuantConfig(bits=8))
-    # keep round 1's uplinks: the per-leaf phase aggregates them both ways
-    captured = {}
-    flat_aggregate = server.aggregator.aggregate
-
-    def recording_aggregate(msgs, weights):
-        if not captured:
-            captured.update(msgs=list(msgs), weights=weights.clone())
-        return flat_aggregate(msgs, weights)
-
-    server.aggregator.aggregate = recording_aggregate
+    # keep the rounds' uplinks: the per-leaf phase aggregates round 1's
+    # both ways
     kops.reset_launch_counts()
     round_s = []
-    for _ in range(ROUNDS):
-        t0 = time.perf_counter()
-        rec = server.run_round()
-        torch.cuda.synchronize()
-        round_s.append(time.perf_counter() - t0)
-        print(f"round {rec['round']}: {round_s[-1]:.3f} s {rec}")
-        if rec["round"] == 1:
-            rec1, tree1 = rec, tree_map(lambda x: x.clone(),
-                                        server.global_train)
+    with recorded(server.aggregator, "aggregate") as captured:
+        for _ in range(ROUNDS):
+            t0 = time.perf_counter()
+            rec = server.run_round()
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t0)
+            print(f"round {rec['round']}: {round_s[-1]:.3f} s {rec}")
+            if rec["round"] == 1:
+                rec1, tree1 = rec, tree_map(lambda x: x.clone(),
+                                            server.global_train)
     launches = kops.launch_counts()
     print(f"main path launches: {launches}")
     k = server.scfg.clients_per_round
@@ -2026,7 +2501,16 @@ def main(argv=None) -> int:
           f"{resumed['launches']}, lora chain {chain['launches']}, fedprox "
           f"{prox['launches']}")
 
-    # 3c. the paper's Table IV run: ResNet-18 r=64 int8 at full width --
+    # 3c. the quickstart's sparse, mixed-rank and DP modes ---------------
+    t0 = time.perf_counter()
+    modes = {"sparse": sparse_phase(data, model_cpu, dev),
+             "hetero": hetero_phase(dev),
+             "dp": dp_phase(data, model_cpu, dev)}
+    print(f"quickstart modes phases: {time.perf_counter() - t0:.1f} s; "
+          "round-2 walls (s): " + ", ".join(
+              f"{name} {m['walls'][-1]:.4f}" for name, m in modes.items()))
+
+    # 3d. the paper's Table IV run: ResNet-18 r=64 int8 at full width --
     t0 = time.perf_counter()
     table4 = table4_phase(dev)
     print(f"table4 phase: {time.perf_counter() - t0:.1f} s; launches "
@@ -2035,6 +2519,8 @@ def main(argv=None) -> int:
         profile_round(server, "vmapped cohort engine, quickstart")
         profile_round(engines["per-client server"],
                       "make_local_trainer client by client, quickstart")
+        for name, m in modes.items():
+            profile_round(m["server"], f"vmapped cohort engine, {name} mode")
 
     # 4. the serving path on the card --------------------------------------
     t0 = time.perf_counter()
@@ -2054,6 +2540,13 @@ def main(argv=None) -> int:
     t_serve = time_serving_kernels(sv, dev)
     t_leaf = time_leaf_and_lora(leaf, chain, dev)
 
+    # B1 and B2 launch on the main path and on the modes' paths
+    for m in modes.values():
+        _add_counts(launches, {key: m["launches"].get(key, 0)
+                               for key in ("quant_pack_rows",
+                                           "dequant_agg_rows")})
+    err_q = max(err_q, modes["sparse"]["err_b1"], modes["hetero"]["err_b1"])
+    err_d = max(err_d, modes["hetero"]["err_b2"])
     rows = []
     for name, t, tp, bound, err, n_launch in (
             ("quant_pack_rows", *t_flat["quant_pack_rows"], err_q,

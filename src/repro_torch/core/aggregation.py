@@ -11,14 +11,19 @@ Ported here:
   * ``fedavg_packed`` — the wire-true path: flat messages reduce the
     whole K-client cohort in ONE ``dequant_agg_rows`` launch
     (``core/flat.py``); per-leaf messages reduce every packed leaf in ONE
-    grouped ``dequant_agg`` launch;
+    grouped ``dequant_agg`` launch; sparse (top-k) leaves scatter-add
+    their dequantized survivors into one dense fp32 accumulator a leaf;
+  * ``fedavg_hetero`` — zero-pad FedAvg over a mixed-rank cohort, one
+    ``fedavg_packed`` per rank bucket;
   * error feedback — ``ef_init``/``ef_encode``/``ef_encode_packed``/
     ``ef_fold_dropped`` and ``ErrorFeedbackFedAvg``, which keeps each
     client's residual (EF21-style memory) as host numpy;
-  * ``FedAvgAggregator`` — the strategy ``FLServer`` calls, for a
-    uniform-rank cohort.
+  * ``FedAvgAggregator`` — the strategy ``FLServer`` calls, rank-bucketed
+    when the cohort's ranks are mixed, and
+    ``SVDRecombinationAggregator``, FLoRIST-style recombination of the
+    adapter products.
 
-Heterogeneous-rank, FedBuff, SVD recombination and sparse leaves are not
+FedBuff and the streaming accumulator (the async engine's) are not
 ported.
 """
 from __future__ import annotations
@@ -34,6 +39,7 @@ from repro_torch.core import lora, messages
 from repro_torch.core.flat import is_flat_message
 from repro_torch.core.messages import is_packed_leaf, is_wire_leaf
 from repro_torch.core.quant import QuantConfig
+from repro_torch.core.sparse import is_sparse_leaf
 from repro_torch.kernels import ops as kops
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
@@ -82,7 +88,8 @@ def _agg_packed(columns: list, w: torch.Tensor) -> list:
     computing only each leaf's valid columns. Returns each packed
     position's fold in its leaf's shape and dtype, None elsewhere."""
     out = [None] * len(columns)
-    packed = [i for i, col in enumerate(columns) if is_packed_leaf(col[0])]
+    packed = [i for i, col in enumerate(columns)
+              if is_packed_leaf(col[0]) and not _has_sparse(col)]
     for bits in sorted({columns[i][0].bits for i in packed}):
         idx = [i for i in packed if columns[i][0].bits == bits]
         folds = kops.dequant_agg_leaves(
@@ -95,6 +102,30 @@ def _agg_packed(columns: list, w: torch.Tensor) -> list:
     return out
 
 
+def _has_sparse(col: list) -> bool:
+    return any(is_sparse_leaf(m) for m in col)
+
+
+def _scatter_mean(col: list, w: torch.Tensor) -> torch.Tensor:
+    """One position holding sparse leaves (and possibly dense ones: a
+    buffer may span a density-annealing boundary): the sparse clients'
+    pre-weighted survivors scatter-add into one dense fp32 accumulator,
+    one client at a time in message order, then dense leaves add in full.
+    A client's indices are unique, so each ``index_add_`` is free of
+    collisions: the sum is deterministic on the card, in the order of a
+    sequential scatter over the concatenated updates."""
+    l0 = next(m for m in col if is_sparse_leaf(m))
+    acc = torch.zeros((l0.n,), dtype=torch.float32, device=l0.idx.device)
+    for i, m in enumerate(col):
+        if is_sparse_leaf(m):
+            acc.index_add_(0, m.idx, w[i] * m.values())
+    for i, m in enumerate(col):
+        if not is_sparse_leaf(m):
+            acc = acc + w[i] * messages.unpack_message(m).to(
+                torch.float32).reshape(-1)
+    return acc.reshape(l0.shape).to(l0.dtype)
+
+
 def fedavg_packed(msgs: list[Any], weights) -> Any:
     """Weighted mean over K packed wire messages, fused.
 
@@ -104,8 +135,8 @@ def fedavg_packed(msgs: list[Any], weights) -> Any:
     per-leaf tree through ``as_tree``, bit-identical payload slices)
     every packed leaf's K payloads reduce in ONE grouped ``dequant_agg``
     launch with normalized weights, never materializing the K fp32
-    trees, and fp leaves take the plain weighted mean. Sparse leaves are
-    not ported."""
+    trees, and fp leaves take the plain weighted mean. A position holding
+    sparse leaves scatter-adds them (``_scatter_mean``)."""
     if msgs and all(is_flat_message(m) for m in msgs) \
             and len({m.layout for m in msgs}) == 1:
         return flatcodec.fedavg_packed_flat(msgs, weights)
@@ -117,17 +148,66 @@ def fedavg_packed(msgs: list[Any], weights) -> Any:
                          "structure")
     columns = [list(col) for col in zip(*(leaves for leaves, _ in flats))]
     l0 = columns[0][0]
-    dev = l0.payload.device if is_packed_leaf(l0) else l0.device
+    dev = (l0.payload if is_wire_leaf(l0) else l0).device
     w = _normalized(weights, dev)
     return tree_unflatten(treedef, [
-        _weighted_mean(col, w) if fold is None else fold
+        _scatter_mean(col, w) if _has_sparse(col)
+        else _weighted_mean(col, w) if fold is None else fold
         for fold, col in zip(_agg_packed(columns, w), columns)])
 
 
 def message_is_packed(msg: Any) -> bool:
-    """True if any leaf of ``msg`` is in wire form (a whole flat message
-    counts as one leaf)."""
+    """True if any leaf of ``msg`` is in wire form (packed or sparse; a
+    whole flat message counts as one leaf)."""
     return any(is_wire_leaf(x) for x in tree_leaves(msg))
+
+
+# ---------------------------------------------------------------------------
+# Heterogeneous-rank aggregation (HetLoRA zero-pad / FLoRIST SVD)
+# ---------------------------------------------------------------------------
+
+def bucket_by_rank(msgs: list[Any]) -> dict[int, list[int]]:
+    """Message indices grouped by adapter rank (shape-inspected, so
+    packed, sparse and fp messages bucket alike), ascending rank;
+    messages without adapters land in bucket 0."""
+    buckets: dict[int, list[int]] = {}
+    for i, m in enumerate(msgs):
+        r = lora.tree_max_rank(m)
+        buckets.setdefault(0 if r is None else int(r), []).append(i)
+    return dict(sorted(buckets.items()))
+
+
+def fedavg_hetero(msgs: list[Any], weights, r_target: int) -> Any:
+    """Zero-pad-to-max FedAvg over MIXED-rank client messages: each rank
+    bucket (uniform shapes) aggregates in one ``fedavg_packed`` (one
+    fused launch on the flat wire), its mean is zero-padded to
+    ``r_target``, and the bucket means combine with their weight-mass
+    fractions. Padding is linear, so this equals padding every client
+    first and one global FedAvg."""
+    w = torch.as_tensor(weights, dtype=torch.float32)
+    total = torch.sum(w)
+    fracs, means = [], []
+    for r, idxs in bucket_by_rank(msgs).items():
+        bmsgs = [msgs[i] for i in idxs]
+        bw = w[idxs]
+        # any wire-form message routes the bucket through the wire path
+        # (fedavg_packed also takes fp trees leaf by leaf)
+        if any(message_is_packed(m) for m in bmsgs):
+            mean_b = fedavg_packed(bmsgs, bw)
+        else:
+            mean_b = fedavg(stack_trees(bmsgs), bw)
+        if r:
+            mean_b = lora.resize_tree_rank(mean_b, r_target, method="slice")
+        fracs.append(torch.sum(bw) / total)
+        means.append(mean_b)
+    if len(means) == 1:
+        return means[0]
+
+    def combine(*leaves):
+        acc = sum(f * x.to(torch.float32) for f, x in zip(fracs, leaves))
+        return acc.to(leaves[0].dtype)
+
+    return tree_map(combine, *means)
 
 
 # ---------------------------------------------------------------------------
@@ -170,15 +250,16 @@ def ef_encode_packed(tree: Any, residual: Any, qcfg: QuantConfig,
     Returns (packed wire message, new residual): the client computes its
     residual from the same packed payload the server dequantizes, so the
     compensation is exact with respect to the wire. The message carries
-    the ORIGINAL adapter dtypes (the compensated tree is fp32) on both
-    wires. The sparse wire (``density < 1``) is not ported."""
-    if density is not None and density < 1.0:
-        raise NotImplementedError("the sparse wire is not ported")
-    if not qcfg.enabled:
+    the ORIGINAL adapter dtypes (the compensated tree is fp32) on every
+    wire. On the sparse wire (``density < 1``) the reconstruction is zero
+    at the dropped positions, so e' absorbs the whole dropped mass on top
+    of the survivors' quantization error (the FLASC rule)."""
+    sparse_on = density is not None and density < 1.0
+    if not qcfg.enabled and not sparse_on:
         return tree, residual
     comp = tree_map(lambda x, e: x.detach().to(torch.float32) + e, tree,
                     _to_device(residual, tree))
-    msg = messages.pack_message(comp, qcfg, flat=flat)
+    msg = messages.pack_message(comp, qcfg, density=density, flat=flat)
     recon = messages.unpack_message(msg)
     new_res = tree_map(lambda c, r: c - r.to(torch.float32), comp, recon)
     if is_flat_message(msg):
@@ -211,11 +292,13 @@ def ef_fold_dropped(residual: Any, msg: Any) -> Any:
 
 @dataclasses.dataclass
 class FedAvgAggregator:
-    """Paper Eq. 1 over a uniform-rank cohort. Packed inputs run on the
-    fused kernels after a bit-width check against ``qcfg``; fp inputs
-    take ``fedavg`` over the stacked trees. A cohort whose ranks differ
-    from each other or from ``r_target`` raises: the rank-bucketed path
-    is not ported."""
+    """Paper Eq. 1, generalized to heterogeneous ranks. Packed inputs
+    run on the fused kernels after a bit-width check against ``qcfg``,
+    per rank bucket when the cohort is mixed (``fedavg_hetero``); fp
+    inputs take ``fedavg`` over the stacked trees. ``r_target`` is the
+    LOWER bound of the aggregated tree's rank (zero-pad: a larger client
+    rank pads to that rank, never truncates); None pads to the round's
+    max client rank. ``FLServer`` pins it to the server rank."""
     qcfg: QuantConfig = dataclasses.field(default_factory=QuantConfig)
     r_target: Optional[int] = None
 
@@ -228,14 +311,19 @@ class FedAvgAggregator:
                                  f"-bit messages, got {leaf.bits}-bit "
                                  "payload")
 
+    def _round_rank(self, msgs: list[Any]) -> tuple[Optional[int], bool]:
+        """(target rank, heterogeneous?) for this round's messages."""
+        ranks = {r for m in msgs if (r := lora.tree_max_rank(m)) is not None}
+        if not ranks:
+            return None, False
+        target = max(self.r_target or 0, max(ranks))
+        return target, (len(ranks) > 1 or ranks != {target})
+
     def aggregate(self, msgs: list[Any], weights) -> Any:
         self._check_bits(msgs[0])
-        ranks = {r for m in msgs if (r := lora.tree_max_rank(m)) is not None}
-        if len(ranks) > 1 or (ranks and self.r_target is not None
-                              and ranks != {self.r_target}):
-            raise NotImplementedError(
-                f"mixed-rank cohorts (ranks {sorted(ranks)}, target "
-                f"{self.r_target}) are not ported")
+        target, hetero = self._round_rank(msgs)
+        if hetero:
+            return fedavg_hetero(msgs, weights, target)
         if any(message_is_packed(m) for m in msgs):
             return fedavg_packed(msgs, weights)
         return fedavg(stack_trees(msgs), weights)
@@ -267,3 +355,69 @@ class ErrorFeedbackFedAvg(FedAvgAggregator):
         # not accumulate in device memory
         self.residuals[int(cid)] = tree_map(
             lambda e: e.detach().cpu().numpy(), res)
+
+
+@dataclasses.dataclass
+class SVDRecombinationAggregator(FedAvgAggregator):
+    """FLoRIST-style server recombination for (mixed-rank) LoRA fleets.
+
+    Non-adapter leaves take the rank-bucketed FedAvg result. Each adapter
+    pair is recombined from the PRODUCT side: the weighted mean delta
+    ``sum_k w_k * down_k @ up_k`` (rank-free, so clients of any rank mix
+    exactly) is thin-SVD'd, the singular values thresholded at
+    ``energy`` of the cumulative mass pick the SERVED rank (at most the
+    round's max client rank), and the balanced factors are zero-padded
+    back to the global tree's rank. ``served_ranks`` records {adapter
+    path: served rank} of the last round. The factors may differ from
+    the JAX package's in sign and order; products and ranks do not."""
+    energy: float = 0.99
+    served_ranks: dict = dataclasses.field(default_factory=dict)
+
+    def aggregate(self, msgs: list[Any], weights) -> Any:
+        # the base pass also averages the adapter leaves recombined
+        # below: it supplies the other leaves and each pair's template
+        base = super().aggregate(msgs, weights)
+        ranks = [lora.tree_max_rank(m) for m in msgs]
+        if all(r is None for r in ranks):
+            return base
+        cap = max(r for r in ranks if r is not None)
+        # dequantize ONLY the adapter pairs (the recombination's inputs)
+        trees = [m.as_tree() if is_flat_message(m) else m for m in msgs]
+        trees = [lora._walk_pairs(m, messages.unpack_message)
+                 if message_is_packed(m) else m for m in trees]
+        w = torch.as_tensor(weights, dtype=torch.float32)
+        w = w / torch.sum(w)
+        self.served_ranks = {}
+
+        def recombine(path: str, node: Any, clients: list[Any]) -> Any:
+            if isinstance(node, dict):
+                if lora.is_adapter_pair(node):
+                    return self._recombine_pair(path, node, clients, w, cap)
+                return {k: recombine(f"{path}/{k}", v,
+                                     [c[k] for c in clients])
+                        for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                out = [recombine(f"{path}/{i}", v, [c[i] for c in clients])
+                       for i, v in enumerate(node)]
+                return type(node)(out) if isinstance(node, tuple) else out
+            return node
+
+        return recombine("", base, trees)
+
+    def _recombine_pair(self, path: str, base_pair: dict,
+                        client_pairs: list[dict], w: torch.Tensor,
+                        cap: int) -> dict:
+        delta = None
+        for wk, pair in zip(w, client_pairs):
+            down, up, _ = lora._dense_factors(pair)
+            d = wk * (down.to(torch.float32) @ up.to(torch.float32))
+            delta = d if delta is None else delta + d
+        u, s, vh = torch.linalg.svd(delta, full_matrices=False)
+        r_served = min(lora.svd_energy_rank(s, self.energy), cap)
+        self.served_ranks[path.lstrip("/")] = r_served
+        root = torch.sqrt(s[..., :r_served])
+        down_s = u[..., :, :r_served] * root[..., None, :]
+        up_s = root[..., :, None] * vh[..., :r_served, :]
+        _, _, kind = lora._dense_factors(base_pair)
+        served = lora._rebuild_pair(down_s, up_s, kind, base_pair)
+        return lora.pad_adapter(served, lora.adapter_rank(base_pair))

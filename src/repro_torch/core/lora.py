@@ -9,6 +9,10 @@ trees and the wire match it; the ``*_nchw`` forms permute the kernels
 to OIHW and run PyTorch's NCHW convolutions.
 
 Dense (Hu et al. '21): ``a`` (d_in, r) Gaussian, ``b`` (r, d_out) zeros.
+
+The rank utilities (``pad_adapter``, ``slice_adapter``,
+``truncate_adapter``, ``resize_tree_rank``, ``svd_energy_rank``) resize
+adapters for heterogeneous-rank fleets, shape-only on the pair dicts.
 """
 from __future__ import annotations
 
@@ -227,3 +231,119 @@ def tree_max_rank(tree: Any) -> Optional[int]:
     """Max adapter rank in the tree, or None if it holds no adapters."""
     rs = tree_ranks(tree)
     return rs[-1] if rs else None
+
+
+# ---------------------------------------------------------------------------
+# Rank resizing (heterogeneous-rank fleets)
+# ---------------------------------------------------------------------------
+
+def _dense_factors(pair: dict) -> tuple[torch.Tensor, torch.Tensor, str]:
+    """(down, up, kind) in matrix orientation: down (..., m, r), up
+    (..., r, n). Conv factors reshape to 2-D: ``b`` (kh, kw, cin, r) is
+    the down factor, ``a`` (1, 1, r, cout) the up factor."""
+    kind = adapter_kind(pair["a"], pair["b"])
+    if kind == "dense":
+        return pair["a"], pair["b"], kind
+    b, a = pair["b"], pair["a"]
+    kh, kw, cin, r = b.shape
+    return b.reshape(kh * kw * cin, r), a.reshape(r, a.shape[3]), kind
+
+
+def _rebuild_pair(down: torch.Tensor, up: torch.Tensor, kind: str,
+                  like: dict) -> dict:
+    if kind == "dense":
+        return {**like, "a": down.to(like["a"].dtype),
+                "b": up.to(like["b"].dtype)}
+    kh, kw, cin, _ = like["b"].shape
+    r = down.shape[-1]
+    return {**like,
+            "b": down.reshape(kh, kw, cin, r).to(like["b"].dtype),
+            "a": up.reshape(1, 1, r, up.shape[-1]).to(like["a"].dtype)}
+
+
+def pad_adapter(pair: dict, r_target: int) -> dict:
+    """Zero-pad both factors' rank dims up to ``r_target``. Exact: the
+    padded components add 0 to the product."""
+    down, up, kind = _dense_factors(pair)
+    r = down.shape[-1]
+    if r > r_target:
+        raise ValueError(f"pad_adapter: rank {r} > target {r_target}")
+    if r == r_target:
+        return pair
+    return _rebuild_pair(F.pad(down, (0, r_target - r)),
+                         F.pad(up, (0, 0, 0, r_target - r)), kind, pair)
+
+
+def slice_adapter(pair: dict, r_target: int) -> dict:
+    """Keep the leading ``r_target`` rank components (HetLoRA-style
+    truncation). After an SVD recombination the components are ordered
+    by singular value; slicing also inverts ``pad_adapter`` exactly."""
+    down, up, kind = _dense_factors(pair)
+    if down.shape[-1] < r_target:
+        raise ValueError(f"slice_adapter: rank {down.shape[-1]} < target "
+                         f"{r_target}")
+    return _rebuild_pair(down[..., :r_target], up[..., :r_target, :], kind,
+                         pair)
+
+
+def truncate_adapter(a: torch.Tensor, b: torch.Tensor, r_target: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """SVD re-projection: the best rank-``r_target`` factorization of the
+    product ``a @ b`` (dense orientation, leading dims batched), as
+    balanced factors a' = U·√S, b' = √S·Vᵀ with rank dims exactly
+    ``r_target`` (zero-padded past the product's own rank). Factors may
+    differ from the JAX package's in sign and, at equal singular values,
+    in order; their product does not."""
+    m = a.to(torch.float32) @ b.to(torch.float32)
+    u, s, vh = torch.linalg.svd(m, full_matrices=False)
+    k = min(r_target, s.shape[-1])
+    root = torch.sqrt(s[..., :k])
+    a_t = u[..., :, :k] * root[..., None, :]
+    b_t = root[..., :, None] * vh[..., :k, :]
+    if k < r_target:
+        a_t = F.pad(a_t, (0, r_target - k))
+        b_t = F.pad(b_t, (0, 0, 0, r_target - k))
+    return a_t.to(a.dtype), b_t.to(b.dtype)
+
+
+def svd_adapter(pair: dict, r_target: int) -> dict:
+    """``truncate_adapter`` applied to a pair dict (conv handled)."""
+    down, up, kind = _dense_factors(pair)
+    d_t, u_t = truncate_adapter(down, up, r_target)
+    return _rebuild_pair(d_t, u_t, kind, pair)
+
+
+def resize_adapter(pair: dict, r_target: int, method: str = "slice") -> dict:
+    """Resize one adapter pair to ``r_target``: zero-pad when growing;
+    when shrinking, ``"slice"`` (the broadcast path: a fresh adapter
+    whose product is still zero keeps its down factor) or ``"svd"`` (the
+    energy-optimal truncation of a trained adapter)."""
+    r = adapter_rank(pair)
+    if r == r_target:
+        return pair
+    if r < r_target:
+        return pad_adapter(pair, r_target)
+    if method == "slice":
+        return slice_adapter(pair, r_target)
+    if method == "svd":
+        return svd_adapter(pair, r_target)
+    raise ValueError(f"unknown resize method: {method}")
+
+
+def resize_tree_rank(tree: Any, r_target: int, method: str = "slice") -> Any:
+    """Every adapter pair of a trainable tree resized to ``r_target``;
+    other leaves (norms, biases, dense heads) pass through."""
+    return _walk_pairs(tree, lambda p: resize_adapter(p, r_target, method))
+
+
+def svd_energy_rank(s: torch.Tensor, energy: float) -> int:
+    """Smallest k with cumsum(s²)/sum(s²) >= ``energy`` (FLoRIST
+    singular-value thresholding). Batched inputs take the max over the
+    batch; an all-zero slice needs rank 1. Returns >= 1."""
+    s2 = torch.square(s.to(torch.float32))
+    tot = torch.sum(s2, dim=-1, keepdim=True)
+    frac = torch.cumsum(s2, dim=-1) / torch.clamp(tot, min=1e-30)
+    need = torch.sum(frac < energy, dim=-1) + 1
+    need = torch.where(tot[..., 0] > 0, need, torch.ones_like(need))
+    k = int(torch.max(need))
+    return max(1, min(k, s.shape[-1]))

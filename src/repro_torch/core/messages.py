@@ -17,8 +17,14 @@ Two packed codecs, both byte-identical on the wire to the JAX package's:
     :class:`PackedLeaf` (uint32 words in the kernel layout + fp32
     sidecars), packed by one ``quant_pack`` launch per leaf.
 
-Both serialize to the same named buffers. The sparse wire is not
-ported.
+Both serialize to the same named buffers.
+
+The sparse wire (``density < 1``, FLASC-style, ``core/sparse.py``): each
+quantizable leaf becomes a :class:`~repro_torch.core.sparse.SparseLeaf`,
+its per-tensor magnitude top-k indices and the survivors quantized per
+tensor; one ``quant_pack_rows`` launch packs all of a message's
+survivors. Every accounting and serialization helper here takes both
+leaf kinds; ``density`` of None or 1.0 is the dense path, byte for byte.
 
 ``message_wire_bytes`` is the static accounting; ``packed_wire_bytes``
 measures the serialized buffers.
@@ -32,9 +38,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import flat as flatcodec
-from repro_torch.core import lora, quant
+from repro_torch.core import lora, quant, sparse
 from repro_torch.core.flat import FlatPackedMessage, is_flat_message
 from repro_torch.core.quant import QuantConfig
+from repro_torch.core.sparse import SparseLeaf, is_sparse_leaf
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.utils.device import resolve_device
@@ -42,9 +49,8 @@ from repro_torch.utils.tree import flatten_with_names, tree_flatten, \
     tree_leaves, tree_map, tree_unflatten
 
 
-def _dense_only(density: Optional[float]) -> None:
-    if density is not None and density < 1.0:
-        raise NotImplementedError("the sparse wire is not ported")
+def _sparse_on(density: Optional[float]) -> bool:
+    return density is not None and density < 1.0
 
 
 # ---------------------------------------------------------------------------
@@ -143,10 +149,14 @@ def leaf_wire_bytes(shape: tuple[int, ...], bits: Optional[int],
 
 def message_wire_bytes(tree: Any, cfg: QuantConfig,
                        density: Optional[float] = None) -> int:
-    """Bytes for one direction of one round (paper's message size)."""
-    _dense_only(density)
+    """Bytes for one direction of one round (paper's message size).
+    ``density < 1`` sizes the quantizable leaves as sparse leaves
+    (``sparse.sparse_leaf_wire_bytes``); 1-D leaves always travel dense
+    fp32, as ``pack_message`` sends them."""
     bits = cfg.bits if cfg.enabled else None
-    return sum(leaf_wire_bytes(tuple(x.shape), bits, cfg.per_stack)
+    return sum(sparse.sparse_leaf_wire_bytes(tuple(x.shape), bits, density)
+               if _sparse_on(density) and quantizable(x)
+               else leaf_wire_bytes(tuple(x.shape), bits, cfg.per_stack)
                for x in tree_leaves(tree))
 
 
@@ -238,9 +248,9 @@ def is_packed_leaf(t: Any) -> bool:
 
 
 def is_wire_leaf(t: Any) -> bool:
-    """True for a wire-form leaf: a dense packed leaf or a whole
-    flat-tree message (the sparse wire is not ported)."""
-    return isinstance(t, (PackedLeaf, FlatPackedMessage))
+    """True for a wire-form leaf: a dense packed leaf, a sparse top-k
+    leaf or a whole flat-tree message."""
+    return isinstance(t, (PackedLeaf, SparseLeaf, FlatPackedMessage))
 
 
 # ---------------------------------------------------------------------------
@@ -256,11 +266,24 @@ def pack_message(tree: Any, cfg: QuantConfig, *,
     :class:`FlatPackedMessage` in a single kernel launch; ``flat=False``
     makes each quantizable leaf a :class:`PackedLeaf` (one
     ``quant_pack`` launch per leaf) and passes 1-D leaves through in
-    fp32. Quantization off returns the tree itself. ``density < 1`` (the
-    sparse wire) is not ported."""
-    _dense_only(density)
-    if not cfg.enabled:
+    fp32. Quantization off returns the tree itself.
+
+    ``density < 1`` selects the sparse wire instead (over ``flat``):
+    each quantizable leaf becomes a :class:`SparseLeaf`, its top-k
+    survivors quantized per tensor (fp32 survivors when quantization is
+    off), all of the message's in ONE ``quant_pack_rows`` launch."""
+    sparse_on = _sparse_on(density)
+    if not cfg.enabled and not sparse_on:
         return tree
+    if sparse_on:
+        leaves, treedef = tree_flatten(tree)
+        pos = [i for i, x in enumerate(leaves) if quantizable(x)]
+        out = list(leaves)
+        for i, leaf in zip(pos, sparse.sparsify_leaves(
+                [leaves[i] for i in pos], density,
+                cfg.bits if cfg.enabled else None)):
+            out[i] = leaf
+        return tree_unflatten(treedef, out)
     if flat:
         return flatcodec.pack_flat(tree, cfg.bits, cfg.per_stack)
 
@@ -277,14 +300,16 @@ def pack_message(tree: Any, cfg: QuantConfig, *,
 
 def unpack_message(msg: Any) -> Any:
     """Wire message -> fp tree (shape and dtype recorded in each leaf);
-    a flat-tree message decodes in one pass, an fp tree passes
-    through."""
+    a flat-tree message decodes in one pass, sparse leaves densify (zeros
+    at the dropped positions), an fp tree passes through."""
     if is_flat_message(msg):
         return msg.unpack()
 
     def up(t):
         if is_flat_message(t):     # nested flat messages decode too
             return t.unpack()
+        if is_sparse_leaf(t):
+            return t.densify()
         if not is_packed_leaf(t):
             return t
         lv = kref.unpack_words(t.payload, t.bits)[:, :t.n_per_channel]
@@ -314,6 +339,15 @@ def message_rank(msg: Any) -> int:
     LoRA pairs (shape-only)."""
     r = lora.tree_max_rank(msg)
     return 0 if r is None else int(r)
+
+
+def message_density(msg: Any) -> float:
+    """Density a wire message advertises: its sparse leaves' configured
+    density, 1.0 for a dense (packed or fp) message."""
+    for leaf in tree_leaves(msg):
+        if is_sparse_leaf(leaf):
+            return float(leaf.density)
+    return 1.0
 
 
 def wire_header(rank: int, bits: Optional[int],
@@ -353,11 +387,11 @@ def message_to_wire(msg: Any, include_header: bool = True
     named = flatten_with_names(msg)
     if include_header:
         bits = next((leaf.bits for _, leaf in named
-                     if is_wire_leaf(leaf)), None)
+                     if is_wire_leaf(leaf) and leaf.bits is not None), None)
         out.append((HEADER_KEY, {"header": wire_header(
-            message_rank(msg), bits)}))
+            message_rank(msg), bits, message_density(msg))}))
     for name, leaf in named:
-        if is_packed_leaf(leaf):
+        if is_packed_leaf(leaf) or is_sparse_leaf(leaf):
             out.append((name, leaf.to_wire()))
         else:
             out.append((name, {"payload": leaf.detach().to(
@@ -386,6 +420,10 @@ def message_from_wire(entries: list[tuple[str, dict]], like: Any,
         if is_packed_leaf(leaf):
             leaves.append(PackedLeaf.from_wire(
                 b, leaf.shape, leaf.dtype, leaf.bits, leaf.per_stack,
+                device=dev))
+        elif is_sparse_leaf(leaf):
+            leaves.append(SparseLeaf.from_wire(
+                b, leaf.shape, leaf.dtype, leaf.bits, leaf.density,
                 device=dev))
         else:
             leaves.append(torch.from_numpy(np.array(

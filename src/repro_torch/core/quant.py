@@ -12,6 +12,9 @@ flat-tree codec (``core/flat.py``) and the per-leaf codec
 (``core/messages.py``); like the JAX package's, the wire pack is always
 asymmetric and ignores ``symmetric``. ``pack_levels``/``unpack_levels``
 are the byte-level wire packing the per-leaf codec deserializes with.
+``DPConfig``, ``dp_privatize`` and ``gaussian_epsilon`` are the uplink's
+differential privacy (clip and noise before quantization) and its
+accountant.
 """
 from __future__ import annotations
 
@@ -20,6 +23,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.utils.device import upload
+from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,3 +184,91 @@ def unpack_levels(packed: torch.Tensor, bits: int, n: int) -> torch.Tensor:
     lv = (packed.reshape(-1).to(torch.int64)[:, None] >> shifts) \
         & ((1 << bits) - 1)
     return lv.reshape(-1)[:n].to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Differential privacy: clip + Gaussian noise BEFORE quantization
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DPConfig:
+    """DP-FedAvg uplink privatization: the client's update DELTA is
+    clipped to ``clip_norm`` in global L2 norm, then Gaussian noise of
+    std ``noise_multiplier * clip_norm`` is added, BEFORE quantization
+    (quantization is post-processing and cannot weaken the guarantee).
+    ``delta`` is the accountant's failure probability
+    (:func:`gaussian_epsilon`)."""
+    clip_norm: float = 1.0
+    noise_multiplier: float = 0.0
+    delta: float = 1e-5
+
+    def __post_init__(self):
+        if self.clip_norm <= 0:
+            raise ValueError("clip_norm must be positive")
+        if self.noise_multiplier < 0:
+            raise ValueError("noise_multiplier must be >= 0")
+        if not 0.0 < self.delta < 1.0:
+            raise ValueError("delta must be in (0, 1)")
+
+
+def global_l2_norm(tree) -> torch.Tensor:
+    """Global L2 norm across every leaf of a tree (an fp32 0-d tensor)."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                          for x in tree_leaves(tree)))
+
+
+# rng key domain for DP noise draws (disjoint from the trace and engine
+# tags), as in the JAX package
+TAG_DP = 0xD9
+
+
+def dp_privatize(tree, cfg: DPConfig, *, seed: int, key: tuple):
+    """Clip ``tree`` to ``cfg.clip_norm`` (global L2) and add Gaussian
+    noise of std ``noise_multiplier * clip_norm`` per coordinate.
+
+    The noise is a pure function of ``(seed, *key)``: numpy's
+    ``default_rng([seed, TAG_DP, *key])`` draws it leaf by leaf in the
+    tree's flatten order, the JAX package's draws one for one. The draws
+    of all leaves go to the tree's device in one copy."""
+    leaves, treedef = tree_flatten(tree)
+    factor = torch.clamp(cfg.clip_norm / torch.clamp(
+        global_l2_norm(tree), min=1e-12), max=1.0)
+    clipped = [(x.to(torch.float32) * factor).to(x.dtype) for x in leaves]
+    if cfg.noise_multiplier <= 0.0:
+        return tree_unflatten(treedef, clipped)
+    rng = np.random.default_rng([seed, TAG_DP, *[int(k) for k in key]])
+    sigma = cfg.noise_multiplier * cfg.clip_norm
+    draws = [rng.normal(scale=sigma, size=tuple(x.shape)).astype(np.float32)
+             for x in clipped]
+    noise = upload(torch.from_numpy(np.concatenate(
+        [d.reshape(-1) for d in draws])), clipped[0].device)
+    out, off = [], 0
+    for x in clipped:
+        n = x.numel()
+        out.append((x.to(torch.float32)
+                    + noise[off: off + n].reshape(x.shape)).to(x.dtype))
+        off += n
+    return tree_unflatten(treedef, out)
+
+
+def gaussian_epsilon(noise_multiplier: float, steps: int,
+                     delta: float = 1e-5) -> float:
+    """(eps, delta)-DP spent after ``steps`` Gaussian-mechanism releases
+    at noise std ``noise_multiplier`` x sensitivity, by Renyi-DP
+    composition (Mironov 2017) minimized over an alpha grid:
+
+        eps = min_alpha [ T * alpha / (2 sigma^2) + ln(1/delta)/(alpha-1) ]
+
+    Without subsampling amplification this is a conservative bound.
+    ``inf`` when ``noise_multiplier == 0``. Pure numpy, the JAX
+    package's arithmetic exactly."""
+    if steps <= 0:
+        return 0.0
+    if noise_multiplier <= 0:
+        return float("inf")
+    sigma2 = noise_multiplier ** 2
+    alphas = np.concatenate([np.linspace(1.01, 64.0, 512),
+                             np.linspace(65.0, 1024.0, 192)])
+    eps = steps * alphas / (2.0 * sigma2) \
+        + np.log(1.0 / delta) / (alphas - 1.0)
+    return float(eps.min())

@@ -25,14 +25,23 @@ The engine's numpy RNG stream is consumed exactly as the JAX package's
 ``stack_cohort_batches``. Both packages therefore sample the same
 cohorts and batches from one seed.
 
-Local training runs the cohort as ONE vmapped program
-(``fl/client.make_cohort_trainer``). ``eval_fn(frozen, train) -> dict``
-is called on the new global adapters every ``eval_every`` rounds and
-merged into the round's record, as in the JAX package.
+RANK-BUCKETED ENGINE: the survivors group by adapter rank and each
+bucket trains as ONE vmapped program (``fl/client.make_cohort_trainer``)
+from the broadcast truncated to the bucket's rank; with a
+``RankSchedule`` the bucket's client dim pads to a power of two. A
+uniform fleet is one bucket at the server rank. The buckets gather their
+batches from the sampler stream in ascending rank order, after the
+latency draws: that order is the parity contract with the JAX package.
+Mixed cohorts aggregate per rank bucket (``fedavg_hetero``), sparse
+uplinks by scatter-add; with ``FLoCoRAConfig.dp`` each uplink's delta
+against its broadcast is clipped and noised, keyed (round, cid), and the
+record carries the ``dp_epsilon`` spent so far. ``eval_fn(frozen,
+train) -> dict`` is called on the new global adapters every
+``eval_every`` rounds and merged into the round's record, as in the JAX
+package.
 
-Not ported (each raises at construction): a FleetTrace, a lazy
-Population, and the FLoCoRAConfig options listed in
-``core/flocora.py``.
+Not ported (each raises at construction): a FleetTrace and a lazy
+Population (the async engine's fleet, ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -48,8 +57,9 @@ from repro_torch.core import flocora, messages
 from repro_torch.core.aggregation import ErrorFeedbackFedAvg, \
     FedAvgAggregator, ef_fold_dropped
 from repro_torch.core.flocora import FLoCoRAConfig
+from repro_torch.core.quant import gaussian_epsilon
 from repro_torch.fl.client import ClientConfig, cohort_steps, \
-    make_cohort_trainer, stack_cohort_batches
+    make_cohort_trainer, pad_cohort_batches, pow2_pad, stack_cohort_batches
 from repro_torch.obs import metrics as obsm
 from repro_torch.obs import trace as obst
 from repro_torch.utils.device import resolve_device
@@ -91,10 +101,18 @@ class WireAccounting:
         self.wasted = 0          # bytes of transfers that never
         #                          contributed (dropped or straggled)
 
+    def bcast_rank(self, rank: int) -> Optional[int]:
+        """The rank a broadcast is truncated to; None (no resize walk)
+        keeps a uniform fleet's broadcast the classic one."""
+        if self.fcfg.rank_schedule is not None:
+            return rank
+        return None
+
     def downlink_bytes(self, global_train: Any, rank: int) -> int:
         got = self.down.get(rank)
         if got is None:
-            msg = flocora.server_downlink(global_train, self.fcfg)
+            msg = flocora.server_downlink(global_train, self.fcfg,
+                                          self.bcast_rank(rank))
             got = messages.packed_wire_bytes(msg)
             self.down[rank] = got
         return got
@@ -137,8 +155,15 @@ class FLServer:
     metrics dict``. The model moves to ``device``,
     which defaults to the card. ``aggregator`` defaults to FedAvg, or its
     error-feedback variant when ``fcfg.error_feedback`` is set (a given
-    one must agree with that flag). ``registry``/``tracer`` default to
-    the process-global obs instances (off until ``obs.enable()``)."""
+    one must agree with that flag; with a mixed ``fcfg.rank_schedule``
+    it must be a ``FedAvgAggregator``, such as
+    ``SVDRecombinationAggregator``, whose ``r_target`` is at least the
+    schedule's max rank). ``registry``/``tracer`` default to the
+    process-global obs instances (off until ``obs.enable()``).
+
+    ``run_round`` is the RANK-BUCKETED ENGINE: one vmapped cohort call
+    a rank bucket, from the broadcast truncated to that rank (one bucket
+    at the server rank in a uniform fleet)."""
 
     def __init__(self, model: dict, loss_fn: Callable,
                  client_data: list[dict], scfg: ServerConfig,
@@ -171,8 +196,16 @@ class FLServer:
         self.cohort_schedule_steps = cohort_steps(client_data, ccfg)
         self.registry = obsm.get_registry(registry)
         self.tracer = obst.get_tracer(tracer)
-        # EF engages when the uplink is lossy (quantized)
-        ef_wanted = fcfg.error_feedback and fcfg.qcfg.enabled
+        self.rank_schedule = fcfg.rank_schedule
+        if self.rank_schedule is not None \
+                and self.rank_schedule.n_clients != scfg.n_clients:
+            raise ValueError(
+                f"rank_schedule covers {self.rank_schedule.n_clients} "
+                f"clients, server has {scfg.n_clients}")
+        # EF engages when the uplink is lossy: quantized and/or sparse (a
+        # sparse fp wire still drops mass to compensate)
+        ef_wanted = fcfg.error_feedback and (fcfg.qcfg.enabled
+                                             or fcfg.sparsity_active)
         if aggregator is None:
             aggregator = ErrorFeedbackFedAvg(fcfg.qcfg, fcfg.rank) \
                 if ef_wanted else FedAvgAggregator(fcfg.qcfg, fcfg.rank)
@@ -187,12 +220,35 @@ class FLServer:
                             "an ErrorFeedbackFedAvg" if ef_wanted
                             else "a non-EF",
                             type(aggregator).__name__))
-        if aggregator.r_target is None:
+        sched = fcfg.rank_schedule
+        if sched is not None:
+            mixed = (len(set(sched.client_ranks)) > 1
+                     or sched.max_rank != fcfg.rank
+                     or sched.anneal_every > 0)
+            if mixed and not isinstance(aggregator, FedAvgAggregator):
+                # only an aggregator with a rank-bucketed path may see a
+                # mixed-rank cohort: fail here, not with a shape error
+                # mid-round
+                raise ValueError(
+                    f"{type(aggregator).__name__} has no rank-bucketed "
+                    "aggregation path for mixed-rank cohorts; use "
+                    "FedAvgAggregator or a subclass such as "
+                    "SVDRecombinationAggregator")
+            explicit = getattr(aggregator, "r_target", None)
+            if explicit is not None and explicit < sched.max_rank:
+                # a target below a scheduled rank would let the global
+                # tree's shape float with each round's cohort
+                raise ValueError(
+                    f"aggregator r_target={explicit} is below the rank "
+                    f"schedule's max rank {sched.max_rank}")
+        if getattr(aggregator, "r_target", 0) is None:
             # pin the global tree's rank on a copy, so the caller's
-            # instance (and its residual store) is not shared
+            # instance (its residuals and served ranks) is not shared
             fields: dict[str, Any] = {"r_target": fcfg.rank}
-            if isinstance(aggregator, ErrorFeedbackFedAvg):
+            if hasattr(aggregator, "residuals"):
                 fields["residuals"] = dict(aggregator.residuals)
+            if hasattr(aggregator, "served_ranks"):
+                fields["served_ranks"] = dict(aggregator.served_ranks)
             aggregator = dataclasses.replace(aggregator, **fields)
         self.aggregator = aggregator
         self.ckpt = CheckpointManager(scfg.checkpoint_dir) \
@@ -205,6 +261,20 @@ class FLServer:
     def round_bytes_per_client(self) -> int:
         """2x the MEASURED one-way message size at the server rank."""
         return 2 * self._downlink_bytes(self.fcfg.rank)
+
+    def _rank_for(self, cid: int, rnd: int) -> int:
+        if self.rank_schedule is not None:
+            return self.rank_schedule.rank_for(cid, rnd)
+        return self.fcfg.rank
+
+    def _dp_epsilon(self) -> Optional[float]:
+        """The (eps, delta) spent after this many rounds (one Gaussian
+        release per round, conservative RDP composition); None without
+        DP."""
+        dp = self.fcfg.dp
+        if dp is None:
+            return None
+        return gaussian_epsilon(dp.noise_multiplier, self.round, dp.delta)
 
     def _client_failed(self, rnd: int, cid: int) -> bool:
         """Keyed dropout draw, a pure function of (seed, round, cid)."""
@@ -273,21 +343,22 @@ class FLServer:
     # -- one round (paper Fig. 1) --------------------------------------------
     def run_round(self) -> dict:
         scfg, fcfg = self.scfg, self.fcfg
-        rnd = self.round
-        rank = fcfg.rank
+        rnd = self.round                      # schedules are 0-based
         k_target = scfg.clients_per_round
         k_dispatch = max(k_target, int(round(scfg.oversample * k_target)))
         sampled = self.rng.choice(scfg.n_clients, size=k_dispatch,
                                   replace=False)
+        rank_of = {int(cid): self._rank_for(int(cid), rnd)
+                   for cid in sampled}
         density = fcfg.uplink_density(rnd)
         self.registry.inc("fl.rounds")
         # (1) broadcast precedes failure: every dispatched client spends
-        # its downlink
+        # its downlink, at its own rank
         down_bytes = 0
-        for _ in range(k_dispatch):
-            b = self._downlink_bytes(rank)
+        for r in rank_of.values():
+            b = self._downlink_bytes(r)
             down_bytes += b
-            self.wire.record_down(rank, b)
+            self.wire.record_down(r, b)
         survivors = [cid for cid in (int(c) for c in sampled)
                      if not self._client_failed(rnd, cid)]
         self.registry.inc("fl.clients_dropped", k_dispatch - len(survivors))
@@ -295,9 +366,9 @@ class FLServer:
         wasted_bytes = 0
         for cid in (int(c) for c in sampled):
             if cid not in survivors:
-                b = self._downlink_bytes(rank)
+                b = self._downlink_bytes(rank_of[cid])
                 wasted_bytes += b
-                self.wire.record_wasted(rank, b, reason="dropped")
+                self.wire.record_wasted(rank_of[cid], b, reason="dropped")
         if not survivors:
             self.round += 1
             self._tcc_cum += down_bytes
@@ -308,40 +379,61 @@ class FLServer:
                    "round_bytes": down_bytes, "tcc_bytes": self._tcc_cum,
                    "wasted_bytes": wasted_bytes,
                    "uplink_density": density}
+            if fcfg.dp is not None:
+                rec["dp_epsilon"] = self._dp_epsilon()
             self.history.append(rec)
             self._maybe_save()
             return rec
 
+        # (2)+(3) the rank-bucketed engine: the survivors group by rank
+        # and each bucket trains as ONE vmapped program from the
+        # broadcast truncated to its rank; then every client packs its
+        # uplink at its own rank
+        buckets: dict[int, list[int]] = {}
+        for cid in survivors:
+            buckets.setdefault(rank_of[cid], []).append(cid)
         # the reference draws one latency per survivor from the sampler
-        # stream BEFORE gathering batches; the order is the parity
-        # contract
+        # stream BEFORE the buckets gather their batches, in ascending
+        # rank order; the order is the parity contract
         latency = {cid: self.rng.exponential(1.0) for cid in survivors}
         ef = isinstance(self.aggregator, ErrorFeedbackFedAvg)
-        # (2) local training on the broadcast, (3) packed uplinks
-        with self.tracer.span("fl/broadcast", track="fl/round", round=rnd,
-                              rank=rank, clients=len(survivors)):
-            g_bcast = flocora.broadcast(self.global_train, fcfg)
-            datas = [self.client_data[cid] for cid in survivors]
-            batches, n_steps = stack_cohort_batches(
-                self.rng, datas, self.ccfg,
-                steps=self.cohort_schedule_steps)
-            batches = self._batches_to_device(batches)
-        with self.tracer.span("fl/client_train", track="fl/round",
-                              round=rnd, rank=rank, clients=len(survivors)):
-            trained, losses = self.trainer(
-                self.frozen, g_bcast, batches,
-                torch.from_numpy(n_steps).to(self.device))
-            losses = losses.cpu().numpy()
         results = []
-        with self.tracer.span("fl/pack", track="fl/round", round=rnd,
-                              rank=rank, clients=len(survivors)):
-            for k, cid in enumerate(survivors):
-                t_k = tree_map(lambda x: x[k], trained)
-                res = self.aggregator.residual(cid, t_k) if ef else None
-                msg, res = flocora.client_uplink(t_k, fcfg, res, rnd=rnd)
-                n_i = len(next(iter(datas[k].values())))
-                results.append((latency[cid], n_i, msg, float(losses[k]),
-                                rank, cid, res))
+        for r in sorted(buckets):
+            cids = buckets[r]
+            with self.tracer.span("fl/broadcast", track="fl/round",
+                                  round=rnd, rank=r, clients=len(cids)):
+                g_bcast = flocora.broadcast(self.global_train, fcfg,
+                                            rank=self.wire.bcast_rank(r))
+                datas = [self.client_data[cid] for cid in cids]
+                batches, n_steps = stack_cohort_batches(
+                    self.rng, datas, self.ccfg,
+                    steps=self.cohort_schedule_steps)
+                if self.rank_schedule is not None:
+                    # pow2-padded buckets bound the distinct shapes of a
+                    # mixed fleet; a uniform fleet keeps exactly K
+                    batches, n_steps = pad_cohort_batches(
+                        batches, n_steps, pow2_pad(len(cids)))
+                batches = self._batches_to_device(batches)
+            with self.tracer.span("fl/client_train", track="fl/round",
+                                  round=rnd, rank=r, clients=len(cids)):
+                trained, losses = self.trainer(
+                    self.frozen, g_bcast, batches,
+                    torch.from_numpy(n_steps).to(self.device))
+                losses = losses.cpu().numpy()
+            with self.tracer.span("fl/pack", track="fl/round", round=rnd,
+                                  rank=r, clients=len(cids)):
+                for k, cid in enumerate(cids):
+                    t_k = tree_map(lambda x: x[k], trained)
+                    res = self.aggregator.residual(cid, t_k) if ef else None
+                    # start/dp_key engage only with fcfg.dp: the delta
+                    # against the broadcast is clipped and noised, keyed
+                    # (round, cid), before quantization
+                    msg, res = flocora.client_uplink(
+                        t_k, fcfg, res, rnd=rnd, start=g_bcast,
+                        dp_key=(rnd, cid), dp_seed=scfg.seed)
+                    n_i = len(next(iter(datas[k].values())))
+                    results.append((latency[cid], n_i, msg,
+                                    float(losses[k]), r, cid, res))
 
         # every survivor transmitted its uplink (stragglers included)
         with self.tracer.span("fl/uplink", track="fl/round", round=rnd,
@@ -373,7 +465,8 @@ class FLServer:
                     rec_i[5], ef_fold_dropped(rec_i[6], rec_i[2]))
         weights = torch.tensor([float(r[1]) for r in kept],
                                dtype=torch.float32)
-        # (4) FedAvg over the packed messages on the fused kernels
+        # (4) FedAvg over the packed messages on the fused kernels, per
+        # rank bucket when the cohort is mixed
         with self.tracer.span("fl/aggregate", track="fl/round", round=rnd,
                               n_agg=len(kept)):
             self.global_train = self.aggregator.aggregate(
@@ -381,19 +474,25 @@ class FLServer:
         self.round += 1
 
         self._tcc_cum += down_bytes + up_bytes
+        kept_ranks: dict[int, int] = {}
+        for r in kept:
+            kept_ranks[r[4]] = kept_ranks.get(r[4], 0) + 1
         rec = {"round": self.round, "n_agg": len(kept),
                "n_dropped": k_dispatch - len(results),
                "n_straggled": len(results) - len(kept),
                "client_loss": float(np.mean([r[3] for r in kept])),
-               "cohort_ranks": {rank: len(kept)},
+               "cohort_ranks": kept_ranks,
                "down_bytes": down_bytes, "up_bytes": up_bytes,
                "round_bytes": down_bytes + up_bytes,
                "tcc_bytes": self._tcc_cum,
                "wasted_bytes": wasted_bytes,
                "uplink_density": density}
-        if fcfg.qcfg.enabled:
-            rec["up_bytes_measured"] = self._uplink_bytes(rank,
-                                                          density=density)
+        if fcfg.dp is not None:
+            rec["dp_epsilon"] = self._dp_epsilon()
+            self.registry.set("fl.dp_epsilon", rec["dp_epsilon"])
+        if fcfg.qcfg.enabled or density is not None:
+            rec["up_bytes_measured"] = self._uplink_bytes(
+                max(kept_ranks, key=kept_ranks.get), density=density)
             rec["up_bytes_by_rank"] = {
                 r: b for (r, d), b in self.wire.up.items() if d == density}
         if self.eval_fn and self.round % self.scfg.eval_every == 0:

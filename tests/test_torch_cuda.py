@@ -550,3 +550,108 @@ def test_cuda_flat_kernels_resnet18_layout(bits, cuda):
     for bk in (1, 2, None):
         again = kops.dequant_agg_rows(p, s, z, w, nv, bits, block_k=bk)
         assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
+def _sparse_updates(k: int, seed: int):
+    """K ResNet-8 r=32 client updates on the CPU (numpy-seeded), each
+    adapter ``a`` left exactly zero in a third of its columns (ties at
+    the k-th magnitude)."""
+    from repro_torch.utils.tree import tree_map
+    rng = np.random.default_rng(seed)
+    cfg = resnet.ResNetConfig(arch="resnet8",
+                              lora=LoRAConfig(rank=32, alpha=512.0))
+    base = resnet.init(0, cfg, device="cpu")["train"]
+
+    def move(p):
+        d = (rng.standard_normal(tuple(p.shape)) * 0.02).astype(np.float32)
+        if p.ndim == 4:
+            d[..., ::3] = 0.0
+        return p + torch.from_numpy(d)
+
+    return [tree_map(move, base) for _ in range(k)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [4, 8, None])
+def test_cuda_sparse_pack_matches_plain(bits, cuda):
+    """A ResNet-8 r=32 message's sparse pack (density 0.1) on the card:
+    ONE quant_pack_rows launch (none without bits), and every leaf's
+    indices, words, scale and zp bit-identical to the plain version on
+    the CPU."""
+    from repro_torch.core import messages
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.core.sparse import is_sparse_leaf
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    tree = _sparse_updates(1, seed=bits or 0)[0]
+    kops.reset_launch_counts()
+    got = messages.pack_message(tree_map(lambda x: x.to(cuda), tree),
+                                QuantConfig(bits=bits), density=0.1)
+    assert kops.launch_counts()["quant_pack_rows"] == (bits is not None)
+    want = messages.pack_message(tree, QuantConfig(bits=bits), density=0.1)
+    pairs = [(g, w) for g, w in zip(tree_leaves(got), tree_leaves(want))
+             if is_sparse_leaf(w)]
+    assert len(pairs) == 18
+    for g, w in pairs:
+        assert torch.equal(g.idx.cpu(), w.idx)
+        if bits is None:
+            assert torch.equal(g.payload.cpu(), w.payload)
+            continue
+        np.testing.assert_array_equal(_words(g.payload.contiguous()),
+                                      _words(w.payload.contiguous()))
+        np.testing.assert_array_equal(_bits(g.scale), _bits(w.scale))
+        np.testing.assert_array_equal(_bits(g.zp), _bits(w.zp))
+
+
+@pytest.mark.gpu
+def test_cuda_sparse_aggregate_bit_identical(cuda):
+    """The scatter-add aggregate of 5 sparse int4 messages: two calls on
+    the card bit-identical (one collision-free index_add_ a client), and
+    within 1e-6 * max|x| of the CPU's."""
+    from repro_torch.core import aggregation, messages
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.utils.tree import flatten_with_names, tree_map
+    trees = _sparse_updates(5, seed=7)
+    q = QuantConfig(bits=4)
+    msgs = [messages.pack_message(tree_map(lambda x: x.to(cuda), t), q,
+                                  density=0.1) for t in trees]
+    w = torch.tensor([3.0, 1.0, 4.0, 1.0, 5.0])
+    a = aggregation.fedavg_packed(msgs, w)
+    b = aggregation.fedavg_packed(msgs, w)
+    cpu = aggregation.fedavg_packed(
+        [messages.pack_message(t, q, density=0.1) for t in trees], w)
+    for (name, x), (_, y), (_, z) in zip(flatten_with_names(a),
+                                         flatten_with_names(b),
+                                         flatten_with_names(cpu)):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32)), name
+        assert float((x.cpu() - z).abs().max()) <= 1e-6 * float(
+            z.abs().max()), name
+
+
+@pytest.mark.gpu
+def test_cuda_mixed_rank_round_b2_per_bucket(cuda):
+    """One round of a three-tier fleet (r in {4, 8, 16}, ResNet-8 at
+    16x16, all 6 clients) on the card: one dequant_agg_rows launch a rank
+    bucket; one quant_pack_rows launch a broadcast (one a bucket), an
+    uplink, and in round 1 a downlink measured once a rank."""
+    from repro_torch.core.flocora import FLoCoRAConfig, RankSchedule
+    from repro_torch.fl import ClientConfig, FLServer, ServerConfig
+    cfg = resnet.ResNetConfig(arch="resnet8",
+                              lora=LoRAConfig(rank=16, alpha=256.0))
+    rng = np.random.default_rng(0)
+    data = [{"x": rng.normal(size=(8, 16, 16, 3)).astype(np.float32),
+             "y": rng.integers(0, 10, 8).astype(np.int32)}
+            for _ in range(6)]
+    srv = FLServer(resnet.init(0, cfg, device=cuda),
+                   lambda f, t, b: resnet.loss_fn(f, t, cfg, b), data,
+                   ServerConfig(n_clients=6, clients_per_round=6),
+                   ClientConfig(local_epochs=1, batch_size=8, lr=0.01),
+                   FLoCoRAConfig(rank=16, alpha=256.0, quant_bits=8,
+                                 rank_schedule=RankSchedule.tiered(
+                                     (4, 8, 16), 6)), device=cuda)
+    kops.reset_launch_counts()
+    rec = srv.run_round()
+    counts = kops.launch_counts()
+    assert rec["cohort_ranks"] == {4: 2, 8: 2, 16: 2}
+    assert counts["dequant_agg_rows"] == 3
+    assert counts["quant_pack_rows"] == 3 + 6 + 3
+    assert rec["up_bytes_by_rank"] == {4: 57_400, 8: 88_888, 16: 151_864}

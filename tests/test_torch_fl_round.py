@@ -5,7 +5,8 @@ Both engines must sample the same cohorts and batches (the numpy RNG
 stream is consumed in the same order), count identical wire bytes per
 round, report client losses within rtol=1e-4 and hold global trees
 within one quantization step (an fp32 tie can flip one level). Plus a
-port-only ResNet-8 round on the CPU, and the options the port refuses."""
+port-only ResNet-8 round on the CPU, the options the port refuses, and
+FLoCoRAConfig's validations against the JAX package's."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +18,9 @@ from repro.fl import ClientConfig as JClientConfig
 from repro.fl import FLServer as JFLServer
 from repro.fl import ServerConfig as JServerConfig
 from repro_torch.core import messages as tmsg
-from repro_torch.core.flocora import FLoCoRAConfig
+from repro_torch.core.flocora import FLoCoRAConfig, RankSchedule
+from repro_torch.core.quant import DPConfig
+from repro_torch.core.sparse import SparsityConfig
 from repro_torch.core.lora import LoRAConfig
 from repro_torch.core.quant import QuantConfig
 from repro_torch.data import SyntheticVision, lda_partition
@@ -150,12 +153,36 @@ def test_resnet8_round_on_cpu():
                                     "lora_matmul": 0}
 
 
-@pytest.mark.parametrize("kw", [{"sparsity": object()},
-                                {"dp": object()},
-                                {"rank_schedule": object()}])
-def test_unported_flocora_options_raise(kw):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("kw,match", [
+    (dict(dp=DPConfig(noise_multiplier=0.3), error_feedback=True),
+     "incompatible"),
+    (dict(rank=8, rank_schedule=RankSchedule.uniform(16, 4)),
+     "exceeds the server rank"),
+    (dict(sparsity=SparsityConfig(density=0.1)), "needs error_feedback")],
+    ids=["dp_noise_with_ef", "schedule_above_rank", "sparse_requires_ef"])
+def test_flocora_config_validations(kw, match):
+    """The three refusals of the JAX package's FLoCoRAConfig, message
+    for message; each option on its own constructs."""
+    with pytest.raises(ValueError, match=match):
         FLoCoRAConfig(quant_bits=8, **kw)
+    with pytest.raises(ValueError, match=match):
+        JFLoCoRAConfig(quant_bits=8, **_kw_jax(kw))
+    ok = {k: v for k, v in kw.items() if k not in ("error_feedback",
+                                                   "rank")}
+    FLoCoRAConfig(quant_bits=8, error_feedback="dp" not in ok, **ok)
+
+
+def _kw_jax(kw: dict) -> dict:
+    """The same options as the JAX package's config objects."""
+    from repro.core import flocora as jfl, quant as jq, sparse as jsp
+    out = dict(kw)
+    if "dp" in kw:
+        out["dp"] = jq.DPConfig(**vars(kw["dp"]))
+    if "rank_schedule" in kw:
+        out["rank_schedule"] = jfl.RankSchedule(**vars(kw["rank_schedule"]))
+    if "sparsity" in kw:
+        out["sparsity"] = jsp.SparsityConfig(**vars(kw["sparsity"]))
+    return out
 
 
 def test_unported_server_options_raise():

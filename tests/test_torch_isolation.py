@@ -98,6 +98,45 @@ for flat in (True, False):
                                 flat_wire=flat)
     msg, res = flocora.client_uplink(tree, cfg)
 """,
+    "sparse_wire": """
+import torch
+from repro_torch.core import aggregation, flocora, messages
+from repro_torch.core.sparse import SparsityConfig
+tree = {"w": torch.randn(8, 6), "b": torch.zeros(6)}
+cfg = flocora.FLoCoRAConfig(quant_bits=4, error_feedback=True,
+                            sparsity=SparsityConfig(density=0.25))
+msgs = [flocora.client_uplink(tree, cfg)[0] for _ in range(2)]
+assert messages.message_density(msgs[0]) == 0.25
+assert messages.packed_wire_bytes(msgs[0]) == messages.message_wire_bytes(
+    tree, cfg.qcfg, 0.25)
+aggregation.fedavg_packed(msgs, [1.0, 2.0])
+""",
+    "dp": """
+import torch
+from repro_torch.core import flocora
+from repro_torch.core.quant import DPConfig, gaussian_epsilon
+tree = {"w": torch.randn(4, 6), "b": torch.zeros(6)}
+cfg = flocora.FLoCoRAConfig(quant_bits=8, dp=DPConfig(1.0, 0.3))
+msg, _ = flocora.client_uplink(tree, cfg, start=tree, dp_key=(0, 1))
+assert gaussian_epsilon(0.3, 1) == 21.559841619903807
+""",
+    "hetero": """
+import torch
+from repro_torch.core import aggregation, flocora, lora, messages
+from repro_torch.core.quant import QuantConfig
+def tree(r):
+    return {"fc": {"a": torch.randn(8, r), "b": torch.randn(r, 5)},
+            "n": torch.zeros(5)}
+sched = flocora.RankSchedule.tiered((2, 4), 4)
+cfg = flocora.FLoCoRAConfig(rank=4, quant_bits=8, rank_schedule=sched)
+msgs = [flocora.server_downlink(tree(4), cfg, r) for r in (2, 4, 2)]
+out = aggregation.FedAvgAggregator(QuantConfig(bits=8), 4).aggregate(
+    msgs, [1.0, 2.0, 3.0])
+assert lora.tree_ranks(out) == (4,)
+svd = aggregation.SVDRecombinationAggregator(QuantConfig(bits=8), 4)
+svd.aggregate(msgs, [1.0, 2.0, 3.0])
+assert set(svd.served_ranks) == {"fc"}
+""",
     "optim_schedule": """
 import torch
 from repro_torch import optim
@@ -129,7 +168,8 @@ t, l = make_local_trainer(loss, cfg)({}, tr, {k: v[0] for k, v in b.items()})
 @pytest.mark.parametrize("use", sorted(_USES))
 def test_slice_modules_run_without_jax_or_reference(use, tmp_path):
     """The checkpoint subpackage, the per-leaf and LoRA kernel wrappers,
-    the EF uplink, the optimizers and schedules and the local-training
+    the EF uplink, the sparse wire, DP uplinks, the mixed-rank
+    aggregators, the optimizers and schedules and the local-training
     engines run (on the CPU) with jax and repro unimportable."""
     out = _run(_USE_WITHOUT_JAX.format(src=str(ROOT / "src"),
                                        body=_USES[use]), tmp_path)
@@ -168,7 +208,7 @@ def _no_cuda():
                                    "params_from_jax", "make_store",
                                    "cache_stage", "serving_engine",
                                    "groupnorm_init", "conv_lora_init",
-                                   "dense_lora_init"])
+                                   "dense_lora_init", "sparse_from_wire"])
 def test_default_device_entry_points_raise_without_cuda(entry):
     _no_cuda()
     cfg = resnet.ResNetConfig(lora=LoRAConfig(rank=4, alpha=64.0))
@@ -193,6 +233,11 @@ def test_default_device_entry_points_raise_without_cuda(entry):
             lora.conv_lora_init(torch.Generator(), 3, 3, 4, 8, cfg.lora)
         elif entry == "dense_lora_init":
             lora.dense_lora_init(torch.Generator(), 4, 8, cfg.lora)
+        elif entry == "sparse_from_wire":
+            from repro_torch.core.sparse import SparseLeaf
+            SparseLeaf.from_wire({"idx": np.zeros(1, np.uint32),
+                                  "values": np.zeros(1, np.float32)},
+                                 (2, 2), torch.float32, None)
         else:
             model = resnet.init(0, cfg, device="cpu")
             data = [{"x": np.zeros((4, 8, 8, 3), np.float32),

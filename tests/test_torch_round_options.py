@@ -113,8 +113,8 @@ def test_ef_residuals_commit_only_for_kept_clients(monkeypatch):
     from repro_torch.core import flocora as tfl
     orig = tfl.client_uplink
 
-    def spy(trainable, cfg, res=None, rnd=0):
-        msg, new = orig(trainable, cfg, res, rnd=rnd)
+    def spy(trainable, cfg, res=None, rnd=0, **kw):
+        msg, new = orig(trainable, cfg, res, rnd=rnd, **kw)
         uplinks[len(uplinks)] = (trainable, msg, new)
         return msg, new
 
