@@ -70,7 +70,25 @@ Phases, each of which raises on failure (the script then exits nonzero):
      ``run_uniform(dp_noise=0.3)`` (uplinks 277,816 B, dp_epsilon
      21.559841619903807 / 33.736868528818945 after rounds 1 / 2, every
      privatized delta held to the CPU's with the same noise); then the
-     paper's Table
+     event-driven FedBuff engine and the fleet, each with the counts set
+     to 0 around it: ``run_async`` (12 clients in tiers {4, 8, 16},
+     server r=16, 90 arrivals in 15 flushes of 6, the run_async trace:
+     tier bytes measured, TCC, every B1 pack bit-exact against the plain
+     version and counted from the engine's state, one B2 launch a rank
+     bucket a flush, flush 1 replayed by a CPU engine with its event
+     fields exactly equal), the million-client fleet
+     (``round_throughput.py`` run_fleet's operating point at ResNet-8's
+     width: a lazy ``Population`` of the default tiers, vision shards
+     behind a 256-client LRU, streaming FedBuff with buffers of 10, 200
+     arrivals: churn and wasted bytes recomputed from the trace, one K=1
+     B2 launch an arrival, each streamed mean against the batched flush
+     of its arrivals, kill/resume from the oldest checkpoint bit-identical
+     under cuDNN's deterministic algorithms, the K=1 fold timed at the
+     r=16 layout) and deadline cohorts in ``FLServer`` (the quickstart
+     fleet with the run_async trace at oversample 1.5, 2 rounds, round 1
+     replayed on the CPU with the same stragglers and wasted bytes, then
+     a mixed-rank round on ``FedBuffAggregator(rank_staleness=True)``
+     replayed on the CPU); then the paper's Table
      IV training row (``benchmarks/table4_comparison.py --train`` (64,
      8) through ``fl_experiment``'s settings: ResNet-18, r=64,
      alpha=1024, int8, 20 clients with LDA 1.0 over 2000 synthetic
@@ -188,6 +206,14 @@ HETERO = dict(tiers=(4, 8, 16), n_clients=10, k=6, rank=16, alpha=256.0,
               tier_bytes={4: 57_400, 8: 88_888, 16: 151_864})
 DP = dict(clip_norm=1.0, noise_multiplier=0.3, up_bytes=277_816,
           epsilon=(21.559841619903807, 33.736868528818945))
+# examples/quickstart.py run_async (server r = 16, tiers as HETERO's) and
+# benchmarks/round_throughput.py run_fleet's operating point
+ASYNC = dict(n_clients=12, acfg=dict(
+    total_arrivals=90, concurrency=6, buffer_size=6, half_life=4.0,
+    microbatch_window=60.0, seed=0))
+FLEET = dict(n_clients=1_000_000, shard_size=64, cache=256, acfg=dict(
+    total_arrivals=200, concurrency=64, buffer_size=10, streaming_agg=True,
+    microbatch_window=1200.0, seed=0, checkpoint_every=5))
 B2_TOL = 1e-5
 # the serving path: benchmarks/round_throughput.py run_serve at the
 # hidden width of gemma3-4b (src/repro/configs/gemma3_4b.py d_model)
@@ -1127,10 +1153,11 @@ def quickstart_data():
     return [{"x": x[p], "y": y[p].astype(np.int32)} for p in parts]
 
 
-def make_server(model, data, device, fl=None, server=None, client=None):
+def make_server(model, data, device, fl=None, server=None, client=None,
+                trace=None):
     """The quickstart round's FLServer; ``fl``/``server``/``client``
     override FLoCoRAConfig / ServerConfig / ClientConfig fields (the
-    options' phases)."""
+    options' phases); ``trace`` orders deadline cohorts."""
     from repro_torch.core.flocora import FLoCoRAConfig
     from repro_torch.core.lora import LoRAConfig
     from repro_torch.fl import ClientConfig, FLServer, ServerConfig
@@ -1143,7 +1170,7 @@ def make_server(model, data, device, fl=None, server=None, client=None):
         ClientConfig(local_epochs=1, batch_size=32, lr=0.01,
                      **(client or {})),
         FLoCoRAConfig(rank=32, alpha=512.0, **{"quant_bits": 8, **(fl or {})}),
-        device=device)
+        trace=trace, device=device)
 
 
 def hold_trees(tree_a, tree_b, bits: int, what: str) -> float:
@@ -1769,10 +1796,10 @@ def adapter_products(tree) -> list:
     return out
 
 
-def check_bucket_folds(captured, dev) -> float:
-    """B2 at each rank bucket's flat layout, on the rounds' own uplinks:
-    the kernel within rtol = atol = 1e-5 of its plain version. Returns
-    the max abs difference."""
+def check_bucket_folds(captured, dev, label: str = "hetero round") -> float:
+    """B2 at each rank bucket's flat layout, on the rounds' (or flushes')
+    own uplinks: the kernel within rtol = atol = 1e-5 of its plain
+    version. Returns the max abs difference."""
     import torch
     from repro_torch.core import aggregation
     from repro_torch.kernels import ops as kops
@@ -1791,7 +1818,7 @@ def check_bucket_folds(captured, dev) -> float:
             got = kops.dequant_agg_rows(*args)
             want = kref.dequant_agg_rows_ref(*args)
             err = float((got - want).abs().max())
-            print(f"check dequant_agg_rows hetero round {rnd} bucket r={r}"
+            print(f"check dequant_agg_rows {label} {rnd} bucket r={r}"
                   f" K={len(ms)} {tuple(args[0].shape)}: max_abs_err={err}")
             if not torch.allclose(got, want, rtol=B2_TOL, atol=B2_TOL):
                 raise AssertionError(f"dequant_agg_rows at the r={r} "
@@ -1971,6 +1998,494 @@ def dp_phase(data, model_cpu, dev) -> dict:
           f"deltas within {worst:.3g} of max|x| of the CPU's (same noise); "
           f"round-2 wall {walls[-1]:.4f} s; launches {launches}")
     return {"launches": launches, "walls": walls, "server": server}
+
+
+def async_data():
+    """examples/quickstart.py run_async: 12 non-IID (LDA 0.5) clients
+    over 1000 synthetic 32x32x3 images."""
+    import numpy as np
+    from repro_torch.data import SyntheticVision, lda_partition
+    rng = np.random.default_rng(0)
+    sv = SyntheticVision(seed=0)
+    y = rng.integers(0, 10, 1000)
+    x = sv.sample(rng, y)
+    parts = lda_partition(y, ASYNC["n_clients"], alpha=0.5)
+    return [{"x": x[p], "y": y[p].astype(np.int32)} for p in parts]
+
+
+def async_trace():
+    """run_async's fleet timing: ~45 s median compute, a jittery 20 Mb/s
+    link, each client available 80% of a 10-minute cycle."""
+    from repro_torch.fl import AvailabilityWindows, FleetTrace, \
+        LognormalLatency
+    return FleetTrace(seed=0, latency=LognormalLatency(
+        compute_median_s=45.0, network_mbps=20.0),
+        availability=AvailabilityWindows(period_s=600.0, duty=0.8))
+
+
+def make_async_server(data, device, acfg=None, fcfg=None, trace=None):
+    """run_async's AsyncFLServer: ResNet-8 at server rank 16 (alpha 256),
+    int8, ``RankSchedule.tiered((4, 8, 16), 12)``, batch 32, lr 0.01, 1
+    local epoch; ``acfg``/``fcfg``/``trace`` override (the fleet)."""
+    from repro_torch.core.flocora import FLoCoRAConfig, RankSchedule
+    from repro_torch.fl import AsyncConfig, AsyncFLServer, ClientConfig
+    from repro_torch.models import resnet
+    cfg = hetero_cfg()
+    return AsyncFLServer(
+        resnet.init(0, cfg, device="cpu"),
+        lambda f, t, b: resnet.loss_fn(f, t, cfg, b), data,
+        acfg or AsyncConfig(**ASYNC["acfg"]),
+        ClientConfig(local_epochs=1, batch_size=32, lr=0.01),
+        fcfg or FLoCoRAConfig(
+            rank=HETERO["rank"], alpha=HETERO["alpha"], quant_bits=8,
+            rank_schedule=RankSchedule.tiered(HETERO["tiers"],
+                                              ASYNC["n_clients"])),
+        trace=trace or async_trace(), device=device)
+
+
+@contextlib.contextmanager
+def engine_probes(srv):
+    """Wrap an async engine's flush, the aggregator's add and flush, the
+    broadcasts and every ``pack_message`` for the duration. Yields a
+    dict: ``packs`` ((args, kwargs, message) a pack), ``bcasts`` (a
+    broadcast each), ``adds`` ((msg, n_k, staleness) an arrival),
+    ``flushes`` a dict each: the pending (msgs, weights) and ranks, the
+    streamed or batched mean, the B2 launches inside (read as a
+    difference: the counts are not reset), the flush's wall ms (queued
+    work finished first), and after
+    flush 1 a copy of the global tree (``tree1``)."""
+    import torch
+    from repro_torch.core import aggregation, flocora, messages
+    from repro_torch.kernels import ops as kops
+    from repro_torch.utils.tree import tree_map
+    agg = srv.aggregator
+    probe = {"adds": [], "flushes": [], "tree1": None}
+    real_add, real_agg_flush, real_flush = agg.add, agg.flush, srv._flush
+
+    def add(msg, n_k, staleness):
+        probe["adds"].append((msg, n_k, staleness))
+        return real_add(msg, n_k, staleness)
+
+    def agg_flush():
+        pend = list(agg.pending)
+        ranks = set(aggregation.bucket_by_rank([m for m, _ in pend]))
+        b2 = kops.dequant_agg_rows.launches
+        out = real_agg_flush()
+        probe["flushes"].append({
+            "pending": pend, "ranks": ranks, "mean": out,
+            "b2": kops.dequant_agg_rows.launches - b2})
+        return out
+
+    def flush():
+        torch.cuda.synchronize()     # time the flush's own work alone
+        t0 = time.perf_counter()
+        out = real_flush()
+        torch.cuda.synchronize()
+        probe["flushes"][-1]["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        if srv.n_flushes == 1:
+            probe["tree1"] = tree_map(lambda x: x.clone(), srv.global_train)
+        return out
+
+    agg.add, agg.flush, srv._flush = add, agg_flush, flush
+    try:
+        with recorded(messages, "pack_message") as packs, \
+                recorded(flocora, "broadcast") as bcasts:
+            probe["packs"], probe["bcasts"] = packs, bcasts
+            yield probe
+    finally:
+        for owner, name in ((agg, "add"), (agg, "flush"), (srv, "_flush")):
+            delattr(owner, name)
+
+
+def expected_packs(srv, probe) -> int:
+    """B1 launches an async run must have made, from the engine's own
+    state: a broadcast a (version, rank) memo miss, a downlink measured
+    once a rank, an uplink a trained client (arrived, or computed and
+    still in flight)."""
+    trained = srv.n_arrived + sum(1 for r in srv.inflight.values()
+                                  if r.msg is not None)
+    return len(probe["bcasts"]) + len(srv.wire.down) + trained
+
+
+def check_packs(packs, what: str) -> tuple:
+    """Every flat pack of a run against ``pack_message`` on the CPU on the
+    same tree: bit-exact words, scale and zp. Returns (max error, set of
+    (rows, words) layouts)."""
+    from repro_torch.core import messages
+    from repro_torch.core.flat import FlatPackedMessage
+    from repro_torch.utils.tree import tree_to
+    err_b1, layouts = 0.0, set()
+    for args, kw, got in packs:
+        want = messages.pack_message(tree_to(args[0], "cpu"), args[1], **kw)
+        if not isinstance(got, FlatPackedMessage):
+            raise AssertionError(f"{what} pack is a {type(got).__name__}")
+        lo = got.layout
+        same, err = pack_diff((got.payload, got.scale, got.zp),
+                              (want.payload, want.scale, want.zp), lo.bits)
+        err_b1 = max(err_b1, err)
+        if not same or lo != want.layout:
+            raise AssertionError(f"{what} pack at {lo.c_total} rows differs "
+                                 "from its plain version")
+        layouts.add((lo.c_total, lo.nw_max))
+    return err_b1, layouts
+
+
+EVENT_KEYS = ("version", "t_virtual", "n_arrived", "n_flushed", "n_churned",
+              "staleness_mean", "staleness_max", "flush_ranks", "down_bytes",
+              "up_bytes", "tcc_bytes", "wasted_bytes", "uplink_density")
+
+
+def async_phase(dev) -> dict:
+    """``examples/quickstart.py`` run_async on the card: 12 clients in rank
+    tiers {4, 8, 16} (server r = 16, int8) through the event-driven
+    FedBuff engine, 90 arrivals, concurrency 6, buffers of 6 (15 flushes),
+    the run_async trace. Checks the tiers' one-way bytes statically and
+    as measured, TCC = initial model + down + up, every B1 pack (the
+    broadcasts, the measured downlinks, the uplinks: counted from the
+    engine's own state) bit-exact against the plain version on the CPU,
+    each flush's B2 launches (one a rank bucket) and B2 held to its plain
+    version on each flush's buckets, the compile bound on the program
+    keys, and flush 1 replayed by a CPU engine: event fields exactly
+    equal, loss within rtol 1e-3, trees within 4 int8 steps."""
+    import numpy as np
+    import torch
+    from repro_torch.core import flocora
+    from repro_torch.kernels import ops as kops
+    from repro_torch.utils.tree import tree_bytes
+    data = async_data()
+    srv = make_async_server(data, dev)
+    tiers = {r: flocora.client_wire_bytes(srv.global_train, srv.fcfg, r)
+             for r in HETERO["tiers"]}
+    if tiers != HETERO["tier_bytes"]:
+        raise AssertionError(f"async tier bytes {tiers}")
+    with engine_probes(srv) as probe:
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = srv.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kops.launch_counts()
+    acfg = srv.acfg
+    last = hist[-1]
+    want_flushes = acfg.total_arrivals // acfg.buffer_size
+    if len(hist) != want_flushes or last["n_arrived"] != acfg.total_arrivals:
+        raise AssertionError(f"async: {len(hist)} flushes, last {last}")
+    if srv.wire.down != HETERO["tier_bytes"] or {
+            r: b for (r, _), b in srv.wire.up.items()} != \
+            HETERO["tier_bytes"]:
+        raise AssertionError(f"async measured bytes down {srv.wire.down} "
+                             f"up {srv.wire.up}")
+    if last["tcc_bytes"] != tree_bytes(srv.frozen) + last["down_bytes"] \
+            + last["up_bytes"] or srv.tcc_bytes != last["tcc_bytes"]:
+        raise AssertionError(f"async tcc {last}")
+    packs_want = expected_packs(srv, probe)
+    if launches["quant_pack_rows"] != packs_want \
+            or len(probe["packs"]) != packs_want:
+        raise AssertionError(f"async B1 launches {launches}, "
+                             f"{len(probe['packs'])} packs, want "
+                             f"{packs_want}")
+    for i, f in enumerate(probe["flushes"], 1):
+        if f["b2"] != len(f["ranks"]):
+            raise AssertionError(f"async flush {i}: {f['b2']} B2 launches "
+                                 f"for rank buckets {sorted(f['ranks'])}")
+    if launches["dequant_agg_rows"] != sum(f["b2"]
+                                           for f in probe["flushes"]):
+        raise AssertionError(f"async B2 launches {launches}")
+    bound = len(HETERO["tiers"]) * (int(math.log2(acfg.concurrency)) + 1)
+    if len(srv.program_keys) > bound:
+        raise AssertionError(f"async program keys {srv.program_keys} > "
+                             f"{bound}")
+    err_b1, layouts = check_packs(probe["packs"], "async")
+    err_b2 = check_bucket_folds(
+        [(([m for m, _ in f["pending"]],
+           torch.tensor([w for _, w in f["pending"]])), None, None)
+         for f in probe["flushes"]], dev, "async flush")
+    # flush 1 replayed on the CPU
+    t1 = time.perf_counter()
+    cpu = make_async_server(data, "cpu")
+    cpu._fill_pipeline()
+    rec = None
+    while rec is None:
+        rec = cpu.step()
+    for key in EVENT_KEYS:
+        if rec[key] != hist[0][key]:
+            raise AssertionError(f"async cpu replay {key}: {rec[key]} != "
+                                 f"{hist[0][key]}")
+    if not math.isclose(rec["client_loss"], hist[0]["client_loss"],
+                        rel_tol=1e-3):
+        raise AssertionError(f"async cpu replay loss {rec['client_loss']} "
+                             f"!= {hist[0]['client_loss']}")
+    diff = hold_trees(cpu.global_train, probe["tree1"], 8,
+                      "async cpu replay")
+    flush_ms = [f["wall_ms"] for f in probe["flushes"]]
+    print(f"async phase: tier bytes {tiers}; {len(hist)} flushes, virtual "
+          f"{last['t_virtual']:.1f} s, tcc {last['tcc_bytes']} B, loss "
+          f"{hist[0]['client_loss']:.5f} -> {last['client_loss']:.5f}; run "
+          f"wall {wall:.3f} s ({acfg.total_arrivals / wall:.2f} arrivals/s),"
+          f" flush {np.median(flush_ms):.3f} ms wall median "
+          f"({min(flush_ms):.3f}-{max(flush_ms):.3f}); program keys "
+          f"{len(srv.program_keys)} <= {bound}; {len(probe['packs'])} packs "
+          f"({len(probe['bcasts'])} broadcasts) bit-exact vs plain at "
+          f"layouts {sorted(layouts)} (max {err_b1:.3g}); one B2 launch a "
+          f"rank bucket, within {B2_TOL} of plain (max {err_b2:.3g}); cpu "
+          f"replay of flush 1: events equal, loss {rec['client_loss']:.6f}"
+          f" vs {hist[0]['client_loss']:.6f}, max adapter diff {diff:.3g} "
+          f"({time.perf_counter() - t1:.1f} s); launches {launches}")
+    return {"launches": launches, "wall": wall, "err_b1": err_b1,
+            "err_b2": err_b2, "flush_ms": flush_ms}
+
+
+def make_fleet(dev, ckpt_dir):
+    """benchmarks/round_throughput.py run_fleet's operating point at
+    ResNet-8's width: a 1M-client ``Population`` of the default tiers
+    (70% rank-4 phones that churn and are diurnal, 25% rank-8 laptops,
+    5% rank-16 workstations) with 64-image ``client_shard`` vision
+    shards behind a 256-client LRU, ``PopulationTrace``; server r = 16,
+    int8, streaming FedBuff, buffers of 10, 64 in flight."""
+    from repro_torch.core.flocora import FLoCoRAConfig
+    from repro_torch.fl import AsyncConfig, Population, PopulationTrace, \
+        default_tiers
+    pop = Population(FLEET["n_clients"], default_tiers(), seed=0,
+                     shard_size=FLEET["shard_size"],
+                     cache_clients=FLEET["cache"])
+    acfg = AsyncConfig(**FLEET["acfg"], checkpoint_dir=ckpt_dir)
+    fcfg = FLoCoRAConfig(rank=HETERO["rank"], alpha=HETERO["alpha"],
+                         quant_bits=8)
+    return pop, make_async_server(pop, dev, acfg, fcfg,
+                                  PopulationTrace(seed=0, population=pop))
+
+
+def fleet_phase(dev) -> dict:
+    """The million-client fleet on the card (see ``make_fleet``), 200
+    arrivals, checkpointed every 5 flushes, under cuDNN's deterministic
+    algorithms. Checks peak resident shards <= 256, churn (n_churned > 0
+    and wasted bytes = the churned dispatches' downlinks, recomputed from
+    the trace's draws), exactly one B2 (K = 1) launch an arrival, B1
+    counted from the engine's state and bit-exact against its plain
+    version, each flush's streamed mean within 1e-6 * max|x| of a
+    batched ``FedBuffAggregator`` flush of the same arrivals and weights,
+    and kill/resume: a fresh engine resumed from the oldest checkpoint
+    replays the rest of the history and the final tree bit for bit.
+    Times the K = 1 fold at the rank-16 layout."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import flat as flatcodec
+    from repro_torch.core.aggregation import FedBuffAggregator
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.utils.tree import flatten_with_names
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(prefix="fleet_smoke_", dir=ROOT / "build")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        pop, srv = make_fleet(dev, str(Path(d) / "a"))
+        churn_draws = []
+        real_churned = srv.trace.churned
+
+        def churned(cid, idx):
+            out = real_churned(cid, idx)
+            churn_draws.append((cid, idx, out))
+            return out
+
+        # the trace is a frozen dataclass: record its churn draws on this
+        # instance alone
+        object.__setattr__(srv.trace, "churned", churned)
+        with engine_probes(srv) as probe:
+            kops.reset_launch_counts()
+            t0 = time.perf_counter()
+            hist = srv.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kops.launch_counts()
+        acfg = srv.acfg
+        if pop.peak_resident > FLEET["cache"]:
+            raise AssertionError(f"fleet peak resident {pop.peak_resident}")
+        dropped = [(c, i) for c, i, out in churn_draws
+                   if out and i not in srv.inflight]
+        wasted = sum(srv.wire.down[pop.rank_for(c)] for c, _ in dropped)
+        if srv.n_churned <= 0 or srv.n_churned != len(dropped) \
+                or hist[-1]["wasted_bytes"] != wasted \
+                or hist[-1]["n_churned"] != srv.n_churned:
+            raise AssertionError(f"fleet churn: {srv.n_churned} churned, "
+                                 f"{len(dropped)} drawn, wasted "
+                                 f"{hist[-1]['wasted_bytes']} vs {wasted}")
+        if launches["dequant_agg_rows"] != acfg.total_arrivals \
+                or len(probe["adds"]) != acfg.total_arrivals \
+                or any(f["b2"] for f in probe["flushes"]):
+            raise AssertionError(f"fleet B2 launches {launches}: want one "
+                                 f"an arrival, none at a flush")
+        packs_want = expected_packs(srv, probe)
+        if launches["quant_pack_rows"] != packs_want:
+            raise AssertionError(f"fleet B1 launches {launches}, want "
+                                 f"{packs_want}")
+        err_b1, layouts = check_packs(probe["packs"], "fleet")
+        # each streamed mean against the batched flush of its arrivals
+        worst, start = 0.0, 0
+        for f in probe["flushes"]:
+            batch = FedBuffAggregator(half_life=acfg.half_life,
+                                      r_target=HETERO["rank"])
+            take = probe["adds"][start:start + acfg.buffer_size]
+            start += acfg.buffer_size
+            for msg, n_k, s in take:
+                batch.add(msg, n_k, s)
+            want = batch.flush()
+            for (name, x), (_, y) in zip(flatten_with_names(f["mean"]),
+                                         flatten_with_names(want)):
+                dx, ymax = float((x - y).abs().max()), float(y.abs().max())
+                worst = max(worst, dx / max(ymax, 1e-30))
+                if dx > LEAF_TOL * ymax:
+                    raise AssertionError(f"fleet streamed mean {name}: "
+                                         f"{dx} > {LEAF_TOL} * {ymax}")
+        # kill/resume from the oldest checkpoint
+        a, b = Path(d) / "a", Path(d) / "b"
+        steps = sorted(int(p.name[5:-5]) for p in a.glob("ckpt_*.json"))
+        b.mkdir()
+        for ext in (".npz", ".json"):
+            shutil.copy(a / f"ckpt_{steps[0]:08d}{ext}", b)
+        _, again = make_fleet(dev, str(b))
+        if not again.try_resume() or again.n_flushes != steps[0]:
+            raise AssertionError("the fleet did not resume its oldest "
+                                 f"checkpoint ({steps})")
+        t1 = time.perf_counter()
+        hist_b = again.run()
+        torch.cuda.synchronize()
+        resume_wall = time.perf_counter() - t1
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(d, ignore_errors=True)
+    if hist_b != hist:
+        i, ra, rb = next((i, ra, rb) for i, (ra, rb) in enumerate(
+            zip(hist, hist_b)) if ra != rb) if len(hist) == len(hist_b) \
+            else (len(hist), hist[-1], hist_b[-1])
+        raise AssertionError(
+            f"resumed fleet history differs at flush {i + 1} of "
+            f"{len(hist)} / {len(hist_b)}: keys "
+            f"{sorted(k for k in ra if ra.get(k) != rb.get(k))}: {ra} vs "
+            f"{rb}")
+    for (name, x), (_, y) in zip(flatten_with_names(srv.global_train),
+                                 flatten_with_names(again.global_train)):
+        if not torch.equal(_f32_bits(x), _f32_bits(y)):
+            raise AssertionError(f"resumed fleet tree {name} differs")
+    flush_ms = [f["wall_ms"] for f in probe["flushes"]]
+    print(f"fleet phase: {pop.n_clients} clients, {len(hist)} flushes, "
+          f"virtual {hist[-1]['t_virtual']:.1f} s, loss "
+          f"{hist[0]['client_loss']:.5f} -> {hist[-1]['client_loss']:.5f}, "
+          f"tcc {hist[-1]['tcc_bytes']} B; peak resident "
+          f"{pop.peak_resident} <= {FLEET['cache']}; {srv.n_dispatched} "
+          f"dispatched, {srv.n_churned} churned, wasted "
+          f"{hist[-1]['wasted_bytes']} B (recomputed); run wall {wall:.3f} s"
+          f" ({acfg.total_arrivals / wall:.2f} arrivals/s); streaming flush"
+          f" {np.median(flush_ms):.3f} ms wall median "
+          f"({min(flush_ms):.3f}-{max(flush_ms):.3f}); program keys "
+          f"{sorted(srv.program_keys)}; {len(probe['packs'])} packs "
+          f"bit-exact vs plain at layouts {sorted(layouts)} (max "
+          f"{err_b1:.3g}); B2 one K=1 launch an arrival "
+          f"({launches['dequant_agg_rows']}); streamed means within "
+          f"{worst:.3g} of max|x| of the batched flushes; resumed from "
+          f"flush {steps[0]} of {steps}: {len(hist_b) - steps[0]} more "
+          f"flushes bit-identical in {resume_wall:.3f} s; launches "
+          f"{launches}")
+    # the K = 1 fold at the rank-16 layout, and its plain version
+    msg = next(m for m, _, _ in probe["adds"]
+               if m.layout.c_total == max(l[0] for l in layouts))
+    lo = msg.layout
+    nv = torch.from_numpy(lo.n_valid_vec()).to(dev)
+    w1 = torch.ones((1,), dtype=torch.float32, device=dev)
+    args = (msg.payload[None], msg.scale[None], msg.zp[None], w1, nv,
+            lo.bits)
+    err_b2 = float((kops.dequant_agg_rows(*args)
+                    - kref.dequant_agg_rows_ref(*args)).abs().max())
+    if err_b2 > B2_TOL:
+        raise AssertionError(f"fleet fold B2 error {err_b2}")
+    acc = torch.zeros((lo.c_total, lo.n_max), dtype=torch.float32,
+                      device=dev)
+    t_k1 = _time_ms(lambda: kops.dequant_agg_rows(*args), 200)
+    t_plain = _time_ms(lambda: kref.dequant_agg_rows_ref(*args), 20)
+    fp_acc = tuple(torch.zeros_like(x, dtype=torch.float32)
+                   for x in msg.fp_leaves)
+
+    def fold_on_device():
+        # fold_flat's device work with its weight already on the card: a
+        # queued fold_flat's pinned weight upload cannot reuse its host
+        # block behind _time_ms's sleep, and waits on a new allocation
+        contrib = kops.dequant_agg_rows(*args)
+        return acc + contrib, tuple(a + x.to(torch.float32) for a, x in
+                                    zip(fp_acc, msg.fp_leaves))
+
+    t_fold = _time_ms(fold_on_device, 20)     # ~1 ms of host a call
+    t_fold_host = _host_ms(
+        lambda: flatcodec.fold_flat(acc, fp_acc, msg, 1.0, nv), 100)
+    per = 32 // lo.bits
+    words = int(sum(-(-int(v) // per) for v in lo.n_valid_vec()))
+    nbytes = words * 4 + 2 * lo.c_total * 4 + 4 + lo.c_total * 4 \
+        + lo.c_total * lo.n_max * 4
+    bound = _bound_ms(nbytes, 0.0)
+    print(f"fleet fold at the r={HETERO['rank']} layout ({lo.c_total} rows "
+          f"x {lo.nw_max} words, {lo.n_max} levels; {words} words hold a "
+          f"valid level): B2 K=1 "
+          f"{t_k1[0] * 1e3:.2f} us on the device ({t_k1[1] * 1e3:.2f} us a "
+          f"call), the fold's device work (B2, the accumulator and fp "
+          f"adds) {t_fold[0] * 1e3:.2f} us ({t_fold[1] * 1e3:.2f} us a "
+          f"call), fold_flat itself {t_fold_host[0] * 1e3:.2f} us of host "
+          f"a call ({t_fold_host[1] * 1e3:.2f} us to its end), plain "
+          f"{t_plain[0] * 1e3:.2f}"
+          f" us; bound {bound[0] * 1e3:.3f} us ({bound[1]}, {nbytes} B); "
+          f"max_abs_err {err_b2}")
+    return {"launches": launches, "wall": wall, "err_b1": err_b1,
+            "err_b2": err_b2, "fold": (t_k1, t_plain, bound)}
+
+
+def deadline_phase(data, model_cpu, dev) -> dict:
+    """Deadline cohorts in the synchronous FLServer on the card: the
+    quickstart fleet with ``trace=`` the run_async trace and oversample
+    1.5 (8 dispatched, 5 kept), 2 rounds; round 1 replayed on the CPU
+    (n_straggled and wasted bytes exactly equal, loss within rtol 1e-3,
+    trees within 4 int8 steps); one B2 launch a round. Then one round of
+    the mixed-rank fleet on ``FedBuffAggregator(rank_staleness=True)``
+    (one B2 launch a rank bucket), held to its CPU replay."""
+    from repro_torch.core.aggregation import FedBuffAggregator
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.models import resnet
+    sv = {"oversample": 1.5}
+    cfg = resnet.ResNetConfig(arch="resnet8",
+                              lora=LoRAConfig(rank=32, alpha=512.0))
+    server = make_server(resnet.init(0, cfg, device=dev), data, dev,
+                         server=sv, trace=async_trace())
+    recs, counts, tree1, walls = run_rounds(server, ROUNDS, "deadline")
+    k = server.scfg.clients_per_round
+    for rec, c in zip(recs, counts):
+        want = 1 + 8 + (rec["round"] == 1)
+        if rec["n_straggled"] != 3 or rec["wasted_bytes"] <= 0 \
+                or c["quant_pack_rows"] != want \
+                or c["dequant_agg_rows"] != 1:
+            raise AssertionError(f"deadline round {rec['round']}: {rec}, "
+                                 f"launches {c}")
+    compare_with_cpu(recs[0], tree1, make_server(
+        model_cpu, data, "cpu", server=sv, trace=async_trace()),
+        "deadline cohorts")
+    data_h, cfg = hetero_data(), hetero_cfg()
+    fb = make_hetero_server(resnet.init(0, cfg, device=dev), data_h, dev,
+                            FedBuffAggregator(rank_staleness=True))
+    recs_f, counts_f, tree_f, walls_f = run_rounds(fb, 1, "fedbuff sync")
+    if counts_f[0]["dequant_agg_rows"] != len(recs_f[0]["cohort_ranks"]):
+        raise AssertionError(f"fedbuff sync launches {counts_f[0]}")
+    compare_with_cpu(recs_f[0], tree_f, make_hetero_server(
+        resnet.init(0, cfg, device="cpu"), data_h, "cpu",
+        FedBuffAggregator(rank_staleness=True)), "fedbuff sync",
+        keys=("cohort_ranks", "up_bytes_by_rank"))
+    launches = {}
+    for c in counts + counts_f:
+        _add_counts(launches, c)
+    print(f"deadline phase: {k} kept of 8 a round, stragglers "
+          f"{[r['n_straggled'] for r in recs]}, wasted "
+          f"{[r['wasted_bytes'] for r in recs]} B; fedbuff sync round "
+          f"cohort ranks {recs_f[0]['cohort_ranks']}; round-2 wall "
+          f"{walls[-1]:.4f} s, fedbuff round {walls_f[0]:.4f} s; launches "
+          f"{launches}")
+    return {"launches": launches, "walls": walls}
 
 
 def table4_data():
@@ -2510,7 +3025,16 @@ def main(argv=None) -> int:
           "round-2 walls (s): " + ", ".join(
               f"{name} {m['walls'][-1]:.4f}" for name, m in modes.items()))
 
-    # 3d. the paper's Table IV run: ResNet-18 r=64 int8 at full width --
+    # 3d. the async engine, the million-client fleet, deadline cohorts --
+    t0 = time.perf_counter()
+    fleets = {"async": async_phase(dev), "fleet": fleet_phase(dev),
+              "deadline": deadline_phase(data, model_cpu, dev)}
+    print(f"async and fleet phases: {time.perf_counter() - t0:.1f} s; "
+          f"async run {fleets['async']['wall']:.3f} s, fleet run "
+          f"{fleets['fleet']['wall']:.3f} s, deadline round 2 "
+          f"{fleets['deadline']['walls'][-1]:.4f} s")
+
+    # 3e. the paper's Table IV run: ResNet-18 r=64 int8 at full width --
     t0 = time.perf_counter()
     table4 = table4_phase(dev)
     print(f"table4 phase: {time.perf_counter() - t0:.1f} s; launches "
@@ -2541,12 +3065,14 @@ def main(argv=None) -> int:
     t_leaf = time_leaf_and_lora(leaf, chain, dev)
 
     # B1 and B2 launch on the main path and on the modes' paths
-    for m in modes.values():
+    for m in list(modes.values()) + list(fleets.values()):
         _add_counts(launches, {key: m["launches"].get(key, 0)
                                for key in ("quant_pack_rows",
                                            "dequant_agg_rows")})
-    err_q = max(err_q, modes["sparse"]["err_b1"], modes["hetero"]["err_b1"])
-    err_d = max(err_d, modes["hetero"]["err_b2"])
+    err_q = max(err_q, modes["sparse"]["err_b1"], modes["hetero"]["err_b1"],
+                fleets["async"]["err_b1"], fleets["fleet"]["err_b1"])
+    err_d = max(err_d, modes["hetero"]["err_b2"], fleets["async"]["err_b2"],
+                fleets["fleet"]["err_b2"])
     rows = []
     for name, t, tp, bound, err, n_launch in (
             ("quant_pack_rows", *t_flat["quant_pack_rows"], err_q,

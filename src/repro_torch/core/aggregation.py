@@ -21,15 +21,21 @@ Ported here:
   * ``FedAvgAggregator`` — the strategy ``FLServer`` calls, rank-bucketed
     when the cohort's ranks are mixed, and
     ``SVDRecombinationAggregator``, FLoRIST-style recombination of the
-    adapter products.
+    adapter products;
+  * FedBuff (Nguyen et al. '22, buffered asynchronous aggregation with
+    a staleness discount ``w = n_k * 2^(-staleness / half_life)``):
+    ``fedbuff_init``/``fedbuff_add``/``fedbuff_flush`` (the incremental
+    fp reference), ``FedBuffAggregator`` (the rank-bucketed buffered
+    rule both engines call) and ``StreamingFlatAccumulator`` (each flat
+    arrival folded at add time, one K = 1 ``dequant_agg_rows`` launch,
+    so a flush costs O(message) whatever the buffer size).
 
-FedBuff and the streaming accumulator (the async engine's) are not
-ported.
+Every strategy follows the :class:`Aggregator` protocol.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -41,8 +47,11 @@ from repro_torch.core.messages import is_packed_leaf, is_wire_leaf
 from repro_torch.core.quant import QuantConfig
 from repro_torch.core.sparse import is_sparse_leaf
 from repro_torch.kernels import ops as kops
+from repro_torch.utils.device import resolve_device, upload
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
+
+STRICT_COMPILES = ("strict_compiles (the compile watchdog) is not ported")
 
 
 def stack_trees(trees: list[Any]) -> Any:
@@ -211,6 +220,56 @@ def fedavg_hetero(msgs: list[Any], weights, r_target: int) -> Any:
 
 
 # ---------------------------------------------------------------------------
+# FedBuff: the incremental fp reference of the buffered rule (one add an
+# arrival); the engines' path is FedBuffAggregator's rank-bucketed
+# add/flush, which defers the reduce to one fused pass over the buffer
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FedBuffState:
+    buffer: Any               # running weighted sum of updates
+    weight: torch.Tensor      # running sum of weights (fp32, 0-d)
+    count: torch.Tensor       # updates buffered so far (int32, 0-d)
+
+
+def fedbuff_init(like: Any) -> FedBuffState:
+    dev = tree_leaves(like)[0].device
+    return FedBuffState(
+        buffer=tree_map(lambda x: torch.zeros(tuple(x.shape),
+                                              dtype=torch.float32,
+                                              device=x.device), like),
+        weight=torch.zeros((), dtype=torch.float32, device=dev),
+        count=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def fedbuff_add(state: FedBuffState, update: Any, n_k, staleness,
+                half_life: float) -> FedBuffState:
+    """Add one async update with the staleness-discounted weight
+    ``w = n_k * 2^(-staleness / half_life)`` (fp32, as the reference
+    computes it): an update's influence halves for every ``half_life``
+    versions the server advanced while the client trained. Returns a
+    new state; ``state`` is not written."""
+    dev = state.weight.device
+    w = torch.as_tensor(n_k, dtype=torch.float32).to(dev) * torch.exp2(
+        -torch.as_tensor(staleness, dtype=torch.float32).to(dev)
+        / half_life)
+    buf = tree_map(lambda b, u: b + w * u.to(torch.float32),
+                   state.buffer, update)
+    return FedBuffState(buf, state.weight + w, state.count + 1)
+
+
+def fedbuff_flush(state: FedBuffState, like: Any) -> tuple[Any, FedBuffState]:
+    """The aggregated tree and a fresh state. Zero accumulated weight
+    (an empty buffer, or one discounted to nothing) raises."""
+    if float(state.weight) <= 0.0:
+        raise ValueError("FedBuff flush with zero accumulated weight "
+                         f"(count={int(state.count)})")
+    agg = tree_map(lambda b, x: (b / state.weight).to(x.dtype),
+                   state.buffer, like)
+    return agg, fedbuff_init(like)
+
+
+# ---------------------------------------------------------------------------
 # Error feedback (EF memory on the sender)
 # ---------------------------------------------------------------------------
 
@@ -289,6 +348,16 @@ def ef_fold_dropped(residual: Any, msg: Any) -> Any:
 # ---------------------------------------------------------------------------
 # Aggregator strategies
 # ---------------------------------------------------------------------------
+
+@runtime_checkable
+class Aggregator(Protocol):
+    """Server-side aggregation rule over one round's client messages:
+    ``msgs`` are K packed wire messages or fp trees, ``weights`` their
+    n_k sample counts."""
+
+    def aggregate(self, msgs: list[Any], weights) -> Any:
+        ...
+
 
 @dataclasses.dataclass
 class FedAvgAggregator:
@@ -421,3 +490,245 @@ class SVDRecombinationAggregator(FedAvgAggregator):
         _, _, kind = lora._dense_factors(base_pair)
         served = lora._rebuild_pair(down_s, up_s, kind, base_pair)
         return lora.pad_adapter(served, lora.adapter_rank(base_pair))
+
+
+@dataclasses.dataclass
+class StreamingFlatAccumulator:
+    """O(1)-memory streaming aggregation of flat wire messages.
+
+    Each arriving :class:`~repro_torch.core.flat.FlatPackedMessage` folds
+    into a running fp32 sum at ARRIVAL time (``flat.fold_flat``: one K = 1
+    ``dequant_agg_rows`` launch over the ``(C_total, N_max)``
+    accumulator), and the flush is an O(message) normalize
+    (``flat.flat_mean_from_sum``). One accumulator a layout, never the
+    K-message buffer; weight and count stay on the host. The
+    accumulators live on the messages' device. ``strict_compiles``
+    raises ``NotImplementedError``: the compile watchdog is not
+    ported."""
+    layout: Any               # flat.TreeLayout (one accumulator each)
+    acc: torch.Tensor         # (C_total, N_max) fp32 running sum
+    fp_acc: tuple             # fp32 running sums of fp passthrough leaves
+    weight: float = 0.0       # accumulated (discounted) weight
+    count: int = 0            # messages folded since the last reset
+    strict_compiles: bool = False
+    n_valid: Optional[torch.Tensor] = None   # per-row lengths, on device
+
+    def __post_init__(self):
+        if self.strict_compiles:
+            raise NotImplementedError(STRICT_COMPILES)
+        if self.n_valid is None:
+            self.n_valid = upload(
+                torch.from_numpy(self.layout.n_valid_vec()),
+                self.acc.device)
+
+    @classmethod
+    def for_layout(cls, layout: Any, strict_compiles: bool = False,
+                   device="cuda") -> "StreamingFlatAccumulator":
+        dev = resolve_device(device)
+        acc = torch.zeros((layout.c_total, layout.n_max),
+                          dtype=torch.float32, device=dev)
+        fp = tuple(torch.zeros(s.shape, dtype=torch.float32, device=dev)
+                   for s in layout.leaves if not s.quantized)
+        return cls(layout, acc, fp, strict_compiles=strict_compiles)
+
+    def fold(self, msg: Any, w: float) -> None:
+        if msg.layout != self.layout:
+            raise ValueError("flat message layout does not match the "
+                             "streaming accumulator's")
+        self.acc, self.fp_acc = flatcodec.fold_flat(
+            self.acc, self.fp_acc, msg, float(w), self.n_valid)
+        self.weight += float(w)
+        self.count += 1
+
+    def mean(self) -> Any:
+        """The aggregated fp tree (original structure and dtypes)."""
+        if self.count == 0:
+            raise ValueError("streaming flush with an empty accumulator")
+        if self.weight <= 0.0:
+            raise ValueError("streaming flush with zero accumulated "
+                             f"weight (count={self.count})")
+        return flatcodec.flat_mean_from_sum(self.acc, self.fp_acc,
+                                            1.0 / self.weight, self.layout)
+
+    def reset(self) -> None:
+        self.acc = torch.zeros_like(self.acc)
+        self.fp_acc = tuple(torch.zeros_like(x) for x in self.fp_acc)
+        self.weight = 0.0
+        self.count = 0
+
+    def shape_tree(self) -> Any:
+        """Shape/dtype view with the original tree structure (rank
+        detection without touching the accumulator)."""
+        return tree_unflatten(self.layout.treedef,
+                              [flatcodec.ShapeDtype(s.shape, s.dtype)
+                               for s in self.layout.leaves])
+
+    # -- checkpointable state (host arrays; the caller rebuilds layout) -----
+    def state(self) -> dict:
+        return {"acc": self.acc.cpu().numpy(),
+                "fp_acc": [x.cpu().numpy() for x in self.fp_acc],
+                "weight": float(self.weight), "count": int(self.count)}
+
+    @classmethod
+    def from_state(cls, layout: Any, state: dict,
+                   device="cuda") -> "StreamingFlatAccumulator":
+        dev = resolve_device(device)
+        return cls(layout,
+                   torch.as_tensor(state["acc"], dtype=torch.float32).to(dev),
+                   tuple(torch.as_tensor(x, dtype=torch.float32).to(dev)
+                         for x in state["fp_acc"]),
+                   float(state["weight"]), int(state["count"]))
+
+
+FEDBUFF_HALF_LIFE = 4.0   # fallback when no engine config threads one
+
+
+@dataclasses.dataclass
+class FedBuffAggregator:
+    """Buffered aggregation with staleness discounting (Nguyen et al.
+    '22): ``w = n_k * 2^(-staleness / half_life)``, an update's influence
+    halving for every ``half_life`` global versions of server lag.
+    ``half_life=None`` defers to the engine config
+    (``ServerConfig.fedbuff_half_life`` / ``AsyncConfig.half_life``);
+    both engines thread it at construction.
+
+    Two interfaces over one rule, both RANK-BUCKETED (packed buckets
+    aggregate on the fused kernels and zero-pad to ``r_target``):
+
+      * ``aggregate(msgs, weights)`` — the sync round's: with
+        ``rank_staleness`` the arrival order WITHIN each rank bucket
+        plays the staleness role;
+      * ``add(msg, n_k, staleness)`` / ``flush()`` — the async engine's:
+        messages buffer with their discounted weights and one flush
+        reduces the buffer in one rank-bucketed pass (one
+        ``dequant_agg_rows`` launch a bucket on the flat wire).
+
+    With ``streaming=True`` flat messages never buffer: each ``add``
+    folds the arrival into a :class:`StreamingFlatAccumulator` (one a
+    layout; layouts double as rank buckets) and ``flush`` normalizes in
+    O(message). Other messages (sparse uplinks, fp trees) still buffer
+    in ``pending``; a mixed flush combines stream and bucket means by
+    weight-mass fraction, as ``fedavg_hetero`` does, streams in ascending
+    rank (so a resumed run sums them in the same order).
+    ``strict_compiles`` raises ``NotImplementedError``: the compile
+    watchdog is not ported."""
+    half_life: Optional[float] = None
+    rank_staleness: bool = False   # sync rounds: discount late arrivals
+    r_target: Optional[int] = None  # zero-pad target (engines pin this)
+    pending: list = dataclasses.field(default_factory=list)
+    streaming: bool = False        # fold flat arrivals at add time
+    streams: dict = dataclasses.field(default_factory=dict)
+    strict_compiles: bool = False
+
+    def __post_init__(self):
+        if self.strict_compiles:
+            raise NotImplementedError(STRICT_COMPILES)
+
+    def resolved_half_life(self) -> float:
+        return FEDBUFF_HALF_LIFE if self.half_life is None \
+            else float(self.half_life)
+
+    def discounted_weight(self, n_k: float, staleness: float) -> float:
+        """w = n_k * 2^(-staleness / half_life), in Python floats."""
+        return float(n_k) * 2.0 ** (-float(staleness)
+                                    / self.resolved_half_life())
+
+    def _combine(self, msgs: list[Any], w: np.ndarray) -> Any:
+        """Rank-bucketed discounted-weight mean over messages."""
+        ranks = {r for m in msgs
+                 if (r := lora.tree_max_rank(m)) is not None}
+        if ranks:
+            target = max(self.r_target or 0, max(ranks))
+            if len(ranks) > 1 or ranks != {target}:
+                return fedavg_hetero(msgs, w, target)
+        # ANY wire-form message selects the wire path (a buffer spanning
+        # a density-annealing boundary can hold an fp tree first)
+        if any(message_is_packed(m) for m in msgs):
+            return fedavg_packed(msgs, w)
+        return fedavg(stack_trees(msgs), w)
+
+    def aggregate(self, msgs: list[Any], weights) -> Any:
+        stale = np.zeros(len(msgs), np.float32)
+        if self.rank_staleness:
+            for idxs in bucket_by_rank(msgs).values():
+                for pos, i in enumerate(idxs):
+                    stale[i] = float(pos)
+        w = np.asarray(weights, np.float32) \
+            * np.exp2(-stale / self.resolved_half_life())
+        return self._combine(msgs, w)
+
+    # -- the async engine's buffered interface -------------------------------
+    @property
+    def buffered(self) -> int:
+        """Arrivals absorbed since the last flush (pending + streamed)."""
+        return len(self.pending) + sum(s.count
+                                       for s in self.streams.values())
+
+    @property
+    def buffered_weight(self) -> float:
+        """Total discounted weight absorbed since the last flush."""
+        return (sum(wt for _, wt in self.pending)
+                + sum(s.weight for s in self.streams.values()))
+
+    def add(self, msg: Any, n_k: float, staleness: float) -> int:
+        """Absorb one arrived (packed or fp) message with its discounted
+        weight; returns the buffer's fill. Streaming mode folds a flat
+        message at once; everything else buffers for the flush."""
+        w = self.discounted_weight(n_k, staleness)
+        if self.streaming and is_flat_message(msg):
+            st = self.streams.get(msg.layout)
+            if st is None:
+                st = StreamingFlatAccumulator.for_layout(
+                    msg.layout, strict_compiles=self.strict_compiles,
+                    device=msg.payload.device)
+                self.streams[msg.layout] = st
+            st.fold(msg, w)
+        else:
+            self.pending.append((msg, w))
+        return self.buffered
+
+    def flush(self) -> Any:
+        """Aggregate and clear the buffer: pending messages reduce in one
+        rank-bucketed pass, stream accumulators normalize; the parts'
+        means zero-pad to the target rank and combine with their
+        weight-mass fractions."""
+        if self.buffered == 0:
+            raise ValueError("FedBuff flush with an empty buffer")
+        parts: list[tuple[int, float, Any]] = []   # (rank, mass, mean)
+        # streams in ascending rank, not in the order they were created:
+        # a resumed run creates them anew in another order, and the
+        # parts' fp32 sum below must not depend on it (the JAX package
+        # sums in creation order, which a resume does not reproduce)
+        streams = [(lora.tree_max_rank(st.shape_tree()) or 0, st)
+                   for st in self.streams.values() if st.count]
+        for r, st in sorted(streams, key=lambda p: p[0]):
+            parts.append((int(r), st.weight, st.mean()))
+            st.reset()
+        msgs = [m for m, _ in self.pending]
+        wts = [wt for _, wt in self.pending]
+        self.pending = []
+        for r, idxs in bucket_by_rank(msgs).items():
+            bmsgs = [msgs[i] for i in idxs]
+            bw = torch.tensor([wts[i] for i in idxs], dtype=torch.float32)
+            if any(message_is_packed(m) for m in bmsgs):
+                mean_b = fedavg_packed(bmsgs, bw)
+            else:
+                mean_b = fedavg(stack_trees(bmsgs), bw)
+            parts.append((r, float(sum(wts[i] for i in idxs)), mean_b))
+        total = sum(mass for _, mass, _ in parts)
+        if total <= 0.0:
+            raise ValueError("FedBuff flush with zero accumulated "
+                             f"weight ({self.buffered} buffered)")
+        ranks = {r for r, _, _ in parts if r}
+        target = max(self.r_target or 0, max(ranks)) if ranks else 0
+        means = [lora.resize_tree_rank(m, target, method="slice")
+                 if r and r != target else m for r, _, m in parts]
+        if len(means) == 1:
+            return means[0]
+        fracs = [mass / total for _, mass, _ in parts]
+
+        def combine(*leaves):
+            acc = sum(f * x.to(torch.float32) for f, x in zip(fracs, leaves))
+            return acc.to(leaves[0].dtype)
+
+        return tree_map(combine, *means)

@@ -6,6 +6,10 @@ zero-padded past its own length ``n_valid``. ONE ``quant_pack_rows``
 launch packs the whole message into ``(C_total, Nw_max)`` uint32 words
 with fp32 ``scale``/``zp`` sidecars, and ONE ``dequant_agg_rows`` launch
 reduces a K-client cohort. 1-D leaves travel fp32 beside the buffer.
+The streaming fold (``fold_flat``, ``flat_mean_from_sum``) adds one
+arriving message at a time into a running fp32 sum: one K = 1
+``dequant_agg_rows`` launch an arrival (FedBuff's O(1)-memory flush,
+``core/aggregation.StreamingFlatAccumulator``).
 
 The row map (:class:`TreeLayout`) and the wire form are the JAX package's
 (``repro/core/flat.py``): the same leaf order, buffer shapes and
@@ -367,3 +371,47 @@ def fedavg_packed_flat(msgs: list, weights) -> Any:
             out.append(torch.sum(x * wr, dim=0).to(spec.dtype))
             fpi += 1
     return tree_unflatten(lo.treedef, out)
+
+
+# ---------------------------------------------------------------------------
+# Streaming fold (O(1)-memory FedBuff arrivals)
+# ---------------------------------------------------------------------------
+
+def fold_flat(acc: torch.Tensor, fp_accs: tuple, msg: FlatPackedMessage,
+              w: float, n_valid: torch.Tensor) -> tuple:
+    """Fold ONE client's flat message into the running fp32 sum (the JAX
+    package's ``_fold_flat_impl``): a fresh ``(C_total, N_max)``
+    ``w * dequant(payload)`` from one K = 1 ``dequant_agg_rows`` launch,
+    then ``acc + contrib``; each fp passthrough leaf's sum gains
+    ``w * leaf``. ``w`` is rounded to fp32 first, as the reference's
+    traced weight is; ``n_valid`` is the layout's per-row lengths on the
+    accumulator's device. Returns (acc, fp_accs), new tensors: the
+    inputs are not written."""
+    wf = float(np.float32(w))
+    contrib = kops.dequant_agg_rows(
+        msg.payload[None], msg.scale[None], msg.zp[None],
+        torch.tensor([wf], dtype=torch.float32), n_valid, msg.layout.bits)
+    fp_out = tuple(a + wf * x.to(torch.float32)
+                   for a, x in zip(fp_accs, msg.fp_leaves))
+    return acc + contrib, fp_out
+
+
+def flat_mean_from_sum(acc: torch.Tensor, fp_accs: tuple, inv_w: float,
+                       layout: TreeLayout) -> Any:
+    """Running weighted sum -> the aggregated fp tree (the JAX package's
+    ``_flat_mean_from_sum_impl``): each leaf's rows sliced off the flat
+    accumulator and scaled by ``1/total_weight`` (rounded to fp32),
+    shape and dtype restored. O(message), however many clients
+    folded."""
+    inv = float(np.float32(inv_w))
+    out, fpi = [], 0
+    for spec in layout.leaves:
+        if spec.quantized:
+            r0, r1 = spec.row_start, spec.row_start + spec.rows
+            out.append(kops.from_channel_first_2d(
+                acc[r0:r1, : spec.n_valid] * inv, spec.shape,
+                layout.per_stack).to(spec.dtype))
+        else:
+            out.append((fp_accs[fpi] * inv).to(spec.dtype))
+            fpi += 1
+    return tree_unflatten(layout.treedef, out)

@@ -8,7 +8,9 @@ NHWC at the public functions, as in the JAX package, so the parameter
 trees and the wire match it; the ``*_nchw`` forms permute the kernels
 to OIHW and run PyTorch's NCHW convolutions.
 
-Dense (Hu et al. '21): ``a`` (d_in, r) Gaussian, ``b`` (r, d_out) zeros.
+Dense (Hu et al. '21): ``a`` (d_in, r) Gaussian, ``b`` (r, d_out) zeros;
+``linear_init`` / ``linear_apply`` / ``frozen_weight`` are the
+mixed-mode linear ('lora', 'dense' or 'frozen') built on them.
 
 The rank utilities (``pad_adapter``, ``slice_adapter``,
 ``truncate_adapter``, ``resize_tree_rank``, ``svd_energy_rank``) resize
@@ -125,11 +127,14 @@ def conv_merge(p: torch.Tensor, b_k: torch.Tensor, a_k: torch.Tensor,
 
 
 def dense_lora_init(gen: torch.Generator, d_in: int, d_out: int,
-                    cfg: LoRAConfig, device="cuda") -> dict:
-    """a: (d_in, r) ~ N(0, 1/d_in); b: (r, d_out) = 0."""
+                    cfg: LoRAConfig, device="cuda",
+                    stack: tuple[int, ...] = ()) -> dict:
+    """a: (*stack, d_in, r) ~ N(0, 1/d_in); b: (*stack, r, d_out) = 0."""
     device = resolve_device(device)
-    a = _normal(gen, (d_in, cfg.rank), d_in ** -0.5, cfg.dtype, device)
-    b = torch.zeros((cfg.rank, d_out), dtype=cfg.dtype, device=device)
+    a = _normal(gen, (*stack, d_in, cfg.rank), d_in ** -0.5, cfg.dtype,
+                device)
+    b = torch.zeros((*stack, cfg.rank, d_out), dtype=cfg.dtype,
+                    device=device)
     return {"a": a, "b": b}
 
 
@@ -152,6 +157,65 @@ def dense_merge(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return (w.to(torch.float32)
             + (scale * a.to(torch.float32)) @ b.to(torch.float32)
             ).to(w.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixed-mode linear (the async engine's and the fleet's model)
+# ---------------------------------------------------------------------------
+
+def linear_init(gen: torch.Generator, d_in: int, d_out: int, mode: str,
+                cfg: Optional[LoRAConfig] = None,
+                stack: tuple[int, ...] = (),
+                base_dtype: torch.dtype = torch.bfloat16,
+                w_init_scale: Optional[float] = None,
+                device="cuda") -> tuple[dict, dict]:
+    """(frozen, trainable) param dicts for one (stacked) linear:
+    mode='lora' -> frozen {'w'}, trainable {'a', 'b'}; 'dense' ->
+    frozen {}, trainable {'w'} (fp32); 'frozen' -> frozen {'w'},
+    trainable {}. ``w`` ~ N(0, w_init_scale² or 1/d_in), drawn from
+    ``gen`` before the adapter."""
+    device = resolve_device(device)
+    std = w_init_scale if w_init_scale is not None else d_in ** -0.5
+    w = _normal(gen, (*stack, d_in, d_out), std, base_dtype, device)
+    if mode == "lora":
+        if cfg is None:
+            raise ValueError("mode='lora' needs a LoRAConfig")
+        return {"w": w}, dense_lora_init(gen, d_in, d_out, cfg, device,
+                                         stack)
+    if mode == "dense":
+        return {}, {"w": w.to(torch.float32)}
+    if mode == "frozen":
+        return {"w": w}, {}
+    raise ValueError(f"unknown linear mode: {mode}")
+
+
+def frozen_weight(frozen: dict,
+                  compute_dtype: torch.dtype = torch.bfloat16
+                  ) -> torch.Tensor:
+    """A frozen linear's weight in ``compute_dtype``; an int8 base
+    ({'w_q8', 'w_s'}: per-output-channel scales) is dequantized."""
+    if "w_q8" in frozen:
+        return (frozen["w_q8"].to(compute_dtype)
+                * frozen["w_s"].to(compute_dtype)[..., None, :])
+    return frozen["w"].to(compute_dtype)
+
+
+def linear_apply(frozen: dict, trainable: dict, x: torch.Tensor,
+                 scale: float = 1.0,
+                 compute_dtype: torch.dtype = torch.bfloat16
+                 ) -> torch.Tensor:
+    """Apply a mixed-mode linear: x (..., d_in) -> (..., d_out) in
+    ``compute_dtype``, plus the LoRA side chain where the trainable
+    dict holds one."""
+    if "w" in trainable:                       # dense-trained
+        w = trainable["w"].to(compute_dtype)
+    else:
+        w = frozen_weight(frozen, compute_dtype)
+    y = torch.einsum("...i,io->...o", x.to(compute_dtype), w)
+    if "a" in trainable:                       # LoRA side chain
+        y = y + dense_lora_apply(x, trainable["a"], trainable["b"], scale,
+                                 compute_dtype).to(y.dtype)
+    return y
 
 
 # ---------------------------------------------------------------------------

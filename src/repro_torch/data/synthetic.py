@@ -5,6 +5,10 @@ random 32x32x3 template (low-frequency, via blurred noise); samples are
 template + per-sample noise + random shift/flip. A copy of the JAX
 package's numpy class (``repro/data/synthetic.py``): the same seed gives
 the same images in both packages.
+
+``client_shard`` / ``linear_shard``: one client's shard generated on
+demand as a pure function of ``(seed, cid)`` (the lazy fleet's data,
+``fl/population.py``), bit-identical to the JAX package's.
 """
 from __future__ import annotations
 
@@ -48,3 +52,59 @@ class SyntheticVision:
         idx = rng.integers(0, len(labels_pool), size=batch_size)
         y = labels_pool[idx]
         return {"x": self.sample(rng, y), "y": y.astype(np.int32)}
+
+
+# per-seed template banks for lazy fleet shards: client_shard() is
+# called once per (seed, cid) on demand by a Population, so the heavy
+# template construction must not repeat per client
+_VISION_CACHE: dict = {}
+
+
+def _vision_for(seed: int, n_classes: int) -> SyntheticVision:
+    key = (seed, n_classes)
+    if key not in _VISION_CACHE:
+        _VISION_CACHE[key] = SyntheticVision(n_classes=n_classes,
+                                             seed=seed)
+    return _VISION_CACHE[key]
+
+
+def client_shard(seed: int, cid: int, n: int = 64, n_classes: int = 10,
+                 classes_per_client: int = 3) -> dict:
+    """One client's synthetic-vision shard, generated ON DEMAND as a
+    pure function of ``(seed, cid)`` — the lazy-population twin of the
+    eager ``lda_partition`` + ``SyntheticVision.sample`` setup.
+
+    Non-IIDness: each client draws labels from ``classes_per_client``
+    dominant classes (chosen by a keyed rng, so the skew is
+    deterministic per client), with Zipf-ish weights. Two calls with the
+    same key return bit-identical arrays; a million-client fleet never
+    materializes more shards than its engine keeps resident.
+    """
+    if n < 1 or not 1 <= classes_per_client <= n_classes:
+        raise ValueError("need n >= 1 and 1 <= classes_per_client <= "
+                         "n_classes")
+    rng = np.random.default_rng([seed, 0xD5, cid])
+    sv = _vision_for(seed, n_classes)
+    classes = rng.choice(n_classes, size=classes_per_client,
+                         replace=False)
+    w = (1.0 / np.arange(1, classes_per_client + 1)) ** 1.2
+    y = rng.choice(classes, p=w / w.sum(), size=n).astype(np.int32)
+    return {"x": sv.sample(rng, y), "y": y}
+
+
+def linear_shard(seed: int, cid: int, n: int = 24, d: int = 16,
+                 n_classes: int = 10) -> dict:
+    """A tiny linear-classification shard keyed by ``(seed, cid)`` — the
+    cheap shard generator for million-client fleet simulations (the
+    1M-client ``--fleet`` benchmark dispatches thousands of shards; a
+    32x32x3 vision shard per dispatch would dominate the wall clock).
+    Every client's labels come from the SAME hidden linear teacher
+    (keyed by seed alone), so the fleet shares a learnable task."""
+    if n < 1 or d < 1 or n_classes < 2:
+        raise ValueError("need n, d >= 1 and n_classes >= 2")
+    teacher = np.random.default_rng([seed, 0xD6])
+    w_true = teacher.normal(size=(d, n_classes)).astype(np.float32)
+    rng = np.random.default_rng([seed, 0xD7, cid])
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    logits = x @ w_true + 0.1 * rng.normal(size=(n, n_classes))
+    return {"x": x, "y": np.argmax(logits, axis=1).astype(np.int32)}

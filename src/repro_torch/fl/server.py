@@ -40,8 +40,17 @@ train) -> dict`` is called on the new global adapters every
 ``eval_every`` rounds and merged into the round's record, as in the JAX
 package.
 
-Not ported (each raises at construction): a FleetTrace and a lazy
-Population (the async engine's fleet, ROADMAP A6).
+DEADLINE COHORTS: with a ``FleetTrace`` (``trace=``) the straggler
+order comes from the trace's arrival times, keyed (seed, cid, round) and
+drawn at each client's rank and measured round-trip bytes, instead of
+the sampler stream's exponentials (which are then not drawn, as in the
+JAX package). LAZY FLEETS: ``client_data`` may be a
+``fl/population.Population``; its device tiers give each client's rank
+(a ``RankSchedule`` overrides), broadcasts truncate per rank, and its
+``schedule_steps`` fixes the cohort schedule without a fleet scan.
+``FedBuffAggregator`` (with ``rank_staleness``: the arrival order within
+a rank bucket discounts) takes the configured
+``ServerConfig.fedbuff_half_life`` when it sets none.
 """
 from __future__ import annotations
 
@@ -54,19 +63,21 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import flocora, messages
-from repro_torch.core.aggregation import ErrorFeedbackFedAvg, \
-    FedAvgAggregator, ef_fold_dropped
+from repro_torch.core.aggregation import Aggregator, \
+    ErrorFeedbackFedAvg, FedAvgAggregator, FedBuffAggregator, \
+    ef_fold_dropped
 from repro_torch.core.flocora import FLoCoRAConfig
 from repro_torch.core.quant import gaussian_epsilon
 from repro_torch.fl.client import ClientConfig, cohort_steps, \
     make_cohort_trainer, pad_cohort_batches, pow2_pad, stack_cohort_batches
+from repro_torch.fl.traces import FleetTrace
 from repro_torch.obs import metrics as obsm
 from repro_torch.obs import trace as obst
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_bytes, tree_map, tree_to
 
 # rng key domain for client dropout draws: keyed by (seed, round, cid), as
-# in the JAX package
+# in the JAX package (traces.py owns 0xA1/0xA2)
 TAG_FAILURE = 0xA3
 
 
@@ -81,30 +92,41 @@ class ServerConfig:
     eval_every: int = 5
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 25
+    # FedBuff staleness half-life (staleness: the arrival rank within a
+    # rank bucket in sync rounds, the version lag in the async engine),
+    # given to a FedBuffAggregator that sets none
+    fedbuff_half_life: float = 4.0
 
 
 class WireAccounting:
-    """Measured wire-byte cache. Message size is fixed by (rank, uplink
-    density), so ONE measured emission per key is exact for the run.
+    """Measured wire-byte cache, shared by the sync (:class:`FLServer`)
+    and async (``fl/async_engine.AsyncFLServer``) engines. Message size
+    is fixed by (rank, uplink density), so ONE measured emission per key
+    is exact for the run.
 
     ``record_down``/``record_up``/``record_wasted`` also count each
     actual transfer in the obs registry (``wire.down_bytes`` /
     ``wire.up_bytes`` / ``wire.wasted_bytes`` by rank, density and
-    reason), so the registry's view matches the TCC accounting."""
+    reason), so the registry's view matches the TCC accounting.
+    ``hetero=True`` truncates broadcasts per rank without a
+    ``RankSchedule`` (a lazy Population carries its own rank tiers)."""
 
     def __init__(self, fcfg: FLoCoRAConfig,
-                 registry: Optional[obsm.MetricsRegistry] = None):
+                 registry: Optional[obsm.MetricsRegistry] = None,
+                 hetero: bool = False):
         self.fcfg = fcfg
         self.registry = obsm.get_registry(registry)
+        self.hetero = hetero
         self.down: dict[int, int] = {}
         self.up: dict[tuple[int, Optional[float]], int] = {}
         self.wasted = 0          # bytes of transfers that never
-        #                          contributed (dropped or straggled)
+        #                          contributed (dropped, straggled or
+        #                          churned)
 
     def bcast_rank(self, rank: int) -> Optional[int]:
         """The rank a broadcast is truncated to; None (no resize walk)
         keeps a uniform fleet's broadcast the classic one."""
-        if self.fcfg.rank_schedule is not None:
+        if self.hetero or self.fcfg.rank_schedule is not None:
             return rank
         return None
 
@@ -140,8 +162,9 @@ class WireAccounting:
     def record_wasted(self, rank: int, nbytes: int,
                       reason: str = "straggled") -> None:
         """Bytes that were transferred but never reached the global
-        model: a dropped client's downlink, a straggler's round trip.
-        Already counted in down/up bytes; this is the waste view."""
+        model: a dropped or churned client's downlink, a straggler's
+        round trip. Already counted in down/up bytes; this is the waste
+        view."""
         self.wasted += nbytes
         self.registry.inc("wire.wasted_bytes", nbytes, rank=rank,
                           reason=reason)
@@ -151,15 +174,17 @@ class FLServer:
     """Simulates the paper's FL loop over a model given as
     ``{"frozen": tree, "train": tree}`` of tensors; ``loss_fn(frozen,
     train, batch) -> (loss, metrics)``; ``client_data`` is a list of
-    per-client dict datasets (numpy); ``eval_fn(frozen, train) ->
-    metrics dict``. The model moves to ``device``,
-    which defaults to the card. ``aggregator`` defaults to FedAvg, or its
-    error-feedback variant when ``fcfg.error_feedback`` is set (a given
-    one must agree with that flag; with a mixed ``fcfg.rank_schedule``
-    it must be a ``FedAvgAggregator``, such as
-    ``SVDRecombinationAggregator``, whose ``r_target`` is at least the
-    schedule's max rank). ``registry``/``tracer`` default to the
-    process-global obs instances (off until ``obs.enable()``).
+    per-client dict datasets (numpy) or a lazy ``Population``;
+    ``eval_fn(frozen, train) -> metrics dict``. The model moves to
+    ``device``, which defaults to the card. ``aggregator`` defaults to
+    FedAvg, or its error-feedback variant when ``fcfg.error_feedback``
+    is set (a given one must agree with that flag; with a mixed
+    ``fcfg.rank_schedule`` it must have a rank-bucketed path, a
+    ``FedAvgAggregator`` such as ``SVDRecombinationAggregator`` or a
+    ``FedBuffAggregator``, whose ``r_target`` is at least the schedule's
+    max rank). ``trace`` (a ``FleetTrace``) orders deadline cohorts.
+    ``registry``/``tracer`` default to the process-global obs instances
+    (off until ``obs.enable()``).
 
     ``run_round`` is the RANK-BUCKETED ENGINE: one vmapped cohort call
     a rank bucket, from the broadcast truncated to that rank (one bucket
@@ -169,17 +194,10 @@ class FLServer:
                  client_data: list[dict], scfg: ServerConfig,
                  ccfg: ClientConfig, fcfg: FLoCoRAConfig,
                  eval_fn: Optional[Callable] = None,
-                 aggregator: Optional[FedAvgAggregator] = None,
-                 trace: Optional[Any] = None,
+                 aggregator: Optional[Aggregator] = None,
+                 trace: Optional[FleetTrace] = None,
                  registry: Optional[obsm.MetricsRegistry] = None,
                  tracer: Optional[obst.Tracer] = None, device="cuda"):
-        if trace is not None:
-            raise NotImplementedError("FleetTrace deadline cohorts are not "
-                                      "ported to repro_torch")
-        if hasattr(client_data, "rank_for") \
-                or hasattr(client_data, "schedule_steps"):
-            raise NotImplementedError("lazy Population fleets are not "
-                                      "ported to repro_torch")
         self.device = resolve_device(device)
         self.frozen = tree_to(model["frozen"], self.device)
         self.global_train = tree_to(model["train"], self.device)
@@ -187,16 +205,29 @@ class FLServer:
         self.client_data = client_data
         self.scfg, self.ccfg, self.fcfg = scfg, ccfg, fcfg
         self.eval_fn = eval_fn
+        self.trace = trace
         self.rng = np.random.default_rng(scfg.seed)
         self.round = 0
         self.history: list[dict] = []
         self.trainer = make_cohort_trainer(loss_fn, ccfg)
         # fixed schedule length across ALL clients (smaller clients are
-        # masked, not over-trained)
-        self.cohort_schedule_steps = cohort_steps(client_data, ccfg)
+        # masked, not over-trained); a lazy Population knows its own in
+        # O(1), an eager fleet is scanned
+        self.cohort_schedule_steps = client_data.schedule_steps(ccfg) \
+            if hasattr(client_data, "schedule_steps") \
+            else cohort_steps(client_data, ccfg)
         self.registry = obsm.get_registry(registry)
         self.tracer = obst.get_tracer(tracer)
         self.rank_schedule = fcfg.rank_schedule
+        # a lazy Population's device tiers give the ranks; a RankSchedule
+        # overrides them
+        self._pop_ranks = None
+        if self.rank_schedule is None and hasattr(client_data, "rank_for"):
+            if client_data.max_rank > fcfg.rank:
+                raise ValueError(
+                    f"population max tier rank {client_data.max_rank} "
+                    f"exceeds the server rank {fcfg.rank}")
+            self._pop_ranks = client_data
         if self.rank_schedule is not None \
                 and self.rank_schedule.n_clients != scfg.n_clients:
             raise ValueError(
@@ -220,20 +251,28 @@ class FLServer:
                             "an ErrorFeedbackFedAvg" if ef_wanted
                             else "a non-EF",
                             type(aggregator).__name__))
+        if isinstance(aggregator, FedBuffAggregator) \
+                and aggregator.half_life is None:
+            # the half-life is a config field: thread it on a copy, so
+            # the caller's instance (and its buffer) is not shared
+            aggregator = dataclasses.replace(
+                aggregator, half_life=scfg.fedbuff_half_life,
+                pending=list(aggregator.pending))
         sched = fcfg.rank_schedule
         if sched is not None:
             mixed = (len(set(sched.client_ranks)) > 1
                      or sched.max_rank != fcfg.rank
                      or sched.anneal_every > 0)
-            if mixed and not isinstance(aggregator, FedAvgAggregator):
+            if mixed and not isinstance(
+                    aggregator, (FedAvgAggregator, FedBuffAggregator)):
                 # only an aggregator with a rank-bucketed path may see a
                 # mixed-rank cohort: fail here, not with a shape error
                 # mid-round
                 raise ValueError(
                     f"{type(aggregator).__name__} has no rank-bucketed "
                     "aggregation path for mixed-rank cohorts; use "
-                    "FedAvgAggregator or a subclass such as "
-                    "SVDRecombinationAggregator")
+                    "FedAvgAggregator (or a subclass such as "
+                    "SVDRecombinationAggregator) or FedBuffAggregator")
             explicit = getattr(aggregator, "r_target", None)
             if explicit is not None and explicit < sched.max_rank:
                 # a target below a scheduled rank would let the global
@@ -249,11 +288,15 @@ class FLServer:
                 fields["residuals"] = dict(aggregator.residuals)
             if hasattr(aggregator, "served_ranks"):
                 fields["served_ranks"] = dict(aggregator.served_ranks)
+            if hasattr(aggregator, "pending"):
+                fields["pending"] = list(aggregator.pending)
             aggregator = dataclasses.replace(aggregator, **fields)
         self.aggregator = aggregator
         self.ckpt = CheckpointManager(scfg.checkpoint_dir) \
             if scfg.checkpoint_dir else None
-        self.wire = WireAccounting(fcfg, registry=self.registry)
+        hetero = self._pop_ranks is not None and self._pop_ranks.mixed_ranks
+        self.wire = WireAccounting(fcfg, registry=self.registry,
+                                   hetero=hetero)
         self.initial_model_bytes = tree_bytes(self.frozen)
         self._tcc_cum = self.initial_model_bytes
 
@@ -265,6 +308,8 @@ class FLServer:
     def _rank_for(self, cid: int, rnd: int) -> int:
         if self.rank_schedule is not None:
             return self.rank_schedule.rank_for(cid, rnd)
+        if self._pop_ranks is not None:
+            return self._pop_ranks.rank_for(cid)
         return self.fcfg.rank
 
     def _dp_epsilon(self) -> Optional[float]:
@@ -392,10 +437,19 @@ class FLServer:
         buckets: dict[int, list[int]] = {}
         for cid in survivors:
             buckets.setdefault(rank_of[cid], []).append(cid)
-        # the reference draws one latency per survivor from the sampler
-        # stream BEFORE the buckets gather their batches, in ascending
-        # rank order; the order is the parity contract
-        latency = {cid: self.rng.exponential(1.0) for cid in survivors}
+        if self.trace is not None:
+            # DEADLINE COHORTS: arrival order from the fleet trace at the
+            # client's rank and measured round-trip bytes, keyed (seed,
+            # cid, round); the sampler stream is not drawn
+            latency = {cid: self.trace.arrival(
+                cid, rnd, rank_of[cid],
+                2 * self._downlink_bytes(rank_of[cid]), 0.0)
+                for cid in survivors}
+        else:
+            # the reference draws one latency per survivor from the
+            # sampler stream BEFORE the buckets gather their batches, in
+            # ascending rank order; the order is the parity contract
+            latency = {cid: self.rng.exponential(1.0) for cid in survivors}
         ef = isinstance(self.aggregator, ErrorFeedbackFedAvg)
         results = []
         for r in sorted(buckets):

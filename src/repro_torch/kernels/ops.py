@@ -137,7 +137,10 @@ def dequant_agg_rows(packed: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"bits must be 2, 4 or 8, got {bits}")
     k, c, nw = packed.shape
     dev = packed.device
-    w = torch.as_tensor(weights, dtype=torch.float32).to(dev).contiguous()
+    # host weights reach the card without a blocking copy (the streaming
+    # fold calls this once an arrival, behind queued kernels)
+    w = upload(torch.as_tensor(weights, dtype=torch.float32),
+               dev).contiguous()
     nv = _rows(n_valid, c, dev)
     if _device_kind(packed) == "cpu":
         return ref.dequant_agg_rows_ref(packed, scale, zp, w, nv, bits)

@@ -655,3 +655,79 @@ def test_cuda_mixed_rank_round_b2_per_bucket(cuda):
     assert counts["dequant_agg_rows"] == 3
     assert counts["quant_pack_rows"] == 3 + 6 + 3
     assert rec["up_bytes_by_rank"] == {4: 57_400, 8: 88_888, 16: 151_864}
+
+
+@pytest.mark.gpu
+def test_cuda_streaming_fold_bit_identical(cuda):
+    """The streaming fold (one K = 1 dequant_agg_rows launch an arrival)
+    over 10 int8 ResNet-8 r=16 uplinks: two runs on the card
+    bit-identical, within 1e-6 * max|x| of the plain version's; one B2
+    launch an arrival."""
+    from repro_torch.core import aggregation, messages
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.utils.tree import flatten_with_names, tree_map
+    cfg = resnet.ResNetConfig(arch="resnet8",
+                              lora=LoRAConfig(rank=16, alpha=256.0))
+    base = resnet.init(0, cfg, device="cpu")["train"]
+    gen = torch.Generator().manual_seed(3)
+    trees = [tree_map(lambda p: p + 0.02 * torch.randn(p.shape,
+                                                       generator=gen), base)
+             for _ in range(10)]
+    weights = [float(w) for w in np.linspace(8.0, 64.0, 10)]
+    q = QuantConfig(bits=8)
+
+    def run(dev):
+        agg = aggregation.FedBuffAggregator(streaming=True, half_life=4.0)
+        for i, (t, w) in enumerate(zip(trees, weights)):
+            msg = messages.pack_message(
+                tree_map(lambda x: x.to(dev), t), q, flat=True)
+            agg.add(msg, w, i % 3)
+        return agg.flush()
+
+    kops.reset_launch_counts()
+    a = run(cuda)
+    assert kops.launch_counts()["dequant_agg_rows"] == 10
+    b = run(cuda)
+    plain = run(torch.device("cpu"))
+    for (name, x), (_, y), (_, z) in zip(flatten_with_names(a),
+                                         flatten_with_names(b),
+                                         flatten_with_names(plain)):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32)), name
+        assert float((x.cpu() - z).abs().max()) <= 1e-6 * float(
+            z.abs().max()), name
+
+
+@pytest.mark.gpu
+def test_cuda_async_events_match_cpu(cuda):
+    """A short async run (two rank tiers, streaming FedBuff, ResNet-8 r=8
+    at 16x16) on the card: every flush's event fields and bytes equal
+    the CPU engine's, losses within rtol 1e-3."""
+    from repro_torch.core.flocora import FLoCoRAConfig, RankSchedule
+    from repro_torch.fl import AsyncConfig, AsyncFLServer, ClientConfig, \
+        FleetTrace
+    cfg = resnet.ResNetConfig(arch="resnet8",
+                              lora=LoRAConfig(rank=8, alpha=128.0))
+    rng = np.random.default_rng(0)
+    data = [{"x": rng.normal(size=(16, 16, 16, 3)).astype(np.float32),
+             "y": rng.integers(0, 10, 16).astype(np.int32)}
+            for _ in range(6)]
+
+    def run(dev):
+        srv = AsyncFLServer(
+            resnet.init(0, cfg, device="cpu"),
+            lambda f, t, b: resnet.loss_fn(f, t, cfg, b), data,
+            AsyncConfig(total_arrivals=8, concurrency=4, buffer_size=4,
+                        streaming_agg=True, microbatch_window=30.0),
+            ClientConfig(local_epochs=1, batch_size=8, lr=0.01),
+            FLoCoRAConfig(rank=8, alpha=128.0, quant_bits=8,
+                          rank_schedule=RankSchedule.tiered((4, 8), 6)),
+            trace=FleetTrace(seed=0), device=dev)
+        return srv.run()
+
+    gpu, cpu = run(cuda), run(torch.device("cpu"))
+    assert len(gpu) == len(cpu) == 2
+    for a, b in zip(gpu, cpu):
+        assert {k: v for k, v in a.items() if k != "client_loss"} == \
+            {k: v for k, v in b.items() if k != "client_loss"}
+        assert abs(a["client_loss"] - b["client_loss"]) <= \
+            1e-3 * abs(b["client_loss"])

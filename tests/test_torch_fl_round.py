@@ -186,18 +186,28 @@ def _kw_jax(kw: dict) -> dict:
 
 
 def test_unported_server_options_raise():
+    """The fleet options the port once refused (a FleetTrace, a lazy
+    population) are ported: a trace orders a deadline cohort, and what
+    still raises is a population whose tiers exceed the server rank."""
+    from repro_torch.fl import FleetTrace
     data, model = _tiny_setup()
     args = (model, _torch_loss, data)
-    cfgs = (ClientConfig(), FLoCoRAConfig(quant_bits=8))
-    with pytest.raises(NotImplementedError):
-        FLServer(*args, ServerConfig(n_clients=4), *cfgs, trace=object(),
-                 device="cpu")
+    cfgs = (ClientConfig(local_epochs=1, batch_size=8),
+            FLoCoRAConfig(rank=8, quant_bits=8))
+    srv = FLServer(*args, ServerConfig(n_clients=4, clients_per_round=2,
+                                       oversample=2.0), *cfgs,
+                   trace=FleetTrace(seed=1), device="cpu")
+    rec = srv.run_round()
+    assert rec["n_agg"] == 2 and rec["n_straggled"] == 2
+    assert rec["wasted_bytes"] == srv.wire.wasted > 0
 
     class LazyPopulation(list):
+        max_rank = 64
+
         def rank_for(self, cid):
             return 8
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="exceeds the server rank"):
         FLServer(model, _torch_loss, LazyPopulation(data),
                  ServerConfig(n_clients=4), *cfgs, device="cpu")
 

@@ -162,6 +162,39 @@ assert t["w"].shape == (3, 4, 2) and l.shape == (3,)
 t, l = make_staggered_cohort_trainer(loss, cfg)({}, t, b, n)
 t, l = make_local_trainer(loss, cfg)({}, tr, {k: v[0] for k, v in b.items()})
 """,
+    "async_fleet": """
+import torch
+from repro_torch.core import lora
+from repro_torch.core.aggregation import FedBuffAggregator
+from repro_torch.core.flocora import FLoCoRAConfig
+from repro_torch.core.lora import LoRAConfig
+from repro_torch.data.synthetic import client_shard, linear_shard
+from repro_torch.fl import AsyncConfig, AsyncFLServer, ClientConfig, \
+    FLServer, FleetTrace, Population, PopulationTrace, ServerConfig, \
+    default_tiers
+g = torch.Generator().manual_seed(0)
+fz, tr = lora.linear_init(g, 16, 10, "lora", LoRAConfig(rank=16, alpha=16.0),
+                          base_dtype=torch.float32, device="cpu")
+model = {"frozen": {"lin": fz}, "train": {"lin": tr}}
+def loss(f, t, b):
+    y = lora.linear_apply(f["lin"], t["lin"], b["x"], 1.0, torch.float32)
+    return torch.nn.functional.cross_entropy(y, b["y"].long()), {}
+pop = Population(10 ** 6, default_tiers(), shard_size=16,
+                 shard_fn=lambda s, c: linear_shard(s, c, n=16, d=16),
+                 cache_clients=8)
+fcfg = FLoCoRAConfig(rank=16, alpha=16.0, quant_bits=8)
+ccfg = ClientConfig(local_epochs=1, batch_size=8)
+srv = AsyncFLServer(model, loss, pop, AsyncConfig(
+    total_arrivals=6, concurrency=4, buffer_size=3, streaming_agg=True,
+    microbatch_window=1e9), ccfg, fcfg, trace=PopulationTrace(population=pop),
+    device="cpu")
+assert len(srv.run()) == 2 and pop.peak_resident <= 8
+FLServer(model, loss, pop, ServerConfig(n_clients=10 ** 6,
+         clients_per_round=2, oversample=1.5), ccfg, fcfg,
+         trace=FleetTrace(), aggregator=FedBuffAggregator(),
+         device="cpu").run_round()
+assert client_shard(0, 5, n=4)["x"].shape == (4, 32, 32, 3)
+""",
 }
 
 
@@ -169,8 +202,10 @@ t, l = make_local_trainer(loss, cfg)({}, tr, {k: v[0] for k, v in b.items()})
 def test_slice_modules_run_without_jax_or_reference(use, tmp_path):
     """The checkpoint subpackage, the per-leaf and LoRA kernel wrappers,
     the EF uplink, the sparse wire, DP uplinks, the mixed-rank
-    aggregators, the optimizers and schedules and the local-training
-    engines run (on the CPU) with jax and repro unimportable."""
+    aggregators, the optimizers and schedules, the local-training
+    engines and the async engine over a lazy fleet (with the sync
+    server's deadline cohorts and FedBuff) run (on the CPU) with jax and
+    repro unimportable."""
     out = _run(_USE_WITHOUT_JAX.format(src=str(ROOT / "src"),
                                        body=_USES[use]), tmp_path)
     assert out.returncode == 0, out.stderr
@@ -208,7 +243,9 @@ def _no_cuda():
                                    "params_from_jax", "make_store",
                                    "cache_stage", "serving_engine",
                                    "groupnorm_init", "conv_lora_init",
-                                   "dense_lora_init", "sparse_from_wire"])
+                                   "dense_lora_init", "sparse_from_wire",
+                                   "linear_init", "async_server",
+                                   "streaming_accumulator"])
 def test_default_device_entry_points_raise_without_cuda(entry):
     _no_cuda()
     cfg = resnet.ResNetConfig(lora=LoRAConfig(rank=4, alpha=64.0))
@@ -233,6 +270,22 @@ def test_default_device_entry_points_raise_without_cuda(entry):
             lora.conv_lora_init(torch.Generator(), 3, 3, 4, 8, cfg.lora)
         elif entry == "dense_lora_init":
             lora.dense_lora_init(torch.Generator(), 4, 8, cfg.lora)
+        elif entry == "linear_init":
+            lora.linear_init(torch.Generator(), 4, 8, "lora", cfg.lora)
+        elif entry == "streaming_accumulator":
+            from repro_torch.core import flat
+            from repro_torch.core.aggregation import \
+                StreamingFlatAccumulator
+            StreamingFlatAccumulator.for_layout(
+                flat.layout_for({"w": torch.zeros(4, 8)}, 8))
+        elif entry == "async_server":
+            from repro_torch.fl import AsyncConfig, AsyncFLServer
+            model = resnet.init(0, cfg, device="cpu")
+            data = [{"x": np.zeros((4, 8, 8, 3), np.float32),
+                     "y": np.zeros((4,), np.int32)}] * 2
+            AsyncFLServer(model, lambda f, t, b: resnet.loss_fn(f, t, cfg, b),
+                          data, AsyncConfig(), ClientConfig(),
+                          FLoCoRAConfig(rank=4, quant_bits=8))
         elif entry == "sparse_from_wire":
             from repro_torch.core.sparse import SparseLeaf
             SparseLeaf.from_wire({"idx": np.zeros(1, np.uint32),
