@@ -103,6 +103,24 @@ Phases, each of which raises on failure (the script then exits nonzero):
      oracle with their launch counts, steady step times, and the
      continuous-batching simulator on both paths plus the clock-policy
      churn run at capacity/16;
+ 4b. drive the dense decoder LM, which launches none of the six kernels:
+     gemma3-4b's published config (34 layers, d_model 2560, vocab
+     262,144, window 1,024) with random weights from seed 0, through
+     ``LM.init`` and ``serve.generate`` at batch 2 (a 1,536-token prompt
+     and 32 new tokens, twice; a 16-token prompt and 16), its decode
+     logits held to the teacher-forced forward within ``LM_CONSIST_REL``
+     of max|logit|, one adapter backward at 1 x 2,048 tokens (cold and
+     warm: finite loss, every adapter's gradient finite and nonzero, none
+     on the frozen tree), with the prefill and decode times against
+     their bounds and the peak memory; its width at depth 6 from one
+     tree on the card and the CPU (logits within ``LM_CARD_CPU_REL`` of
+     max|logit|, greedy tokens); ``examples/train_lm_federated.py
+     --full``'s loop (lm-110m, int8, 2 rounds x 8 clients x 8 steps: the
+     packed message's bytes equal to the static count, each round's mean
+     client loss finite, client 0's first step replayed on the CPU); and
+     ``strict_compiles`` on a serving engine and a streaming fold (0
+     program builds). It prints ``obs.run_meta()`` and frees the model
+     before phase 5;
   5. time each kernel with CUDA events at its path's shapes beside its
      plain version and its bound (B1 and B2, and the ``flat_rows``
      staging before B1, at ResNet-8's and ResNet-18's layouts;
@@ -125,8 +143,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
      ways, and warm at R = 160, m = 64).
 The line before the last is one JSON object with the kernels' numbers;
 the last is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
-quickstart round (the vmapped cohort engine, and the per-client one) and
-one round of each of the sparse, mixed-rank and DP modes under
+quickstart round (the vmapped cohort engine, and the per-client one),
+one round of each of the sparse, mixed-rank and DP modes, and the LM's
+prefill, decode step, adapter backward and an lm-110m local step under
 ``torch.profiler`` and prints each one's launch count, busy share and
 device time by kernel.
 
@@ -234,6 +253,40 @@ SERVE_HIGH_RANK_SLOTS = 64
 # ... and checked at this rank too: four whole 32-rank chunks, then a
 # partial one
 SERVE_PARTIAL_CHUNK_RANK = 136
+# the dense decoder LM: gemma3-4b's published config (34 layers, d_model
+# 2560, vocab 262,144; src/repro/configs/gemma3_4b.py full()), random
+# weights from seed 0. A 1,536-token prompt is past the 1,024 window (a
+# shorter prompt with max_seq past the window cannot build the ring cache
+# in either package); 32 new tokens wrap the decode slots past it.
+LM_FULL = dict(arch="gemma3-4b", batch=2, prompt=1536, gen=32,
+               short_prompt=16, short_gen=16, train_seq=2048, seed=0)
+# its frozen values (embedding, head, 34 layers' linears), all bf16
+LM_FULL_FROZEN = 4_907_335_680
+# decode logits against the teacher-forced forward over the same tokens,
+# as a share of max|logit|: bf16 residual stream and bf16 linears in
+# both, fp32 attention products, different attention cores (the blocked
+# band / chunked softmax against the one-row decode softmax over the
+# cache); each bf16 rounding flip is 2^-8 of its value and they add up
+# over 34 layers. tests/test_consistency.py holds 5e-2 absolute on
+# logits of max ~4 (1.3e-2 relative) at 2-7 layers.
+LM_CONSIST_REL = 5e-2
+# gemma3-4b's width at depth 6 (one 5 local : 1 global group), card
+# against the CPU from one tree: prompt 16, 8 new tokens. Both run the
+# same torch code in bf16 with fp32 accumulation; cuBLAS and the CPU's
+# GEMMs sum in other orders, so bf16 results part by an ulp here and
+# there (2^-8 of a value), which 6 layers carry into the logits.
+LM_DEPTH6 = dict(n_layers=6, prompt=16, gen=8)
+LM_CARD_CPU_REL = 2e-2
+# examples/train_lm_federated.py --full (lm-110m: 12 L x 768, vocab
+# 32,768, r = 16, alpha = 256, int8): 2 rounds x 8 clients x 8 local
+# steps of batch 8 x 128 tokens
+LM_FED = dict(rounds=2, clients=8, local_steps=8, batch=8, seq=128)
+# client 0's first local step on the card against its CPU replay: the
+# loss relative, the adapter update (trained - broadcast) in relative L2
+# a leaf (tests/test_torch_lm.py's bf16 tolerances for the loss and
+# the gradients)
+LM_FED_LOSS_REL = 2e-3
+LM_FED_UPDATE_L2 = 6e-2
 
 
 def _card_line() -> str:
@@ -2683,28 +2736,92 @@ def lora_chain_phase(dev) -> dict:
     return {"launches": counts, "operands": layers[0]}
 
 
-def profile_round(server, label: str) -> None:
-    """One more round of ``server`` under torch.profiler: its wall time,
-    device busy share, kernel launches and the 15 kernels with the most
+def profile_call(fn, label: str, top: int = 15) -> None:
+    """One call of ``fn`` under torch.profiler: its wall time, device
+    busy share, kernel launches and the ``top`` kernels with the most
     device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.run_round()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type.name == "CUDA"),
                      key=lambda e: -e.self_device_time_total)
     dev_us = sum(e.self_device_time_total for e in kernels)
-    print(f"profiled round ({label}): wall {wall * 1e3:.1f} ms, device "
+    print(f"profiled {label}: wall {wall * 1e3:.1f} ms, device "
           f"busy {dev_us / 1e3:.1f} ms ({100 * dev_us / 1e6 / wall:.1f}%), "
           f"{sum(e.count for e in kernels)} kernel launches")
-    for e in kernels[:15]:
+    for e in kernels[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
+
+
+def profile_round(server, label: str) -> None:
+    """One more round of ``server`` under torch.profiler."""
+    profile_call(server.run_round, f"round ({label})")
+
+
+def profile_lm(dev) -> None:
+    """The LM's calls under torch.profiler, each after a warm call:
+    gemma3-4b full's prefill of 2 x 1,536 tokens, one decode step and
+    one adapter backward at 1 x 2,048 tokens, then an lm-110m local
+    step (8 x 128 tokens)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import lm_federated as fed
+    from repro_torch.models import lm as LM
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+
+    c = LM_FULL
+    cfg = registry.get(c["arch"]).full()
+    p = LM.init(torch.Generator(device=dev).manual_seed(c["seed"]), cfg,
+                device=dev)
+    rng = np.random.default_rng(c["seed"])
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (c["batch"], c["prompt"]))).to(dev)
+    with torch.no_grad():
+        def prefill():
+            return LM.prefill(p["frozen"], p["train"], cfg, prompt,
+                              max_seq=c["prompt"] + c["gen"])
+        logits, caches, pos = prefill()
+        tok = torch.argmax(logits, -1)[:, None]
+        LM.decode_step(p["frozen"], p["train"], cfg, tok, caches, pos)
+        profile_call(prefill, f"lm prefill 2 x {c['prompt']}", top=8)
+        profile_call(lambda: LM.decode_step(p["frozen"], p["train"], cfg,
+                                            tok, caches, pos + 1),
+                     "lm decode step", top=8)
+    leaves, treedef = tree_flatten(_move_b(p["train"], 1, dev))
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, c["train_seq"] + 1))).to(dev)}
+
+    def backward():
+        ls = [t.detach().requires_grad_(True) for t in leaves]
+        loss, _ = LM.loss_fn(p["frozen"], tree_unflatten(treedef, ls), cfg,
+                             batch)
+        torch.autograd.grad(loss, ls)
+
+    backward()
+    profile_call(backward, f"lm adapter backward 1 x {c['train_seq']}",
+                 top=8)
+    del p, caches, leaves
+    _free_cuda()
+    cfg = fed.make_cfg(True)
+    p = LM.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    toks = torch.from_numpy(fed.client_tokens(
+        np.random.default_rng(0), cfg, 0, 1, LM_FED["batch"],
+        LM_FED["seq"])).to(dev)
+    step = fed.make_local_train(p["frozen"], cfg)
+    step(p["train"], toks)
+    profile_call(lambda: step(p["train"], toks), "lm-110m local step",
+                 top=8)
+    del p
+    _free_cuda()
 
 
 def kernel_split(fn, calls: int) -> list:
@@ -2882,6 +2999,438 @@ def time_leaf_and_lora(leaf: dict, chain: dict, dev) -> dict:
             "lora_matmul": (t["lora_matmul"]["cold"], t_lp, b_l)}
 
 
+def _free_cuda() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in fp64 on the CPU."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def _move_b(train, seed: int, dev):
+    """The adapters' ``b`` factors moved off their zero init (so every
+    adapter takes a gradient), drawn on the CPU from ``seed``."""
+    import torch
+    from repro_torch.utils.tree import flatten_with_names, tree_flatten, \
+        tree_unflatten
+    gen = torch.Generator().manual_seed(seed)
+    names = [n for n, _ in flatten_with_names(train)]
+    leaves, treedef = tree_flatten(train)
+    out = [t + (0.01 * torch.randn(t.shape, generator=gen)).to(dev)
+           if n.endswith("/b") else t for n, t in zip(names, leaves)]
+    return tree_unflatten(treedef, out)
+
+
+def _serve_logits(LM, frozen, train, cfg, prompt, toks):
+    """Prefill + decode steps teacher-forced with ``toks``: the logits
+    (B, len(toks), V) of every generated position."""
+    import torch
+    with torch.no_grad():
+        lp, caches, pos = LM.prefill(frozen, train, cfg, prompt,
+                                     max_seq=prompt.shape[1] + toks.shape[1])
+        out = [lp]
+        for i in range(toks.shape[1] - 1):
+            ld, caches = LM.decode_step(frozen, train, cfg, toks[:, i:i + 1],
+                                        caches, pos + i)
+            out.append(ld[:, 0])
+    return torch.stack(out, dim=1)
+
+
+def lm_bounds(cfg, params, batch: int, prompt: int, gen: int) -> dict:
+    """The least times of this run's prefill and decode step on the card
+    (``_bound_ms`` of the bytes each must move and the bf16 products it
+    must compute). Prefill: every linear of every layer over the prompt
+    tokens, the head for the last token, and the attention products a
+    causal (global) or W-window (local) query needs, the 8 real heads
+    only; the weights read once. A decode step: the frozen layers and the
+    head, the adapters and the whole KV caches read once."""
+    from repro_torch.models import lm as LM
+    from repro_torch.utils.tree import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    def numel(tree):
+        return sum(t.numel() for t in tree_leaves(tree))
+
+    frozen, train = params["frozen"], params["train"]
+    layer_w = numel(frozen["groups"])
+    head_w = numel(frozen["head"])
+    adapters = numel(train)
+    h, dh, t = cfg.n_heads, cfg.head_dim, batch * prompt
+    attn = 0.0
+    for g in LM.resolve_groups(cfg):
+        for spec in g.pattern:
+            keys = prompt / 2 if spec.window is None \
+                else min(spec.window, prompt)
+            attn += g.repeats * 4.0 * batch * h * dh * prompt * keys
+    pf_flops = 2.0 * t * (layer_w + adapters) + 2.0 * batch * head_w + attn
+    pf_bytes = (nbytes(frozen["groups"]) + nbytes(frozen["head"])
+                + nbytes(train) + t * cfg.d_model * 2)
+    s_max = prompt + gen
+    kv = 0
+    for g in LM.resolve_groups(cfg):
+        for spec in g.pattern:
+            slots = min(spec.window, s_max) if spec.window else s_max
+            kv += g.repeats * 2 * batch * slots * cfg.n_kv_heads * dh * 2
+    dec_bytes = nbytes(frozen["groups"]) + nbytes(frozen["head"]) \
+        + nbytes(train) + kv
+    dec_flops = 2.0 * batch * (layer_w + head_w + adapters)
+    return {"prefill": _bound_ms(pf_bytes, pf_flops, BF16_FLOPS),
+            "decode": _bound_ms(dec_bytes, dec_flops, BF16_FLOPS),
+            "prefill_tflop": pf_flops / 1e12, "decode_gb": dec_bytes / 1e9,
+            "frozen_values": numel(frozen)}
+
+
+def lm_full_phase(dev) -> dict:
+    """gemma3-4b's full published config on the card: init from a seeded
+    generator, ``generate`` at batch 2 (a 1,536-token prompt, 32 new
+    tokens; twice, cold and warm) and at a 16-token prompt, the decode
+    logits against the teacher-forced forward, one ``loss_fn`` +
+    backward on the adapters at 1 x 2,048 tokens; times and peak
+    memory. Frees the model before it returns."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm as LM
+    from repro_torch.serve import generate
+    from repro_torch.utils.tree import flatten_with_names, tree_leaves
+
+    c = LM_FULL
+    cfg = registry.get(c["arch"]).full()
+    _free_cuda()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = LM.init(torch.Generator(device=dev).manual_seed(c["seed"]), cfg,
+                     device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    frozen, train = params["frozen"], params["train"]
+    bounds = lm_bounds(cfg, params, c["batch"], c["prompt"], c["gen"])
+    if bounds["frozen_values"] != LM_FULL_FROZEN or any(
+            t.dtype != torch.bfloat16 for t in tree_leaves(frozen)):
+        raise AssertionError(f"gemma3-4b frozen tree: "
+                             f"{bounds['frozen_values']} values")
+    rng = np.random.default_rng(c["seed"])
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (c["batch"], c["prompt"]))).to(dev)
+    (toks0, cold), (toks, timing) = (
+        generate(frozen, train, cfg, prompt, c["gen"], device=dev)
+        for _ in range(2))
+    same = bool(torch.equal(toks0, toks))
+    logits = _serve_logits(LM, frozen, train, cfg, prompt, toks)
+    if not torch.equal(torch.argmax(logits, -1).to(torch.int32), toks):
+        raise AssertionError("generate's greedy tokens are not the argmax "
+                             "of the replayed prefill/decode logits")
+    with torch.no_grad():
+        seq = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
+        h, _ = LM.forward(frozen, train, cfg, seq)
+        fwd = LM._head_logits(frozen, train, cfg, h[:, c["prompt"] - 1:])
+        del h
+    scale = float(fwd.abs().max())
+    err = float((logits - fwd).abs().max())
+    agree = float((torch.argmax(fwd, -1).to(torch.int32) == toks)
+                  .float().mean())
+    if not (math.isfinite(err) and err <= LM_CONSIST_REL * scale):
+        raise AssertionError(f"gemma3-4b decode vs forward logits: max err "
+                             f"{err} > {LM_CONSIST_REL} x {scale}")
+    short = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (c["batch"], c["short_prompt"]))).to(dev)
+    stoks, stiming = generate(frozen, train, cfg, short, c["short_gen"],
+                              device=dev)
+    if stoks.shape != (c["batch"], c["short_gen"]) or \
+            int(stoks.min()) < 0 or int(stoks.max()) >= cfg.vocab:
+        raise AssertionError(f"short generate gave {stoks.shape}")
+    serve_peak = torch.cuda.max_memory_allocated()
+    del logits, fwd
+    # one adapter backward at 1 x 2,048 tokens
+    moved = _move_b(train, 1, dev)
+    leaves = {n: t.detach().requires_grad_(True)
+              for n, t in flatten_with_names(moved)}
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+    _, treedef = tree_flatten(moved)
+    tr = tree_unflatten(treedef, list(leaves.values()))
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, c["train_seq"] + 1))).to(dev)}
+    train_s = []
+    for _ in range(2):                 # cold (first shapes), then warm
+        for t in leaves.values():
+            t.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = LM.loss_fn(frozen, tr, cfg, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        train_s.append(time.perf_counter() - t0)
+    bad = [n for n, t in leaves.items() if t.grad is None
+           or not bool(torch.isfinite(t.grad).all())
+           or float(t.grad.abs().max()) == 0.0]
+    if not math.isfinite(float(loss.detach())) or bad:
+        raise AssertionError(f"gemma3-4b backward: loss {float(loss)}, "
+                             f"bad adapter grads {bad[:5]}")
+    if any(t.requires_grad or t.grad is not None
+           for t in tree_leaves(frozen)):
+        raise AssertionError("a frozen gemma3-4b leaf took a gradient")
+    peak = torch.cuda.max_memory_allocated()
+    out = {"init_s": init_s, "prefill_s": timing["prefill_s"],
+           "prefill_cold_s": cold["prefill_s"],
+           "decode_cold_ms": 1e3 * cold["decode_s"] / cold["decode_steps"],
+           "decode_ms": 1e3 * timing["decode_s"] / timing["decode_steps"],
+           "short_prefill_s": stiming["prefill_s"],
+           "short_decode_ms": 1e3 * stiming["decode_s"]
+           / stiming["decode_steps"],
+           "train_s": train_s, "loss": float(loss.detach()), "err": err,
+           "scale": scale, "agree": agree, "repeat_equal": same,
+           "peak_gb": (peak - base_mem) / 1e9,
+           "serve_peak_gb": (serve_peak - base_mem) / 1e9,
+           "bounds": bounds, "adapters": len(leaves)}
+    del params, frozen, train, moved, leaves, tr, loss
+    _free_cuda()
+    return out
+
+
+def lm_depth6_phase(dev) -> dict:
+    """gemma3-4b's width at depth 6 (one 5 local : 1 global group) on the
+    card and on the CPU from one tree (drawn on the card, adapters moved
+    off init, copied): prefill logits, every decode step's logits
+    (teacher-forced with the card's greedy tokens) and the greedy tokens
+    of ``generate`` held card against CPU."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm as LM
+    from repro_torch.serve import generate
+    from repro_torch.utils.tree import tree_to
+
+    c = LM_DEPTH6
+    cfg = dataclasses.replace(registry.get(LM_FULL["arch"]).full(),
+                              n_layers=c["n_layers"])
+    params = LM.init(torch.Generator(device=dev).manual_seed(1), cfg,
+                     device=dev)
+    frozen, train = params["frozen"], _move_b(params["train"], 2, dev)
+    fz_cpu, tr_cpu = tree_to(frozen, "cpu"), tree_to(train, "cpu")
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (LM_FULL["batch"], c["prompt"])))
+    toks, _ = generate(frozen, train, cfg, prompt.to(dev), c["gen"],
+                       device=dev)
+    t0 = time.perf_counter()
+    toks_cpu, _ = generate(fz_cpu, tr_cpu, cfg, prompt, c["gen"],
+                           device="cpu")
+    lg_cpu = _serve_logits(LM, fz_cpu, tr_cpu, cfg, prompt, toks.cpu())
+    cpu_s = time.perf_counter() - t0
+    lg = _serve_logits(LM, frozen, train, cfg, prompt.to(dev), toks).cpu()
+    scale = float(lg_cpu.abs().max())
+    err_prefill = float((lg[:, 0] - lg_cpu[:, 0]).abs().max())
+    err = float((lg - lg_cpu).abs().max())
+    if not (math.isfinite(err) and err <= LM_CARD_CPU_REL * scale):
+        raise AssertionError(f"depth-6 logits card vs CPU: max err {err} > "
+                             f"{LM_CARD_CPU_REL} x {scale}")
+    # greedy tokens: equal, except past a near tie of the CPU's logits
+    same = bool(torch.equal(toks.cpu(), toks_cpu))
+    for row in range(toks.shape[0]):
+        diff = torch.nonzero(toks[row].cpu() != toks_cpu[row])
+        if diff.numel():
+            i = int(diff[0, 0])
+            lgr = _serve_logits(LM, fz_cpu, tr_cpu, cfg, prompt[row:row + 1],
+                                toks_cpu[row:row + 1])[0, i]
+            gap = float(lgr[toks_cpu[row, i]] - lgr[toks[row, i].cpu()])
+            if gap > 2 * LM_CARD_CPU_REL * scale:
+                raise AssertionError(f"depth-6 greedy tokens part at row "
+                                     f"{row} step {i} with a logit gap "
+                                     f"{gap}")
+    del params, frozen, train, fz_cpu, tr_cpu
+    _free_cuda()
+    return {"err_prefill": err_prefill, "err": err, "scale": scale,
+            "tokens_equal": same, "cpu_s": cpu_s}
+
+
+def lm_fed_phase(dev) -> dict:
+    """examples/train_lm_federated.py --full on the card (lm-110m, int8,
+    ``LM_FED``), the packed message's bytes against the static count,
+    each round's mean client loss, and client 0's first local step
+    replayed on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core import messages
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.launch import lm_federated as fed
+    from repro_torch.models import lm as LM
+    from repro_torch.utils.tree import flatten_with_names, tree_map, tree_to
+
+    c = LM_FED
+    cfg = fed.make_cfg(True)
+    params = LM.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                     device=dev)
+    frozen, train = params["frozen"], params["train"]
+    q = QuantConfig(bits=8)
+    static = messages.message_wire_bytes(train, q)
+    measured = {flat: messages.packed_wire_bytes(
+        messages.pack_message(train, q, flat=flat)) for flat in (True, False)}
+    if set(measured.values()) != {static}:
+        raise AssertionError(f"lm-110m message bytes {measured} != static "
+                             f"{static}")
+    t0 = time.perf_counter()
+    res = fed.run(frozen, train, cfg, c["rounds"], c["clients"],
+                  c["local_steps"], c["batch"], c["seq"],
+                  log=lambda line: print(f"lm-110m {line}"))
+    wall = time.perf_counter() - t0
+    losses = [r["mean_loss"] for r in res["rounds"]]
+    round_s = [r["wall_s"] for r in res["rounds"]]
+    if res["msg_bytes"] != static or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"lm-110m rounds: {losses}, "
+                             f"{res['msg_bytes']} B")
+    # client 0's first local step (round 1's broadcast, its first batch):
+    # the run's loss, and the card's update against the CPU's
+    bcast = messages.roundtrip(train, q)
+    toks = fed.client_tokens(np.random.default_rng(0), cfg, 0, 1,
+                             c["batch"], c["seq"])
+    step = fed.make_local_train(frozen, cfg)
+    got, got_loss = step(bcast, torch.from_numpy(toks).to(dev))
+    fz_cpu, bc_cpu = tree_to(frozen, "cpu"), tree_to(bcast, "cpu")
+    t0 = time.perf_counter()
+    want, want_loss = fed.make_local_train(fz_cpu, cfg)(
+        bc_cpu, torch.from_numpy(toks))
+    cpu_s = time.perf_counter() - t0
+    run_loss = float(res["rounds"][0]["client_losses"][0][0])
+    loss_err = abs(run_loss - float(want_loss[0])) / abs(float(want_loss[0]))
+    if loss_err > LM_FED_LOSS_REL or float(got_loss[0]) != run_loss:
+        raise AssertionError(f"lm-110m client 0 step 1 loss: run "
+                             f"{run_loss}, replay {float(got_loss[0])}, "
+                             f"CPU {float(want_loss[0])}")
+    upd = {}
+    for (name, g), (_, w), (_, b) in zip(
+            flatten_with_names(got), flatten_with_names(want),
+            flatten_with_names(bc_cpu)):
+        upd[name] = _rel_l2(g.cpu() - b, w - b)
+    worst = max(upd.values())
+    if worst > LM_FED_UPDATE_L2:
+        raise AssertionError(f"lm-110m client 0 step 1 update, card vs "
+                             f"CPU: {worst} relative L2 "
+                             f"({max(upd, key=upd.get)})")
+    del params, frozen, train, res, fz_cpu, bc_cpu
+    _free_cuda()
+    return {"msg_bytes": static, "losses": losses, "wall": wall,
+            "round_s": round_s, "loss_err": loss_err, "update_l2": worst,
+            "cpu_step_s": cpu_s}
+
+
+def telemetry_phase(dev) -> dict:
+    """``strict_compiles`` on the card: a serving engine at d = 2560
+    (the first step of a shape may load the kernels; three steady steps
+    must build nothing) and a streaming fold (every fold after the first
+    under the zero-budget watchdog). Returns the builds counted."""
+    import numpy as np
+    import torch
+    from repro_torch import serve
+    from repro_torch.core import messages
+    from repro_torch.core.aggregation import StreamingFlatAccumulator
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.obs.compile import compile_count, count_compiles
+
+    weights, store = serve.make_store(64, d_model=SERVE["d_model"],
+                                      n_layers=2, ranks=SERVE["ranks"],
+                                      bits=SERVE["bits"], device=dev)
+    cache = serve.AdapterCache(1 << 30, store.qcfg, device=dev)
+    eng = serve.AdapterServingEngine(weights, SERVE_SCALE, store.qcfg, cache,
+                                     fetch=lambda cid: store.msgs[cid],
+                                     strict_compiles=True, device=dev)
+    cids = list(range(8))
+    eng.admit(cids)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, SERVE["d_model"])).astype(np.float32)).to(dev)
+    first = eng.step(x, cids)
+    with count_compiles() as steady:
+        for _ in range(3):
+            y = eng.step(x, cids)
+    torch.cuda.synchronize()
+    if steady.count != 0 or not torch.equal(y, first):
+        raise AssertionError(f"strict serving steps built {steady.count} "
+                             "programs or changed their result")
+    gen = torch.Generator().manual_seed(3)
+    trees = [{"blk": {"a": torch.randn((640, 16), generator=gen),
+                      "b": torch.randn((16, 640), generator=gen)},
+              "n": torch.zeros(640)} for _ in range(4)]
+    msgs = [messages.pack_message({k: (v.to(dev) if k == "n" else
+                                       {n: t.to(dev) for n, t in v.items()})
+                                   for k, v in t.items()},
+                                  QuantConfig(bits=8), flat=True)
+            for t in trees]
+    st = StreamingFlatAccumulator.for_layout(msgs[0].layout,
+                                             strict_compiles=True,
+                                             device=dev)
+    st.fold(msgs[0], 1.0)
+    with count_compiles() as folds:
+        for m in msgs[1:]:
+            st.fold(m, 1.0)
+    torch.cuda.synchronize()
+    if folds.count != 0 or not bool(torch.isfinite(st.acc).all()):
+        raise AssertionError(f"strict streaming folds built {folds.count} "
+                             "programs")
+    return {"serve_builds": steady.count, "fold_builds": folds.count,
+            "total_builds": compile_count()}
+
+
+def lm_phase(dev, card: str) -> dict:
+    """Phase 4b: the dense decoder LM at gemma3-4b's full width and depth,
+    its width at depth 6 card against CPU, the federated lm-110m rounds,
+    and the compile watchdog on the card. Prints each measurement with
+    the card's name and power limit."""
+    from repro_torch.obs.meta import run_meta
+    print(f"run meta: {json.dumps(run_meta())}")
+    t0 = time.perf_counter()
+    full = lm_full_phase(dev)
+    b = full["bounds"]
+    print(f"lm gemma3-4b full (34 layers, d 2560, vocab 262144; {card}): "
+          f"init {full['init_s']:.2f} s; prefill 2 x {LM_FULL['prompt']} "
+          f"tokens {1e3 * full['prefill_s']:.1f} ms warm / "
+          f"{1e3 * full['prefill_cold_s']:.1f} ms cold (bound "
+          f"{b['prefill'][0]:.2f} ms by {b['prefill'][1]}, "
+          f"{b['prefill_tflop']:.2f} TFLOP); decode "
+          f"{full['decode_ms']:.3f} ms a step warm / "
+          f"{full['decode_cold_ms']:.3f} cold over "
+          f"{LM_FULL['gen'] - 1} steps (bound {b['decode'][0]:.3f} ms by "
+          f"{b['decode'][1]}, {b['decode_gb']:.3f} GB); "
+          f"{LM_FULL['short_prompt']}-token prompt: prefill "
+          f"{1e3 * full['short_prefill_s']:.1f} ms, decode "
+          f"{full['short_decode_ms']:.3f} ms a step; loss+backward 1 x "
+          f"{LM_FULL['train_seq']} {1e3 * full['train_s'][1]:.1f} ms warm / "
+          f"{1e3 * full['train_s'][0]:.1f} cold (loss "
+          f"{full['loss']:.4f}, {full['adapters']} adapter leaves); peak "
+          f"memory {full['peak_gb']:.2f} GB ({full['serve_peak_gb']:.2f} "
+          f"serving); decode vs forward max err {full['err']:.4g} of "
+          f"max|logit| {full['scale']:.4g} (tolerance {LM_CONSIST_REL}), "
+          f"argmax agreement {full['agree']:.4f}, repeat generate equal "
+          f"{full['repeat_equal']}; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    d6 = lm_depth6_phase(dev)
+    print(f"lm gemma3-4b width depth 6, card vs CPU: prefill max err "
+          f"{d6['err_prefill']:.4g}, all steps {d6['err']:.4g} of "
+          f"max|logit| {d6['scale']:.4g} (tolerance {LM_CARD_CPU_REL}), "
+          f"greedy tokens equal {d6['tokens_equal']}; CPU side "
+          f"{d6['cpu_s']:.1f} s; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fed = lm_fed_phase(dev)
+    print(f"lm-110m federated ({card}): message {fed['msg_bytes']} B "
+          f"(packed flat and per-leaf = static); mean client loss by round "
+          f"{[round(x, 4) for x in fed['losses']]}; round walls (s) "
+          f"{[round(x, 3) for x in fed['round_s']]}; client 0 step 1 vs "
+          f"CPU: loss {fed['loss_err']:.3g} relative, update "
+          f"{fed['update_l2']:.3g} relative L2 (CPU step "
+          f"{fed['cpu_step_s']:.1f} s); {time.perf_counter() - t0:.1f} s")
+    tel = telemetry_phase(dev)
+    print(f"telemetry: strict_compiles serving steps {tel['serve_builds']} "
+          f"builds, streaming folds {tel['fold_builds']} builds; "
+          f"{tel['total_builds']} program builds in the process")
+    return {"full": full, "depth6": d6, "fed": fed, "telemetry": tel}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3050,6 +3599,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     sv = serving_phase(dev)
     print(f"serving phase: {time.perf_counter() - t0:.1f} s")
+
+    # 4b. the dense decoder LM and the telemetry on the card ------------
+    t0 = time.perf_counter()
+    lm_phase(dev, card)
+    print(f"lm phase: {time.perf_counter() - t0:.1f} s")
+    if args.profile:
+        profile_lm(dev)
 
     # 5. times at the paths' shapes ---------------------------------------
     t_flat = time_flat_kernels(update, k, dev, "resnet8")

@@ -47,11 +47,10 @@ from repro_torch.core.messages import is_packed_leaf, is_wire_leaf
 from repro_torch.core.quant import QuantConfig
 from repro_torch.core.sparse import is_sparse_leaf
 from repro_torch.kernels import ops as kops
+from repro_torch.obs.compile import CompileWatchdog
 from repro_torch.utils.device import resolve_device, upload
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
-
-STRICT_COMPILES = ("strict_compiles (the compile watchdog) is not ported")
 
 
 def stack_trees(trees: list[Any]) -> Any:
@@ -503,8 +502,9 @@ class StreamingFlatAccumulator:
     (``flat.flat_mean_from_sum``). One accumulator a layout, never the
     K-message buffer; weight and count stay on the host. The
     accumulators live on the messages' device. ``strict_compiles``
-    raises ``NotImplementedError``: the compile watchdog is not
-    ported."""
+    wraps every fold after the first (per reset cycle) in a zero-budget
+    ``CompileWatchdog``: a fold that builds a program raises
+    ``CompileBudgetExceeded``."""
     layout: Any               # flat.TreeLayout (one accumulator each)
     acc: torch.Tensor         # (C_total, N_max) fp32 running sum
     fp_acc: tuple             # fp32 running sums of fp passthrough leaves
@@ -514,8 +514,6 @@ class StreamingFlatAccumulator:
     n_valid: Optional[torch.Tensor] = None   # per-row lengths, on device
 
     def __post_init__(self):
-        if self.strict_compiles:
-            raise NotImplementedError(STRICT_COMPILES)
         if self.n_valid is None:
             self.n_valid = upload(
                 torch.from_numpy(self.layout.n_valid_vec()),
@@ -535,10 +533,18 @@ class StreamingFlatAccumulator:
         if msg.layout != self.layout:
             raise ValueError("flat message layout does not match the "
                              "streaming accumulator's")
-        self.acc, self.fp_acc = flatcodec.fold_flat(
-            self.acc, self.fp_acc, msg, float(w), self.n_valid)
+        if self.strict_compiles and self.count > 0:
+            with CompileWatchdog(0, label="streaming flat fold "
+                                          f"#{self.count}"):
+                self._fold(msg, w)
+        else:
+            self._fold(msg, w)
         self.weight += float(w)
         self.count += 1
+
+    def _fold(self, msg: Any, w: float) -> None:
+        self.acc, self.fp_acc = flatcodec.fold_flat(
+            self.acc, self.fp_acc, msg, float(w), self.n_valid)
 
     def mean(self) -> Any:
         """The aggregated fp tree (original structure and dtypes)."""
@@ -610,8 +616,8 @@ class FedBuffAggregator:
     in ``pending``; a mixed flush combines stream and bucket means by
     weight-mass fraction, as ``fedavg_hetero`` does, streams in ascending
     rank (so a resumed run sums them in the same order).
-    ``strict_compiles`` raises ``NotImplementedError``: the compile
-    watchdog is not ported."""
+    ``strict_compiles`` passes to the stream accumulators: every fold
+    after a stream's first runs under a zero-budget compile watchdog."""
     half_life: Optional[float] = None
     rank_staleness: bool = False   # sync rounds: discount late arrivals
     r_target: Optional[int] = None  # zero-pad target (engines pin this)
@@ -619,10 +625,6 @@ class FedBuffAggregator:
     streaming: bool = False        # fold flat arrivals at add time
     streams: dict = dataclasses.field(default_factory=dict)
     strict_compiles: bool = False
-
-    def __post_init__(self):
-        if self.strict_compiles:
-            raise NotImplementedError(STRICT_COMPILES)
 
     def resolved_half_life(self) -> float:
         return FEDBUFF_HALF_LIFE if self.half_life is None \

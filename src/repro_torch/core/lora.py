@@ -40,7 +40,14 @@ class LoRAConfig:
 
 def _normal(gen: torch.Generator, shape: tuple, std: float,
             dtype: torch.dtype, device) -> torch.Tensor:
-    x = torch.randn(shape, generator=gen, dtype=torch.float32) * std
+    """N(0, std²) drawn in fp32 on the generator's device (a CUDA
+    generator draws a full-width model on the card), then moved to
+    ``device`` in ``dtype``. On the ``meta`` device nothing is drawn:
+    the tensor has the shape and dtype only."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
+    x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device) * std
     return x.to(device=device, dtype=dtype)
 
 

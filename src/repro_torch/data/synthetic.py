@@ -1,4 +1,4 @@
-"""Procedural vision data (no dataset download).
+"""Procedural datasets (no dataset download).
 
 SyntheticVision: a learnable CIFAR-like task. Each class has a fixed
 random 32x32x3 template (low-frequency, via blurred noise); samples are
@@ -9,6 +9,12 @@ the same images in both packages.
 ``client_shard`` / ``linear_shard``: one client's shard generated on
 demand as a pure function of ``(seed, cid)`` (the lazy fleet's data,
 ``fl/population.py``), bit-identical to the JAX package's.
+
+``markov_lm_batch``: a token stream from a random sparse Markov chain
+(each state's support is 8 next tokens with Zipf weights), which gives
+an LM a learnable structure with an entropy floor well below ln(V);
+``synthetic_lm_batch``: uniform tokens. Both draw exactly as the JAX
+package's do.
 """
 from __future__ import annotations
 
@@ -108,3 +114,36 @@ def linear_shard(seed: int, cid: int, n: int = 24, d: int = 16,
     x = rng.normal(size=(n, d)).astype(np.float32)
     logits = x @ w_true + 0.1 * rng.normal(size=(n, n_classes))
     return {"x": x, "y": np.argmax(logits, axis=1).astype(np.int32)}
+
+
+_MARKOV_CACHE: dict = {}
+
+
+def _markov_tables(vocab: int, seed: int, support: int = 8):
+    key = (vocab, seed, support)
+    if key not in _MARKOV_CACHE:
+        rng = np.random.default_rng(seed)
+        nxt = rng.integers(0, vocab, size=(vocab, support))
+        w = (1.0 / np.arange(1, support + 1)) ** 1.2
+        w = w / w.sum()
+        _MARKOV_CACHE[key] = (nxt, w)
+    return _MARKOV_CACHE[key]
+
+
+def markov_lm_batch(rng: np.random.Generator, vocab: int, batch: int,
+                    seq: int, seed: int = 0) -> dict:
+    """{'tokens': (batch, seq+1) int32} from a sparse Markov chain."""
+    nxt, w = _markov_tables(vocab, seed)
+    toks = np.empty((batch, seq + 1), np.int32)
+    toks[:, 0] = rng.integers(0, vocab, size=batch)
+    choices = rng.choice(len(w), p=w, size=(batch, seq))
+    for t in range(seq):
+        toks[:, t + 1] = nxt[toks[:, t], choices[:, t]]
+    return {"tokens": toks}
+
+
+def synthetic_lm_batch(rng: np.random.Generator, vocab: int, batch: int,
+                       seq: int) -> dict:
+    """Uniform random tokens: for shape and throughput runs only."""
+    return {"tokens": rng.integers(0, vocab, size=(batch, seq + 1)
+                                   ).astype(np.int32)}

@@ -77,8 +77,8 @@ TAG_BATCH = 0xB2      # a dispatched client's local batch shuffle
 @dataclasses.dataclass(frozen=True)
 class AsyncConfig:
     """Engine knobs for the asynchronous FedBuff loop.
-    ``strict_compiles`` raises ``NotImplementedError``: the compile
-    watchdog is not ported."""
+    ``strict_compiles`` hands the aggregator's streaming accumulators a
+    zero-budget compile watchdog on every fold after the first."""
     total_arrivals: int = 200    # stop after this many buffered arrivals
     concurrency: int = 8         # clients kept in flight
     buffer_size: int = 10        # FedBuff K: flush every K arrivals
@@ -253,7 +253,7 @@ class AsyncFLServer:
         if acfg.streaming_agg:
             fields["streaming"] = True
         if acfg.strict_compiles:
-            fields["strict_compiles"] = True    # raises: not ported
+            fields["strict_compiles"] = True
         if aggregator.half_life is None:
             fields["half_life"] = acfg.half_life
         if aggregator.r_target is None:

@@ -10,9 +10,10 @@ library with a plain C interface:
 The library name carries a hash of the source and the flags, so an edited
 source rebuilds and an unchanged one loads as it is. The build directory
 is ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``). Builds of several sources run in parallel. Nothing here
-runs at import: the CPU tests import every module, and this machine may
-have no ``nvcc``.
+``.gitignore``). Builds of several sources run in parallel. Each build
+and each load counts as one program build in ``obs.compile`` (the
+compile watchdog's count). Nothing here runs at import: the CPU tests
+import every module, and this machine may have no ``nvcc``.
 
 No ``--use_fast_math``: ``quant_pack`` must round exactly as the
 reference does.
@@ -26,6 +27,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from repro_torch.obs.compile import record_build
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -114,6 +117,7 @@ class KernelLibrary:
             os.replace(tmp, path)
             built[n] = {"path": str(path), "log": log,
                         "seconds": time.perf_counter() - t0}
+            record_build("nvcc", built[n]["seconds"])
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
                 f"--- {n}\n{log}" for n, log in failed.items()))
@@ -126,11 +130,13 @@ class KernelLibrary:
         path = _lib_path(name, self.build_dir)
         if not path.exists():
             self.build([name])
+        t0 = time.perf_counter()
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in SOURCES[name].items():
             f = getattr(lib, fn)
             f.argtypes = list(argtypes)
             f.restype = ctypes.c_int
+        record_build("load", time.perf_counter() - t0)
         self._libs[name] = lib
         return lib
 

@@ -1,1 +1,1 @@
-from repro_torch.models import layers, resnet
+from repro_torch.models import layers, attention, moe, ssm, lm, encdec, resnet

@@ -21,11 +21,16 @@ Cache lookups are counted at ADMISSION (:meth:`admit`, one per request,
 optionally fetching a miss from the adapter store); the per-token
 :meth:`step` reads the cache uncounted. Batch rows pad to pow2 (min 8)
 and slabs pad slots to pow2, as in the JAX package, so the kernels see
-the same shapes. The JAX package's ``generate`` (the single-tenant LM
-loop) is not ported.
+the same shapes and a steady-state step builds no program
+(``strict_compiles`` enforces it).
+
+:func:`generate` is the single-tenant LM prefill+decode loop that
+``launch/serve.py`` drives (the adapters applied beside the frozen
+base, as in the JAX package).
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Optional, Sequence
 
 import torch
@@ -35,7 +40,9 @@ from repro_torch.core.quant import QuantConfig
 from repro_torch.fl.client import pow2_pad
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.models import lm as LM
 from repro_torch.obs import trace as obst
+from repro_torch.obs.compile import CompileWatchdog
 from repro_torch.serve.cache import AdapterCache, StagedBucket, StagedLayer
 from repro_torch.utils.device import resolve_device, upload
 
@@ -69,8 +76,9 @@ class AdapterServingEngine:
     per-request adapters from ``cache`` on ``device`` (default: the
     card; raises without one). ``fetch(cid) -> wire message`` resolves
     admission misses from the adapter store; without it a miss raises.
-    ``strict_compiles`` (the JAX package's compile watchdog) is not
-    ported."""
+    ``strict_compiles``: once a step shape (batch rows x per-bucket
+    split x slab slots x path) has run, re-running it must build no
+    program; a build raises ``obs.CompileBudgetExceeded``."""
 
     def __init__(self, weights: Sequence, scale: float,
                  qcfg: QuantConfig, cache: AdapterCache,
@@ -80,9 +88,6 @@ class AdapterServingEngine:
                  tracer: Optional[obst.Tracer] = None, device="cuda"):
         if path not in PATHS:
             raise ValueError(f"path must be one of {PATHS}: {path!r}")
-        if strict_compiles:
-            raise NotImplementedError(
-                "strict_compiles (the compile watchdog) is not ported")
         self.device = resolve_device(device)
         self.weights = tuple(
             torch.as_tensor(w).to(device=self.device,
@@ -99,6 +104,8 @@ class AdapterServingEngine:
         # staged slabs memo: bucket rank -> (cache version, StagedBucket);
         # restages only when the working set changes
         self._staged: dict[int, tuple[int, StagedBucket]] = {}
+        self.strict_compiles = bool(strict_compiles)
+        self._warm_shapes: set[tuple] = set()
         self.tracer = obst.get_tracer(tracer)
 
     # -- admission (counted cache traffic) ----------------------------------
@@ -132,18 +139,35 @@ class AdapterServingEngine:
             if e is None:
                 raise KeyError(f"client {cid} not cached — admit() first")
             groups.setdefault(pow2_pad(e.rank), []).append(row)
+        # staging first (slab growth or a restage may build programs: it
+        # is not steady state); the compute below is watchdogged by shape
         staged_by = {rb: self._staged_for(rb, [cids[r] for r in rows])
                      for rb, rows in sorted(groups.items())}
+        shape_key = (x.shape[0], self.path, tuple(
+            (rb, len(rows), staged_by[rb].n_slots)
+            for rb, rows in sorted(groups.items())))
         with self.tracer.span("serve/step", batch=len(cids),
                               buckets=len(groups), path=self.path):
-            n_out = self.weights[-1].shape[1]
-            y = torch.zeros((len(cids), n_out), dtype=torch.float32,
-                            device=self.device)
-            for rb, rows in sorted(groups.items()):
-                staged = staged_by[rb]
-                idx = upload(torch.tensor(rows), self.device)
-                y[idx] = self._bucket_step(
-                    x[idx], staged, [staged.slots[cids[r]] for r in rows])
+            if self.strict_compiles and shape_key in self._warm_shapes:
+                with CompileWatchdog(0, label="steady-state decode "
+                                              f"{shape_key}"):
+                    y = self._compute(x, cids, groups, staged_by)
+            else:
+                y = self._compute(x, cids, groups, staged_by)
+                self._warm_shapes.add(shape_key)
+        return y
+
+    def _compute(self, x: torch.Tensor, cids: list[int],
+                 groups: dict[int, list[int]],
+                 staged_by: dict[int, StagedBucket]) -> torch.Tensor:
+        n_out = self.weights[-1].shape[1]
+        y = torch.zeros((len(cids), n_out), dtype=torch.float32,
+                        device=self.device)
+        for rb, rows in sorted(groups.items()):
+            staged = staged_by[rb]
+            idx = upload(torch.tensor(rows), self.device)
+            y[idx] = self._bucket_step(
+                x[idx], staged, [staged.slots[cids[r]] for r in rows])
         return y
 
     def _staged_for(self, rb: int, bucket_cids: list[int]) -> StagedBucket:
@@ -207,3 +231,62 @@ class AdapterServingEngine:
                 xv = xv @ lora.dense_merge(w, a, b, self.scale)
             ys.append(xv)
         return torch.stack(ys)
+
+
+# ---------------------------------------------------------------------------
+# Single-tenant LM serving loop
+# ---------------------------------------------------------------------------
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def generate(frozen: Any, train: Any, cfg: Any, prompt, gen: int, *,
+             temperature: float = 0.0, seed: int = 0,
+             max_seq: Optional[int] = None, device="cuda"
+             ) -> tuple[torch.Tensor, dict[str, float]]:
+    """Prefill + autoregressive decode for a decoder LM whose parameters
+    lie on ``device`` (default: the card; raises without one): greedy
+    argmax, or categorical at ``temperature > 0`` from a
+    ``torch.Generator`` seeded with ``seed`` (its draws are not the JAX
+    package's ``jax.random`` draws).
+
+    Returns (tokens (B, gen) int32: the prefill-argmax token plus
+    ``gen - 1`` decode steps, and wall timings {'prefill_s',
+    'decode_s', 'decode_steps'}, the card synchronized before each
+    clock is read)."""
+    dev = resolve_device(device)
+    have = LM.param_device(frozen)
+    if have.type != dev.type:
+        raise ValueError(f"the parameters lie on {have}, not on {dev}")
+    prompt = torch.as_tensor(prompt, device=have)
+    if max_seq is None:
+        max_seq = prompt.shape[1] + gen
+    rng = torch.Generator(device=have).manual_seed(int(seed))
+    with torch.no_grad():
+        _sync(have)
+        t0 = time.perf_counter()
+        logits, caches, pos = LM.prefill(frozen, train, cfg, prompt,
+                                         max_seq=max_seq)
+        _sync(have)
+        prefill_s = time.perf_counter() - t0
+
+        tok = torch.argmax(logits, -1)[:, None]
+        out = [tok]
+        t0 = time.perf_counter()
+        for _ in range(gen - 1):
+            logits, caches = LM.decode_step(frozen, train, cfg, tok, caches,
+                                            pos)
+            if temperature > 0:
+                probs = torch.softmax(logits[:, 0] / temperature, dim=-1)
+                tok = torch.multinomial(probs, 1, generator=rng)
+            else:
+                tok = torch.argmax(logits[:, 0], -1)[:, None]
+            pos += 1
+            out.append(tok)
+        _sync(have)
+        decode_s = time.perf_counter() - t0
+    return torch.cat(out, dim=1).to(torch.int32), {
+        "prefill_s": prefill_s, "decode_s": decode_s,
+        "decode_steps": gen - 1}

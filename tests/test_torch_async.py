@@ -443,8 +443,9 @@ def test_async_config_validation():
         engine(_fcfgs()[1], data=data[:4])
     with pytest.raises(ValueError, match="r_target"):
         engine(_fcfgs()[1], aggregator=tagg.FedBuffAggregator(r_target=8))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        engine(_fcfgs()[1], acfg=AsyncConfig(strict_compiles=True))
+    strict = engine(_fcfgs()[1], acfg=AsyncConfig(strict_compiles=True,
+                                                  streaming_agg=True))
+    assert strict.aggregator.strict_compiles and strict.aggregator.streaming
     pop = Population(100, tiers=(DeviceTier("big", rank=32,
                                             fraction=1.0),))
     with pytest.raises(ValueError, match="exceeds the server rank"):

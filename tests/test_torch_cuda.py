@@ -731,3 +731,77 @@ def test_cuda_async_events_match_cpu(cuda):
             {k: v for k, v in b.items() if k != "client_loss"}
         assert abs(a["client_loss"] - b["client_loss"]) <= \
             1e-3 * abs(b["client_loss"])
+
+
+@pytest.mark.gpu
+def test_cuda_gemma3_width_depth6_matches_cpu(cuda):
+    """gemma3-4b's width (d 2560, vocab 262,144, heads 8 padded to 16,
+    window 1,024) at depth 6, one tree on the card and on the CPU:
+    prefill and decode logits within 2e-2 of max|logit| (bf16 in both,
+    cuBLAS and the CPU's GEMMs summing in other orders), greedy tokens
+    equal."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.serve import generate
+    from repro_torch.utils.tree import tree_to
+    cfg = dataclasses.replace(registry.get("gemma3-4b").full(), n_layers=6)
+    p = lm.init(torch.Generator(device=cuda).manual_seed(0), cfg,
+                device=cuda)
+    cpu = {k: tree_to(v, "cpu") for k, v in p.items()}
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (2, 16))
+    toks, _ = generate(p["frozen"], p["train"], cfg, prompt, 4, device=cuda)
+    toks_cpu, _ = generate(cpu["frozen"], cpu["train"], cfg, prompt, 4,
+                           device="cpu")
+    assert torch.equal(toks.cpu(), toks_cpu)
+    with torch.no_grad():
+        lg, caches, pos = lm.prefill(p["frozen"], p["train"], cfg,
+                                     torch.from_numpy(prompt).to(cuda),
+                                     max_seq=20)
+        lc, caches_c, _ = lm.prefill(cpu["frozen"], cpu["train"], cfg,
+                                     prompt, max_seq=20)
+        scale = float(lc.abs().max())
+        assert float((lg.cpu() - lc).abs().max()) <= 2e-2 * scale
+        dg, _ = lm.decode_step(p["frozen"], p["train"], cfg, toks[:, :1],
+                               caches, pos)
+        dc, _ = lm.decode_step(cpu["frozen"], cpu["train"], cfg,
+                               toks_cpu[:, :1], caches_c, pos)
+        assert float((dg.cpu() - dc).abs().max()) <= 2e-2 * float(
+            dc.abs().max())
+
+
+@pytest.mark.gpu
+def test_cuda_telemetry_steady_state(cuda):
+    """On the card: the run fingerprint names the card; a strict serving
+    engine's and a strict streaming fold's steady-state calls build no
+    program (the first call of a shape may load the kernels)."""
+    from repro_torch import obs, serve
+    from repro_torch.core import messages
+    from repro_torch.core.aggregation import StreamingFlatAccumulator
+    from repro_torch.core.quant import QuantConfig
+    meta = obs.run_meta()
+    assert meta["backend"] == "cuda"
+    assert meta["device_kind"] == torch.cuda.get_device_name(0)
+    weights, store = serve.make_store(16, d_model=256, device=cuda)
+    cache = serve.AdapterCache(1 << 24, store.qcfg, device=cuda)
+    eng = serve.AdapterServingEngine(weights, 0.5, store.qcfg, cache,
+                                     fetch=lambda c: store.msgs[c],
+                                     strict_compiles=True, device=cuda)
+    eng.admit(list(range(8)))
+    x = torch.randn((8, 256), device=cuda)
+    y0 = eng.step(x, list(range(8)))
+    with obs.count_compiles() as c:
+        y = eng.step(x, list(range(8)))
+    assert c.count == 0 and torch.equal(y, y0)
+    gen = torch.Generator().manual_seed(0)
+    msgs = [messages.pack_message(
+        {"w": torch.randn((64, 40), generator=gen).to(cuda)},
+        QuantConfig(bits=8), flat=True) for _ in range(3)]
+    st = StreamingFlatAccumulator.for_layout(msgs[0].layout,
+                                             strict_compiles=True,
+                                             device=cuda)
+    st.fold(msgs[0], 1.0)
+    with obs.count_compiles() as c:
+        st.fold(msgs[1], 1.0)
+        st.fold(msgs[2], 2.0)
+    assert c.count == 0 and st.count == 3

@@ -259,13 +259,42 @@ def test_zero_weight_and_empty_flushes_raise():
 
 
 def test_strict_compiles_not_ported():
+    """(The name is kept from when the option was refused.) With
+    ``strict_compiles`` the streaming fold runs under a zero-budget
+    watchdog from its second fold on and gives the plain accumulator's
+    sum bit for bit; FedBuff hands the option to its streams; a fold
+    that builds a program raises ``CompileBudgetExceeded``."""
     from repro_torch.fl import AsyncConfig
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tagg.FedBuffAggregator(strict_compiles=True)
-    _, tm = _packs((8,), 8)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tagg.StreamingFlatAccumulator.for_layout(
+    from repro_torch.obs import compile as obsc
+    _, tm = _packs((8, 8, 8), 8)
+    strict = tagg.StreamingFlatAccumulator.for_layout(
+        tm[0].layout, strict_compiles=True, device="cpu")
+    plain = tagg.StreamingFlatAccumulator.for_layout(tm[0].layout,
+                                                     device="cpu")
+    for i, m in enumerate(tm):
+        strict.fold(m, 1.0 + i)
+        plain.fold(m, 1.0 + i)
+    assert torch.equal(strict.acc, plain.acc)
+    agg = tagg.FedBuffAggregator(streaming=True, strict_compiles=True)
+    for m in tm:
+        agg.add(m, 1.0, 0.0)
+    assert all(s.strict_compiles for s in agg.streams.values())
+    agg.flush()
+    real = tflat.fold_flat
+
+    def building_fold(*a, **kw):
+        obsc.record_build("load")
+        return real(*a, **kw)
+
+    tflat.fold_flat = building_fold
+    try:
+        fresh = tagg.StreamingFlatAccumulator.for_layout(
             tm[0].layout, strict_compiles=True, device="cpu")
+        fresh.fold(tm[0], 1.0)                # the first fold may build
+        with pytest.raises(obsc.CompileBudgetExceeded, match="fold #1"):
+            fresh.fold(tm[1], 1.0)
+    finally:
+        tflat.fold_flat = real
     assert AsyncConfig(strict_compiles=True).strict_compiles
 
 

@@ -195,6 +195,29 @@ FLServer(model, loss, pop, ServerConfig(n_clients=10 ** 6,
          device="cpu").run_round()
 assert client_shard(0, 5, n=4)["x"].shape == (4, 32, 32, 3)
 """,
+    "lm_serve_and_telemetry": """
+import torch
+from repro_torch import obs
+from repro_torch.configs import registry
+from repro_torch.launch import lm_federated, serve as launch_serve
+from repro_torch.models import lm
+from repro_torch.serve import generate
+cfg = registry.get("gemma3-4b").smoke()
+p = lm.init(0, cfg, device="cpu")
+toks, t = generate(p["frozen"], p["train"], cfg, [[1, 2, 3] * 3], 3,
+                   device="cpu")
+assert toks.shape == (1, 3) and t["decode_steps"] == 2
+out = launch_serve.main(["--arch", "qwen1.5-110b", "--smoke", "--gen", "2",
+                         "--device", "cpu"])
+assert out["tokens"].shape == (2, 2)
+tiny = lm_federated.make_cfg(False)
+q = lm.init(0, tiny, device="cpu")
+res = lm_federated.run(q["frozen"], q["train"], tiny, 1, 1, 1, 2, 8, log=None)
+assert res["rounds"][0]["mean_loss"] > 0
+with obs.CompileWatchdog(0):
+    lm.forward(p["frozen"], p["train"], cfg, toks)
+assert obs.run_meta()["backend"] == "cpu"
+""",
 }
 
 
@@ -203,9 +226,10 @@ def test_slice_modules_run_without_jax_or_reference(use, tmp_path):
     """The checkpoint subpackage, the per-leaf and LoRA kernel wrappers,
     the EF uplink, the sparse wire, DP uplinks, the mixed-rank
     aggregators, the optimizers and schedules, the local-training
-    engines and the async engine over a lazy fleet (with the sync
-    server's deadline cohorts and FedBuff) run (on the CPU) with jax and
-    repro unimportable."""
+    engines, the async engine over a lazy fleet (with the sync server's
+    deadline cohorts and FedBuff), and the LM's serving, its launch
+    entry points and the telemetry run (on the CPU) with jax and repro
+    unimportable."""
     out = _run(_USE_WITHOUT_JAX.format(src=str(ROOT / "src"),
                                        body=_USES[use]), tmp_path)
     assert out.returncode == 0, out.stderr
@@ -245,7 +269,9 @@ def _no_cuda():
                                    "groupnorm_init", "conv_lora_init",
                                    "dense_lora_init", "sparse_from_wire",
                                    "linear_init", "async_server",
-                                   "streaming_accumulator"])
+                                   "streaming_accumulator", "lm_init",
+                                   "generate", "launch_serve",
+                                   "launch_lm_federated"])
 def test_default_device_entry_points_raise_without_cuda(entry):
     _no_cuda()
     cfg = resnet.ResNetConfig(lora=LoRAConfig(rank=4, alpha=64.0))
@@ -272,6 +298,22 @@ def test_default_device_entry_points_raise_without_cuda(entry):
             lora.dense_lora_init(torch.Generator(), 4, 8, cfg.lora)
         elif entry == "linear_init":
             lora.linear_init(torch.Generator(), 4, 8, "lora", cfg.lora)
+        elif entry == "lm_init":
+            from repro_torch.configs import registry
+            from repro_torch.models import lm
+            lm.init(0, registry.get("gemma3-4b").smoke())
+        elif entry == "generate":
+            from repro_torch.configs import registry
+            from repro_torch.models import lm
+            cfg = registry.get("gemma3-4b").smoke()
+            p = lm.init(0, cfg, device="cpu")
+            serve.generate(p["frozen"], p["train"], cfg, [[1, 2]], 2)
+        elif entry == "launch_serve":
+            from repro_torch.launch import serve as launch_serve
+            launch_serve.main(["--arch", "gemma3-4b", "--smoke"])
+        elif entry == "launch_lm_federated":
+            from repro_torch.launch import lm_federated
+            lm_federated.main(["--rounds", "1"])
         elif entry == "streaming_accumulator":
             from repro_torch.core import flat
             from repro_torch.core.aggregation import \

@@ -406,11 +406,26 @@ def test_rank_bucket_above_128_stages_and_steps(path):
 
 
 def test_engine_rejects_unported_and_bad_options(stores):
+    """(The name is kept from when ``strict_compiles`` was refused.) A
+    strict engine steps a warm shape under the zero-budget watchdog and
+    agrees with a plain engine; an unknown path and unadmitted clients
+    raise."""
     _, _, tw, ts = stores
+    warm = T.AdapterCache(1 << 20, ts.qcfg, device="cpu")
+    strict = T.AdapterServingEngine(tw, 0.5, ts.qcfg, warm,
+                                    fetch=lambda c: ts.msgs[c],
+                                    strict_compiles=True, device="cpu")
+    plain = T.AdapterServingEngine(tw, 0.5, ts.qcfg, warm, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (3, 64)).astype(np.float32))
+    strict.admit([0, 1, 2])
+    y0 = strict.step(x, [0, 1, 2])
+    assert len(strict._warm_shapes) == 1
+    torch.testing.assert_close(strict.step(x, [0, 1, 2]), y0, rtol=0,
+                               atol=0)
+    torch.testing.assert_close(plain.step(x, [0, 1, 2]), y0, rtol=0,
+                               atol=0)
     cache = T.AdapterCache(1 << 20, ts.qcfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        T.AdapterServingEngine(tw, 0.5, ts.qcfg, cache,
-                               strict_compiles=True, device="cpu")
     with pytest.raises(ValueError):
         T.AdapterServingEngine(tw, 0.5, ts.qcfg, cache, path="merged",
                                device="cpu")
