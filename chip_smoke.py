@@ -120,7 +120,28 @@ Phases, each of which raises on failure (the script then exits nonzero):
      client loss finite, client 0's first step replayed on the CPU); and
      ``strict_compiles`` on a serving engine and a streaming fold (0
      program builds). It prints ``obs.run_meta()`` and frees the model
-     before phase 5;
+     before phase 4c;
+ 4c. drive the MLA and MoE archs, which launch none of the six kernels
+     either (the reference computes MLA and MoE with einsums outside any
+     Pallas kernel): deepseek-v2-236b (MLA, 160 experts top-6 + 2
+     shared) cut to 4 layers and llama4-maverick-400b-a17b (128 experts
+     top-1 + 1 shared, MoE every other layer) cut to 2, at their
+     published widths with random weights from seed 0, each through
+     ``LM.init`` and ``serve.generate`` at batch 2 (a 1,024-token prompt
+     and 16 new tokens, twice, equal), a prefill/decode replay whose
+     routes give the prefill's dropped (token, slot) pairs, the replay
+     at the no-drop capacity (factor E/k) on the teacher-forced
+     forward's routes within ``LM_CONSIST_REL`` of max|logit| (its own
+     routes parting only at near ties, ``ROUTE_TIE``), one prefill and
+     one decode step profiled, one adapter backward at 1 x 1,024
+     (finite loss, every adapter's and router's gradient finite and
+     nonzero, none on the frozen tree), with the times against their
+     bounds and the peak memory; then deepseek-v2's width at depth 1
+     from one tree on the card and the CPU: one MoE layer's routes
+     (equal) and output, ``mla_apply`` and ``mla_decode``, and the
+     logits over 1 x 64 tokens (the CPU on the card's routes), each
+     within ``LM_CARD_CPU_REL`` of its max. It frees the models before
+     phase 5;
   5. time each kernel with CUDA events at its path's shapes beside its
      plain version and its bound (B1 and B2, and the ``flat_rows``
      staging before B1, at ResNet-8's and ResNet-18's layouts;
@@ -287,6 +308,27 @@ LM_FED = dict(rounds=2, clients=8, local_steps=8, batch=8, seq=128)
 # the gradients)
 LM_FED_LOSS_REL = 2e-3
 LM_FED_UPDATE_L2 = 6e-2
+# the MLA and MoE archs at their published widths (src/repro/configs/
+# deepseek_v2_236b.py and llama4_maverick_400b.py full()), random weights
+# from seed 0, depth cut to fit one 80 GB card: deepseek-v2 to 4 of its
+# 60 MLA + MoE layers (160 experts top-6 + 2 shared), llama4-maverick to
+# 2 of its 48 (one dense layer, one MoE layer of 128 experts top-1 + 1
+# shared). generate at batch 2, a 1,024-token prompt and 16 new tokens;
+# one adapter backward at 1 x 1,024 tokens.
+LM_MOE = dict(batch=2, prompt=1024, gen=16, train_seq=1024, seed=0,
+              depth={"deepseek-v2-236b": 4, "llama4-maverick-400b-a17b": 2})
+# their frozen values at those depths (embedding, head, layers), all bf16
+LM_MOE_FROZEN = {"deepseek-v2-236b": 16_933_715_968,
+                 "llama4-maverick-400b-a17b": 18_573_557_760}
+# a route may part from the one it is held to (the teacher-forced
+# forward's, the CPU's) only at a near tie: the expert it took and the
+# one it is held to within this share of each other's probability (the
+# bf16 drift between the two runs' router inputs moves them by as much)
+ROUTE_TIE = LM_CONSIST_REL
+# deepseek-v2's width at depth 1, card against CPU from one tree: one
+# MoE layer's moe_apply and one MLA layer's mla_apply / mla_decode on
+# the same bf16 input, and the whole model's logits, over 1 x 64 tokens
+LM_MOE_CPU = dict(arch="deepseek-v2-236b", n_layers=1, tokens=64)
 
 
 def _card_line() -> str:
@@ -3431,6 +3473,455 @@ def lm_phase(dev, card: str) -> dict:
     return {"full": full, "depth6": d6, "fed": fed, "telemetry": tel}
 
 
+class RecordedRoutes:
+    """While open, every routing call of the port's MoE layers
+    (``moe.route``) also keeps its top-k ids, call by call."""
+
+    def __init__(self):
+        self.idx: list = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe.route
+        moe.route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+    def route(self, tr, spec, xt):
+        out = self.orig(tr, spec, xt)
+        self.idx.append(out[1].detach().clone())
+        return out
+
+
+class ForcedRoutes(RecordedRoutes):
+    """Teacher-forced routes: the n-th routing call takes the top-k ids
+    ``want[n]`` (with its own gates at those experts) and keeps how its
+    own top-k compares: the share of equal (token, slot) routes, and the
+    largest relative probability gap between its own choice and the
+    forced one where they part."""
+
+    def __init__(self, want):
+        super().__init__()
+        self.want = list(want)
+        self.agree: list = []
+        self.gaps: list = []
+
+    def route(self, tr, spec, xt):
+        import torch
+        gates, idx, probs = self.orig(tr, spec, xt)
+        want = self.want.pop(0).to(idx.device)
+        p = probs.detach()
+        own = p.gather(1, idx)
+        ref = torch.sort(p.gather(1, want), dim=1, descending=True).values
+        self.agree.append(float((idx == want).float().mean()))
+        self.gaps.append(float(((own - ref) / own).abs().max()))
+        g = probs.gather(1, want)
+        return g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9), want, \
+            probs
+
+    def check(self, what: str) -> None:
+        bad = [(i, a, g) for i, (a, g) in enumerate(zip(self.agree,
+                                                        self.gaps))
+               if a < 1.0 and g > ROUTE_TIE]
+        if bad or self.want:
+            raise AssertionError(f"{what}: routes part past a near tie "
+                                 f"(call, agreement, gap) {bad[:4]}, "
+                                 f"{len(self.want)} forced routes unused")
+
+
+def moe_layers(LM, cfg) -> int:
+    return sum(g.repeats * sum(s.ffn == "moe" for s in g.pattern)
+               for g in LM.resolve_groups(cfg))
+
+
+def no_drop(cfg):
+    """``cfg`` at a MoE capacity no token drops at (factor E/k)."""
+    import dataclasses
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+
+
+def dropped_pairs(spec, idx) -> tuple[int, int]:
+    """(routed (token, slot) pairs past their expert's capacity, experts
+    that took a pair) of one routing call's ids (T, k)."""
+    from repro_torch.models import moe
+    counts = moe.expert_counts(idx.reshape(-1), spec.n_experts)
+    cap = moe._cap(spec, idx.shape[0])
+    return int((counts - cap).clamp(min=0).sum()), int((counts > 0).sum())
+
+
+def moe_bounds(cfg, params, batch: int, prompt: int, gen: int,
+               prefill_idx: list, decode_idx: list, kept: int) -> dict:
+    """The least times of this run's prefill and decode step, as
+    ``lm_bounds`` counts them, with the experts' work as this run's data
+    needs it. Prefill: the non-expert linears over every prompt token,
+    each KEPT (token, slot) pair through its expert's three products and
+    adapters, the attention products of the real heads over the causal
+    half, the head for the last tokens; every weight read once. Decode:
+    every frozen and adapter value read once (the static-capacity design
+    reads every expert's bank a step) and the caches; beside it the
+    bound had a step read only the banks of the experts its tokens took
+    (``routed``)."""
+    from repro_torch.models import lm as LM
+    from repro_torch.utils.tree import flatten_with_names, tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    frozen, train = params["frozen"], params["train"]
+    bank_vals, bank_bytes, other = 0, 0, 0
+    for name, t in flatten_with_names(frozen["groups"]):
+        if "/moe/w" in name and "/moe/shared" not in name:
+            bank_vals += t.numel()
+            bank_bytes += t.numel() * t.element_size()
+        else:
+            other += t.numel()
+    ad_bank, ad_other = 0, 0
+    for name, t in flatten_with_names(train["groups"]):
+        if "/moe/w" in name:
+            ad_bank += t.numel()
+        else:
+            ad_other += t.numel()
+    n_moe = moe_layers(LM, cfg)
+    e = cfg.moe.n_experts
+    per_pair = (bank_vals + ad_bank) / max(n_moe, 1) / e
+    t = batch * prompt
+    attn = 0.0
+    for g in LM.resolve_groups(cfg):
+        for spec in g.pattern:
+            if spec.mixer == "mla":
+                width = cfg.mla.qk_dim + cfg.mla.v_head_dim
+                heads = cfg.mla.n_heads
+            else:
+                width, heads = 2 * cfg.head_dim, cfg.n_heads
+            attn += g.repeats * 2.0 * batch * heads * width * prompt \
+                * prompt / 2
+    head_w = sum(x.numel() for x in tree_leaves(frozen["head"]))
+    pf_flops = 2.0 * t * (other + ad_other) + 2.0 * kept * per_pair \
+        + 2.0 * batch * head_w + attn
+    weights = nbytes(frozen["groups"]) + nbytes(frozen["head"]) \
+        + nbytes(train)
+    pf_bytes = weights + t * cfg.d_model * 2
+    caches = nbytes(LM.cache_init(cfg, batch, prompt + gen, device="meta"))
+    dec_bytes = weights + caches
+    per_expert_bytes = bank_bytes / max(n_moe, 1) / e
+    took = sum(int(len(set(i.reshape(-1).tolist()))) for i in decode_idx)
+    routed_bytes = weights - bank_bytes + took * per_expert_bytes + caches
+    dec_flops = 2.0 * batch * (other + ad_other + head_w) \
+        + 2.0 * batch * cfg.moe.top_k * n_moe * per_pair
+    return {"prefill": _bound_ms(pf_bytes, pf_flops, BF16_FLOPS),
+            "decode": _bound_ms(dec_bytes, dec_flops, BF16_FLOPS),
+            "decode_routed": _bound_ms(routed_bytes, dec_flops, BF16_FLOPS),
+            "prefill_tflop": pf_flops / 1e12, "decode_gb": dec_bytes / 1e9,
+            "routed_gb": routed_bytes / 1e9, "experts_took": took,
+            "frozen_values": sum(x.numel() for x in tree_leaves(frozen))}
+
+
+def lm_moe_arch(arch: str, dev) -> dict:
+    """One MLA/MoE arch at its published width and ``LM_MOE``'s depth:
+    init from a seeded CUDA generator, ``generate`` twice (equal tokens),
+    the greedy tokens the argmax of a prefill/decode replay whose routes
+    give the prefill's dropped pairs, the replay at the no-drop capacity
+    against the teacher-forced forward (on the forward's routes), one
+    prefill and one decode step profiled, and one adapter backward; the
+    times beside their bounds, the peak memory. Frees the model."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm as LM
+    from repro_torch.serve import generate
+    from repro_torch.utils.tree import flatten_with_names, tree_flatten, \
+        tree_leaves, tree_unflatten
+
+    c = LM_MOE
+    cfg = dataclasses.replace(registry.get(arch).full(),
+                              n_layers=c["depth"][arch])
+    n_moe = moe_layers(LM, cfg)
+    _free_cuda()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = LM.init(torch.Generator(device=dev).manual_seed(c["seed"]), cfg,
+                     device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    frozen, train = params["frozen"], params["train"]
+    n_frozen = sum(t.numel() for t in tree_leaves(frozen))
+    if n_frozen != LM_MOE_FROZEN[arch] or any(
+            t.dtype != torch.bfloat16 for t in tree_leaves(frozen)):
+        raise AssertionError(f"{arch} frozen tree: {n_frozen} values")
+    rng = np.random.default_rng(c["seed"])
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (c["batch"], c["prompt"]))).to(dev)
+    (toks0, cold), (toks, timing) = (
+        generate(frozen, train, cfg, prompt, c["gen"], device=dev)
+        for _ in range(2))
+    same = bool(torch.equal(toks0, toks))
+    with RecordedRoutes() as rec:
+        logits = _serve_logits(LM, frozen, train, cfg, prompt, toks)
+    if not same or not torch.equal(torch.argmax(logits, -1).to(torch.int32),
+                                   toks):
+        raise AssertionError(f"{arch}: generate repeated {same}, greedy "
+                             "tokens not the argmax of the replay")
+    if len(rec.idx) != c["gen"] * n_moe:
+        raise AssertionError(f"{arch}: {len(rec.idx)} routing calls")
+    drops = [dropped_pairs(cfg.moe, i) for i in rec.idx[:n_moe]]
+    kept = sum(i.numel() for i in rec.idx[:n_moe]) - sum(d for d, _ in drops)
+    bounds = moe_bounds(cfg, params, c["batch"], c["prompt"], c["gen"],
+                        rec.idx[:n_moe], rec.idx[n_moe:2 * n_moe], kept)
+    del logits
+    # decode against the teacher-forced forward, both at the no-drop
+    # capacity, the replay on the forward's routes
+    nd = no_drop(cfg)
+    with torch.no_grad(), RecordedRoutes() as fwd_rec:
+        seq = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
+        h, _ = LM.forward(frozen, train, nd, seq)
+        fwd = LM._head_logits(frozen, train, nd, h[:, c["prompt"] - 1:])
+        del h
+    want = []
+    for step in range(c["gen"]):
+        for layer in range(n_moe):
+            r = fwd_rec.idx[layer].reshape(c["batch"], seq.shape[1], -1)
+            want.append((r[:, :c["prompt"]] if step == 0 else
+                         r[:, c["prompt"] + step - 1]).reshape(
+                             -1, r.shape[-1]))
+    with ForcedRoutes(want) as forced:
+        replay = _serve_logits(LM, frozen, train, nd, prompt, toks)
+    forced.check(f"{arch} decode vs forward")
+    scale = float(fwd.abs().max())
+    err = float((replay - fwd).abs().max())
+    if not (math.isfinite(err) and err <= LM_CONSIST_REL * scale):
+        raise AssertionError(f"{arch} decode vs forward logits: max err "
+                             f"{err} > {LM_CONSIST_REL} x {scale}")
+    del replay, fwd
+    # one prefill and one decode step under the profiler
+    with torch.no_grad():
+        def prefill():
+            return LM.prefill(frozen, train, cfg, prompt,
+                              max_seq=c["prompt"] + c["gen"])
+        lp, caches, pos = prefill()
+        tok = torch.argmax(lp, -1)[:, None]
+        LM.decode_step(frozen, train, cfg, tok, caches, pos)
+        profile_call(prefill, f"{arch} prefill {c['batch']} x "
+                     f"{c['prompt']}", top=8)
+        profile_call(lambda: LM.decode_step(frozen, train, cfg, tok, caches,
+                                            pos + 1),
+                     f"{arch} decode step", top=8)
+        del lp, caches
+    serve_peak = torch.cuda.max_memory_allocated()
+    # one adapter backward at 1 x 1,024 tokens
+    moved = _move_b(train, 1, dev)
+    names = [n for n, _ in flatten_with_names(moved)]
+    leaves, treedef = tree_flatten(moved)
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, c["train_seq"] + 1))).to(dev)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, metrics = LM.loss_fn(frozen, tree_unflatten(treedef, leaves), cfg,
+                               batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    bad = [n for n, t in zip(names, leaves) if t.grad is None
+           or not bool(torch.isfinite(t.grad).all())
+           or float(t.grad.abs().max()) == 0.0]
+    routers = sum(t.shape[0] for n, t in zip(names, leaves)
+                  if n.endswith("router/w"))      # stacked: (repeats, d, E)
+    if not math.isfinite(float(loss.detach())) or bad or routers != n_moe:
+        raise AssertionError(f"{arch} backward: loss {float(loss.detach())}"
+                             f", bad grads {bad[:5]}, {routers} routers")
+    if any(t.requires_grad or t.grad is not None
+           for t in tree_leaves(frozen)):
+        raise AssertionError(f"a frozen {arch} leaf took a gradient")
+    peak = torch.cuda.max_memory_allocated()
+    out = {"init_s": init_s, "prefill_s": timing["prefill_s"],
+           "prefill_cold_s": cold["prefill_s"],
+           "decode_ms": 1e3 * timing["decode_s"] / timing["decode_steps"],
+           "decode_cold_ms": 1e3 * cold["decode_s"] / cold["decode_steps"],
+           "train_s": train_s, "loss": float(loss.detach()),
+           "aux": float(metrics["aux"].detach()), "err": err,
+           "scale": scale,
+           "agree": min(forced.agree), "gap": max(forced.gaps),
+           "dropped": sum(d for d, _ in drops),
+           "pairs": sum(i.numel() for i in rec.idx[:n_moe]),
+           "experts": [x for _, x in drops], "bounds": bounds,
+           "peak_gb": (peak - base_mem) / 1e9,
+           "init_peak_gb": (init_peak - base_mem) / 1e9,
+           "serve_peak_gb": (serve_peak - base_mem) / 1e9,
+           "frozen_gb": 2 * n_frozen / 1e9, "adapters": len(leaves),
+           "n_layers": cfg.n_layers}
+    del params, frozen, train, moved, leaves, loss
+    _free_cuda()
+    return out
+
+
+def lm_moe_card_cpu(dev) -> dict:
+    """deepseek-v2's width at depth 1 on the card and on the CPU from one
+    tree (drawn on the card, adapters moved off init, copied), on the
+    same bf16 inputs: (a) layer 0's ``moe_apply`` (routes equal, output),
+    (b) its ``mla_apply`` over 1 x 64 tokens and ``mla_decode`` of token
+    64 on a latent cache of the first 63, (c) the whole model's logits
+    over 1 x 64 tokens, the CPU on the card's routes, with the route
+    agreement."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.models import moe as MOE
+    from repro_torch.utils.tree import tree_map, tree_to
+
+    c = LM_MOE_CPU
+    cfg = dataclasses.replace(registry.get(c["arch"]).full(),
+                              n_layers=c["n_layers"])
+    params = LM.init(torch.Generator(device=dev).manual_seed(1), cfg,
+                     device=dev)
+    frozen, train = params["frozen"], _move_b(params["train"], 2, dev)
+    t0 = time.perf_counter()
+    fz_cpu, tr_cpu = tree_to(frozen, "cpu"), tree_to(train, "cpu")
+    copy_s = time.perf_counter() - t0
+    fz0 = tree_map(lambda t: t[0], frozen["groups"][0][0])
+    tr0 = tree_map(lambda t: t[0], train["groups"][0][0])
+    fz0c = tree_map(lambda t: t[0], fz_cpu["groups"][0][0])
+    tr0c = tree_map(lambda t: t[0], tr_cpu["groups"][0][0])
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal(
+        (1, c["tokens"], cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    sc = cfg.lora.scale
+    out = {"copy_s": copy_s}
+    t0 = time.perf_counter()
+    # (a) the MoE layer
+    with torch.no_grad():
+        g_c, i_c, _ = MOE.route(tr0c["moe"], cfg.moe, x[0])
+        g_g, i_g, _ = MOE.route(tr0["moe"], cfg.moe, x[0].to(dev))
+        y_c, aux_c = MOE.moe_apply(fz0c["moe"], tr0c["moe"], cfg.moe, x, sc)
+        y_g, aux_g = MOE.moe_apply(fz0["moe"], tr0["moe"], cfg.moe,
+                                   x.to(dev), sc)
+    if not torch.equal(i_c, i_g.cpu()):
+        raise AssertionError("deepseek MoE layer routes card vs CPU: "
+                             f"{float((i_c == i_g.cpu()).float().mean())}")
+    out["moe"] = (float((y_g.cpu().float() - y_c.float()).abs().max()),
+                  float(y_c.float().abs().max()))
+    out["aux"] = (float(aux_g), float(aux_c))
+    # (b) the MLA layer
+    pos = torch.arange(c["tokens"])[None]
+    rope_c = LM._rope_for(cfg, LM.resolve_groups(cfg)[0].pattern[0], pos)
+    rope_g = tuple(r.to(dev) for r in rope_c)
+    with torch.no_grad():
+        mla = []
+        for fza, tra, xx, rope in ((fz0c, tr0c, x, rope_c),
+                                   (fz0, tr0, x.to(dev), rope_g)):
+            y = A.mla_apply(fza["attn"], tra["attn"], cfg.mla, xx, sc, rope)
+            ckv, kr = A._mla_latent(fza["attn"], tra["attn"], cfg.mla,
+                                    xx[:, :-1], sc,
+                                    tuple(r[:, :-1] for r in rope))
+            cache = A.mla_cache_init(cfg.mla, 1, c["tokens"],
+                                     device=xx.device)
+            cache["ckv"][:, :-1] = ckv.to(torch.bfloat16)
+            cache["kr"][:, :-1] = kr.to(torch.bfloat16)
+            yd, cache = A.mla_decode(fza["attn"], tra["attn"], cfg.mla,
+                                     xx[:, -1:], cache, c["tokens"] - 1, sc,
+                                     tuple(r[:, -1:] for r in rope))
+            mla.append((y.cpu().float(), yd.cpu().float(),
+                        cache["ckv"].cpu().float()))
+    (ya_c, yd_c, ck_c), (ya_g, yd_g, ck_g) = mla
+    out["mla_apply"] = (float((ya_g - ya_c).abs().max()),
+                        float(ya_c.abs().max()))
+    out["mla_decode"] = (float((yd_g - yd_c).abs().max()),
+                         float(yd_c.abs().max()))
+    out["mla_cache"] = (float((ck_g - ck_c).abs().max()),
+                        float(ck_c.abs().max()))
+    # decode against apply at the last token, on each side
+    out["decode_vs_apply"] = float((yd_c[:, 0] - ya_c[:, -1]).abs().max())
+    # (c) the whole model at depth 1
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, c["tokens"])))
+    with torch.no_grad():
+        with RecordedRoutes() as rec:
+            h, _ = LM.forward(frozen, train, cfg, toks.to(dev))
+            lg_g = LM._head_logits(frozen, train, cfg, h).cpu()
+        with ForcedRoutes([i.cpu() for i in rec.idx]) as forced:
+            h, _ = LM.forward(fz_cpu, tr_cpu, cfg, toks)
+            lg_c = LM._head_logits(fz_cpu, tr_cpu, cfg, h)
+    forced.check("deepseek depth 1 card vs CPU")
+    out["logits"] = (float((lg_g - lg_c).abs().max()),
+                     float(lg_c.abs().max()))
+    out["route_agree"], out["route_gap"] = forced.agree, forced.gaps
+    out["cpu_s"] = time.perf_counter() - t0
+    for what in ("moe", "mla_apply", "mla_decode", "mla_cache", "logits"):
+        err, scale = out[what]
+        if not (math.isfinite(err) and err <= LM_CARD_CPU_REL * scale):
+            raise AssertionError(f"deepseek depth 1 {what} card vs CPU: "
+                                 f"{err} > {LM_CARD_CPU_REL} x {scale}")
+    del params, frozen, train, fz_cpu, tr_cpu, fz0, tr0
+    _free_cuda()
+    return out
+
+
+def lm_moe_phase(dev, card: str) -> dict:
+    """Phase 4c: deepseek-v2-236b and llama4-maverick-400b-a17b at their
+    published widths and cut depths, and deepseek-v2's width at depth 1
+    card against CPU. Launches none of the six kernels: MLA and MoE are
+    plain PyTorch products, as the JAX package computes them with einsums
+    outside any Pallas kernel."""
+    out = {}
+    for arch in LM_MOE["depth"]:
+        t0 = time.perf_counter()
+        r = lm_moe_arch(arch, dev)
+        out[arch] = r
+        b = r["bounds"]
+        print(f"lm {arch} full width, depth {r['n_layers']} ({card}): "
+              f"frozen {r['frozen_gb']:.2f} GB bf16, init {r['init_s']:.2f} "
+              f"s (peak {r['init_peak_gb']:.2f} GB); prefill "
+              f"{LM_MOE['batch']} x {LM_MOE['prompt']} "
+              f"{1e3 * r['prefill_s']:.1f} ms warm / "
+              f"{1e3 * r['prefill_cold_s']:.1f} cold (bound "
+              f"{b['prefill'][0]:.2f} ms by {b['prefill'][1]}, "
+              f"{b['prefill_tflop']:.2f} TFLOP); decode "
+              f"{r['decode_ms']:.3f} ms a step warm / "
+              f"{r['decode_cold_ms']:.3f} cold over {LM_MOE['gen'] - 1} "
+              f"steps (bound {b['decode'][0]:.3f} ms by {b['decode'][1]}, "
+              f"{b['decode_gb']:.3f} GB, every bank; "
+              f"{b['decode_routed'][0]:.3f} ms, {b['routed_gb']:.3f} GB, "
+              f"the {b['experts_took']} experts a step took); prefill "
+              f"dropped {r['dropped']} of {r['pairs']} (token, slot) "
+              f"pairs, experts taking pairs by layer {r['experts']}; "
+              f"loss+backward 1 x {LM_MOE['train_seq']} "
+              f"{1e3 * r['train_s']:.1f} ms (loss {r['loss']:.4f}, aux "
+              f"{r['aux']:.4f}, {r['adapters']} trained leaves); peak "
+              f"memory {r['peak_gb']:.2f} GB ({r['serve_peak_gb']:.2f} "
+              f"serving); decode vs forward (no-drop capacity, forward's "
+              f"routes) max err {r['err']:.4g} of max|logit| "
+              f"{r['scale']:.4g} (tolerance {LM_CONSIST_REL}), own routes "
+              f"agreeing {r['agree']:.4f} at worst, largest gap "
+              f"{r['gap']:.3g}; repeat generate equal; "
+              f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cc = lm_moe_card_cpu(dev)
+    out["card_cpu"] = cc
+    print(f"lm deepseek-v2 width depth 1, card vs CPU ({card}): moe_apply "
+          f"routes equal, max err {cc['moe'][0]:.4g} of {cc['moe'][1]:.4g}, "
+          f"aux {cc['aux'][0]:.6g} / {cc['aux'][1]:.6g}; mla_apply "
+          f"{cc['mla_apply'][0]:.4g} of {cc['mla_apply'][1]:.4g}; "
+          f"mla_decode {cc['mla_decode'][0]:.4g} of "
+          f"{cc['mla_decode'][1]:.4g} (latent cache {cc['mla_cache'][0]:.4g}"
+          f" of {cc['mla_cache'][1]:.4g}; decode vs apply on the CPU "
+          f"{cc['decode_vs_apply']:.4g}); logits {cc['logits'][0]:.4g} of "
+          f"max|logit| {cc['logits'][1]:.4g} (tolerance {LM_CARD_CPU_REL}), "
+          f"CPU's own routes agreeing {cc['route_agree']}, gaps "
+          f"{[round(g, 4) for g in cc['route_gap']]}; copy "
+          f"{cc['copy_s']:.1f} s, CPU side {cc['cpu_s']:.1f} s; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3606,6 +4097,11 @@ def main(argv=None) -> int:
     print(f"lm phase: {time.perf_counter() - t0:.1f} s")
     if args.profile:
         profile_lm(dev)
+
+    # 4c. the MLA and MoE archs at their published widths ---------------
+    t0 = time.perf_counter()
+    lm_moe_phase(dev, card)
+    print(f"lm moe phase: {time.perf_counter() - t0:.1f} s")
 
     # 5. times at the paths' shapes ---------------------------------------
     t_flat = time_flat_kernels(update, k, dev, "resnet8")

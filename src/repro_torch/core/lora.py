@@ -19,6 +19,7 @@ adapters for heterogeneous-rank fleets, shape-only on the pair dicts.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -38,17 +39,31 @@ class LoRAConfig:
         return self.alpha / self.rank
 
 
+# leaves of more values than this draw slice by slice along their leading
+# axes, so the fp32 transient stays near 4 GB (a stacked expert bank of
+# deepseek-v2-236b is 5.0e9 values: 20 GB in fp32 for a 10 GB bf16 leaf)
+_DRAW_WHOLE = 1 << 30
+
+
 def _normal(gen: torch.Generator, shape: tuple, std: float,
             dtype: torch.dtype, device) -> torch.Tensor:
     """N(0, std²) drawn in fp32 on the generator's device (a CUDA
     generator draws a full-width model on the card), then moved to
-    ``device`` in ``dtype``. On the ``meta`` device nothing is drawn:
-    the tensor has the shape and dtype only."""
+    ``device`` in ``dtype``. A leaf of more than ``_DRAW_WHOLE`` values
+    is drawn one slice of its last two axes at a time, in order. On the
+    ``meta`` device nothing is drawn: the tensor has the shape and dtype
+    only."""
     if torch.device(device).type == "meta":
         return torch.empty(shape, dtype=dtype, device="meta")
-    x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device) * std
-    return x.to(device=device, dtype=dtype)
+    if math.prod(shape) <= _DRAW_WHOLE or len(shape) < 3:
+        x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device) * std
+        return x.to(device=device, dtype=dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for sl in out.view(-1, *shape[-2:]):
+        sl.copy_(torch.randn(shape[-2:], generator=gen, dtype=torch.float32,
+                             device=gen.device) * std)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Attention blocks: GQA with its sliding-window variant (DeepSeek-style
-MLA is declared for the configs; its functions are ROADMAP A9b).
-Projections are FLoCoRA mixed-mode linears.
+"""Attention blocks: GQA with its sliding-window variant, and
+DeepSeek-V2's multi-head latent attention (MLA). Projections are FLoCoRA
+mixed-mode linears.
 
 Head padding: where a config sets ``pad_heads_to`` (gemma3-4b's 8 query
 heads padded to 16, minitron-4b's 24 to 32), the extra query heads are
@@ -11,6 +11,7 @@ never padded (the GQA repeat covers them).
 Caches:
   GQA full:  {'k','v': (B, Smax, Hkv, Dh)}                      (global)
   GQA ring:  same shapes with Smax == window (ring buffer)      (local)
+  MLA:       {'ckv': (B, Smax, kv_lora), 'kr': (B, Smax, rope)} (latent)
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.lora import LoRAConfig, linear_apply, linear_init
+from repro_torch.core.lora import LoRAConfig, frozen_weight, \
+    linear_apply, linear_init
 from repro_torch.models import layers as L
 from repro_torch.utils.device import resolve_device
 
@@ -158,7 +160,7 @@ def gqa_decode(fz: dict, tr: dict, spec: GQASpec, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MLA (DeepSeek-V2): the spec only; mla_init/apply/decode are ROADMAP A9b
+# MLA (DeepSeek-V2)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -174,3 +176,129 @@ class MLASpec:
     @property
     def qk_dim(self) -> int:
         return self.qk_nope_dim + self.qk_rope_dim
+
+
+def mla_init(gen: torch.Generator, spec: MLASpec, mode: str,
+             lora: LoRAConfig, stack: tuple[int, ...] = (),
+             device="cuda") -> tuple[dict, dict]:
+    """The six linears (drawn in the JAX package's order) and the two
+    latent norms."""
+    dev = resolve_device(device)
+    h = spec.n_heads
+    parts = {
+        "q_a": (spec.d_model, spec.q_lora_rank),
+        "q_b": (spec.q_lora_rank, h * spec.qk_dim),
+        "kv_a": (spec.d_model, spec.kv_lora_rank + spec.qk_rope_dim),
+        "k_b": (spec.kv_lora_rank, h * spec.qk_nope_dim),
+        "v_b": (spec.kv_lora_rank, h * spec.v_head_dim),
+        "wo": (h * spec.v_head_dim, spec.d_model),
+    }
+    fz, tr = {}, {}
+    for nm, dims in parts.items():
+        f, t = linear_init(gen, *dims, mode, lora, stack, device=dev)
+        if f:
+            fz[nm] = f
+        if t:
+            tr[nm] = t
+    tr["q_a_norm"] = L.rmsnorm_init(spec.q_lora_rank, stack, dev)
+    tr["kv_a_norm"] = L.rmsnorm_init(spec.kv_lora_rank, stack, dev)
+    return fz, tr
+
+
+def _mla_q(fz, tr, spec: MLASpec, x: torch.Tensor, lora_scale: float,
+           rope) -> tuple[torch.Tensor, torch.Tensor]:
+    b, s, _ = x.shape
+    qa = linear_apply(fz.get("q_a", {}), tr.get("q_a", {}), x, lora_scale)
+    qa = L.rmsnorm_apply(tr["q_a_norm"], qa)
+    q = linear_apply(fz.get("q_b", {}), tr.get("q_b", {}), qa, lora_scale)
+    q = q.reshape(b, s, spec.n_heads, spec.qk_dim)
+    q_nope = q[..., : spec.qk_nope_dim]
+    q_rope = L.apply_rope(q[..., spec.qk_nope_dim:], *rope)
+    return q_nope, q_rope
+
+
+def _mla_latent(fz, tr, spec: MLASpec, x: torch.Tensor, lora_scale: float,
+                rope) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ckv (B, S, kv_lora), kr (B, S, rope)): the normed latent and the
+    one rope key head every query head shares."""
+    kv = linear_apply(fz.get("kv_a", {}), tr.get("kv_a", {}), x, lora_scale)
+    ckv = L.rmsnorm_apply(tr["kv_a_norm"], kv[..., : spec.kv_lora_rank])
+    kr = L.apply_rope(kv[..., spec.kv_lora_rank:][:, :, None, :], *rope)
+    return ckv, kr[:, :, 0]
+
+
+def mla_apply(fz: dict, tr: dict, spec: MLASpec, x: torch.Tensor,
+              lora_scale: float, rope, *,
+              kv_chunk: int = 1024) -> torch.Tensor:
+    """Training / prefill: per-head K and V materialized from the latent
+    (q/k width ``qk_dim``, v width ``v_head_dim``). Returns (B, S, d)."""
+    b, s, _ = x.shape
+    h = spec.n_heads
+    q_nope, q_rope = _mla_q(fz, tr, spec, x, lora_scale, rope)
+    ckv, kr = _mla_latent(fz, tr, spec, x, lora_scale, rope)
+    k_nope = linear_apply(fz.get("k_b", {}), tr.get("k_b", {}), ckv,
+                          lora_scale).reshape(b, s, h, spec.qk_nope_dim)
+    v = linear_apply(fz.get("v_b", {}), tr.get("v_b", {}), ckv,
+                     lora_scale).reshape(b, s, h, spec.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, kr[:, :, None].expand(b, s, h, spec.qk_rope_dim)],
+                  dim=-1)
+    o = L.attention_chunked(q, k, v, causal=True, kv_chunk=kv_chunk,
+                            scale=spec.qk_dim ** -0.5)
+    o = o.reshape(b, s, h * spec.v_head_dim)
+    return linear_apply(fz.get("wo", {}), tr.get("wo", {}), o, lora_scale)
+
+
+def mla_cache_init(spec: MLASpec, batch: int, max_seq: int,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device="cuda") -> dict:
+    dev = resolve_device(device)
+    return {"ckv": torch.zeros((batch, max_seq, spec.kv_lora_rank),
+                               dtype=dtype, device=dev),
+            "kr": torch.zeros((batch, max_seq, spec.qk_rope_dim),
+                              dtype=dtype, device=dev)}
+
+
+def _eff_weight(fz: dict, tr: dict, lora_scale: float) -> torch.Tensor:
+    """The merged weight of a mixed-mode linear, ``w + s·a@b`` in fp32
+    where it has an adapter: absorption needs the matrix, not its
+    action."""
+    w = tr["w"] if "w" in tr else frozen_weight(fz)
+    if "a" in tr:
+        w = w.to(torch.float32) + lora_scale * (
+            tr["a"].to(torch.float32) @ tr["b"].to(torch.float32))
+    return w
+
+
+def mla_decode(fz: dict, tr: dict, spec: MLASpec, x: torch.Tensor,
+               cache: dict, pos: int, lora_scale: float,
+               rope) -> tuple[torch.Tensor, dict]:
+    """Latent-cache decode with weight absorption (O(S·kv_lora) a head).
+    x: (B, 1, d); pos: the absolute position (an int). The new latent
+    lands in slot ``pos`` of ``cache``, IN PLACE. Returns (y, cache)."""
+    b = x.shape[0]
+    h = spec.n_heads
+    q_nope, q_rope = _mla_q(fz, tr, spec, x, lora_scale, rope)
+    ckv_new, kr_new = _mla_latent(fz, tr, spec, x, lora_scale, rope)
+    cache["ckv"][:, pos] = ckv_new[:, 0].to(cache["ckv"].dtype)
+    cache["kr"][:, pos] = kr_new[:, 0].to(cache["kr"].dtype)
+    ckv, kr = cache["ckv"], cache["kr"]
+    # absorb k_b into q: q_abs[b,h,c] = sum_d q_nope[b,h,d] * k_b[c,(h d)]
+    k_b = _eff_weight(fz.get("k_b", {}), tr.get("k_b", {}), lora_scale)
+    v_b = _eff_weight(fz.get("v_b", {}), tr.get("v_b", {}), lora_scale)
+    k_b = k_b.reshape(spec.kv_lora_rank, h, spec.qk_nope_dim)
+    v_b = v_b.reshape(spec.kv_lora_rank, h, spec.v_head_dim)
+    q_abs = torch.einsum("bhd,chd->bhc", q_nope[:, 0].to(torch.float32),
+                         k_b.to(torch.float32))
+    s_lat = L._einsum_f32("bhc,bsc->bhs", q_abs, ckv)
+    s_rope = L._einsum_f32("bhr,bsr->bhs", q_rope[:, 0], kr)
+    scores = (s_lat + s_rope) * spec.qk_dim ** -0.5
+    smax = ckv.shape[1]
+    mask = torch.arange(smax, device=x.device) <= pos
+    scores = torch.where(mask[None, None, :], scores, -torch.inf)
+    p = torch.softmax(scores, dim=-1)
+    ctx = L._einsum_f32("bhs,bsc->bhc", p, ckv)
+    o = torch.einsum("bhc,chd->bhd", ctx, v_b.to(torch.float32))
+    o = o.reshape(b, 1, h * spec.v_head_dim).to(x.dtype)
+    y = linear_apply(fz.get("wo", {}), tr.get("wo", {}), o, lora_scale)
+    return y, cache

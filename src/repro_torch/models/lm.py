@@ -1,5 +1,6 @@
-"""Decoder LM: the dense family of the JAX package's ``models/lm.py``
-(gemma3-4b, minitron-4b, qwen1.5-110b, nemotron-4-340b).
+"""Decoder LM: the JAX package's ``models/lm.py`` for the dense family
+(gemma3-4b, minitron-4b, qwen1.5-110b, nemotron-4-340b) and the MLA and
+MoE layers (deepseek-v2-236b, llama4-maverick-400b-a17b).
 
 Layer stacking mirrors the reference: the per-arch layer sequence
 resolves into groups, ``(pattern, repeats)`` pairs whose parameters are
@@ -13,12 +14,14 @@ Parameters: the embedding, the head's base and the layers' linears are
 frozen bf16; the adapters and the norms train in fp32. Serving is
 ``prefill`` (the prompt, building the KV caches) then ``decode_step``
 (one token); sliding-window layers keep a ring cache of ``window``
-slots, aligned at prefill so that token t sits in slot ``t % window``.
+slots, aligned at prefill so that token t sits in slot ``t % window``;
+MLA layers keep the latent cache and decode by weight absorption. A MoE
+layer adds its Switch aux loss to ``forward``'s second output.
 
-Not ported yet: MLA and MoE layers (ROADMAP A9b), Mamba-2 and the
-shared attention of zamba2 (A9c), the prefix-LM and the encoder-decoder
-(A9d). A config that needs one makes every function here raise
-``NotImplementedError`` naming the item.
+Not ported yet: Mamba-2 and the shared attention of zamba2 (ROADMAP
+A9c), the prefix-LM and the encoder-decoder (A9d). A config that needs
+one makes every function here raise ``NotImplementedError`` naming the
+item.
 """
 from __future__ import annotations
 
@@ -105,8 +108,6 @@ def _check(cfg: Any) -> None:
     ``cfg`` needs a part of the LM zoo the port lacks."""
     if isinstance(cfg, EncDecConfig):
         what = "the encoder-decoder model (ROADMAP A9d)"
-    elif cfg.attn_kind == "mla" or cfg.moe is not None:
-        what = "MLA attention and MoE layers (ROADMAP A9b)"
     elif cfg.mamba is not None or cfg.shared_attn_every \
             or cfg.attn_kind == "none":
         what = "Mamba-2 layers and shared attention (ROADMAP A9c)"
@@ -158,19 +159,31 @@ def _mlp_spec(cfg: LMConfig) -> L.MLPSpec:
     return L.MLPSpec(cfg.mlp_kind, cfg.d_model, cfg.d_ff)
 
 
-def _layer_init(gen: torch.Generator, cfg: LMConfig, stack: tuple[int, ...],
-                dev: torch.device) -> tuple[dict, dict]:
-    """One pattern position of a dense layer, stacked over ``stack``."""
+def _layer_init(gen: torch.Generator, cfg: LMConfig, spec: LayerSpec,
+                stack: tuple[int, ...], dev: torch.device
+                ) -> tuple[dict, dict]:
+    """One pattern position, stacked over ``stack``."""
     fz: dict = {}
     tr: dict = {"norm1": L.rmsnorm_init(cfg.d_model, stack, dev)}
-    fz["attn"], tr["attn"] = A.gqa_init(gen, cfg.gqa, "lora", cfg.lora,
-                                        stack, dev)
+    if spec.mixer == "gqa":
+        fz["attn"], tr["attn"] = A.gqa_init(gen, cfg.gqa, "lora", cfg.lora,
+                                            stack, dev)
+    elif spec.mixer == "mla":
+        fz["attn"], tr["attn"] = A.mla_init(gen, cfg.mla, "lora", cfg.lora,
+                                            stack, dev)
+    else:
+        raise ValueError(spec.mixer)
     tr["norm2"] = L.rmsnorm_init(cfg.d_model, stack, dev)
-    f, t = L.mlp_init(gen, _mlp_spec(cfg), "lora", cfg.lora, stack, dev)
+    if spec.ffn == "dense":
+        f, t = L.mlp_init(gen, _mlp_spec(cfg), "lora", cfg.lora, stack, dev)
+        key = "mlp"
+    else:
+        f, t = MOE.moe_init(gen, cfg.moe, "lora", cfg.lora, stack, dev)
+        key = "moe"
     if f:
-        fz["mlp"] = f
+        fz[key] = f
     if t:
-        tr["mlp"] = t
+        tr[key] = t
     return fz, tr
 
 
@@ -202,8 +215,8 @@ def init(gen, cfg: LMConfig, device="cuda") -> dict:
     frozen["groups"] = []
     train["groups"] = []
     for g in resolve_groups(cfg):
-        pairs = [_layer_init(gen, cfg, (g.repeats,), dev)
-                 for _ in g.pattern]
+        pairs = [_layer_init(gen, cfg, spec, (g.repeats,), dev)
+                 for spec in g.pattern]
         frozen["groups"].append([f for f, _ in pairs])
         train["groups"].append([t for _, t in pairs])
     return {"frozen": frozen, "train": train}
@@ -216,7 +229,8 @@ def init(gen, cfg: LMConfig, device="cuda") -> dict:
 def _rope_for(cfg: LMConfig, spec: LayerSpec, positions: torch.Tensor):
     base = cfg.rope_base_global if (spec.global_rope and
                                     cfg.rope_base_global) else cfg.rope_base
-    return L.rope_for_positions(positions, cfg.head_dim, base)
+    dim = cfg.mla.qk_rope_dim if spec.mixer == "mla" else cfg.head_dim
+    return L.rope_for_positions(positions, dim, base)
 
 
 def _at(tree: Any, i: int) -> Any:
@@ -234,20 +248,34 @@ def _layers(frozen: dict, train: dict, cfg: LMConfig):
                        _at(train["groups"][gi][pi], i))
 
 
-def _mlp_block(cfg: LMConfig, fz: dict, tr: dict,
-               x: torch.Tensor) -> torch.Tensor:
+def _ffn_block(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
+               x: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The norm, the dense MLP or the MoE, the residual: (x, the MoE's
+    aux loss, None for a dense layer)."""
     h = L.rmsnorm_apply(tr["norm2"], x)
-    return x + L.mlp_apply(fz.get("mlp", {}), tr.get("mlp", {}),
-                           _mlp_spec(cfg), h, cfg.lora.scale)
+    if spec.ffn == "dense":
+        h = L.mlp_apply(fz.get("mlp", {}), tr.get("mlp", {}),
+                        _mlp_spec(cfg), h, cfg.lora.scale)
+        aux = None
+    else:
+        h, aux = MOE.moe_apply(fz.get("moe", {}), tr.get("moe", {}),
+                               cfg.moe, h, cfg.lora.scale)
+    return x + h, aux
 
 
 def _apply_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
-                 x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+                 x: torch.Tensor, positions: torch.Tensor
+                 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = L.rmsnorm_apply(tr["norm1"], x)
-    h = A.gqa_apply(fz["attn"], tr["attn"], cfg.gqa, h, cfg.lora.scale,
-                    _rope_for(cfg, spec, positions), window=spec.window,
-                    causal=True, kv_chunk=cfg.kv_chunk)
-    return _mlp_block(cfg, fz, tr, x + h)
+    rope = _rope_for(cfg, spec, positions)
+    if spec.mixer == "mla":
+        h = A.mla_apply(fz["attn"], tr["attn"], cfg.mla, h, cfg.lora.scale,
+                        rope, kv_chunk=cfg.kv_chunk)
+    else:
+        h = A.gqa_apply(fz["attn"], tr["attn"], cfg.gqa, h, cfg.lora.scale,
+                        rope, window=spec.window, causal=True,
+                        kv_chunk=cfg.kv_chunk)
+    return _ffn_block(cfg, spec, fz, tr, x + h)
 
 
 def _embed_lookup(frozen: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -287,14 +315,17 @@ def forward(frozen: dict, train: dict, cfg: LMConfig, tokens,
     x = _embed(frozen, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, _, _, spec, fz, tr in _layers(frozen, train, cfg):
         if remat:
-            x = checkpoint(_apply_layer, cfg, spec, fz, tr, x, positions,
-                           use_reentrant=False)
+            x, a = checkpoint(_apply_layer, cfg, spec, fz, tr, x, positions,
+                              use_reentrant=False)
         else:
-            x = _apply_layer(cfg, spec, fz, tr, x, positions)
+            x, a = _apply_layer(cfg, spec, fz, tr, x, positions)
+        if a is not None:
+            aux = aux + a
     x = L.rmsnorm_apply(train["final_norm"], x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def loss_fn(frozen: dict, train: dict, cfg: LMConfig,
@@ -321,15 +352,19 @@ def loss_fn(frozen: dict, train: dict, cfg: LMConfig,
 def cache_init(cfg: LMConfig, batch: int, max_seq: int,
                device="cuda") -> list:
     """Stacked cache tree parallel to the groups: leaves (repeats, B,
-    Smax, Hkv, Dh) bf16."""
+    Smax, Hkv, Dh) bf16 for GQA, (repeats, B, Smax, kv_lora / rope) for
+    MLA's latent."""
     _check(cfg)
     dev = resolve_device(device)
     out = []
     for g in resolve_groups(cfg):
         pos_caches = []
         for spec in g.pattern:
-            c = A.gqa_cache_init(cfg.gqa, batch, max_seq, spec.window,
-                                 device="meta")
+            if spec.mixer == "mla":
+                c = A.mla_cache_init(cfg.mla, batch, max_seq, device="meta")
+            else:
+                c = A.gqa_cache_init(cfg.gqa, batch, max_seq, spec.window,
+                                     device="meta")
             pos_caches.append({k: torch.zeros((g.repeats, *v.shape),
                                               dtype=v.dtype, device=dev)
                                for k, v in c.items()})
@@ -362,8 +397,16 @@ def _prefill_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
     sc = cfg.lora.scale
     s = x.shape[1]
     h = L.rmsnorm_apply(tr["norm1"], x)
-    q, k, v = A._qkv(fz["attn"], tr["attn"], cfg.gqa, h, sc,
-                     _rope_for(cfg, spec, positions))
+    rope = _rope_for(cfg, spec, positions)
+    if spec.mixer == "mla":
+        ckv, kr = A._mla_latent(fz["attn"], tr["attn"], cfg.mla, h, sc, rope)
+        hw = max(0, max_seq - s)
+        cache = {"ckv": F.pad(ckv, (0, 0, 0, hw)).to(torch.bfloat16),
+                 "kr": F.pad(kr, (0, 0, 0, hw)).to(torch.bfloat16)}
+        x = x + A.mla_apply(fz["attn"], tr["attn"], cfg.mla, h, sc, rope,
+                            kv_chunk=cfg.kv_chunk)
+        return _ffn_block(cfg, spec, fz, tr, x)[0], cache
+    q, k, v = A._qkv(fz["attn"], tr["attn"], cfg.gqa, h, sc, rope)
     w = spec.window
     if w is not None and w < s:
         o = L.local_attention_blocked(q, k, v, window=w)
@@ -377,7 +420,7 @@ def _prefill_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
         vc = F.pad(v, (0, 0, 0, 0, 0, hw))
     cache = {"k": kc.to(torch.bfloat16), "v": vc.to(torch.bfloat16)}
     x = x + A._out(fz["attn"], tr["attn"], cfg.gqa, o, sc)
-    return _mlp_block(cfg, fz, tr, x), cache
+    return _ffn_block(cfg, spec, fz, tr, x)[0], cache
 
 
 def _head_logits(frozen: dict, train: dict, cfg: LMConfig,
@@ -410,7 +453,8 @@ def prefill(frozen: dict, train: dict, cfg: LMConfig, tokens,
 def decode_step(frozen: dict, train: dict, cfg: LMConfig, token,
                 caches: list, pos: int) -> tuple[torch.Tensor, list]:
     """token: (B, 1); pos: the absolute position of ``token`` (an int).
-    Writes the new k/v into ``caches`` in place and returns (logits
+    Writes the new k/v (an MLA layer: the new latent) into ``caches``
+    in place and returns (logits
     (B, 1, V) fp32, caches)."""
     _check(cfg)
     pos = int(pos)
@@ -420,9 +464,13 @@ def decode_step(frozen: dict, train: dict, cfg: LMConfig, token,
     for gi, i, pi, spec, fz, tr in _layers(frozen, train, cfg):
         cache = {k: v[i] for k, v in caches[gi][pi].items()}   # views
         h = L.rmsnorm_apply(tr["norm1"], x)
-        h, _ = A.gqa_decode(fz["attn"], tr["attn"], cfg.gqa, h, cache, pos,
-                            sc, _rope_for(cfg, spec, pos_b),
-                            window=spec.window)
-        x = _mlp_block(cfg, fz, tr, x + h)
+        rope = _rope_for(cfg, spec, pos_b)
+        if spec.mixer == "mla":
+            h, _ = A.mla_decode(fz["attn"], tr["attn"], cfg.mla, h, cache,
+                                pos, sc, rope)
+        else:
+            h, _ = A.gqa_decode(fz["attn"], tr["attn"], cfg.gqa, h, cache,
+                                pos, sc, rope, window=spec.window)
+        x = _ffn_block(cfg, spec, fz, tr, x + h)[0]
     x = L.rmsnorm_apply(train["final_norm"], x)
     return _head_logits(frozen, train, cfg, x), caches

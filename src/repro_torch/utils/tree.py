@@ -110,3 +110,41 @@ def tree_to(tree: Any, device) -> Any:
     """Every tensor leaf moved to ``device`` (numpy leaves become
     tensors)."""
     return tree_map(lambda x: torch.as_tensor(x).to(device), tree)
+
+
+def tree_map_with_path(fn: Callable[[str, Any], Any], tree: Any) -> Any:
+    """Map ``fn(name, leaf)`` over the tree, where name is 'a/b/c'."""
+    flat, treedef = tree_flatten_with_path(tree)
+    return tree_unflatten(treedef, [fn(_path_str(p), x) for p, x in flat])
+
+
+def tree_zeros_like(tree: Any) -> Any:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a: Any, b: Any) -> Any:
+    return tree_map(lambda x, y: x + y, a, b)
+
+
+def tree_sub(a: Any, b: Any) -> Any:
+    return tree_map(lambda x, y: x - y, a, b)
+
+
+def tree_scale(a: Any, s) -> Any:
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_weighted_sum(trees: list[Any], weights) -> Any:
+    """sum_i weights[i] * trees[i], leafwise. weights: 1-D array-like
+    (fp32 unless given as a tensor, as the JAX package takes them)."""
+    weights = torch.as_tensor(weights, dtype=weights.dtype
+                              if isinstance(weights, torch.Tensor)
+                              else torch.float32)
+
+    def _leafsum(*leaves):
+        stacked = torch.stack(leaves, dim=0)
+        w = weights.to(stacked.device).reshape(
+            (-1,) + (1,) * (stacked.ndim - 1))
+        return torch.sum(stacked * w.to(stacked.dtype), dim=0)
+
+    return tree_map(_leafsum, *trees)

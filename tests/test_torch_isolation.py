@@ -218,6 +218,26 @@ with obs.CompileWatchdog(0):
     lm.forward(p["frozen"], p["train"], cfg, toks)
 assert obs.run_meta()["backend"] == "cpu"
 """,
+    "lm_mla_moe": """
+import torch
+from repro_torch import utils
+from repro_torch.configs import registry, resnet_paper
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import lm
+for arch in ("deepseek-v2-236b", "llama4-maverick-400b-a17b"):
+    cfg = registry.get(arch).smoke()
+    p = lm.init(0, cfg, device="cpu")
+    loss, m = lm.loss_fn(p["frozen"], p["train"], cfg,
+                         {"tokens": [[1, 2, 3, 4, 5, 6]]})
+    assert float(m["aux"]) > 0
+    out = launch_serve.main(["--arch", arch, "--smoke", "--gen", "2",
+                             "--device", "cpu"])
+    assert out["tokens"].shape == (2, 2)
+t = {"a": torch.ones(2), "b": [torch.zeros(3)]}
+s = utils.tree_weighted_sum([t, utils.tree_scale(t, 2.0)], [0.5, 0.25])
+assert float(s["a"][0]) == 1.0
+assert resnet_paper.resnet18(rank=64).lora.alpha == 1024.0
+""",
 }
 
 
@@ -227,9 +247,10 @@ def test_slice_modules_run_without_jax_or_reference(use, tmp_path):
     the EF uplink, the sparse wire, DP uplinks, the mixed-rank
     aggregators, the optimizers and schedules, the local-training
     engines, the async engine over a lazy fleet (with the sync server's
-    deadline cohorts and FedBuff), and the LM's serving, its launch
-    entry points and the telemetry run (on the CPU) with jax and repro
-    unimportable."""
+    deadline cohorts and FedBuff), the LM's serving, its launch entry
+    points and the telemetry, and the MLA and MoE archs with the tree
+    algebra and the paper's ResNet configs run (on the CPU) with jax and
+    repro unimportable."""
     out = _run(_USE_WITHOUT_JAX.format(src=str(ROOT / "src"),
                                        body=_USES[use]), tmp_path)
     assert out.returncode == 0, out.stderr

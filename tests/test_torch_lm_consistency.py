@@ -1,5 +1,5 @@
 """The port's LM against the JAX package's on tests/test_consistency.py's
-GQA, padded-head and sliding-window-ring configs: the checks of
+GQA, padded-head, sliding-window-ring and MLA configs: the checks of
 tests/test_torch_lm.py (whose module docstring states the tolerances),
 the head's logits, and the reference behaviour at a prompt shorter than
 the window."""
