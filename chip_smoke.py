@@ -141,7 +141,27 @@ Phases, each of which raises on failure (the script then exits nonzero):
      (equal) and output, ``mla_apply`` and ``mla_decode``, and the
      logits over 1 x 64 tokens (the CPU on the card's routes), each
      within ``LM_CARD_CPU_REL`` of its max. It frees the models before
-     phase 5;
+     phase 4d;
+ 4d. drive the Mamba-2 archs at their published widths AND depths, which
+     launch none of the six kernels (the launch counts are read around
+     the phase and must not move): mamba2-370m (48 Mamba-2 layers) and
+     zamba2-2.7b (54 Mamba-2 layers and 9 invocations of one shared GQA
+     block), random weights from seed 0, each through ``LM.init`` (its
+     frozen and trained value counts checked) and ``serve.generate`` at
+     batch 2 (a 2,048-token prompt and 32 new tokens, twice, equal; a
+     16-token prompt and 16), the decode logits held to the
+     teacher-forced forward within ``LM_CONSIST_REL`` of max|logit|, a
+     2,050-token prompt refused with ValueError, one prefill and one
+     decode step profiled, one adapter backward at 1 x 4,096 cold and
+     warm (finite loss; every trained leaf's gradient, and every stacked
+     layer's slice of it, finite and nonzero; none on the frozen tree),
+     with the times against their bounds (``ssm_bounds``) and the peak
+     memory; then the SSD at mamba2's layer width (``mamba_forward``
+     over 2 x 768 tokens against 768 ``mamba_decode`` steps, and the
+     final states, within ``LM_SSD_REL``), and zamba2's width at depth 6
+     from one tree on the card and the CPU (logits over 1 x 512, every
+     prefill cache leaf, 4 decode steps, within ``LM_SSM_CARD_CPU_REL``
+     of each one's max). It frees the models before phase 5;
   5. time each kernel with CUDA events at its path's shapes beside its
      plain version and its bound (B1 and B2, and the ``flat_rows``
      staging before B1, at ResNet-8's and ResNet-18's layouts;
@@ -329,6 +349,44 @@ ROUTE_TIE = LM_CONSIST_REL
 # MoE layer's moe_apply and one MLA layer's mla_apply / mla_decode on
 # the same bf16 input, and the whole model's logits, over 1 x 64 tokens
 LM_MOE_CPU = dict(arch="deepseek-v2-236b", n_layers=1, tokens=64)
+# the Mamba-2 archs at their published configs, uncut (src/repro/configs/
+# mamba2_370m.py and zamba2_2p7b.py full()): mamba2-370m's 48 Mamba-2
+# layers, zamba2-2.7b's 54 and 9 invocations of its one shared GQA
+# block; random weights from seed 0. generate at batch 2, a 2,048-token
+# prompt (8 chunks of 256) and 32 new tokens, twice, and a 16-token
+# prompt (one chunk of 16) and 16; a 2,050-token prompt (past the chunk,
+# not a multiple) must raise; one adapter backward at 1 x 4,096 tokens
+# (the registry's train_4k length).
+LM_SSM = dict(archs=("mamba2-370m", "zamba2-2.7b"), batch=2, prompt=2048,
+              gen=32, short_prompt=16, short_gen=16, bad_prompt=2050,
+              train_seq=4096, seed=0)
+# (frozen bf16, trained fp32) values of each at its published config
+LM_SSM_VALUES = {"mamba2-370m": (404_963_328, 30_659_328),
+                 "zamba2-2.7b": (2_785_280_000, 84_837_280)}
+# the SSD at mamba2-370m's layer width (d 1,024, 32 heads of 64, state
+# 128, chunk 256): mamba_apply over 2 x 768 tokens (3 chunks) against 768
+# mamba_decode steps from an empty cache, and the prefill's final states
+# against the recurrence's, as a share of each one's max. The two paths
+# sum in other orders (the chunk's bf16 product and fp32 states against
+# the step's fp32 state update) and the outputs are bf16: measured on the
+# CPU at this width and these inputs, outputs within 0.45% of max|y|
+# (one bf16 ulp at its max of 7.0), the SSM state within 1.6e-6 of its
+# max, the conv state equal.
+LM_SSD = dict(arch="mamba2-370m", batch=2, tokens=768, seed=4)
+LM_SSD_REL = 2e-2
+# zamba2-2.7b's width at depth 6 (one group: the shared block and 6
+# Mamba layers), card against CPU from one tree: the logits over 1 x 512
+# tokens (2 chunks), the prefill caches and 4 decode steps, as a share of
+# each one's max. This model is more sensitive to summation order than
+# gemma3-4b's depth 6 (LM_CARD_CPU_REL): each layer's output parts card
+# against CPU by 0.83-1.06% of its max (one bf16 ulp or two), the logits
+# by 2.02%, and the model against ITSELF by 1.41% on the card (batch 1
+# against a row of batch 2: other GEMM tiles) (scripts/chip_repeats.py
+# ssm-noise); the prefill's SSM states part card against CPU by up to
+# 3.4% of their max, the conv inputs 1.8%, the decode steps 2.0%. The
+# phase holds each to 4e-2, twice the logits' card-vs-CPU measurement.
+LM_SSM_CPU = dict(arch="zamba2-2.7b", n_layers=6, tokens=512, steps=4)
+LM_SSM_CARD_CPU_REL = 4e-2
 
 
 def _card_line() -> str:
@@ -3922,6 +3980,380 @@ def lm_moe_phase(dev, card: str) -> dict:
     return out
 
 
+def ssm_bounds(cfg, params, batch: int, prompt: int, gen: int) -> dict:
+    """The least times of this run's prefill and decode step, as
+    ``lm_bounds`` counts them, with the SSD's own products. Prefill:
+    every linear over the prompt tokens (the shared block's at each of
+    its invocations), the head for the last tokens, the shared
+    attention's causal half in bf16, and the chunked SSD as the code
+    computes it: C·Bᵀ within a chunk and the intra-chunk product in bf16
+    (bf16 operands), the chunk states and their readout in fp32 (67
+    TFLOP/s; the two rates' times add); the weights read once, the
+    prompt's embedding rows read and the caches written once. A decode
+    step: every weight but the embedding read once, the Mamba states read
+    and written, the KV caches read."""
+    from repro_torch.models import lm as LM
+    from repro_torch.utils.tree import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    def numel(tree):
+        return sum(t.numel() for t in tree_leaves(tree))
+
+    frozen, train = params["frozen"], params["train"]
+    specs = [(g.repeats, spec) for g in LM.resolve_groups(cfg)
+             for spec in g.pattern]
+    n_mamba = sum(r for r, spec in specs if spec.mixer == "mamba")
+    n_shared = sum(r for r, spec in specs if spec.mixer == "shared_gqa")
+    layer_w = numel(frozen["groups"]) \
+        + n_shared * numel(frozen.get("shared_attn", {}))
+    head_w = numel(frozen["head"])
+    t = batch * prompt
+    m = cfg.mamba
+    lc = min(m.chunk, prompt)
+    nc = -(-prompt // lc)
+    ssd_bf16 = n_mamba * 2.0 * batch * nc * lc * lc * (
+        m.n_groups * m.d_state + m.n_heads * m.head_dim)
+    ssd_f32 = n_mamba * 2.0 * batch * nc * lc * 2 * m.n_heads \
+        * m.head_dim * m.d_state
+    attn = n_shared * 4.0 * batch * cfg.n_heads * cfg.head_dim * prompt \
+        * prompt / 2
+    pf_flops = 2.0 * t * (layer_w + numel(train)) + 2.0 * batch * head_w \
+        + attn + ssd_bf16 + ssd_f32 * BF16_FLOPS / FP32_FLOPS
+    weights = nbytes(frozen) - nbytes(frozen["embed"]) + nbytes(train)
+    caches = LM.cache_init(cfg, batch, prompt + gen, device="meta")
+    cache_bytes = nbytes(caches)
+    state_bytes = sum(nbytes(c) for grp, g in zip(caches,
+                                                  LM.resolve_groups(cfg))
+                      for c, spec in zip(grp, g.pattern)
+                      if spec.mixer == "mamba")
+    pf_bytes = weights + t * cfg.d_model * 2 + cache_bytes
+    dec_bytes = weights + cache_bytes + state_bytes
+    dec_flops = 2.0 * batch * (layer_w + head_w + numel(train))
+    return {"prefill": _bound_ms(pf_bytes, pf_flops, BF16_FLOPS),
+            "decode": _bound_ms(dec_bytes, dec_flops, BF16_FLOPS),
+            "prefill_tflop": pf_flops / 1e12,
+            "ssd_tflop": (ssd_bf16 + ssd_f32) / 1e12,
+            "decode_gb": dec_bytes / 1e9}
+
+
+def _stack_slices_bad(names, leaves) -> list:
+    """Names of trained leaves whose gradient is missing, non-finite or
+    zero; a stacked group leaf is judged layer by layer."""
+    import torch
+    bad = []
+    for n, t in zip(names, leaves):
+        g = t.grad
+        if g is None or not bool(torch.isfinite(g).all()):
+            bad.append(f"{n} (missing or non-finite)")
+            continue
+        per = g.reshape(g.shape[0], -1) if n.startswith("groups/") \
+            else g.reshape(1, -1)
+        if bool((per.abs().amax(dim=1) == 0).any()):
+            bad.append(f"{n} (zero)")
+    return bad
+
+
+def lm_ssm_arch(arch: str, dev) -> dict:
+    """One Mamba-2 arch at its published config: init from a seeded CUDA
+    generator, ``generate`` twice (equal tokens), the greedy tokens the
+    argmax of a prefill/decode replay, the replay against the teacher-
+    forced forward, a short prompt, the over-long prompt's ValueError,
+    one prefill and one decode step profiled, one adapter backward cold
+    and warm; times beside their bounds, the peak memory. Frees the
+    model."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm as LM
+    from repro_torch.serve import generate
+    from repro_torch.utils.tree import flatten_with_names, tree_flatten, \
+        tree_leaves, tree_unflatten
+
+    c = LM_SSM
+    cfg = registry.get(arch).full()
+    _free_cuda()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = LM.init(torch.Generator(device=dev).manual_seed(c["seed"]), cfg,
+                     device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    frozen, train = params["frozen"], params["train"]
+    counts = (sum(t.numel() for t in tree_leaves(frozen)),
+              sum(t.numel() for t in tree_leaves(train)))
+    if counts != LM_SSM_VALUES[arch] or any(
+            t.dtype != torch.bfloat16 for t in tree_leaves(frozen)) or any(
+            t.dtype != torch.float32 for t in tree_leaves(train)):
+        raise AssertionError(f"{arch} trees: {counts} values")
+    bounds = ssm_bounds(cfg, params, c["batch"], c["prompt"], c["gen"])
+    rng = np.random.default_rng(c["seed"])
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (c["batch"], c["prompt"]))).to(dev)
+    (toks0, cold), (toks, timing) = (
+        generate(frozen, train, cfg, prompt, c["gen"], device=dev)
+        for _ in range(2))
+    same = bool(torch.equal(toks0, toks))
+    logits = _serve_logits(LM, frozen, train, cfg, prompt, toks)
+    if not same or not torch.equal(torch.argmax(logits, -1).to(torch.int32),
+                                   toks):
+        raise AssertionError(f"{arch}: generate repeated {same}, greedy "
+                             "tokens not the argmax of the replay")
+    with torch.no_grad():
+        seq = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], dim=1)
+        h, _ = LM.forward(frozen, train, cfg, seq)
+        fwd = LM._head_logits(frozen, train, cfg, h[:, c["prompt"] - 1:])
+        del h
+    scale = float(fwd.abs().max())
+    err = float((logits - fwd).abs().max())
+    agree = float((torch.argmax(fwd, -1).to(torch.int32) == toks)
+                  .float().mean())
+    if not (math.isfinite(err) and err <= LM_CONSIST_REL * scale):
+        raise AssertionError(f"{arch} decode vs forward logits: max err "
+                             f"{err} > {LM_CONSIST_REL} x {scale}")
+    del logits, fwd
+    short = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (c["batch"], c["short_prompt"]))).to(dev)
+    stoks, stiming = generate(frozen, train, cfg, short, c["short_gen"],
+                              device=dev)
+    if stoks.shape != (c["batch"], c["short_gen"]) or \
+            int(stoks.min()) < 0 or int(stoks.max()) >= cfg.vocab:
+        raise AssertionError(f"{arch} short generate gave {stoks.shape}")
+    bad_prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, c["bad_prompt"]))).to(dev)
+    try:
+        generate(frozen, train, cfg, bad_prompt, 2, device=dev)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"{arch}: a {c['bad_prompt']}-token prompt "
+                             "did not raise")
+    with torch.no_grad():
+        def prefill():
+            return LM.prefill(frozen, train, cfg, prompt,
+                              max_seq=c["prompt"] + c["gen"])
+        lp, caches, pos = prefill()
+        tok = torch.argmax(lp, -1)[:, None]
+        LM.decode_step(frozen, train, cfg, tok, caches, pos)
+        profile_call(prefill, f"{arch} prefill {c['batch']} x "
+                     f"{c['prompt']}", top=8)
+        profile_call(lambda: LM.decode_step(frozen, train, cfg, tok, caches,
+                                            pos + 1),
+                     f"{arch} decode step", top=8)
+        del lp, caches
+    serve_peak = torch.cuda.max_memory_allocated()
+    # one adapter backward at 1 x 4,096 tokens, cold then warm
+    moved = _move_b(train, 1, dev)
+    names = [n for n, _ in flatten_with_names(moved)]
+    leaves, treedef = tree_flatten(moved)
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    tr = tree_unflatten(treedef, leaves)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, c["train_seq"] + 1))).to(dev)}
+    train_s = []
+    for _ in range(2):
+        for t in leaves:
+            t.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = LM.loss_fn(frozen, tr, cfg, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        train_s.append(time.perf_counter() - t0)
+    bad = _stack_slices_bad(names, leaves)
+    if not math.isfinite(float(loss.detach())) or bad:
+        raise AssertionError(f"{arch} backward: loss {float(loss.detach())}"
+                             f", {len(bad)} bad grads {bad[:8]}")
+    if any(t.requires_grad or t.grad is not None
+           for t in tree_leaves(frozen)):
+        raise AssertionError(f"a frozen {arch} leaf took a gradient")
+    peak = torch.cuda.max_memory_allocated()
+    out = {"init_s": init_s, "prefill_s": timing["prefill_s"],
+           "prefill_cold_s": cold["prefill_s"],
+           "decode_ms": 1e3 * timing["decode_s"] / timing["decode_steps"],
+           "decode_cold_ms": 1e3 * cold["decode_s"] / cold["decode_steps"],
+           "short_prefill_s": stiming["prefill_s"],
+           "short_decode_ms": 1e3 * stiming["decode_s"]
+           / stiming["decode_steps"],
+           "train_s": train_s, "loss": float(loss.detach()), "err": err,
+           "scale": scale, "agree": agree, "refused": refused,
+           "bounds": bounds, "peak_gb": (peak - base_mem) / 1e9,
+           "serve_peak_gb": (serve_peak - base_mem) / 1e9,
+           "frozen_gb": 2 * counts[0] / 1e9, "trained": len(leaves),
+           "n_layers": cfg.n_layers}
+    del params, frozen, train, moved, leaves, tr, loss
+    _free_cuda()
+    return out
+
+
+def lm_ssd_check(dev) -> dict:
+    """The SSD at mamba2-370m's layer width on ``dev``: one layer drawn
+    from a seeded generator (adapters moved off init), ``mamba_forward``
+    over ``LM_SSD``'s tokens against as many ``mamba_decode`` steps from
+    an empty cache, and the forward's final states against the
+    recurrence's. Returns each as (max err, max) and the seconds."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import ssm as SSM
+
+    c = LM_SSD
+    cfg = registry.get(c["arch"]).full()
+    spec = cfg.mamba
+    gen = torch.Generator(device=dev).manual_seed(c["seed"])
+    fz, tr = SSM.mamba_init(gen, spec, "lora", cfg.lora, device=dev)
+    tr = _move_b(tr, c["seed"], dev)
+    x = torch.randn((c["batch"], c["tokens"], spec.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    sc = cfg.lora.scale
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y, final = SSM.mamba_forward(fz, tr, spec, x, sc, final_state=True)
+        cache = SSM.mamba_cache_init(spec, c["batch"], device=dev)
+        ys = []
+        for t in range(c["tokens"]):
+            yt, cache = SSM.mamba_decode(fz, tr, spec, x[:, t:t + 1], cache,
+                                         sc)
+            ys.append(yt)
+        y_seq = torch.cat(ys, dim=1)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out = {"seconds": time.perf_counter() - t0}
+    for what, a, b in (("y", y, y_seq), ("ssm", final["ssm"], cache["ssm"]),
+                       ("conv", final["conv"], cache["conv"])):
+        a, b = a.float().cpu(), b.float().cpu()
+        out[what] = (float((a - b).abs().max()), float(b.abs().max()))
+        if not (math.isfinite(out[what][0])
+                and out[what][0] <= LM_SSD_REL * out[what][1]):
+            raise AssertionError(f"SSD vs recurrence {what}: {out[what]}")
+    return out
+
+
+def lm_ssm_card_cpu(dev) -> dict:
+    """zamba2-2.7b's width at depth 6 on the card and on the CPU from one
+    tree (drawn on the card, adapters moved off init, copied): the
+    logits over 1 x 512 tokens, every prefill cache leaf and 4 decode
+    steps, each within ``LM_SSM_CARD_CPU_REL`` of its max."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm as LM
+    from repro_torch.utils.tree import flatten_with_names, tree_to
+
+    c = LM_SSM_CPU
+    cfg = dataclasses.replace(registry.get(c["arch"]).full(),
+                              n_layers=c["n_layers"])
+    params = LM.init(torch.Generator(device=dev).manual_seed(1), cfg,
+                     device=dev)
+    frozen, train = params["frozen"], _move_b(params["train"], 2, dev)
+    fz_cpu, tr_cpu = tree_to(frozen, "cpu"), tree_to(train, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (1, c["tokens"] + c["steps"])))
+    t0 = time.perf_counter()
+    res = []
+    for fz, tr, d in ((frozen, train, dev), (fz_cpu, tr_cpu, "cpu")):
+        tk = toks.to(d)
+        with torch.no_grad():
+            h, _ = LM.forward(fz, tr, cfg, tk[:, :c["tokens"]])
+            lg = LM._head_logits(fz, tr, cfg, h).cpu()
+            _, caches, pos = LM.prefill(fz, tr, cfg, tk[:, :c["tokens"]],
+                                        max_seq=c["tokens"] + c["steps"])
+            pre = {n: t.to("cpu", torch.float32, copy=True)
+                   for n, t in flatten_with_names(caches)}
+            steps = []
+            for i in range(c["steps"]):
+                ld, caches = LM.decode_step(
+                    fz, tr, cfg, tk[:, c["tokens"] + i:c["tokens"] + i + 1],
+                    caches, pos + i)
+                steps.append(ld.cpu())
+        res.append((lg, pre, torch.cat(steps, dim=1)))
+    cpu_s = time.perf_counter() - t0
+    (lg, pre, st), (lg_c, pre_c, st_c) = res
+    out = {"cpu_s": cpu_s, "logits": (float((lg - lg_c).abs().max()),
+                                      float(lg_c.abs().max())),
+           "decode": (float((st - st_c).abs().max()),
+                      float(st_c.abs().max()))}
+    for n in pre_c:
+        out[f"cache {n}"] = (float((pre[n] - pre_c[n]).abs().max()),
+                             float(pre_c[n].abs().max()))
+    del params, frozen, train, fz_cpu, tr_cpu
+    _free_cuda()
+    out["failed"] = [
+        what for what, (err, scale) in list(out.items())[1:]
+        if not (math.isfinite(err) and err <= LM_SSM_CARD_CPU_REL * scale)]
+    return out
+
+
+def lm_ssm_phase(dev, card: str) -> dict:
+    """Phase 4d: mamba2-370m and zamba2-2.7b at their published widths
+    and depths, the SSD at mamba2's layer width against its recurrence,
+    and zamba2's width at depth 6 card against CPU. Launches none of the
+    six kernels (the reference computes the SSD with einsums, a cumsum
+    and a scan outside any Pallas kernel): the counts are read around
+    the phase and must not move."""
+    from repro_torch.kernels import ops as kops
+    before = kops.launch_counts()
+    out = {}
+    for arch in LM_SSM["archs"]:
+        t0 = time.perf_counter()
+        r = lm_ssm_arch(arch, dev)
+        out[arch] = r
+        b = r["bounds"]
+        print(f"lm {arch} published width and depth ({r['n_layers']} "
+              f"layers; {card}): frozen {r['frozen_gb']:.2f} GB bf16, init "
+              f"{r['init_s']:.2f} s; prefill {LM_SSM['batch']} x "
+              f"{LM_SSM['prompt']} {1e3 * r['prefill_s']:.1f} ms warm / "
+              f"{1e3 * r['prefill_cold_s']:.1f} cold (bound "
+              f"{b['prefill'][0]:.2f} ms by {b['prefill'][1]}, "
+              f"{b['prefill_tflop']:.2f} TFLOP bf16-equivalent, the SSD "
+              f"{b['ssd_tflop']:.3f} TFLOP); decode {r['decode_ms']:.3f} ms "
+              f"a step warm / {r['decode_cold_ms']:.3f} cold over "
+              f"{LM_SSM['gen'] - 1} steps (bound {b['decode'][0]:.3f} ms by "
+              f"{b['decode'][1]}, {b['decode_gb']:.3f} GB); "
+              f"{LM_SSM['short_prompt']}-token prompt: prefill "
+              f"{1e3 * r['short_prefill_s']:.1f} ms, decode "
+              f"{r['short_decode_ms']:.3f} ms a step; loss+backward 1 x "
+              f"{LM_SSM['train_seq']} {1e3 * r['train_s'][1]:.1f} ms warm / "
+              f"{1e3 * r['train_s'][0]:.1f} cold (loss {r['loss']:.4f}, "
+              f"{r['trained']} trained leaves, every one and every "
+              f"stacked layer's slice finite and nonzero); peak memory "
+              f"{r['peak_gb']:.2f} GB ({r['serve_peak_gb']:.2f} serving); "
+              f"decode vs forward max err {r['err']:.4g} of max|logit| "
+              f"{r['scale']:.4g} (tolerance {LM_CONSIST_REL}), argmax "
+              f"agreement {r['agree']:.4f}; repeat generate equal; "
+              f"{LM_SSM['bad_prompt']}-token prompt refused "
+              f"({r['refused'][:60]}...); {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ssd = lm_ssd_check(dev)
+    out["ssd"] = ssd
+    print(f"lm SSD at mamba2-370m's layer width ({card}): mamba_forward "
+          f"over {LM_SSD['batch']} x {LM_SSD['tokens']} vs "
+          f"{LM_SSD['tokens']} mamba_decode steps: outputs "
+          f"{ssd['y'][0]:.4g} of {ssd['y'][1]:.4g}, final SSM state "
+          f"{ssd['ssm'][0]:.4g} of {ssd['ssm'][1]:.4g}, conv state "
+          f"{ssd['conv'][0]:.4g} of {ssd['conv'][1]:.4g} (tolerance "
+          f"{LM_SSD_REL}); {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cc = lm_ssm_card_cpu(dev)
+    out["card_cpu"] = cc
+    print(f"lm zamba2-2.7b width depth 6, card vs CPU ({card}): " + "; ".join(
+        f"{k} {v[0]:.4g} of {v[1]:.4g}" for k, v in cc.items()
+        if k not in ("cpu_s", "failed")) + f" (tolerance "
+          f"{LM_SSM_CARD_CPU_REL}); CPU side {cc['cpu_s']:.1f} s; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if cc["failed"]:
+        raise AssertionError(f"zamba2 depth 6 card vs CPU past "
+                             f"{LM_SSM_CARD_CPU_REL}: {cc['failed']}")
+    after = kops.launch_counts()
+    if after != before:
+        raise AssertionError(f"phase 4d launched kernels: {before} -> "
+                             f"{after}")
+    print(f"phase 4d kernel launches: {after == before} (0 of each)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4102,6 +4534,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     lm_moe_phase(dev, card)
     print(f"lm moe phase: {time.perf_counter() - t0:.1f} s")
+
+    # 4d. the Mamba-2 archs at their published widths and depths --------
+    t0 = time.perf_counter()
+    lm_ssm_phase(dev, card)
+    print(f"lm ssm phase: {time.perf_counter() - t0:.1f} s")
 
     # 5. times at the paths' shapes ---------------------------------------
     t_flat = time_flat_kernels(update, k, dev, "resnet8")

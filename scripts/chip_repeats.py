@@ -3,6 +3,7 @@ cannot give.
 
     python3 scripts/chip_repeats.py cohort N [--deterministic]
     python3 scripts/chip_repeats.py lm-decode
+    python3 scripts/chip_repeats.py ssm-noise
 
 ``cohort``: tests/test_torch_cuda.py's vmapped cohort engine against
 ``make_local_trainer`` (ResNet-8 r=8, K=3, 16x16 images), N times in one
@@ -14,6 +15,16 @@ engine. ``--deterministic`` runs cuDNN's deterministic algorithms.
 ``lm-decode``: ``chip_smoke.lm_full_phase`` once (gemma3-4b at its full
 size) and its prefill and decode times, to set two trees side by side
 in one call (parent, change, change, parent).
+
+``ssm-noise``: how far the Mamba-2 archs part from themselves under
+another summation order, beside what ``chip_smoke.py`` phase 4d holds:
+zamba2-2.7b's width at depth 6 (seed 1, adapters moved off init), each
+layer's output card against CPU on one bf16 input (1 x 512), the logits
+card against CPU, card against card (batch 1 against a row of batch 2)
+and CPU against CPU (8 threads against 1); then the decode logits
+against the teacher-forced forward (2 x 2,048 + 32, seed 0) at cut
+depths of mamba2-370m (12, 24, 48) and zamba2-2.7b (18, 36, 54), the
+whole run and steps 1, 15 and 31.
 
 Run from the root of a checkout, on a machine with a CUDA device.
 """
@@ -87,6 +98,80 @@ def lm_decode() -> None:
           f"cold, 16-token prompt decode {r['short_decode_ms']:.3f} ms")
 
 
+def ssm_noise() -> None:
+    import dataclasses
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.configs import registry
+    from repro_torch.models import lm as LM
+    from repro_torch.serve import generate
+    from repro_torch.utils.tree import tree_to
+
+    dev = torch.device("cuda")
+
+    def rel(a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        return float((a - b).abs().max() / b.abs().max())
+
+    cfg = dataclasses.replace(registry.get("zamba2-2.7b").full(), n_layers=6)
+    p = LM.init(torch.Generator(device=dev).manual_seed(1), cfg, device=dev)
+    fz, tr = p["frozen"], cs._move_b(p["train"], 2, dev)
+    fzc, trc = tree_to(fz, "cpu"), tree_to(tr, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (1, 512)))
+    x = torch.randn((1, 512, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(3)).to(torch.bfloat16)
+    pos = torch.arange(512)[None]
+
+    def logits(f, t, tk):
+        h, _ = LM.forward(f, t, cfg, tk)
+        return LM._head_logits(f, t, cfg, h)
+
+    with torch.no_grad():
+        for (_, _, pi, spec, f, t), (*_, fc, tc) in zip(
+                LM._layers(fz, tr, cfg), LM._layers(fzc, trc, cfg)):
+            yg, _ = LM._apply_layer(cfg, spec, f, t, x.to(dev), pos.to(dev))
+            yc, _ = LM._apply_layer(cfg, spec, fc, tc, x, pos)
+            print(f"zamba2 depth 6 layer {pi} ({spec.mixer}): output card "
+                  f"vs CPU {rel(yg - x.to(dev), yc - x):.4g} of its max")
+        lg = logits(fz, tr, toks.to(dev))
+        lg2 = logits(fz, tr, torch.cat([toks, toks.flip(1)]).to(dev))[:1]
+        threads = torch.get_num_threads()
+        lc = logits(fzc, trc, toks)
+        torch.set_num_threads(1)
+        lc1 = logits(fzc, trc, toks)
+        torch.set_num_threads(threads)
+    print(f"zamba2 depth 6 logits: card vs CPU {rel(lg, lc):.4g}; card "
+          f"batch 1 vs a row of batch 2 {rel(lg2, lg):.4g}; CPU "
+          f"{threads} threads vs 1 {rel(lc1, lc):.4g} (of max|logit|)")
+    del p, fz, tr, fzc, trc
+    cs._free_cuda()
+    for arch, depths in (("mamba2-370m", (12, 24, 48)),
+                         ("zamba2-2.7b", (18, 36, 54))):
+        for d in depths:
+            cfg = dataclasses.replace(registry.get(arch).full(), n_layers=d)
+            p = LM.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+            fz, tr = p["frozen"], p["train"]
+            prompt = torch.from_numpy(np.random.default_rng(0).integers(
+                0, cfg.vocab, (2, 2048))).to(dev)
+            out, _ = generate(fz, tr, cfg, prompt, 32, device=dev)
+            got = cs._serve_logits(LM, fz, tr, cfg, prompt, out)
+            with torch.no_grad():
+                seq = torch.cat([prompt, out[:, :-1].to(prompt.dtype)], 1)
+                h, _ = LM.forward(fz, tr, cfg, seq)
+                fwd = LM._head_logits(fz, tr, cfg, h[:, 2047:])
+            step = (got - fwd).abs().amax(dim=(0, 2)).cpu() \
+                / float(fwd.abs().max())
+            print(f"{arch} depth {d}: decode vs forward {rel(got, fwd):.4g} "
+                  f"of max|logit|; steps 1 / 15 / 31: "
+                  f"{float(step[1]):.4g} / {float(step[15]):.4g} / "
+                  f"{float(step[31]):.4g}")
+            del p, fz, tr, h
+            cs._free_cuda()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="what", required=True)
@@ -94,6 +179,7 @@ def main(argv=None) -> None:
     c.add_argument("reps", type=int)
     c.add_argument("--deterministic", action="store_true")
     sub.add_parser("lm-decode")
+    sub.add_parser("ssm-noise")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -104,6 +190,8 @@ def main(argv=None) -> None:
     print(f"{chip_smoke._card_line()}; checkout {ROOT.name}")
     if args.what == "cohort":
         cohort(args.reps, args.deterministic)
+    elif args.what == "ssm-noise":
+        ssm_noise()
     else:
         lm_decode()
 

@@ -1,6 +1,7 @@
 """Decoder LM: the JAX package's ``models/lm.py`` for the dense family
-(gemma3-4b, minitron-4b, qwen1.5-110b, nemotron-4-340b) and the MLA and
-MoE layers (deepseek-v2-236b, llama4-maverick-400b-a17b).
+(gemma3-4b, minitron-4b, qwen1.5-110b, nemotron-4-340b), the MLA and
+MoE layers (deepseek-v2-236b, llama4-maverick-400b-a17b) and the Mamba-2
+layers with zamba2's shared attention (mamba2-370m, zamba2-2.7b).
 
 Layer stacking mirrors the reference: the per-arch layer sequence
 resolves into groups, ``(pattern, repeats)`` pairs whose parameters are
@@ -16,12 +17,15 @@ frozen bf16; the adapters and the norms train in fp32. Serving is
 (one token); sliding-window layers keep a ring cache of ``window``
 slots, aligned at prefill so that token t sits in slot ``t % window``;
 MLA layers keep the latent cache and decode by weight absorption. A MoE
-layer adds its Switch aux loss to ``forward``'s second output.
+layer adds its Switch aux loss to ``forward``'s second output. A Mamba
+layer (no FFN, no norm2) keeps an fp32 SSM state and the last K - 1
+conv inputs. zamba2's shared attention block has ONE frozen GQA set
+(``frozen['shared_attn']``) used at every invocation, with the
+invocation's own stacked adapters, gelu MLP and KV cache.
 
-Not ported yet: Mamba-2 and the shared attention of zamba2 (ROADMAP
-A9c), the prefix-LM and the encoder-decoder (A9d). A config that needs
-one makes every function here raise ``NotImplementedError`` naming the
-item.
+Not ported yet: the prefix-LM and the encoder-decoder (ROADMAP A9d). A
+config that needs one makes every function here raise
+``NotImplementedError`` naming the item.
 """
 from __future__ import annotations
 
@@ -108,9 +112,6 @@ def _check(cfg: Any) -> None:
     ``cfg`` needs a part of the LM zoo the port lacks."""
     if isinstance(cfg, EncDecConfig):
         what = "the encoder-decoder model (ROADMAP A9d)"
-    elif cfg.mamba is not None or cfg.shared_attn_every \
-            or cfg.attn_kind == "none":
-        what = "Mamba-2 layers and shared attention (ROADMAP A9c)"
     elif cfg.prefix_lm:
         what = "the prefix-LM (ROADMAP A9d)"
     else:
@@ -162,17 +163,27 @@ def _mlp_spec(cfg: LMConfig) -> L.MLPSpec:
 def _layer_init(gen: torch.Generator, cfg: LMConfig, spec: LayerSpec,
                 stack: tuple[int, ...], dev: torch.device
                 ) -> tuple[dict, dict]:
-    """One pattern position, stacked over ``stack``."""
+    """One pattern position, stacked over ``stack``. A ``shared_gqa``
+    position keeps only its adapters: its frozen base is the model's one
+    ``frozen['shared_attn']`` (the reference draws one here and drops
+    it, as this does)."""
     fz: dict = {}
     tr: dict = {"norm1": L.rmsnorm_init(cfg.d_model, stack, dev)}
-    if spec.mixer == "gqa":
-        fz["attn"], tr["attn"] = A.gqa_init(gen, cfg.gqa, "lora", cfg.lora,
-                                            stack, dev)
+    if spec.mixer in ("gqa", "shared_gqa"):
+        f, tr["attn"] = A.gqa_init(gen, cfg.gqa, "lora", cfg.lora, stack,
+                                   dev)
+        if spec.mixer == "gqa":
+            fz["attn"] = f
     elif spec.mixer == "mla":
         fz["attn"], tr["attn"] = A.mla_init(gen, cfg.mla, "lora", cfg.lora,
                                             stack, dev)
+    elif spec.mixer == "mamba":
+        fz["mix"], tr["mix"] = SSM.mamba_init(gen, cfg.mamba, "lora",
+                                              cfg.lora, stack, dev)
     else:
         raise ValueError(spec.mixer)
+    if spec.ffn == "none":
+        return fz, tr
     tr["norm2"] = L.rmsnorm_init(cfg.d_model, stack, dev)
     if spec.ffn == "dense":
         f, t = L.mlp_init(gen, _mlp_spec(cfg), "lora", cfg.lora, stack, dev)
@@ -212,9 +223,13 @@ def init(gen, cfg: LMConfig, device="cuda") -> dict:
     if ht:
         train["head"] = ht
     train["final_norm"] = L.rmsnorm_init(cfg.d_model, device=dev)
+    groups = resolve_groups(cfg)
+    if any(s.mixer == "shared_gqa" for g in groups for s in g.pattern):
+        frozen["shared_attn"], _ = A.gqa_init(gen, cfg.gqa, "lora",
+                                              cfg.lora, device=dev)
     frozen["groups"] = []
     train["groups"] = []
-    for g in resolve_groups(cfg):
+    for g in groups:
         pairs = [_layer_init(gen, cfg, spec, (g.repeats,), dev)
                  for spec in g.pattern]
         frozen["groups"].append([f for f, _ in pairs])
@@ -227,6 +242,8 @@ def init(gen, cfg: LMConfig, device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 def _rope_for(cfg: LMConfig, spec: LayerSpec, positions: torch.Tensor):
+    if spec.mixer == "mamba":
+        return None
     base = cfg.rope_base_global if (spec.global_rope and
                                     cfg.rope_base_global) else cfg.rope_base
     dim = cfg.mla.qk_rope_dim if spec.mixer == "mla" else cfg.head_dim
@@ -240,18 +257,24 @@ def _at(tree: Any, i: int) -> Any:
 
 def _layers(frozen: dict, train: dict, cfg: LMConfig):
     """(group index, layer index, pattern index, spec, frozen, train) of
-    every layer in order."""
+    every layer in order. A ``shared_gqa`` layer's frozen dict holds the
+    shared block as its ``attn``, beside its own MLP."""
     for gi, g in enumerate(resolve_groups(cfg)):
         for i in range(g.repeats):
             for pi, spec in enumerate(g.pattern):
-                yield (gi, i, pi, spec, _at(frozen["groups"][gi][pi], i),
-                       _at(train["groups"][gi][pi], i))
+                fz = _at(frozen["groups"][gi][pi], i)
+                if spec.mixer == "shared_gqa":
+                    fz = dict(fz, attn=frozen["shared_attn"])
+                yield (gi, i, pi, spec, fz, _at(train["groups"][gi][pi], i))
 
 
 def _ffn_block(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
                x: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The norm, the dense MLP or the MoE, the residual: (x, the MoE's
-    aux loss, None for a dense layer)."""
+    aux loss, None for a dense layer). A layer without an FFN returns
+    ``x`` as it is."""
+    if spec.ffn == "none":
+        return x, None
     h = L.rmsnorm_apply(tr["norm2"], x)
     if spec.ffn == "dense":
         h = L.mlp_apply(fz.get("mlp", {}), tr.get("mlp", {}),
@@ -268,7 +291,10 @@ def _apply_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
                  ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = L.rmsnorm_apply(tr["norm1"], x)
     rope = _rope_for(cfg, spec, positions)
-    if spec.mixer == "mla":
+    if spec.mixer == "mamba":
+        h = SSM.mamba_apply(fz["mix"], tr["mix"], cfg.mamba, h,
+                            cfg.lora.scale)
+    elif spec.mixer == "mla":
         h = A.mla_apply(fz["attn"], tr["attn"], cfg.mla, h, cfg.lora.scale,
                         rope, kv_chunk=cfg.kv_chunk)
     else:
@@ -353,7 +379,8 @@ def cache_init(cfg: LMConfig, batch: int, max_seq: int,
                device="cuda") -> list:
     """Stacked cache tree parallel to the groups: leaves (repeats, B,
     Smax, Hkv, Dh) bf16 for GQA, (repeats, B, Smax, kv_lora / rope) for
-    MLA's latent."""
+    MLA's latent, a Mamba layer's fp32 {'ssm': (repeats, B, H, P, N),
+    'conv': (repeats, B, K-1, C)}."""
     _check(cfg)
     dev = resolve_device(device)
     out = []
@@ -362,6 +389,8 @@ def cache_init(cfg: LMConfig, batch: int, max_seq: int,
         for spec in g.pattern:
             if spec.mixer == "mla":
                 c = A.mla_cache_init(cfg.mla, batch, max_seq, device="meta")
+            elif spec.mixer == "mamba":
+                c = SSM.mamba_cache_init(cfg.mamba, batch, device="meta")
             else:
                 c = A.gqa_cache_init(cfg.gqa, batch, max_seq, spec.window,
                                      device="meta")
@@ -390,6 +419,14 @@ def _check_prefill_windows(cfg: LMConfig, s: int, total_seq: int) -> None:
                     "JAX package cannot build this cache either)")
 
 
+def _check_prefill_mamba(cfg: LMConfig, s: int) -> None:
+    """The Mamba layers' two prompt-length rules
+    (``ssm.check_final_state``)."""
+    if any(spec.mixer == "mamba" for g in resolve_groups(cfg)
+           for spec in g.pattern):
+        SSM.check_final_state(cfg.mamba, s)
+
+
 def _prefill_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
                    x: torch.Tensor, positions: torch.Tensor, max_seq: int
                    ) -> tuple[torch.Tensor, dict]:
@@ -398,6 +435,12 @@ def _prefill_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
     s = x.shape[1]
     h = L.rmsnorm_apply(tr["norm1"], x)
     rope = _rope_for(cfg, spec, positions)
+    if spec.mixer == "mamba":
+        # the SSD over the prompt; its recurrence's last state and the
+        # last K - 1 pre-conv inputs are the decode cache
+        h, cache = SSM.mamba_forward(fz["mix"], tr["mix"], cfg.mamba, h, sc,
+                                     final_state=True)
+        return x + h, cache
     if spec.mixer == "mla":
         ckv, kr = A._mla_latent(fz["attn"], tr["attn"], cfg.mla, h, sc, rope)
         hw = max(0, max_seq - s)
@@ -440,6 +483,7 @@ def prefill(frozen: dict, train: dict, cfg: LMConfig, tokens,
     b, s, _ = x.shape
     total_seq = s if max_seq is None else max(max_seq, s)
     _check_prefill_windows(cfg, s, total_seq)
+    _check_prefill_mamba(cfg, s)
     positions = torch.arange(s, device=x.device)[None, :]
     caches = cache_init(cfg, b, total_seq, x.device)
     for gi, i, pi, spec, fz, tr in _layers(frozen, train, cfg):
@@ -453,9 +497,9 @@ def prefill(frozen: dict, train: dict, cfg: LMConfig, tokens,
 def decode_step(frozen: dict, train: dict, cfg: LMConfig, token,
                 caches: list, pos: int) -> tuple[torch.Tensor, list]:
     """token: (B, 1); pos: the absolute position of ``token`` (an int).
-    Writes the new k/v (an MLA layer: the new latent) into ``caches``
-    in place and returns (logits
-    (B, 1, V) fp32, caches)."""
+    Writes the new k/v (an MLA layer: the new latent; a Mamba layer: its
+    new states) into ``caches`` in place and returns (logits (B, 1, V)
+    fp32, caches)."""
     _check(cfg)
     pos = int(pos)
     x = _embed(frozen, cfg, token)
@@ -465,7 +509,12 @@ def decode_step(frozen: dict, train: dict, cfg: LMConfig, token,
         cache = {k: v[i] for k, v in caches[gi][pi].items()}   # views
         h = L.rmsnorm_apply(tr["norm1"], x)
         rope = _rope_for(cfg, spec, pos_b)
-        if spec.mixer == "mla":
+        if spec.mixer == "mamba":
+            h, new = SSM.mamba_decode(fz["mix"], tr["mix"], cfg.mamba, h,
+                                      cache, sc)
+            for k, v in new.items():        # the bf16 conv state widens
+                cache[k].copy_(v)
+        elif spec.mixer == "mla":
             h, _ = A.mla_decode(fz["attn"], tr["attn"], cfg.mla, h, cache,
                                 pos, sc, rope)
         else:

@@ -882,3 +882,77 @@ def test_cuda_moe_combine_bit_identical(cuda):
         y0, a0 = moe.moe_apply(fz, tr, spec, x, 16.0)
         y1, a1 = moe.moe_apply(fz, tr, spec, x, 16.0)
     assert torch.equal(y0, y1) and torch.equal(a0, a1)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_matches_recurrence_at_full_layer_width(cuda):
+    """mamba2-370m's Mamba-2 layer at its published width (d 1,024, 32
+    heads of 64, state 128, chunk 256) on the card: the chunked SSD over
+    2 x 768 tokens (3 chunks) against 768 recurrent decode steps from an
+    empty cache within 2e-2 of max|y| (the CPU at this width: 0.45%, one
+    bf16 ulp), and the prefill's final states against the recurrence's
+    (the SSM state within 2e-2 of its max, the conv inputs equal)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import ssm
+    from repro_torch.utils.tree import tree_map
+    cfg = registry.get("mamba2-370m").full()
+    spec = cfg.mamba
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    fz, tr = ssm.mamba_init(gen, spec, "lora", cfg.lora, device=cuda)
+    for nm in ("wz", "wx", "wo"):
+        tr[nm]["b"] = 0.01 * torch.randn(tr[nm]["b"].shape, generator=gen,
+                                         device=cuda)
+    x = torch.randn((2, 768, spec.d_model), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    with torch.no_grad():
+        y, final = ssm.mamba_forward(fz, tr, spec, x, cfg.lora.scale,
+                                     final_state=True)
+        cache = ssm.mamba_cache_init(spec, 2, device=cuda)
+        ys = []
+        for t in range(768):
+            yt, cache = ssm.mamba_decode(fz, tr, spec, x[:, t:t + 1], cache,
+                                         cfg.lora.scale)
+            ys.append(yt)
+    y_seq = torch.cat(ys, dim=1).float()
+    assert float((y.float() - y_seq).abs().max()) <= 2e-2 * float(
+        y_seq.abs().max())
+    assert float((final["ssm"] - cache["ssm"]).abs().max()) <= 2e-2 * float(
+        cache["ssm"].abs().max())
+    assert torch.equal(final["conv"], cache["conv"])
+
+
+@pytest.mark.gpu
+def test_cuda_zamba2_smoke_prefill_decode_matches_cpu(cuda):
+    """zamba2-2.7b's smoke config (Mamba-2 layers and the shared GQA
+    block every 2), one tree on the card and on the CPU: the prefill's
+    last logits and every cache leaf, then 4 decode steps, within 2e-2
+    of each one's max (bf16 in both; cuBLAS and the CPU's GEMMs sum in
+    other orders)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.utils.tree import flatten_with_names, tree_map, tree_to
+    cfg = registry.get("zamba2-2.7b").smoke()
+    p = lm.init(torch.Generator(device=cuda).manual_seed(0), cfg,
+                device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    train = tree_map(lambda t: t + 0.01 * torch.randn(
+        t.shape, generator=gen, device=cuda), p["train"])
+    cpu = (tree_to(p["frozen"], "cpu"), tree_to(train, "cpu"))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 36)))
+    runs = []
+    with torch.no_grad():
+        for (fz, tr), d in (((p["frozen"], train), cuda), (cpu, "cpu")):
+            tk = toks.to(d)
+            lg, caches, pos = lm.prefill(fz, tr, cfg, tk[:, :32], max_seq=36)
+            out = [lg.cpu()] + [t.to("cpu", torch.float32, copy=True)
+                                for _, t in flatten_with_names(caches)]
+            for i in range(4):
+                ld, caches = lm.decode_step(fz, tr, cfg,
+                                            tk[:, 32 + i:33 + i], caches,
+                                            pos + i)
+                out.append(ld.cpu())
+            runs.append(out)
+    assert len(runs[0]) == len(runs[1]) == 1 + 2 * 3 + 4
+    for a, b in zip(*runs):
+        assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())

@@ -2,8 +2,9 @@
 package's, on JAX ``LM.init`` trees carried across by ``convert``: the
 smoke configs of gemma3-4b, minitron-4b, qwen1.5-110b and
 nemotron-4-340b, of the MLA and MoE archs deepseek-v2-236b and
-llama4-maverick-400b-a17b, and the GQA, padded-head, sliding-window-ring
-and MLA configs of tests/test_consistency.py. The adapters' ``b``
+llama4-maverick-400b-a17b and of the Mamba-2 archs mamba2-370m and
+zamba2-2.7b, and the GQA, padded-head, sliding-window-ring, MLA, Mamba
+and zamba configs of tests/test_consistency.py. The adapters' ``b``
 factors are moved off their zero init, so every adapter gets a gradient.
 
 Routes. A MoE layer routes each token by its fp32 router over a bf16
@@ -31,6 +32,17 @@ on these configs, the hidden state within 1.5% of max|h|, logits within
 gradient within 2.7% in relative L2. The tests hold twice those:
 ``REL`` = 4e-2 of the max for hidden states, logits and caches, 2e-3
 relative for the loss, 6e-2 relative L2 for each gradient.
+
+The Mamba-2 configs (``SSM``, ``CONSIST_SSM``) hold the port to the
+reference compiled with that excess precision OFF (every JAX call of
+theirs under ``jax.jit(compiler_options={'xla_allow_excess_precision':
+False})``): the reference then rounds to bf16 where its code says bf16,
+as the port does. With it on, XLA keeps the SSD layer's fused bf16
+chains (the conv's sum of products, the gate) in fp32, and the
+reference parts from ITSELF compiled without it by up to 1.8% of max|h|
+and 8.2% relative L2 on the small dense-trained gradients (zamba's
+``dt_bias``, norm 1e-4); the port lies within 0.4% and 1.5% of the
+strict reference (tests/test_torch_lm_ssm.py states the measurements).
 """
 import contextlib
 import dataclasses
@@ -49,6 +61,7 @@ from repro.core.lora import LoRAConfig as JLoRA
 from repro.models import attention as JA
 from repro.models import lm as JLM
 from repro.models import moe as JMOE
+from repro.models import ssm as JSSM
 from repro_torch import convert
 from repro_torch import serve as tserve
 from repro_torch.configs import registry as TR
@@ -56,6 +69,7 @@ from repro_torch.core.lora import LoRAConfig as TLoRA
 from repro_torch.models import attention as TA
 from repro_torch.models import lm as TLM
 from repro_torch.models import moe as TMOE
+from repro_torch.models import ssm as TSSM
 from repro_torch.utils.tree import flatten_with_names, tree_leaves, tree_map
 
 torch.set_num_threads(2)
@@ -72,6 +86,7 @@ ROUTE_TIE = REL
 
 DENSE = ["gemma3-4b", "minitron-4b", "qwen1.5-110b", "nemotron-4-340b"]
 MLA_MOE = ["deepseek-v2-236b", "llama4-maverick-400b-a17b"]
+SSM = ["mamba2-370m", "zamba2-2.7b"]
 # tests/test_consistency.py's configs: GQA, padded heads, the ring cache,
 # MLA (its ``mla`` key names the MLASpec fields, built in each package)
 CONSIST = {
@@ -89,19 +104,59 @@ CONSIST = {
                          kv_lora_rank=16, qk_nope_dim=16, qk_rope_dim=8,
                          v_head_dim=16)),
 }
+# tests/test_consistency.py's Mamba-2 and zamba (shared attention every 2
+# layers) configs; the ``mamba`` key names the MambaSpec fields
+CONSIST_SSM = {
+    "mamba": dict(n_layers=4, d_model=64, n_heads=4, n_kv_heads=4,
+                  head_dim=16, d_ff=0, vocab=256, attn_kind="none",
+                  mamba=dict(d_model=64, d_inner=128, head_dim=16,
+                             d_state=16, chunk=8)),
+    "zamba": dict(n_layers=4, d_model=64, n_heads=4, n_kv_heads=4,
+                  head_dim=16, d_ff=128, vocab=256, shared_attn_every=2,
+                  mamba=dict(d_model=64, d_inner=128, head_dim=16,
+                             d_state=16, chunk=8)),
+}
 PROMPT, STEPS = 16, 8          # decode positions 16..23 wrap a W=8 ring
+# configs whose reference runs without XLA's excess precision (docstring)
+STRICT_BF16 = {*SSM, *CONSIST_SSM}
+_STRICT = {"xla_allow_excess_precision": False}
 
 
 def _cfgs(name):
-    if name in CONSIST:
-        kw = dict(CONSIST[name])
-        mla = kw.pop("mla", None)
-        jkw = dict(kw, mla=JA.MLASpec(**mla)) if mla else kw
-        tkw = dict(kw, mla=TA.MLASpec(**mla)) if mla else kw
+    if name in CONSIST or name in CONSIST_SSM:
+        kw = dict(CONSIST.get(name) or CONSIST_SSM[name])
+        jkw, tkw = dict(kw), dict(kw)
+        for key, jcls, tcls in (("mla", JA.MLASpec, TA.MLASpec),
+                                ("mamba", JSSM.MambaSpec, TSSM.MambaSpec)):
+            if key in kw:
+                jkw[key], tkw[key] = jcls(**kw[key]), tcls(**kw[key])
         return (JLM.LMConfig(name="t", lora=JLoRA(rank=4, alpha=64.0), **jkw),
                 TLM.LMConfig(name="t", lora=TLoRA(rank=4, alpha=64.0),
                              **tkw))
     return JR.get(name).smoke(), TR.get(name).smoke()
+
+
+@contextlib.contextmanager
+def reference_precision(name):
+    """While open, for a ``STRICT_BF16`` config, every ``jax.jit`` (the
+    test's own and the JAX package's, e.g. ``serve.generate``'s)
+    compiles with XLA's excess precision off."""
+    orig = jax.jit
+    if name in STRICT_BF16:
+        def jit(fun, **kw):
+            return orig(fun, **{"compiler_options": _STRICT, **kw})
+        jax.jit = jit
+    try:
+        yield
+    finally:
+        jax.jit = orig
+
+
+def _reference(name, fn):
+    """``fn`` as the reference runs it: jitted without excess precision
+    for a ``STRICT_BF16`` config, eager otherwise."""
+    return jax.jit(fn, compiler_options=_STRICT) if name in STRICT_BF16 \
+        else fn
 
 
 def _np(x) -> np.ndarray:
@@ -226,11 +281,12 @@ def _case(name):
 def _jax_serving(name):
     c = _case(name)
     jc, jf, jt, toks = c["jc"], c["jf"], c["jt"], c["toks"]
-    prefill = jax.jit(lambda f, t, tok: JLM.prefill(
-        f, t, jc, tok, max_seq=PROMPT + STEPS))
-    decode = jax.jit(lambda f, t, tok, cache, pos: JLM.decode_step(
-        f, t, jc, tok, cache, pos))
     routes, gen_routes = [], []
+    with reference_precision(name):
+        prefill = jax.jit(lambda f, t, tok: JLM.prefill(
+            f, t, jc, tok, max_seq=PROMPT + STEPS))
+        decode = jax.jit(lambda f, t, tok, cache, pos: JLM.decode_step(
+            f, t, jc, tok, cache, pos))
     with jax_routes(routes):
         lp, caches, pos = prefill(jf, jt, jnp.asarray(toks[:, :PROMPT]))
         pre_caches = jax.device_get(caches)
@@ -239,7 +295,7 @@ def _jax_serving(name):
             ld, caches = decode(jf, jt, jnp.asarray(toks[:, t:t + 1]),
                                 caches, jnp.asarray(t, jnp.int32))
             steps.append(np.asarray(ld))
-    with jax_routes(gen_routes):
+    with jax_routes(gen_routes), reference_precision(name):
         gen, _ = jserve.generate(jf, jt, jc, jnp.asarray(toks[:, :PROMPT]),
                                  STEPS)
     # JAX's logits along its own greedy path: the near-tie check
@@ -259,8 +315,9 @@ def _jax_serving(name):
 def check_forward_matches_jax(name):
     c = _case(name)
     with jax_routes([]) as routes:
-        hj, auxj = JLM.forward(c["jf"], c["jt"], c["jc"],
-                               jnp.asarray(c["toks"][:, :-1]))
+        hj, auxj = _reference(name, lambda f, t, tok: JLM.forward(
+            f, t, c["jc"], tok))(c["jf"], c["jt"],
+                                 jnp.asarray(c["toks"][:, :-1]))
         jax.block_until_ready(hj)
     with forced_routes(routes) as oracle:
         ht, auxt = TLM.forward(c["tf"], c["tt"], c["tc"], c["toks"][:, :-1])
@@ -282,10 +339,10 @@ def check_loss_and_adapter_grads_match_jax(name):
     c = _case(name)
     batch = {"tokens": c["toks"]}
     with jax_routes([]) as routes:
-        (lj, mj), gj = jax.value_and_grad(
+        (lj, mj), gj = _reference(name, jax.value_and_grad(
             lambda t: JLM.loss_fn(c["jf"], t, c["jc"],
                                   {"tokens": jnp.asarray(c["toks"])}),
-            has_aux=True)(c["jt"])
+            has_aux=True))(c["jt"])
     tt = tree_map(lambda t: t.clone().requires_grad_(True), c["tt"])
     # the JAX package's forward routes (its backward recomputes them)
     with forced_routes(routes[:n_moe(c["tc"])]) as oracle:
@@ -329,7 +386,7 @@ def check_prefill_and_decode_match_jax(name):
         got, want = tree_leaves(caches), jax.tree.leaves(j["caches"])
         assert len(got) == len(want)
         for a, b in zip(got, want):
-            assert a.dtype == torch.bfloat16
+            assert str(a.dtype) == f"torch.{b.dtype.name}", (a.dtype, b.dtype)
             _close(a, b)
         for t, ld_j in zip(range(PROMPT, PROMPT + STEPS), j["steps"]):
             ld, caches = TLM.decode_step(c["tf"], c["tt"], c["tc"],
@@ -444,10 +501,7 @@ def test_dense_arch_matches_jax(check, name):
     check(name)
 
 
-UNPORTED = {
-    "mamba2-370m": "A9c", "zamba2-2.7b": "A9c", "paligemma-3b": "A9d",
-    "seamless-m4t-medium": "A9d",
-}
+UNPORTED = {"paligemma-3b": "A9d", "seamless-m4t-medium": "A9d"}
 
 
 @pytest.mark.parametrize("arch", sorted(UNPORTED))
