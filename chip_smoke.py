@@ -161,7 +161,36 @@ Phases, each of which raises on failure (the script then exits nonzero):
      final states, within ``LM_SSD_REL``), and zamba2's width at depth 6
      from one tree on the card and the CPU (logits over 1 x 512, every
      prefill cache leaf, 4 decode steps, within ``LM_SSM_CARD_CPU_REL``
-     of each one's max). It frees the models before phase 5;
+     of each one's max). It frees the models before phase 4e;
+ 4e. drive the prefix-LM and the encoder-decoder at their published
+     widths AND depths, which launch none of the six kernels (the
+     counts are read around the phase and must not move): paligemma-3b
+     (18 layers, 8 query heads padded to 16, MQA, vocab 257,216) and
+     seamless-m4t-medium (12 + 12 layers, d_model 1,024, vocab 256,206),
+     random weights and random patch embeddings / frames from seed 0,
+     each through its ``init`` (value counts and dtypes checked);
+     paligemma's prefill at batch 2 of 256 patch embeddings and 256
+     tokens and 32 greedy decode steps, twice, equal, held to the
+     teacher-forced forward over [prefix; prompt + tokens] within
+     ``LM_CONSIST_REL`` of max|logit|, and a text-only
+     ``serve.generate`` (16 + 16) whose cache has the reference's 16 +
+     16 + 256 slots; seamless's ``encode`` of 2 x 1,024 frames,
+     ``cross_cache`` and 32 greedy ``decode_step``s, twice, equal, held
+     to ``decode_train``'s teacher-forced logits; one prefill / encode
+     and one decode step of each profiled; one adapter backward of each
+     at the registry's train_4k length at batch 1 (finite loss; every
+     trained leaf's gradient, and every stacked layer's slice of it,
+     finite and nonzero; none on the frozen tree), with the times
+     against their bounds and the peak memory; seamless whole and
+     paligemma's width at depth 2 on the card and the CPU from one tree
+     (within ``LM_ENCDEC_CARD_CPU_REL`` and ``LM_CARD_CPU_REL``); and
+     ``python -m repro_torch.launch.train`` for both at batch 1,
+     ``--seq 512``, a checkpoint every step: ``--steps 2``, then
+     ``--steps 3`` in a fresh process (both archs at once), whose
+     restored state is step 2's bit for bit and whose
+     step 3 equals, bit for bit, a step taken here from step 2 on the
+     first batch (the reference redraws its batches at every start). It
+     frees the models before phase 5;
   5. time each kernel with CUDA events at its path's shapes beside its
      plain version and its bound (B1 and B2, and the ``flat_rows``
      staging before B1, at ResNet-8's and ResNet-18's layouts;
@@ -199,6 +228,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -387,6 +417,42 @@ LM_SSD_REL = 2e-2
 # phase holds each to 4e-2, twice the logits' card-vs-CPU measurement.
 LM_SSM_CPU = dict(arch="zamba2-2.7b", n_layers=6, tokens=512, steps=4)
 LM_SSM_CARD_CPU_REL = 4e-2
+# the prefix-LM and the encoder-decoder at their published configs, uncut
+# (src/repro/configs/paligemma_3b.py and seamless_m4t_medium.py full()),
+# random weights from seed 0. The image and audio frontends are stubs in
+# the reference too: the patch embeddings and the frames are random, from
+# the same seed. paligemma-3b: prefill at batch 2 of 256 patch embeddings
+# and 256 text tokens, then 32 greedy decode steps, twice; a text-only
+# generate of 16 + 16; one adapter backward at 1 x (256 + 3,840), the
+# registry's train_4k length.
+LM_PREFIX = dict(arch="paligemma-3b", batch=2, prefix=256, prompt=256,
+                 gen=32, short_prompt=16, short_gen=16, train_seq=3840,
+                 seed=0)
+# seamless-m4t-medium: encode 2 x 1,024 frames, then 32 greedy decode
+# steps from token 0, twice; one adapter backward at 1 x (4,096 frames,
+# 4,096 + 1 target tokens)
+LM_ENCDEC = dict(arch="seamless-m4t-medium", batch=2, frames=1024, gen=32,
+                 start=0, train_frames=4096, train_tgt=4096, seed=0)
+# (frozen bf16, trained fp32) values of each at its published config
+LM_A9D_VALUES = {"paligemma-3b": (3_186_360_320, 49_954_816),
+                 "seamless-m4t-medium": (877_031_424, 25_596_352)}
+# card against CPU from one tree, each as a share of its max: seamless
+# whole at 1 x (256 frames, 64 target tokens) and paligemma's width at
+# depth 2 at 1 x (256 + 64), with 4 decode steps each. paligemma is held
+# to LM_CARD_CPU_REL. seamless to LM_ENCDEC_CARD_CPU_REL: each of its 12
+# bidirectional encoder layers parts card against CPU by 0.84-1.20% of
+# its output's max (a bf16 ulp), the encoder output by 2.21% and the
+# logits by 1.19%, and the card parts from itself by 1.10% on the logits
+# (batch 1 against a row of batch 2) (scripts/chip_repeats.py
+# encdec-noise, NVIDIA H100 80GB HBM3, 700.00 W): twice the encoder
+# output's card-vs-CPU measurement, as zamba2's limit in phase 4d.
+LM_A9D_CPU = dict(frames=256, tgt=64, prefix=256, tokens=64, n_layers=2,
+                  steps=4)
+LM_ENCDEC_CARD_CPU_REL = 4e-2
+# python -m repro_torch.launch.train for both at batch 1 and --seq 512,
+# a checkpoint every step: --steps 2, then --steps 3 in a fresh process
+# (``extra``: more arguments, e.g. --smoke for a CPU rehearsal)
+LM_TRAIN = dict(batch=1, seq=512, extra=[])
 
 
 def _card_line() -> str:
@@ -3141,14 +3207,16 @@ def _serve_logits(LM, frozen, train, cfg, prompt, toks):
     return torch.stack(out, dim=1)
 
 
-def lm_bounds(cfg, params, batch: int, prompt: int, gen: int) -> dict:
+def lm_bounds(cfg, params, batch: int, prompt: int, gen: int,
+              prefix: int = 0) -> dict:
     """The least times of this run's prefill and decode step on the card
     (``_bound_ms`` of the bytes each must move and the bf16 products it
-    must compute). Prefill: every linear of every layer over the prompt
-    tokens, the head for the last token, and the attention products a
-    causal (global) or W-window (local) query needs, the 8 real heads
-    only; the weights read once. A decode step: the frozen layers and the
-    head, the adapters and the whole KV caches read once."""
+    must compute). Prefill: every linear of every layer over the prefix
+    and prompt tokens, the head for the last token, and the attention
+    products a causal (global) or W-window (local) query needs, the real
+    heads only (a prefix-LM's first ``prefix`` queries see the whole
+    prefix); the weights read once. A decode step: the frozen layers and
+    the head, the adapters and the whole KV caches read once."""
     from repro_torch.models import lm as LM
     from repro_torch.utils.tree import tree_leaves
 
@@ -3162,13 +3230,14 @@ def lm_bounds(cfg, params, batch: int, prompt: int, gen: int) -> dict:
     layer_w = numel(frozen["groups"])
     head_w = numel(frozen["head"])
     adapters = numel(train)
+    prompt += prefix
     h, dh, t = cfg.n_heads, cfg.head_dim, batch * prompt
     attn = 0.0
     for g in LM.resolve_groups(cfg):
         for spec in g.pattern:
-            keys = prompt / 2 if spec.window is None \
-                else min(spec.window, prompt)
-            attn += g.repeats * 4.0 * batch * h * dh * prompt * keys
+            pairs = (prompt * prompt + prefix * prefix) / 2 \
+                if spec.window is None else prompt * min(spec.window, prompt)
+            attn += g.repeats * 4.0 * batch * h * dh * pairs
     pf_flops = 2.0 * t * (layer_w + adapters) + 2.0 * batch * head_w + attn
     pf_bytes = (nbytes(frozen["groups"]) + nbytes(frozen["head"])
                 + nbytes(train) + t * cfg.d_model * 2)
@@ -4038,9 +4107,10 @@ def ssm_bounds(cfg, params, batch: int, prompt: int, gen: int) -> dict:
             "decode_gb": dec_bytes / 1e9}
 
 
-def _stack_slices_bad(names, leaves) -> list:
+def _stack_slices_bad(names, leaves, stacked=("groups/",)) -> list:
     """Names of trained leaves whose gradient is missing, non-finite or
-    zero; a stacked group leaf is judged layer by layer."""
+    zero; a stacked leaf (its name starting with one of ``stacked``) is
+    judged layer by layer."""
     import torch
     bad = []
     for n, t in zip(names, leaves):
@@ -4048,11 +4118,46 @@ def _stack_slices_bad(names, leaves) -> list:
         if g is None or not bool(torch.isfinite(g).all()):
             bad.append(f"{n} (missing or non-finite)")
             continue
-        per = g.reshape(g.shape[0], -1) if n.startswith("groups/") \
+        per = g.reshape(g.shape[0], -1) if n.startswith(stacked) \
             else g.reshape(1, -1)
         if bool((per.abs().amax(dim=1) == 0).any()):
             bad.append(f"{n} (zero)")
     return bad
+
+
+def _adapter_backward(loss_fn, frozen, train, cfg, batch, stacked,
+                      arch: str, dev) -> dict:
+    """``loss_fn`` + backward on ``train`` (its ``b`` factors moved off
+    zero), cold then warm: the two walls, the loss, and the checks that
+    every trained leaf's gradient (a stacked leaf's, layer by layer) is
+    finite and nonzero and that no frozen leaf took one."""
+    import torch
+    from repro_torch.utils.tree import flatten_with_names, tree_flatten, \
+        tree_leaves, tree_unflatten
+    moved = _move_b(train, 1, dev)
+    names = [n for n, _ in flatten_with_names(moved)]
+    leaves, treedef = tree_flatten(moved)
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    tr = tree_unflatten(treedef, leaves)
+    walls = []
+    for _ in range(2):                 # cold (first shapes), then warm
+        for t in leaves:
+            t.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(frozen, tr, cfg, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    bad = _stack_slices_bad(names, leaves, stacked)
+    loss = float(loss.detach())
+    if not math.isfinite(loss) or bad:
+        raise AssertionError(f"{arch} backward: loss {loss}, {len(bad)} bad "
+                             f"grads {bad[:8]}")
+    if any(t.requires_grad or t.grad is not None
+           for t in tree_leaves(frozen)):
+        raise AssertionError(f"a frozen {arch} leaf took a gradient")
+    return {"train_s": walls, "loss": loss, "trained": len(leaves)}
 
 
 def lm_ssm_arch(arch: str, dev) -> dict:
@@ -4068,8 +4173,7 @@ def lm_ssm_arch(arch: str, dev) -> dict:
     from repro_torch.configs import registry
     from repro_torch.models import lm as LM
     from repro_torch.serve import generate
-    from repro_torch.utils.tree import flatten_with_names, tree_flatten, \
-        tree_leaves, tree_unflatten
+    from repro_torch.utils.tree import tree_leaves
 
     c = LM_SSM
     cfg = registry.get(arch).full()
@@ -4145,30 +4249,10 @@ def lm_ssm_arch(arch: str, dev) -> dict:
         del lp, caches
     serve_peak = torch.cuda.max_memory_allocated()
     # one adapter backward at 1 x 4,096 tokens, cold then warm
-    moved = _move_b(train, 1, dev)
-    names = [n for n, _ in flatten_with_names(moved)]
-    leaves, treedef = tree_flatten(moved)
-    leaves = [t.detach().requires_grad_(True) for t in leaves]
-    tr = tree_unflatten(treedef, leaves)
     batch = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab, (1, c["train_seq"] + 1))).to(dev)}
-    train_s = []
-    for _ in range(2):
-        for t in leaves:
-            t.grad = None
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, _ = LM.loss_fn(frozen, tr, cfg, batch)
-        loss.backward()
-        torch.cuda.synchronize()
-        train_s.append(time.perf_counter() - t0)
-    bad = _stack_slices_bad(names, leaves)
-    if not math.isfinite(float(loss.detach())) or bad:
-        raise AssertionError(f"{arch} backward: loss {float(loss.detach())}"
-                             f", {len(bad)} bad grads {bad[:8]}")
-    if any(t.requires_grad or t.grad is not None
-           for t in tree_leaves(frozen)):
-        raise AssertionError(f"a frozen {arch} leaf took a gradient")
+    bw = _adapter_backward(LM.loss_fn, frozen, train, cfg, batch,
+                           ("groups/",), arch, dev)
     peak = torch.cuda.max_memory_allocated()
     out = {"init_s": init_s, "prefill_s": timing["prefill_s"],
            "prefill_cold_s": cold["prefill_s"],
@@ -4177,13 +4261,12 @@ def lm_ssm_arch(arch: str, dev) -> dict:
            "short_prefill_s": stiming["prefill_s"],
            "short_decode_ms": 1e3 * stiming["decode_s"]
            / stiming["decode_steps"],
-           "train_s": train_s, "loss": float(loss.detach()), "err": err,
-           "scale": scale, "agree": agree, "refused": refused,
+           "err": err, "scale": scale, "agree": agree, "refused": refused,
            "bounds": bounds, "peak_gb": (peak - base_mem) / 1e9,
            "serve_peak_gb": (serve_peak - base_mem) / 1e9,
-           "frozen_gb": 2 * counts[0] / 1e9, "trained": len(leaves),
-           "n_layers": cfg.n_layers}
-    del params, frozen, train, moved, leaves, tr, loss
+           "frozen_gb": 2 * counts[0] / 1e9, "n_layers": cfg.n_layers,
+           **bw}
+    del params, frozen, train, batch
     _free_cuda()
     return out
 
@@ -4351,6 +4434,644 @@ def lm_ssm_phase(dev, card: str) -> dict:
         raise AssertionError(f"phase 4d launched kernels: {before} -> "
                              f"{after}")
     print(f"phase 4d kernel launches: {after == before} (0 of each)")
+    return out
+
+
+def _a9d_counts(arch: str, frozen, train) -> tuple:
+    """(frozen, trained) value counts of ``arch``'s trees, which must be
+    ``LM_A9D_VALUES[arch]``, every frozen leaf bf16 and every trained
+    leaf fp32."""
+    import torch
+    from repro_torch.utils.tree import tree_leaves
+    counts = (sum(t.numel() for t in tree_leaves(frozen)),
+              sum(t.numel() for t in tree_leaves(train)))
+    if counts != LM_A9D_VALUES[arch] or any(
+            t.dtype != torch.bfloat16 for t in tree_leaves(frozen)) or any(
+            t.dtype != torch.float32 for t in tree_leaves(train)):
+        raise AssertionError(f"{arch} trees: {counts} values")
+    return counts
+
+
+def _prefix_greedy(LM, frozen, train, cfg, prompt, prefix, gen: int):
+    """Prefill of ``prefix`` and ``prompt`` and ``gen - 1`` greedy decode
+    steps: (tokens (B, gen), logits (B, gen, V), prefill s, decode s)."""
+    import torch
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp, caches, pos = LM.prefill(
+            frozen, train, cfg, prompt, prefix,
+            max_seq=prefix.shape[1] + prompt.shape[1] + gen)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        tok = torch.argmax(lp, -1)[:, None]
+        toks, logits = [tok], [lp]
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            ld, caches = LM.decode_step(frozen, train, cfg, tok, caches,
+                                        pos + i)
+            tok = torch.argmax(ld[:, 0], -1)[:, None]
+            toks.append(tok)
+            logits.append(ld[:, 0])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    return (torch.cat(toks, dim=1), torch.stack(logits, dim=1), prefill_s,
+            decode_s)
+
+
+def lm_prefix_arch(dev) -> dict:
+    """paligemma-3b at its published config: init from a seeded CUDA
+    generator (value counts checked), prefill of 256 patch embeddings and
+    256 text tokens at batch 2 and 32 greedy decode steps, twice (equal
+    tokens), the decode logits against the teacher-forced forward over
+    [prefix; prompt + tokens], a text-only ``generate`` whose cache is
+    the reference's prompt + gen + 256 slots, one prefill and one decode
+    step profiled, one adapter backward at 1 x (256 + 3,840) cold and
+    warm; times beside their bounds, the peak memory. Frees the model."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import lm as LM
+    from repro_torch.serve import generate
+    from repro_torch.utils.tree import tree_leaves
+
+    c = LM_PREFIX
+    cfg = registry.get(c["arch"]).full()
+    b, p, s = c["batch"], c["prefix"], c["prompt"]
+    _free_cuda()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = LM.init(torch.Generator(device=dev).manual_seed(c["seed"]), cfg,
+                     device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    frozen, train = params["frozen"], params["train"]
+    counts = _a9d_counts(c["arch"], frozen, train)
+    bounds = lm_bounds(cfg, params, b, s, c["gen"], prefix=p)
+    rng = np.random.default_rng(c["seed"])
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    prefix = torch.from_numpy(rng.standard_normal(
+        (b, p, cfg.d_model), dtype=np.float32)).to(dev).to(torch.bfloat16)
+    (toks0, _, pf_cold, dec_cold), (toks, logits, pf_s, dec_s) = (
+        _prefix_greedy(LM, frozen, train, cfg, prompt, prefix, c["gen"])
+        for _ in range(2))
+    if not torch.equal(toks0, toks):
+        raise AssertionError(f"{c['arch']}: repeated greedy decodes differ")
+    with torch.no_grad():
+        seq = torch.cat([prompt, toks[:, :-1]], dim=1)
+        h, _ = LM.forward(frozen, train, cfg, seq, prefix)
+        fwd = LM._head_logits(frozen, train, cfg, h[:, p + s - 1:])
+        del h
+    scale = float(fwd.abs().max())
+    err = float((logits - fwd).abs().max())
+    agree = float((torch.argmax(fwd, -1) == toks).float().mean())
+    if not (math.isfinite(err) and err <= LM_CONSIST_REL * scale):
+        raise AssertionError(f"{c['arch']} decode vs forward logits: max err "
+                             f"{err} > {LM_CONSIST_REL} x {scale}")
+    del logits, fwd
+    # text-only generate: the reference's cache of prompt + gen + prefix
+    short = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (b, c["short_prompt"]))).to(dev)
+    calls, orig = [], LM.prefill
+
+    def recording(*args, **kw):
+        out = orig(*args, **kw)
+        calls.append((kw.get("max_seq"),
+                      sorted({int(t.shape[2]) for t in tree_leaves(out[1])})))
+        return out
+
+    LM.prefill = recording
+    try:
+        stoks, stiming = generate(frozen, train, cfg, short, c["short_gen"],
+                                  device=dev)
+    finally:
+        LM.prefill = orig
+    want = c["short_prompt"] + c["short_gen"] + cfg.prefix_len
+    if calls != [(want, [want])] or stoks.shape != (b, c["short_gen"]) or \
+            int(stoks.min()) < 0 or int(stoks.max()) >= cfg.vocab:
+        raise AssertionError(f"{c['arch']} text-only generate: prefill "
+                             f"calls {calls} (want {want} slots), tokens "
+                             f"{tuple(stoks.shape)}")
+    with torch.no_grad():
+        def prefill():
+            return LM.prefill(frozen, train, cfg, prompt, prefix,
+                              max_seq=p + s + c["gen"])
+        lp, caches, pos = prefill()
+        tok = torch.argmax(lp, -1)[:, None]
+        LM.decode_step(frozen, train, cfg, tok, caches, pos)
+        profile_call(prefill, f"{c['arch']} prefill {b} x ({p} + {s})", top=8)
+        profile_call(lambda: LM.decode_step(frozen, train, cfg, tok, caches,
+                                            pos + 1),
+                     f"{c['arch']} decode step", top=8)
+        del lp, caches
+    serve_peak = torch.cuda.max_memory_allocated()
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, c["train_seq"] + 1))).to(dev),
+        "prefix_embed": torch.from_numpy(rng.standard_normal(
+            (1, p, cfg.d_model), dtype=np.float32)).to(dev).to(
+                torch.bfloat16)}
+    bw = _adapter_backward(LM.loss_fn, frozen, train, cfg, batch,
+                           ("groups/",), c["arch"], dev)
+    peak = torch.cuda.max_memory_allocated()
+    out = {"init_s": init_s, "prefill_s": pf_s, "prefill_cold_s": pf_cold,
+           "decode_ms": 1e3 * dec_s / (c["gen"] - 1),
+           "decode_cold_ms": 1e3 * dec_cold / (c["gen"] - 1),
+           "short_prefill_s": stiming["prefill_s"],
+           "short_decode_ms": 1e3 * stiming["decode_s"]
+           / stiming["decode_steps"], "short_slots": want,
+           "err": err, "scale": scale, "agree": agree, "bounds": bounds,
+           "peak_gb": (peak - base_mem) / 1e9,
+           "serve_peak_gb": (serve_peak - base_mem) / 1e9,
+           "frozen_gb": 2 * counts[0] / 1e9, "counts": counts,
+           "n_layers": cfg.n_layers, **bw}
+    del params, frozen, train, batch, prompt, prefix
+    _free_cuda()
+    return out
+
+
+def encdec_bounds(cfg, params, batch: int, frames: int, gen: int) -> dict:
+    """The least times of this run's encode and decode step, as
+    ``lm_bounds`` counts them. Encode (with ``cross_cache``): the
+    encoder's linears over the frames, its bidirectional attention, every
+    decoder layer's cross K/V projections; the weights and the frames
+    read once, the cross cache written once. A decode step: the decoder's
+    weights but the cross K/V projections, the head and the adapters read
+    once, the cross cache and the self cache read, and the attention
+    products over both."""
+    from repro_torch.utils.tree import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    def numel(tree):
+        return sum(t.numel() for t in tree_leaves(tree))
+
+    frozen, train = params["frozen"], params["train"]
+    kv_f = [frozen["dec"]["cross"][w] for w in ("wk", "wv")]
+    kv_t = [train["dec"]["cross"][w] for w in ("wk", "wv")]
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    t = batch * frames
+    cross = cfg.n_dec_layers * 2 * batch * frames * hkv * dh * 2
+    enc_flops = 2.0 * t * (numel(frozen["enc"]) + numel(train["enc"])
+                           + numel(kv_f) + numel(kv_t)) \
+        + cfg.n_enc_layers * 4.0 * batch * h * dh * frames * frames
+    enc_bytes = nbytes(frozen["enc"]) + nbytes(train["enc"]) + nbytes(kv_f) \
+        + nbytes(kv_t) + t * cfg.d_model * 2 + cross
+    dec_w = numel(frozen["dec"]) - numel(kv_f) + numel(frozen["head"])
+    adapters = numel(train) - numel(train["enc"]) - numel(kv_t)
+    self_cache = cfg.n_dec_layers * 2 * batch * gen * hkv * dh * 2
+    dec_bytes = nbytes(frozen["dec"]) - nbytes(kv_f) \
+        + nbytes(frozen["head"]) + 4 * adapters + cross + self_cache
+    dec_flops = 2.0 * batch * (dec_w + adapters) \
+        + cfg.n_dec_layers * 4.0 * batch * h * dh * (frames + gen)
+    return {"encode": _bound_ms(enc_bytes, enc_flops, BF16_FLOPS),
+            "decode": _bound_ms(dec_bytes, dec_flops, BF16_FLOPS),
+            "encode_tflop": enc_flops / 1e12, "decode_gb": dec_bytes / 1e9,
+            "cross_gb": cross / 1e9}
+
+
+def _encdec_greedy(ED, frozen, train, cfg, src, gen: int, start: int):
+    """``encode`` and ``cross_cache`` of ``src``, then ``gen`` greedy
+    ``decode_step``s from token ``start``: (tokens (B, gen), logits
+    (B, gen, V), the memory, encode s, decode s)."""
+    import torch
+    b = src.shape[0]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mem = ED.encode(frozen, train, cfg, src)
+        cross = ED.cross_cache(frozen, train, cfg, mem)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        caches = ED.self_cache_init(cfg, b, gen, device=src.device)
+        tok = torch.full((b, 1), start, dtype=torch.long, device=src.device)
+        toks, logits = [], []
+        t0 = time.perf_counter()
+        for i in range(gen):
+            ld, caches = ED.decode_step(frozen, train, cfg, tok, caches, cross,
+                                        i)
+            tok = torch.argmax(ld[:, 0], -1)[:, None]
+            toks.append(tok)
+            logits.append(ld[:, 0])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    return (torch.cat(toks, dim=1), torch.stack(logits, dim=1), mem,
+            encode_s, decode_s)
+
+
+def lm_encdec_arch(dev) -> dict:
+    """seamless-m4t-medium at its published config: init from a seeded
+    CUDA generator (value counts checked), ``encode`` of 2 x 1,024
+    random frames, ``cross_cache`` and 32 greedy ``decode_step``s from
+    token 0, twice (equal tokens), the decode logits against
+    ``decode_train``'s teacher-forced logits, one encode and one decode
+    step profiled, one adapter backward at 1 x (4,096 frames, 4,096 + 1
+    target tokens) cold and warm; times beside their bounds, the peak
+    memory. Frees the model."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.lora import linear_apply
+    from repro_torch.models import encdec as ED
+
+    c = LM_ENCDEC
+    cfg = registry.get(c["arch"]).full()
+    b, gen = c["batch"], c["gen"]
+    _free_cuda()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = ED.init(torch.Generator(device=dev).manual_seed(c["seed"]), cfg,
+                     device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    frozen, train = params["frozen"], params["train"]
+    counts = _a9d_counts(c["arch"], frozen, train)
+    bounds = encdec_bounds(cfg, params, b, c["frames"], gen)
+    rng = np.random.default_rng(c["seed"])
+    src = torch.from_numpy(rng.standard_normal(
+        (b, c["frames"], cfg.d_model), dtype=np.float32)).to(dev).to(
+            torch.bfloat16)
+    (toks0, _, _, enc_cold, dec_cold), (toks, logits, mem, enc_s, dec_s) = (
+        _encdec_greedy(ED, frozen, train, cfg, src, gen, c["start"])
+        for _ in range(2))
+    if not torch.equal(toks0, toks):
+        raise AssertionError(f"{c['arch']}: repeated greedy decodes differ")
+    with torch.no_grad():
+        tgt = torch.cat([torch.full_like(toks[:, :1], c["start"]),
+                         toks[:, :-1]], dim=1)
+        h = ED.decode_train(frozen, train, cfg, tgt, mem)
+        fwd = linear_apply(frozen["head"], train["head"], h,
+                           cfg.lora.scale).to(torch.float32)
+        del h
+    scale = float(fwd.abs().max())
+    err = float((logits - fwd).abs().max())
+    agree = float((torch.argmax(fwd, -1) == toks).float().mean())
+    if not (math.isfinite(err) and err <= LM_CONSIST_REL * scale):
+        raise AssertionError(f"{c['arch']} decode vs decode_train logits: "
+                             f"max err {err} > {LM_CONSIST_REL} x {scale}")
+    del logits, fwd
+    with torch.no_grad():
+        def encode():
+            m = ED.encode(frozen, train, cfg, src)
+            return ED.cross_cache(frozen, train, cfg, m)
+        cross = encode()
+        caches = ED.self_cache_init(cfg, b, gen, device=dev)
+        tok = toks[:, :1]
+        ED.decode_step(frozen, train, cfg, tok, caches, cross, 0)
+        profile_call(encode, f"{c['arch']} encode + cross_cache {b} x "
+                     f"{c['frames']}", top=8)
+        profile_call(lambda: ED.decode_step(frozen, train, cfg, tok, caches,
+                                            cross, 1),
+                     f"{c['arch']} decode step", top=8)
+        del cross, caches
+    serve_peak = torch.cuda.max_memory_allocated()
+    batch = {"src_embed": torch.from_numpy(rng.standard_normal(
+        (1, c["train_frames"], cfg.d_model), dtype=np.float32)).to(dev).to(
+            torch.bfloat16),
+        "tgt_tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (1, c["train_tgt"] + 1))).to(dev)}
+    bw = _adapter_backward(ED.loss_fn, frozen, train, cfg, batch,
+                           ("enc/", "dec/"), c["arch"], dev)
+    peak = torch.cuda.max_memory_allocated()
+    out = {"init_s": init_s, "encode_s": enc_s, "encode_cold_s": enc_cold,
+           "decode_ms": 1e3 * dec_s / gen, "decode_cold_ms": 1e3 * dec_cold
+           / gen, "err": err, "scale": scale, "agree": agree,
+           "bounds": bounds, "peak_gb": (peak - base_mem) / 1e9,
+           "serve_peak_gb": (serve_peak - base_mem) / 1e9,
+           "frozen_gb": 2 * counts[0] / 1e9, "counts": counts,
+           "n_layers": (cfg.n_enc_layers, cfg.n_dec_layers), **bw}
+    del params, frozen, train, batch, src, mem
+    _free_cuda()
+    return out
+
+
+def _err_of(a, b) -> tuple:
+    """(max |a - b|, max |b|) in fp32 on the CPU."""
+    import torch
+    a = a.to("cpu", torch.float32)
+    b = b.to("cpu", torch.float32)
+    return float((a - b).abs().max()), float(b.abs().max())
+
+
+def lm_a9d_card_cpu(dev) -> dict:
+    """Card against CPU from one tree (drawn on the card, adapters moved
+    off init, copied): seamless-m4t-medium whole at 1 x (256 frames, 64
+    target tokens): the encoder output, the teacher-forced logits, the
+    cross cache and 4 decode steps, each within
+    ``LM_ENCDEC_CARD_CPU_REL`` of its max; paligemma-3b's width at depth
+    2 at 1 x (256 + 64): the text positions' logits, the prefill caches
+    and 4 decode steps, each within ``LM_CARD_CPU_REL``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.lora import linear_apply
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import lm as LM
+    from repro_torch.utils.tree import flatten_with_names, tree_to
+
+    c = LM_A9D_CPU
+    rng = np.random.default_rng(6)
+    out, cpu_s = {}, 0.0
+    # seamless whole
+    cfg = registry.get(LM_ENCDEC["arch"]).full()
+    params = ED.init(torch.Generator(device=dev).manual_seed(1), cfg,
+                     device=dev)
+    trees = [(params["frozen"], _move_b(params["train"], 2, dev), dev)]
+    trees.append((tree_to(trees[0][0], "cpu"), tree_to(trees[0][1], "cpu"),
+                  torch.device("cpu")))
+    src = torch.from_numpy(rng.standard_normal(
+        (1, c["frames"], cfg.d_model), dtype=np.float32)).to(torch.bfloat16)
+    tgt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, c["tgt"])))
+    res = []
+    for fz, tr, d in trees:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            mem = ED.encode(fz, tr, cfg, src.to(d))
+            h = ED.decode_train(fz, tr, cfg, tgt.to(d), mem)
+            lg = linear_apply(fz["head"], tr["head"], h, cfg.lora.scale)
+            cross = ED.cross_cache(fz, tr, cfg, mem)
+            caches = ED.self_cache_init(cfg, 1, c["steps"], device=d)
+            steps = [ED.decode_step(fz, tr, cfg, tgt[:, i:i + 1].to(d),
+                                    caches, cross, i)[0]
+                     for i in range(c["steps"])]
+        res.append({"encoder output": mem, "logits": lg,
+                    "cross k": cross["k"], "cross v": cross["v"],
+                    "decode": torch.cat(steps, dim=1)})
+        if d.type == "cpu":
+            cpu_s += time.perf_counter() - t0
+    out.update({f"seamless {k}": _err_of(res[0][k], res[1][k])
+                for k in res[1]})
+    del params, trees, res, mem, h, lg, cross, caches, steps
+    _free_cuda()
+    # paligemma's width at depth 2
+    cfg = dataclasses.replace(registry.get(LM_PREFIX["arch"]).full(),
+                              n_layers=c["n_layers"])
+    params = LM.init(torch.Generator(device=dev).manual_seed(1), cfg,
+                     device=dev)
+    trees = [(params["frozen"], _move_b(params["train"], 2, dev), dev)]
+    trees.append((tree_to(trees[0][0], "cpu"), tree_to(trees[0][1], "cpu"),
+                  torch.device("cpu")))
+    pre = torch.from_numpy(rng.standard_normal(
+        (1, c["prefix"], cfg.d_model), dtype=np.float32)).to(torch.bfloat16)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, c["tokens"] + c["steps"])))
+    res = []
+    for fz, tr, d in trees:
+        t0 = time.perf_counter()
+        tk, pe = toks.to(d), pre.to(d)
+        with torch.no_grad():
+            h, _ = LM.forward(fz, tr, cfg, tk[:, :c["tokens"]], pe)
+            lg = LM._head_logits(fz, tr, cfg, h[:, c["prefix"]:])
+            _, caches, pos = LM.prefill(
+                fz, tr, cfg, tk[:, :c["tokens"]], pe,
+                max_seq=c["prefix"] + c["tokens"] + c["steps"])
+            r = {f"cache {n}": t.to("cpu", torch.float32, copy=True)
+                 for n, t in flatten_with_names(caches)}
+            steps = []
+            for i in range(c["steps"]):
+                ld, caches = LM.decode_step(
+                    fz, tr, cfg, tk[:, c["tokens"] + i:c["tokens"] + i + 1],
+                    caches, pos + i)
+                steps.append(ld)
+        res.append({"logits": lg, **r, "decode": torch.cat(steps, dim=1)})
+        if d.type == "cpu":
+            cpu_s += time.perf_counter() - t0
+    out.update({f"paligemma depth {c['n_layers']} {k}":
+                _err_of(res[0][k], res[1][k]) for k in res[1]})
+    del params, trees, res, h, lg, caches, steps
+    _free_cuda()
+    def limit(what):
+        return LM_ENCDEC_CARD_CPU_REL if what.startswith("seamless") \
+            else LM_CARD_CPU_REL
+
+    return {"cpu_s": cpu_s, "errs": out, "failed": [
+        what for what, (err, scale) in out.items()
+        if not (math.isfinite(err) and err <= limit(what) * scale)]}
+
+
+def _train_cli(dirs: dict, steps: int, dev) -> dict:
+    """``python -m repro_torch.launch.train`` for each arch of ``dirs``
+    (arch -> checkpoint directory), each in a fresh process, all at
+    once: arch -> (its standard output, its wall time). Every process is
+    stopped before this returns."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for arch, ckpt in dirs.items():
+            cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                   "--arch", arch, "--steps", str(steps), "--batch",
+                   str(LM_TRAIN["batch"]), "--seq", str(LM_TRAIN["seq"]),
+                   "--checkpoint-dir", ckpt, "--checkpoint-every", "1",
+                   "--device", dev.type, *LM_TRAIN["extra"]]
+            procs[arch] = subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        out = {}
+        for arch, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"launch.train --arch {arch} --steps "
+                                     f"{steps} exited {proc.returncode}: "
+                                     f"{stderr[-2000:]}")
+            out[arch] = (stdout, time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def _check_resume(arch: str, d: str, first: str, second: str,
+                  dev) -> dict:
+    """One arch's resumed ``launch.train`` run, held here: it printed a
+    resume at step 2 and one step; step 2's checkpoint restored onto the
+    seed-0 model is bit-identical to what was saved; one step from it on
+    the FIRST batch of ``default_rng(0)`` (the reference redraws at
+    every start) is bit-identical to the resumed run's step 3, and
+    unlike a step on the third batch. Frees the model."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import lm as LM
+    from repro_torch.optim import adamw
+    from repro_torch.utils.tree import flatten_with_names
+
+    lines = [ln for ln in second.splitlines() if ln.startswith(
+        ("resumed", "step "))]
+    if [ln.split(":")[0] for ln in lines] != ["resumed from step 2",
+                                              "step 3"]:
+        raise AssertionError(f"{arch} resumed run printed {lines}")
+    entry = registry.get(arch)
+    cfg = entry.smoke() if "--smoke" in LM_TRAIN["extra"] else entry.full()
+    mod = ED if entry.kind == "encdec" else LM
+    params = mod.init(0, cfg, device=dev)
+    like = {"train": params["train"], "opt": adamw().init(params["train"])}
+    got, _ = checkpoint.restore(d, 2, like)
+    with np.load(os.path.join(d, "ckpt_00000002.npz")) as saved:
+        same = all(np.array_equal(checkpoint._host(t), saved[f"{g}::{n}"])
+                   for g, tree in got.items()
+                   for n, t in flatten_with_names(tree))
+    if not same:
+        raise AssertionError(f"{arch}: the restored step 2 is not what was "
+                             "saved")
+    rng = np.random.default_rng(0)
+    batches = [train.draw_batch(rng, cfg, entry.kind, LM_TRAIN["batch"],
+                                LM_TRAIN["seq"], dev) for _ in range(3)]
+    lr = train.parse_args(["--arch", arch]).lr      # the default
+    t0 = time.perf_counter()
+    tr3, opt3, loss3 = train.train_step(params["frozen"], got["train"],
+                                        got["opt"], cfg, entry.kind,
+                                        batches[0], lr)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    saved3, _ = checkpoint.restore(d, 3, like)
+    equal = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        flatten_with_names({"train": tr3, "opt": opt3}),
+        flatten_with_names(saved3)))
+    other, _, _ = train.train_step(params["frozen"], got["train"],
+                                   got["opt"], cfg, entry.kind, batches[2],
+                                   lr)
+    differs = not all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        flatten_with_names(other), flatten_with_names(tr3)))
+    printed = lines[1].split("loss=")[1].split()[0]
+    if not equal or not differs or printed != f"{float(loss3):.4f}":
+        raise AssertionError(f"{arch}: resumed step 3 equal to the step from "
+                             f"step 2 on batch 1: {equal}; a step on batch "
+                             f"3 differs: {differs}; loss printed {printed}, "
+                             f"here {float(loss3)}")
+    times = [float(ln.split("(")[1].split("s)")[0])
+             for ln in (first + second).splitlines() if ln.startswith("step ")]
+    del params, like, got, tr3, opt3, other, saved3, batches
+    _free_cuda()
+    return {"step_s": times, "loss3": float(loss3),
+            "inprocess_step_s": step_s}
+
+
+def lm_train_cli(dev) -> dict:
+    """``launch.train`` for paligemma-3b and seamless-m4t-medium (both at
+    once) at batch 1 and ``--seq 512``, checkpointing every step:
+    ``--steps 2``, then ``--steps 3`` in fresh processes on the same
+    directories, each resumed run held by ``_check_resume``. arch ->
+    its walls and checks."""
+    import shutil
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    dirs = {arch: tempfile.mkdtemp(prefix="train_smoke_",
+                                   dir=ROOT / "build")
+            for arch in (LM_PREFIX["arch"], LM_ENCDEC["arch"])}
+    try:
+        first = _train_cli(dirs, 2, dev)
+        second = _train_cli(dirs, 3, dev)
+        return {arch: {"walls": (first[arch][1], second[arch][1]),
+                       **_check_resume(arch, d, first[arch][0],
+                                       second[arch][0], dev)}
+                for arch, d in dirs.items()}
+    finally:
+        for d in dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def lm_a9d_phase(dev, card: str) -> dict:
+    """Phase 4e: paligemma-3b (the prefix-LM) and seamless-m4t-medium
+    (the encoder-decoder) at their published widths and depths, both
+    card against CPU from one tree, and ``launch.train`` for both with a
+    resume. Launches none of the six kernels (the reference computes
+    both families with einsums outside any Pallas kernel): the counts
+    are read around the phase and must not move."""
+    from repro_torch.kernels import ops as kops
+    before = kops.launch_counts()
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    r = out["prefix"] = lm_prefix_arch(dev)
+    c, b = LM_PREFIX, r["bounds"]
+    print(f"lm {c['arch']} published width and depth ({r['n_layers']} "
+          f"layers; {card}): "
+          f"frozen {r['counts'][0]:,} values ({r['frozen_gb']:.2f} GB bf16), "
+          f"trained {r['counts'][1]:,} fp32, init {r['init_s']:.2f} s; "
+          f"prefill {c['batch']} x ({c['prefix']} patches + {c['prompt']} "
+          f"tokens) {1e3 * r['prefill_s']:.1f} ms warm / "
+          f"{1e3 * r['prefill_cold_s']:.1f} cold (bound "
+          f"{b['prefill'][0]:.2f} ms by {b['prefill'][1]}, "
+          f"{b['prefill_tflop']:.2f} TFLOP); decode {r['decode_ms']:.3f} ms "
+          f"a step warm / {r['decode_cold_ms']:.3f} cold over "
+          f"{c['gen'] - 1} steps (bound {b['decode'][0]:.3f} ms by "
+          f"{b['decode'][1]}, {b['decode_gb']:.3f} GB); text-only generate "
+          f"{c['short_prompt']} + {c['short_gen']}: cache of "
+          f"{r['short_slots']} slots (the reference's prompt + gen + "
+          f"prefix_len), prefill {1e3 * r['short_prefill_s']:.1f} ms, decode "
+          f"{r['short_decode_ms']:.3f} ms a step; loss+backward 1 x "
+          f"({c['prefix']} + {c['train_seq']}) "
+          f"{1e3 * r['train_s'][1]:.1f} ms warm / "
+          f"{1e3 * r['train_s'][0]:.1f} cold (loss {r['loss']:.4f}, "
+          f"{r['trained']} trained leaves, every one and every stacked "
+          f"layer's slice finite and nonzero, none on the frozen tree); "
+          f"peak memory {r['peak_gb']:.2f} GB ({r['serve_peak_gb']:.2f} "
+          f"serving); decode vs forward max err {r['err']:.4g} of "
+          f"max|logit| {r['scale']:.4g} (tolerance {LM_CONSIST_REL}), "
+          f"argmax agreement {r['agree']:.4f}; repeat decode equal; "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    r = out["encdec"] = lm_encdec_arch(dev)
+    c, b = LM_ENCDEC, r["bounds"]
+    print(f"lm {c['arch']} published width and depth ({r['n_layers'][0]} + "
+          f"{r['n_layers'][1]} layers; {card}): frozen {r['counts'][0]:,} "
+          f"values ({r['frozen_gb']:.2f} GB bf16), trained {r['counts'][1]:,} fp32, init "
+          f"{r['init_s']:.2f} s; encode + cross_cache {c['batch']} x "
+          f"{c['frames']} frames {1e3 * r['encode_s']:.1f} ms warm / "
+          f"{1e3 * r['encode_cold_s']:.1f} cold (bound "
+          f"{b['encode'][0]:.2f} ms by {b['encode'][1]}, "
+          f"{b['encode_tflop']:.3f} TFLOP); decode {r['decode_ms']:.3f} ms "
+          f"a step warm / {r['decode_cold_ms']:.3f} cold over {c['gen']} "
+          f"steps (bound {b['decode'][0]:.3f} ms by {b['decode'][1]}, "
+          f"{b['decode_gb']:.3f} GB, the cross cache {b['cross_gb']:.3f}); "
+          f"loss+backward 1 x ({c['train_frames']} frames, "
+          f"{c['train_tgt']} + 1 tokens) {1e3 * r['train_s'][1]:.1f} ms "
+          f"warm / {1e3 * r['train_s'][0]:.1f} cold (loss {r['loss']:.4f}, "
+          f"{r['trained']} trained leaves, every one and every stacked "
+          f"layer's slice finite and nonzero, none on the frozen tree); "
+          f"peak memory {r['peak_gb']:.2f} GB ({r['serve_peak_gb']:.2f} "
+          f"serving); decode vs decode_train max err {r['err']:.4g} of "
+          f"max|logit| {r['scale']:.4g} (tolerance {LM_CONSIST_REL}), "
+          f"argmax agreement {r['agree']:.4f}; repeat decode equal; "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["train"] = lm_train_cli(dev)
+    for arch, r in out["train"].items():
+        print(f"launch.train {arch} (batch {LM_TRAIN['batch']}, --seq "
+              f"{LM_TRAIN['seq']}, a checkpoint every step; {card}): "
+              f"--steps 2 then --steps 3 in fresh processes, both archs at "
+              f"once ({r['walls'][0]:.1f} / {r['walls'][1]:.1f} s), step "
+              f"walls {r['step_s']} s; resumed at step 2 with the trees and "
+              f"AdamW state restored bit-identical; its step 3 (loss "
+              f"{r['loss3']:.4f}) bit-identical to a step here from step 2 "
+              f"on the first batch ({1e3 * r['inprocess_step_s']:.1f} ms)")
+    print(f"launch.train phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cc = out["card_cpu"] = lm_a9d_card_cpu(dev)
+    print(f"lm a9d card vs CPU ({card}): " + "; ".join(
+        f"{k} {v[0]:.4g} of {v[1]:.4g}" for k, v in cc["errs"].items())
+        + f" (tolerance {LM_ENCDEC_CARD_CPU_REL} seamless, "
+        f"{LM_CARD_CPU_REL} paligemma); CPU side {cc['cpu_s']:.1f} s; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if cc["failed"]:
+        raise AssertionError(f"card vs CPU past its limit: {cc['failed']}")
+    after = kops.launch_counts()
+    if after != before:
+        raise AssertionError(f"phase 4e launched kernels: {before} -> "
+                             f"{after}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 4e kernel launches: {after == before} (0 of each); "
+          f"peak memory {out['prefix']['peak_gb']:.2f} / "
+          f"{out['encdec']['peak_gb']:.2f} GB; {out['wall_s']:.1f} s")
     return out
 
 
@@ -4539,6 +5260,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     lm_ssm_phase(dev, card)
     print(f"lm ssm phase: {time.perf_counter() - t0:.1f} s")
+
+    # 4e. the prefix-LM and the encoder-decoder, and the training entry point
+    lm_a9d_phase(dev, card)
 
     # 5. times at the paths' shapes ---------------------------------------
     t_flat = time_flat_kernels(update, k, dev, "resnet8")

@@ -4,6 +4,7 @@ cannot give.
     python3 scripts/chip_repeats.py cohort N [--deterministic]
     python3 scripts/chip_repeats.py lm-decode
     python3 scripts/chip_repeats.py ssm-noise
+    python3 scripts/chip_repeats.py encdec-noise
 
 ``cohort``: tests/test_torch_cuda.py's vmapped cohort engine against
 ``make_local_trainer`` (ResNet-8 r=8, K=3, 16x16 images), N times in one
@@ -25,6 +26,13 @@ and CPU against CPU (8 threads against 1); then the decode logits
 against the teacher-forced forward (2 x 2,048 + 32, seed 0) at cut
 depths of mamba2-370m (12, 24, 48) and zamba2-2.7b (18, 36, 54), the
 whole run and steps 1, 15 and 31.
+
+``encdec-noise``: the same for seamless-m4t-medium whole, beside what
+``chip_smoke.py`` phase 4e holds (seed 1, adapters moved off init, 1 x
+256 frames and 64 target tokens): each encoder layer's output card
+against CPU on one bf16 input, then the encoder output and the
+teacher-forced logits card against CPU, card against card (batch 1
+against a row of batch 2) and CPU against CPU (8 threads against 1).
 
 Run from the root of a checkout, on a machine with a CUDA device.
 """
@@ -172,6 +180,60 @@ def ssm_noise() -> None:
             cs._free_cuda()
 
 
+def encdec_noise() -> None:
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.configs import registry
+    from repro_torch.core.lora import linear_apply
+    from repro_torch.models import encdec as ED
+    from repro_torch.utils.tree import tree_to
+
+    dev = torch.device("cuda")
+
+    def rel(a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        return float((a - b).abs().max() / b.abs().max())
+
+    cfg = registry.get("seamless-m4t-medium").full()
+    p = ED.init(torch.Generator(device=dev).manual_seed(1), cfg, device=dev)
+    fz, tr = p["frozen"], cs._move_b(p["train"], 2, dev)
+    fzc, trc = tree_to(fz, "cpu"), tree_to(tr, "cpu")
+    rng = np.random.default_rng(6)
+    src = torch.from_numpy(rng.standard_normal(
+        (2, 256, cfg.d_model), dtype=np.float32)).to(torch.bfloat16)
+    tgt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64)))
+    rope = ED._rope(cfg, torch.arange(256))
+    x = src[:1]
+
+    def run(f, t, s, tg):
+        mem = ED.encode(f, t, cfg, s)
+        h = ED.decode_train(f, t, cfg, tg, mem)
+        return mem, linear_apply(f["head"], t["head"], h, cfg.lora.scale)
+
+    with torch.no_grad():
+        for i in range(cfg.n_enc_layers):
+            f, t = ED._at(fz["enc"], i), ED._at(tr["enc"], i)
+            fc, tc = ED._at(fzc["enc"], i), ED._at(trc["enc"], i)
+            yg = ED._enc_layer(cfg, f, t, x.to(dev),
+                               tuple(r.to(dev) for r in rope))
+            yc = ED._enc_layer(cfg, fc, tc, x, rope)
+            print(f"seamless encoder layer {i}: output card vs CPU "
+                  f"{rel(yg - x.to(dev), yc - x):.4g} of its max")
+        mg, lg = run(fz, tr, x.to(dev), tgt[:1].to(dev))
+        mg2, lg2 = (t[:1] for t in run(fz, tr, src.to(dev), tgt.to(dev)))
+        threads = torch.get_num_threads()
+        mc, lc = run(fzc, trc, x, tgt[:1])
+        torch.set_num_threads(1)
+        mc1, lc1 = run(fzc, trc, x, tgt[:1])
+        torch.set_num_threads(threads)
+    for what, g, g2, c, c1 in (("encoder output", mg, mg2, mc, mc1),
+                               ("logits", lg, lg2, lc, lc1)):
+        print(f"seamless {what}: card vs CPU {rel(g, c):.4g}; card batch 1 "
+              f"vs a row of batch 2 {rel(g2, g):.4g}; CPU {threads} threads "
+              f"vs 1 {rel(c1, c):.4g} (of its max)")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="what", required=True)
@@ -180,6 +242,7 @@ def main(argv=None) -> None:
     c.add_argument("--deterministic", action="store_true")
     sub.add_parser("lm-decode")
     sub.add_parser("ssm-noise")
+    sub.add_parser("encdec-noise")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -192,6 +255,8 @@ def main(argv=None) -> None:
         cohort(args.reps, args.deterministic)
     elif args.what == "ssm-noise":
         ssm_noise()
+    elif args.what == "encdec-noise":
+        encdec_noise()
     else:
         lm_decode()
 

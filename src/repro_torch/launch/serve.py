@@ -32,8 +32,10 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     entry = registry.get(args.arch)
     if entry.kind != "lm":
-        raise SystemExit("serve drives decoder LMs; the enc-dec model is "
-                         "not ported yet (ROADMAP A9d)")
+        raise SystemExit("serve drives decoder LMs, as the JAX package's "
+                         "does; the enc-dec model serves through "
+                         "models/encdec.py (encode, cross_cache, "
+                         "self_cache_init, decode_step)")
     cfg = entry.smoke() if args.smoke else entry.full()
     params = LM.init(0, cfg, device=dev)
     frozen, train = params["frozen"], params["train"]

@@ -1,0 +1,148 @@
+"""Training entry point for the LM zoo: the JAX package's ``launch/train.py``
+on one card. Initializes an ``--arch`` from seed 0 (random weights),
+runs FLoCoRA train steps (the frozen base, AdamW on the adapters and
+norms) on Markov-chain token batches, checkpoints every
+``--checkpoint-every`` steps and resumes from the newest checkpoint in
+``--checkpoint-dir``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch paligemma-3b --smoke --steps 20 [--device cuda]
+
+A prefix-LM (paligemma-3b) also draws ``cfg.prefix_len`` random patch
+embeddings a row, and the enc-dec model (seamless-m4t-medium) random
+frame embeddings of ``--seq`` frames and ``--seq`` + 1 target tokens:
+the frontends are stubs, as in the reference. As in the reference, every
+run draws its batches from ``np.random.default_rng(0)`` anew, so a
+resumed run's first step takes the first batch, not the one the
+interrupted run would have drawn next.
+
+Runs on the card unless ``--device cpu`` is given; without a card the
+default raises. The reference's ``--mesh`` (a sharded run on a device
+mesh) is distribution, not ported here (ROADMAP A8).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import registry
+from repro_torch.data.synthetic import markov_lm_batch
+from repro_torch.models import encdec as ED
+from repro_torch.models import lm as LM
+from repro_torch.optim import adamw
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import tree_flatten, tree_size, tree_unflatten
+
+
+def _bf16(a: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(a).to(device=dev, dtype=torch.bfloat16)
+
+
+def draw_batch(rng: np.random.Generator, cfg: Any, kind: str, batch: int,
+               seq: int, device) -> dict:
+    """One batch, drawn from ``rng`` in the reference's order: an enc-dec
+    model's frame embeddings (batch, seq, d) then its target tokens
+    (batch, seq + 1); a decoder LM's tokens (batch, seq + 1), then a
+    prefix-LM's patch embeddings (batch, cfg.prefix_len, d). Embeddings
+    are bf16."""
+    if kind == "encdec":
+        src = rng.normal(size=(batch, seq, cfg.d_model))
+        return {"src_embed": _bf16(src, device),
+                "tgt_tokens": torch.from_numpy(markov_lm_batch(
+                    rng, cfg.vocab, batch, seq)["tokens"]).to(device)}
+    out = {"tokens": torch.from_numpy(markov_lm_batch(
+        rng, cfg.vocab, batch, seq)["tokens"]).to(device)}
+    if cfg.prefix_lm:
+        out["prefix_embed"] = _bf16(rng.normal(
+            size=(batch, cfg.prefix_len, cfg.d_model)), device)
+    return out
+
+
+def train_step(frozen: dict, train: Any, opt_state: dict, cfg: Any,
+               kind: str, batch: dict, lr: float
+               ) -> tuple[Any, dict, torch.Tensor]:
+    """One step: the model's ``loss_fn``, its gradient on the trained
+    tree, one AdamW update. Returns (train, opt_state, loss)."""
+    mod = ED if kind == "encdec" else LM
+    leaves, treedef = tree_flatten(train)
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    loss, _ = mod.loss_fn(frozen, tree_unflatten(treedef, leaves), cfg,
+                          batch)
+    grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        train, opt_state = adamw().update(
+            tree_unflatten(treedef, list(grads)), opt_state,
+            tree_unflatten(treedef, [t.detach() for t in leaves]), lr)
+    return train, opt_state, loss.detach()
+
+
+def train_loop(frozen: dict, train: Any, cfg: Any, kind: str,
+               args: argparse.Namespace, rng: np.random.Generator) -> dict:
+    """Steps ``start + 1 .. args.steps`` from ``train`` (or from the
+    newest checkpoint in ``args.checkpoint_dir``, which sets ``start``),
+    a batch of ``args.batch`` x ``args.seq`` from ``rng`` each, saving
+    {'train', 'opt'} every ``args.checkpoint_every`` steps. Returns
+    {'train', 'opt', 'losses', 'start'}."""
+    dev = LM.param_device(frozen)
+    opt_state = adamw().init(train)
+    ckpt = CheckpointManager(args.checkpoint_dir) \
+        if args.checkpoint_dir else None
+    start = 0
+    if ckpt:
+        got = ckpt.restore_latest({"train": train, "opt": opt_state})
+        if got:
+            start, trees, _ = got
+            train, opt_state = trees["train"], trees["opt"]
+            print(f"resumed from step {start}")
+    losses = []
+    for step in range(start, args.steps):
+        batch = draw_batch(rng, cfg, kind, args.batch, args.seq, dev)
+        t0 = time.time()
+        train, opt_state, loss = train_step(frozen, train, opt_state, cfg,
+                                            kind, batch, args.lr)
+        losses.append(float(loss))
+        print(f"step {step + 1}: loss={losses[-1]:.4f} "
+              f"({time.time() - t0:.2f}s)", flush=True)
+        if ckpt and (step + 1) % args.checkpoint_every == 0:
+            ckpt.save(step + 1, {"train": train, "opt": opt_state})
+    print("done")
+    return {"train": train, "opt": opt_state, "losses": losses,
+            "start": start}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    entry = registry.get(args.arch)
+    cfg = entry.smoke() if args.smoke else entry.full()
+    mod = ED if entry.kind == "encdec" else LM
+    params = mod.init(0, cfg, device=dev)
+    frozen, train = params["frozen"], params["train"]
+    print(f"{cfg.name}: total={tree_size(frozen) + tree_size(train):,} "
+          f"trainable={tree_size(train):,}")
+    return train_loop(frozen, train, cfg, entry.kind, args,
+                      np.random.default_rng(0))
+
+
+if __name__ == "__main__":
+    main()

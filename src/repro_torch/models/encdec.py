@@ -1,16 +1,36 @@
-"""Encoder-decoder transformer (seamless-m4t-medium backbone): the
-config the registry builds.
+"""Encoder-decoder transformer (seamless-m4t-medium backbone): the JAX
+package's ``models/encdec.py``.
 
-The encoder, the decoder with its self and cross caches, and the loss
-are ROADMAP A9d; given this config, the LM's functions raise
-``NotImplementedError`` until then.
+The audio frontend is a stub, as in the reference: the model takes
+precomputed frame embeddings (B, S_src, d). The encoder is a
+bidirectional transformer stack; a decoder layer is causal
+self-attention, cross-attention to the encoder's output and an FFN. All
+projections are FLoCoRA linears (frozen bf16 base, fp32 adapters); the
+norms train in fp32. Layers are stacked over a leading axis on every
+leaf (``enc`` and ``dec``), so a tree initialized by the JAX package
+carries across leaf by leaf (``convert.params_from_jax``). Where JAX
+scans the layers, the port loops over them in Python; with
+``cfg.remat`` each layer is recomputed in the backward pass
+(``torch.utils.checkpoint``).
+
+Serving: the encoder runs once; the cross-attention K/V of every decoder
+layer are computed once from its output (``cross_cache``, static while
+decoding) beside the self-attention cache that ``decode_step`` fills in
+place, one slot a token.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.core.lora import LoRAConfig
-from repro_torch.models.attention import GQASpec
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core import lora
+from repro_torch.core.lora import LoRAConfig, linear_apply, linear_init
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +53,253 @@ class EncDecConfig:
     xent_chunk: int = 512
 
     @property
-    def gqa(self) -> GQASpec:
-        return GQASpec(self.d_model, self.n_heads, self.n_kv_heads,
-                       self.head_dim)
+    def gqa(self) -> A.GQASpec:
+        return A.GQASpec(self.d_model, self.n_heads, self.n_kv_heads,
+                         self.head_dim)
+
+    @property
+    def mlp(self) -> L.MLPSpec:
+        return L.MLPSpec(self.mlp_kind, self.d_model, self.d_ff)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _enc_layer_init(gen: torch.Generator, cfg: EncDecConfig,
+                    stack: tuple[int, ...], dev: torch.device
+                    ) -> tuple[dict, dict]:
+    fz: dict = {}
+    tr: dict = {"norm1": L.rmsnorm_init(cfg.d_model, stack, dev),
+                "norm2": L.rmsnorm_init(cfg.d_model, stack, dev)}
+    fz["attn"], tr["attn"] = A.gqa_init(gen, cfg.gqa, "lora", cfg.lora,
+                                        stack, dev)
+    fz["mlp"], tr["mlp"] = L.mlp_init(gen, cfg.mlp, "lora", cfg.lora, stack,
+                                      dev)
+    return fz, tr
+
+
+def _dec_layer_init(gen: torch.Generator, cfg: EncDecConfig,
+                    stack: tuple[int, ...], dev: torch.device
+                    ) -> tuple[dict, dict]:
+    """An encoder layer's parameters, plus the cross-attention's norm
+    (``norm_x``) and projections (``cross``)."""
+    fz, tr = _enc_layer_init(gen, cfg, stack, dev)
+    tr["norm_x"] = L.rmsnorm_init(cfg.d_model, stack, dev)
+    fz["cross"], tr["cross"] = A.gqa_init(gen, cfg.gqa, "lora", cfg.lora,
+                                          stack, dev)
+    return fz, tr
+
+
+def init(gen, cfg: EncDecConfig, device="cuda") -> dict:
+    """{'frozen', 'train'} on ``device`` (default: the card; raises
+    without one), the reference's tree: frozen ``embed``, ``head``'s
+    base and the stacked ``enc``/``dec`` linears in bf16; trained
+    ``final_norm``, ``enc_norm``, ``head``'s adapter and the stacked
+    layers' adapters and norms in fp32. ``gen`` is a
+    ``torch.Generator`` or an int seed (drawn on the card when
+    ``device`` is one); on the ``meta`` device the trees hold shapes
+    only."""
+    dev = resolve_device(device)
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator(
+            device=dev if dev.type == "cuda" else "cpu").manual_seed(
+                int(gen))
+    frozen: dict = {"embed": {"w": lora._normal(
+        gen, (cfg.vocab, cfg.d_model), 1.0, torch.bfloat16, dev)}}
+    train: dict = {"final_norm": L.rmsnorm_init(cfg.d_model, device=dev),
+                   "enc_norm": L.rmsnorm_init(cfg.d_model, device=dev)}
+    hf, ht = linear_init(gen, cfg.d_model, cfg.vocab, cfg.head_mode,
+                         cfg.lora, w_init_scale=cfg.d_model ** -0.5,
+                         device=dev)
+    if hf:
+        frozen["head"] = hf
+    if ht:
+        train["head"] = ht
+    frozen["enc"], train["enc"] = _enc_layer_init(
+        gen, cfg, (cfg.n_enc_layers,), dev)
+    frozen["dec"], train["dec"] = _dec_layer_init(
+        gen, cfg, (cfg.n_dec_layers,), dev)
+    return {"frozen": frozen, "train": train}
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+def _at(tree, i: int):
+    """Layer ``i`` of a stacked tree (views)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def param_device(frozen: dict) -> torch.device:
+    return frozen["embed"]["w"].device
+
+
+def _rope(cfg: EncDecConfig, positions: torch.Tensor):
+    return L.rope_for_positions(positions, cfg.head_dim, cfg.rope_base)
+
+
+def _cross_apply(fz: dict, tr: dict, spec: A.GQASpec, x: torch.Tensor,
+                 memory: torch.Tensor, sc: float,
+                 kv_chunk: int) -> torch.Tensor:
+    """Cross-attention: queries from ``x``, keys and values from
+    ``memory``; no rope, no mask."""
+    b, s, _ = x.shape
+    dh = spec.head_dim
+    q = linear_apply(fz.get("wq", {}), tr.get("wq", {}), x, sc)
+    k = linear_apply(fz.get("wk", {}), tr.get("wk", {}), memory, sc)
+    v = linear_apply(fz.get("wv", {}), tr.get("wv", {}), memory, sc)
+    q = q.reshape(b, s, spec.hq, dh)
+    k = k.reshape(b, memory.shape[1], spec.n_kv_heads, dh)
+    v = v.reshape(b, memory.shape[1], spec.n_kv_heads, dh)
+    o = L.attention_chunked(q, k, v, causal=False, kv_chunk=kv_chunk)
+    o = o.reshape(b, s, spec.hq * dh)
+    return linear_apply(fz.get("wo", {}), tr.get("wo", {}), o, sc)
+
+
+def _enc_layer(cfg: EncDecConfig, fz: dict, tr: dict, x: torch.Tensor,
+               rope) -> torch.Tensor:
+    sc = cfg.lora.scale
+    h = L.rmsnorm_apply(tr["norm1"], x)
+    x = x + A.gqa_apply(fz["attn"], tr["attn"], cfg.gqa, h, sc, rope,
+                        causal=False, kv_chunk=cfg.kv_chunk)
+    h = L.rmsnorm_apply(tr["norm2"], x)
+    return x + L.mlp_apply(fz["mlp"], tr["mlp"], cfg.mlp, h, sc)
+
+
+def _dec_layer(cfg: EncDecConfig, fz: dict, tr: dict, x: torch.Tensor,
+               memory: torch.Tensor, rope) -> torch.Tensor:
+    sc = cfg.lora.scale
+    h = L.rmsnorm_apply(tr["norm1"], x)
+    x = x + A.gqa_apply(fz["attn"], tr["attn"], cfg.gqa, h, sc, rope,
+                        causal=True, kv_chunk=cfg.kv_chunk)
+    h = L.rmsnorm_apply(tr["norm_x"], x)
+    x = x + _cross_apply(fz["cross"], tr["cross"], cfg.gqa, h, memory, sc,
+                         cfg.kv_chunk)
+    h = L.rmsnorm_apply(tr["norm2"], x)
+    return x + L.mlp_apply(fz["mlp"], tr["mlp"], cfg.mlp, h, sc)
+
+
+def _run(layer, cfg: EncDecConfig, n: int, fz: dict, tr: dict,
+         x: torch.Tensor, *args) -> torch.Tensor:
+    """``layer`` over the ``n`` stacked layers of (fz, tr), each
+    recomputed in the backward pass where ``cfg.remat`` is set and
+    autograd is recording."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(n):
+        if remat:
+            x = checkpoint(layer, cfg, _at(fz, i), _at(tr, i), x, *args,
+                           use_reentrant=False)
+        else:
+            x = layer(cfg, _at(fz, i), _at(tr, i), x, *args)
+    return x
+
+
+def encode(frozen: dict, train: dict, cfg: EncDecConfig,
+           src_embed) -> torch.Tensor:
+    """src_embed: (B, S_src, d) frame embeddings. Bidirectional
+    self-attention with rope over the source positions; returns the
+    ``enc_norm``-ed memory (B, S_src, d) bf16."""
+    dev = param_device(frozen)
+    x = torch.as_tensor(src_embed, device=dev).to(torch.bfloat16)
+    rope = _rope(cfg, torch.arange(x.shape[1], device=dev))
+    x = _run(_enc_layer, cfg, cfg.n_enc_layers, frozen["enc"], train["enc"],
+             x, rope)
+    return L.rmsnorm_apply(train["enc_norm"], x)
+
+
+def decode_train(frozen: dict, train: dict, cfg: EncDecConfig, tgt,
+                 memory: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced decoder over target tokens (B, S_tgt) against the
+    encoder's ``memory``; returns the ``final_norm``-ed hidden states
+    (B, S_tgt, d)."""
+    dev = param_device(frozen)
+    tgt = torch.as_tensor(tgt, device=dev).to(torch.long)
+    x = frozen["embed"]["w"][tgt]
+    rope = _rope(cfg, torch.arange(x.shape[1], device=dev))
+    x = _run(_dec_layer, cfg, cfg.n_dec_layers, frozen["dec"], train["dec"],
+             x, memory, rope)
+    return L.rmsnorm_apply(train["final_norm"], x)
+
+
+def loss_fn(frozen: dict, train: dict, cfg: EncDecConfig,
+            batch: dict) -> tuple[torch.Tensor, dict]:
+    """batch: {'src_embed': (B, S_src, d), 'tgt_tokens': (B, S_tgt + 1)}.
+    Returns (mean next-token cross entropy, {'xent': the same}): no aux
+    loss."""
+    memory = encode(frozen, train, cfg, batch["src_embed"])
+    tgt = torch.as_tensor(batch["tgt_tokens"], device=memory.device)
+    h = decode_train(frozen, train, cfg, tgt[:, :-1], memory)
+    xent = L.chunked_xent(h, frozen.get("head", {}), train.get("head", {}),
+                          tgt[:, 1:], cfg.lora.scale, chunk=cfg.xent_chunk)
+    return xent, {"xent": xent}
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def cross_cache(frozen: dict, train: dict, cfg: EncDecConfig,
+                memory: torch.Tensor) -> dict:
+    """Every decoder layer's cross-attention K/V of ``memory``, stacked:
+    {'k', 'v': (L, B, S_src, Hkv, Dh)} bf16, static while decoding."""
+    sc = cfg.lora.scale
+    b, s, _ = memory.shape
+    shp = (b, s, cfg.gqa.n_kv_heads, cfg.head_dim)
+    out: dict = {"k": [], "v": []}
+    for i in range(cfg.n_dec_layers):
+        fz, tr = _at(frozen["dec"]["cross"], i), _at(train["dec"]["cross"], i)
+        for nm in ("k", "v"):
+            out[nm].append(linear_apply(fz.get(f"w{nm}", {}),
+                                        tr.get(f"w{nm}", {}), memory,
+                                        sc).reshape(shp))
+    return {nm: torch.stack(v) for nm, v in out.items()}
+
+
+def self_cache_init(cfg: EncDecConfig, batch: int, max_seq: int,
+                    device="cuda") -> dict:
+    """The decoder's self-attention caches, zeros: {'k', 'v': (L, B,
+    max_seq, Hkv, Dh)} bf16, written in place by ``decode_step``."""
+    c = A.gqa_cache_init(cfg.gqa, batch, max_seq, device="meta")
+    dev = resolve_device(device)
+    return {k: torch.zeros((cfg.n_dec_layers, *v.shape), dtype=v.dtype,
+                           device=dev) for k, v in c.items()}
+
+
+def decode_step(frozen: dict, train: dict, cfg: EncDecConfig, token,
+                self_caches: dict, cross_caches: dict,
+                pos: int) -> tuple[torch.Tensor, dict]:
+    """token: (B, 1); pos: its absolute position (an int). Writes the new
+    self-attention k/v into ``self_caches`` in place; cross-attention
+    reads the whole of ``cross_caches``. Returns (logits (B, 1, V) fp32,
+    self_caches)."""
+    pos = int(pos)
+    dev = param_device(frozen)
+    token = torch.as_tensor(token, device=dev).to(torch.long)
+    x = frozen["embed"]["w"][token]
+    sc = cfg.lora.scale
+    spec = cfg.gqa
+    b = x.shape[0]
+    rope = _rope(cfg, torch.full((b, 1), pos, device=dev))
+    for i in range(cfg.n_dec_layers):
+        fz, tr = _at(frozen["dec"], i), _at(train["dec"], i)
+        cache = {k: v[i] for k, v in self_caches.items()}      # views
+        h = L.rmsnorm_apply(tr["norm1"], x)
+        h, _ = A.gqa_decode(fz["attn"], tr["attn"], spec, h, cache, pos, sc,
+                            rope)
+        x = x + h
+        h = L.rmsnorm_apply(tr["norm_x"], x)
+        q = linear_apply(fz["cross"].get("wq", {}), tr["cross"].get("wq", {}),
+                         h, sc).reshape(b, 1, spec.hq, cfg.head_dim)
+        xk, xv = cross_caches["k"][i], cross_caches["v"][i]
+        o = L.decode_attention(q, xk, xv, xk.shape[1])
+        o = o.reshape(b, 1, spec.hq * cfg.head_dim)
+        x = x + linear_apply(fz["cross"].get("wo", {}),
+                             tr["cross"].get("wo", {}), o, sc)
+        h = L.rmsnorm_apply(tr["norm2"], x)
+        x = x + L.mlp_apply(fz["mlp"], tr["mlp"], cfg.mlp, h, sc)
+    x = L.rmsnorm_apply(train["final_norm"], x)
+    logits = linear_apply(frozen.get("head", {}), train.get("head", {}), x,
+                          sc).to(torch.float32)
+    return logits, self_caches

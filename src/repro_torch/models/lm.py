@@ -1,7 +1,9 @@
 """Decoder LM: the JAX package's ``models/lm.py`` for the dense family
 (gemma3-4b, minitron-4b, qwen1.5-110b, nemotron-4-340b), the MLA and
-MoE layers (deepseek-v2-236b, llama4-maverick-400b-a17b) and the Mamba-2
-layers with zamba2's shared attention (mamba2-370m, zamba2-2.7b).
+MoE layers (deepseek-v2-236b, llama4-maverick-400b-a17b), the Mamba-2
+layers with zamba2's shared attention (mamba2-370m, zamba2-2.7b) and the
+prefix-LM (paligemma-3b). The encoder-decoder (seamless-m4t-medium) is
+``models/encdec.py``.
 
 Layer stacking mirrors the reference: the per-arch layer sequence
 resolves into groups, ``(pattern, repeats)`` pairs whose parameters are
@@ -23,9 +25,14 @@ conv inputs. zamba2's shared attention block has ONE frozen GQA set
 (``frozen['shared_attn']``) used at every invocation, with the
 invocation's own stacked adapters, gelu MLP and KV cache.
 
-Not ported yet: the prefix-LM and the encoder-decoder (ROADMAP A9d). A
-config that needs one makes every function here raise
-``NotImplementedError`` naming the item.
+The prefix-LM takes ``prefix_embed`` (B, P, d), precomputed patch
+embeddings (the image frontend is a stub, as in the reference), and puts
+them before the text: positions and rope run over all P + S tokens, and
+attention is bidirectional within the first P. ``embed_scale`` applies
+to the text embeddings only. As in the reference, ``forward`` (and so
+``loss_fn``) without ``prefix_embed`` makes the first ``cfg.prefix_len``
+TEXT tokens bidirectional, while ``prefill`` without it is causal
+throughout.
 """
 from __future__ import annotations
 
@@ -108,15 +115,11 @@ class LMConfig:
 
 
 def _check(cfg: Any) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item where
-    ``cfg`` needs a part of the LM zoo the port lacks."""
+    """Refuse an encoder-decoder config: its functions are
+    ``models/encdec.py``'s."""
     if isinstance(cfg, EncDecConfig):
-        what = "the encoder-decoder model (ROADMAP A9d)"
-    elif cfg.prefix_lm:
-        what = "the prefix-LM (ROADMAP A9d)"
-    else:
-        return
-    raise NotImplementedError(f"{cfg.name}: {what} is not ported yet")
+        raise TypeError(f"{cfg.name} is an encoder-decoder model: use "
+                        "repro_torch.models.encdec")
 
 
 def resolve_groups(cfg: LMConfig) -> list[Group]:
@@ -287,7 +290,8 @@ def _ffn_block(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
 
 
 def _apply_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
-                 x: torch.Tensor, positions: torch.Tensor
+                 x: torch.Tensor, positions: torch.Tensor,
+                 prefix_len: Optional[torch.Tensor] = None
                  ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = L.rmsnorm_apply(tr["norm1"], x)
     rope = _rope_for(cfg, spec, positions)
@@ -300,7 +304,7 @@ def _apply_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
     else:
         h = A.gqa_apply(fz["attn"], tr["attn"], cfg.gqa, h, cfg.lora.scale,
                         rope, window=spec.window, causal=True,
-                        kv_chunk=cfg.kv_chunk)
+                        prefix_len=prefix_len, kv_chunk=cfg.kv_chunk)
     return _ffn_block(cfg, spec, fz, tr, x + h)
 
 
@@ -326,28 +330,39 @@ def _embed(frozen: dict, cfg: LMConfig, tokens) -> torch.Tensor:
     return x
 
 
-def _no_prefix(cfg: LMConfig, prefix_embed) -> None:
-    _check(cfg)
-    if prefix_embed is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: prefix embeddings (the prefix-LM) are not ported "
-            "yet (ROADMAP A9d)")
+def _with_prefix(x: torch.Tensor, prefix_embed
+                 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The text embeddings ``x`` with ``prefix_embed`` (B, P, d), cast
+    to their dtype, put before them, and the (B,) prefix length P; ``x``
+    and None without a prefix."""
+    if prefix_embed is None:
+        return x, None
+    pe = torch.as_tensor(prefix_embed, device=x.device)
+    x = torch.cat([pe.to(x.dtype), x], dim=1)
+    return x, torch.full((x.shape[0],), pe.shape[1], dtype=torch.int32,
+                         device=x.device)
 
 
 def forward(frozen: dict, train: dict, cfg: LMConfig, tokens,
             prefix_embed=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S). Returns (hidden (B, S, d), aux loss)."""
-    _no_prefix(cfg, prefix_embed)
-    x = _embed(frozen, cfg, tokens)
+    """tokens: (B, S); prefix_embed: optional (B, P, d), put before the
+    text. Returns (hidden (B, P + S, d), aux loss)."""
+    _check(cfg)
+    x, prefix_len = _with_prefix(_embed(frozen, cfg, tokens), prefix_embed)
+    if prefix_len is None and cfg.prefix_lm and cfg.prefix_len:
+        # the reference's fallback: the first cfg.prefix_len TEXT tokens
+        # attend both ways. prefill has none (module docstring).
+        prefix_len = torch.full((x.shape[0],), cfg.prefix_len,
+                                dtype=torch.int32, device=x.device)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, _, _, spec, fz, tr in _layers(frozen, train, cfg):
         if remat:
             x, a = checkpoint(_apply_layer, cfg, spec, fz, tr, x, positions,
-                              use_reentrant=False)
+                              prefix_len, use_reentrant=False)
         else:
-            x, a = _apply_layer(cfg, spec, fz, tr, x, positions)
+            x, a = _apply_layer(cfg, spec, fz, tr, x, positions, prefix_len)
         if a is not None:
             aux = aux + a
     x = L.rmsnorm_apply(train["final_norm"], x)
@@ -356,11 +371,14 @@ def forward(frozen: dict, train: dict, cfg: LMConfig, tokens,
 
 def loss_fn(frozen: dict, train: dict, cfg: LMConfig,
             batch: dict) -> tuple[torch.Tensor, dict]:
-    """batch: {'tokens': (B, S+1) int, optional 'loss_mask' (B, S)}."""
-    _no_prefix(cfg, batch.get("prefix_embed"))
+    """batch: {'tokens': (B, S+1) int, optional 'prefix_embed' (B, P, d),
+    optional 'loss_mask' (B, S) over the text labels}."""
     dev = param_device(frozen)
     tokens = torch.as_tensor(batch["tokens"], device=dev)
-    h, aux = forward(frozen, train, cfg, tokens[:, :-1])
+    prefix_embed = batch.get("prefix_embed")
+    h, aux = forward(frozen, train, cfg, tokens[:, :-1], prefix_embed)
+    if prefix_embed is not None:
+        h = h[:, prefix_embed.shape[1]:]
     mask = batch.get("loss_mask")
     if mask is not None:
         mask = torch.as_tensor(mask, device=dev)
@@ -428,9 +446,11 @@ def _check_prefill_mamba(cfg: LMConfig, s: int) -> None:
 
 
 def _prefill_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
-                   x: torch.Tensor, positions: torch.Tensor, max_seq: int
+                   x: torch.Tensor, positions: torch.Tensor, max_seq: int,
+                   prefix_len: Optional[torch.Tensor] = None
                    ) -> tuple[torch.Tensor, dict]:
-    """Like ``_apply_layer``, and also this layer's cache."""
+    """Like ``_apply_layer``, and also this layer's cache. A
+    sliding-window layer ignores ``prefix_len``, as in the reference."""
     sc = cfg.lora.scale
     s = x.shape[1]
     h = L.rmsnorm_apply(tr["norm1"], x)
@@ -457,7 +477,8 @@ def _prefill_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
         kc = torch.roll(k[:, -w:], s % w, dims=1)
         vc = torch.roll(v[:, -w:], s % w, dims=1)
     else:
-        o = L.attention_chunked(q, k, v, causal=True, kv_chunk=cfg.kv_chunk)
+        o = L.attention_chunked(q, k, v, causal=True, prefix_len=prefix_len,
+                                kv_chunk=cfg.kv_chunk)
         hw = max(0, max_seq - s)
         kc = F.pad(k, (0, 0, 0, 0, 0, hw))
         vc = F.pad(v, (0, 0, 0, 0, 0, hw))
@@ -475,11 +496,15 @@ def _head_logits(frozen: dict, train: dict, cfg: LMConfig,
 def prefill(frozen: dict, train: dict, cfg: LMConfig, tokens,
             prefix_embed=None, max_seq: Optional[int] = None
             ) -> tuple[torch.Tensor, list, int]:
-    """Forward over the prompt, building caches sized ``max_seq``
-    (default: the prompt length; generation passes prompt + headroom).
-    Returns (last logits (B, V) fp32, caches, next position)."""
-    _no_prefix(cfg, prefix_embed)
-    x = _embed(frozen, cfg, tokens)
+    """Forward over the prompt, after ``prefix_embed`` (B, P, d) where
+    given, building caches sized ``max_seq`` (default: P + the prompt
+    length; generation passes prompt + headroom). Without
+    ``prefix_embed`` attention is causal throughout, even for a
+    prefix-LM (the reference's prefill has no ``cfg.prefix_len``
+    fallback). Returns (last logits (B, V) fp32, caches, next position
+    P + S)."""
+    _check(cfg)
+    x, prefix_len = _with_prefix(_embed(frozen, cfg, tokens), prefix_embed)
     b, s, _ = x.shape
     total_seq = s if max_seq is None else max(max_seq, s)
     _check_prefill_windows(cfg, s, total_seq)
@@ -487,7 +512,8 @@ def prefill(frozen: dict, train: dict, cfg: LMConfig, tokens,
     positions = torch.arange(s, device=x.device)[None, :]
     caches = cache_init(cfg, b, total_seq, x.device)
     for gi, i, pi, spec, fz, tr in _layers(frozen, train, cfg):
-        x, c = _prefill_layer(cfg, spec, fz, tr, x, positions, total_seq)
+        x, c = _prefill_layer(cfg, spec, fz, tr, x, positions, total_seq,
+                              prefix_len)
         for key, val in c.items():
             caches[gi][pi][key][i] = val
     x = L.rmsnorm_apply(train["final_norm"], x)

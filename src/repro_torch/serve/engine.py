@@ -262,7 +262,10 @@ def generate(frozen: Any, train: Any, cfg: Any, prompt, gen: int, *,
         raise ValueError(f"the parameters lie on {have}, not on {dev}")
     prompt = torch.as_tensor(prompt, device=have)
     if max_seq is None:
-        max_seq = prompt.shape[1] + gen
+        # the reference's default, which counts a prefix-LM's prefix
+        # although generate passes none (text only)
+        max_seq = prompt.shape[1] + gen + (
+            cfg.prefix_len if getattr(cfg, "prefix_lm", False) else 0)
     rng = torch.Generator(device=have).manual_seed(int(seed))
     with torch.no_grad():
         _sync(have)

@@ -238,6 +238,32 @@ s = utils.tree_weighted_sum([t, utils.tree_scale(t, 2.0)], [0.5, 0.25])
 assert float(s["a"][0]) == 1.0
 assert resnet_paper.resnet18(rank=64).lora.alpha == 1024.0
 """,
+    "encdec_prefix_train": """
+import numpy as np, tempfile, torch
+from repro_torch.configs import registry
+from repro_torch.launch import train
+from repro_torch.models import encdec, lm
+cfg = registry.get("seamless-m4t-medium").smoke()
+p = encdec.init(0, cfg, device="cpu")
+f, t = p["frozen"], p["train"]
+mem = encdec.encode(f, t, cfg, np.ones((1, 5, cfg.d_model), np.float32))
+cross = encdec.cross_cache(f, t, cfg, mem)
+caches = encdec.self_cache_init(cfg, 1, 4, device="cpu")
+lg, _ = encdec.decode_step(f, t, cfg, [[1]], caches, cross, 0)
+assert lg.shape == (1, 1, cfg.vocab)
+cfg = registry.get("paligemma-3b").smoke()
+q = lm.init(0, cfg, device="cpu")
+pre = torch.zeros((1, cfg.prefix_len, cfg.d_model))
+lp, _, pos = lm.prefill(q["frozen"], q["train"], cfg, [[1, 2]], pre)
+assert pos == cfg.prefix_len + 2
+d = tempfile.mkdtemp()
+for steps in (1, 2):
+    out = train.main(["--arch", "seamless-m4t-medium", "--smoke", "--steps",
+                      str(steps), "--batch", "1", "--seq", "8", "--device",
+                      "cpu", "--checkpoint-dir", d, "--checkpoint-every",
+                      "1"])
+assert out["start"] == 1 and len(out["losses"]) == 1
+""",
 }
 
 
@@ -248,9 +274,10 @@ def test_slice_modules_run_without_jax_or_reference(use, tmp_path):
     aggregators, the optimizers and schedules, the local-training
     engines, the async engine over a lazy fleet (with the sync server's
     deadline cohorts and FedBuff), the LM's serving, its launch entry
-    points and the telemetry, and the MLA and MoE archs with the tree
-    algebra and the paper's ResNet configs run (on the CPU) with jax and
-    repro unimportable."""
+    points and the telemetry, the MLA and MoE archs with the tree
+    algebra and the paper's ResNet configs, and the enc-dec model, the
+    prefix-LM and the training entry point with its resume run (on the CPU)
+    with jax and repro unimportable."""
     out = _run(_USE_WITHOUT_JAX.format(src=str(ROOT / "src"),
                                        body=_USES[use]), tmp_path)
     assert out.returncode == 0, out.stderr
@@ -292,7 +319,8 @@ def _no_cuda():
                                    "linear_init", "async_server",
                                    "streaming_accumulator", "lm_init",
                                    "generate", "launch_serve",
-                                   "launch_lm_federated"])
+                                   "launch_lm_federated", "encdec_init",
+                                   "launch_train"])
 def test_default_device_entry_points_raise_without_cuda(entry):
     _no_cuda()
     cfg = resnet.ResNetConfig(lora=LoRAConfig(rank=4, alpha=64.0))
@@ -335,6 +363,14 @@ def test_default_device_entry_points_raise_without_cuda(entry):
         elif entry == "launch_lm_federated":
             from repro_torch.launch import lm_federated
             lm_federated.main(["--rounds", "1"])
+        elif entry == "encdec_init":
+            from repro_torch.configs import registry
+            from repro_torch.models import encdec
+            encdec.init(0, registry.get("seamless-m4t-medium").smoke())
+        elif entry == "launch_train":
+            from repro_torch.launch import train
+            train.main(["--arch", "paligemma-3b", "--smoke", "--steps",
+                        "1"])
         elif entry == "streaming_accumulator":
             from repro_torch.core import flat
             from repro_torch.core.aggregation import \

@@ -499,22 +499,3 @@ def test_dense_arch_matches_jax(check, name):
     """The four dense archs' smoke configs (the consistency configs run
     the same checks in tests/test_torch_lm_consistency.py)."""
     check(name)
-
-
-UNPORTED = {"paligemma-3b": "A9d", "seamless-m4t-medium": "A9d"}
-
-
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_families_raise(arch):
-    cfg = TR.get(arch).smoke()
-    item = UNPORTED[arch]
-    toks = np.zeros((1, 5), np.int32)
-    with pytest.raises(NotImplementedError, match=item):
-        TLM.init(0, cfg, device="cpu")
-    for fn in (lambda: TLM.forward({}, {}, cfg, toks),
-               lambda: TLM.loss_fn({}, {}, cfg, {"tokens": toks}),
-               lambda: TLM.prefill({}, {}, cfg, toks),
-               lambda: TLM.decode_step({}, {}, cfg, toks[:, :1], [], 0),
-               lambda: TLM.cache_init(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn()
