@@ -190,7 +190,25 @@ Phases, each of which raises on failure (the script then exits nonzero):
      restored state is step 2's bit for bit and whose
      step 3 equals, bit for bit, a step taken here from step 2 on the
      first batch (the reference redraws its batches at every start). It
-     frees the models before phase 5;
+     frees the models before phase 4f;
+ 4f. the LM's step builder and dry run (``launch/steps.py``,
+     ``launch/dryrun_lib.py``): ``run_cell`` on meta tensors at the
+     published shapes of gemma3-4b's four cells, seamless-m4t-medium's
+     three and nemotron-4-340b's prefill_32k (which must not fit one
+     card), and at the card's cuts, in spawned processes while the card
+     runs the same step programs from ``build_cell`` at gemma3-4b's and
+     seamless-m4t-medium's published configs (full width and depth,
+     random weights from seed 0, r = 32), published seq lengths and
+     microbatch counts, the batch cut (``LM_STEP_BATCH``; gemma3-4b's
+     long_500k uncut): each step cold and warm, then once more under
+     ``analyze_step``, whose FLOPs on the card must equal the dry run's
+     on meta, the dry run's peak under ``LM_STEP_PEAK_MAX`` and the
+     measured peak within ``LM_STEP_PEAK_REL`` of it; perf_iter's
+     ``int8_base`` decode (frozen bytes, step time, and at depth 2 card
+     against CPU within ``LM_CARD_CPU_REL``); and
+     ``launch.serve_quantized.run`` at gemma3-4b's config (the store at
+     d = 2,560) with the launch counts set to 0 around it: B1 and B4
+     launch, no other kernel, fused within ``SERVE_TOL`` of the oracle;
   5. time each kernel with CUDA events at its path's shapes beside its
      plain version and its bound (B1 and B2, and the ``flat_rows``
      staging before B1, at ResNet-8's and ResNet-18's layouts;
@@ -453,6 +471,43 @@ LM_ENCDEC_CARD_CPU_REL = 4e-2
 # a checkpoint every step: --steps 2, then --steps 3 in a fresh process
 # (``extra``: more arguments, e.g. --smoke for a CPU rehearsal)
 LM_TRAIN = dict(batch=1, seq=512, extra=[])
+# phase 4f: the step builder (launch/steps.py) and its dry run. The dry
+# run traces these cells' steps on meta tensors at the registry's
+# published shapes and plans (configs/registry.py SHAPES, steps.py
+# DEFAULT_PLANS); nemotron-4-340b's prefill (340 B parameters) must not
+# fit one card.
+LM_DRYRUN_CELLS = (("gemma3-4b", "train_4k"), ("gemma3-4b", "prefill_32k"),
+                   ("gemma3-4b", "decode_32k"), ("gemma3-4b", "long_500k"),
+                   ("seamless-m4t-medium", "train_4k"),
+                   ("seamless-m4t-medium", "prefill_32k"),
+                   ("seamless-m4t-medium", "decode_32k"),
+                   ("nemotron-4-340b", "prefill_32k"))
+# the same step programs on the card: the published configs (full width
+# and depth, random weights from seed 0, r = 32), seq lengths and
+# microbatch counts, the batch cut (None: uncut) so that the dry run's
+# own peak at the cut stays under LM_STEP_PEAK_MAX, and the steps stay
+# short: gemma3-4b train 256 -> 4 (4 microbatches of 1 x 4,096),
+# prefill 32 -> 1 (1 x 32,768), decode 128 -> 8 (32,768 slots),
+# long_500k uncut (1 x 524,288 slots); seamless-m4t-medium train 256 ->
+# 8 (8 microbatches of 1 x 4,096), prefill 32 -> 1, decode 128 -> 8.
+LM_STEP_BATCH = {("gemma3-4b", "train_4k"): 4,
+                 ("gemma3-4b", "prefill_32k"): 1,
+                 ("gemma3-4b", "decode_32k"): 8,
+                 ("gemma3-4b", "long_500k"): None,
+                 ("seamless-m4t-medium", "train_4k"): 8,
+                 ("seamless-m4t-medium", "prefill_32k"): 1,
+                 ("seamless-m4t-medium", "decode_32k"): 8}
+LM_STEP_PEAK_MAX = 60e9
+# the card's peak (max_memory_allocated over a cold step, less what was
+# allocated before the cell's arguments) against the dry run's peak_bytes
+# at the same shapes, relative: the dry run sees every storage the step's
+# aten ops allocate; the allocator's rounding and what a library
+# allocates past the dispatcher (cuBLAS's workspace) it does not. Set
+# from three runs on the card, whose gaps were +0.00% to +0.61% (PERF.md)
+LM_STEP_PEAK_REL = 0.02
+# dry-run traces at once, each in a spawned process, while the card runs
+# the steps
+LM_DRYRUN_WORKERS = 6
 
 
 def _card_line() -> str:
@@ -5075,6 +5130,298 @@ def lm_a9d_phase(dev, card: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _dryrun_pool(jobs):
+    """``dryrun_lib.run_cell`` on meta for each (arch, shape, batch) job,
+    started in ``LM_DRYRUN_WORKERS`` spawned processes at once; yields a
+    function that waits for the records, in the jobs' order. Leaving the
+    block stops the processes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.launch import dryrun_lib
+    with ProcessPoolExecutor(min(LM_DRYRUN_WORKERS, len(jobs)),
+                             mp_context=multiprocessing.get_context(
+                                 "spawn")) as ex:
+        futs = [ex.submit(dryrun_lib.run_cell, a, s, save=False, batch=b)
+                for a, s, b in jobs]
+        try:
+            yield lambda: [f.result() for f in futs]
+        finally:
+            for f in futs:
+                f.cancel()
+
+
+def _check_step_out(step: str, out, built: dict) -> float:
+    """The step's outputs are finite and of the expected shapes, and a
+    train step moved exactly the trained leaves with a non-zero gradient
+    (AdamW's first moment), at least one; returns the loss of a train
+    step (else nan)."""
+    import torch
+    from repro_torch.utils.tree import tree_leaves
+    b = built["batch"]
+    if step == "train":
+        new_train, opt, metrics = out
+        loss = float(metrics["loss"])
+        if not math.isfinite(loss) or int(opt["count"]) != 1:
+            raise AssertionError(f"train step: loss {loss}, count "
+                                 f"{int(opt['count'])}")
+        leaves = tree_leaves(new_train)
+        moved = [bool((n != o).any()) for n, o in
+                 zip(leaves, tree_leaves(built["args"][1]))]
+        grad = [bool((m != 0).any()) for m in tree_leaves(opt["mu"])]
+        if moved != grad or not any(moved):
+            raise AssertionError(f"train step: {sum(moved)} leaves moved, "
+                                 f"{sum(grad)} with a gradient, of "
+                                 f"{len(moved)}")
+    elif isinstance(out, dict):                 # enc-dec prefill
+        loss = math.nan
+        leaves = list(out.values())
+        if tuple(out["k"].shape[1:3]) != (b, built["seq"]):
+            raise AssertionError(f"cross cache {tuple(out['k'].shape)}")
+    else:
+        loss = math.nan
+        logits = out[0]
+        want = (b, built["cfg"].vocab) if step == "prefill" \
+            else (b, 1, built["cfg"].vocab)
+        if tuple(logits.shape) != want:
+            raise AssertionError(f"{step} logits {tuple(logits.shape)}")
+        leaves = [logits]
+    if not all(bool(torch.isfinite(t.float()).all()) for t in leaves):
+        raise AssertionError(f"{step} step: non-finite output")
+    return loss
+
+
+def lm_step_cell(arch: str, shape: str, batch, dev) -> dict:
+    """One cell's step on the card at its published shapes, the batch cut
+    to ``batch``: init from seed 0, a cold and a warm step (the peak over
+    the cold one, less what was allocated before the arguments), then
+    the step once more under ``analyze_step``."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.roofline.op_cost import analyze_step
+    from repro_torch.utils.tree import tree_bytes
+    _free_cuda()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    built = steps.build_cell(registry.get(arch), shape, batch=batch,
+                             device=dev)
+    torch.cuda.synchronize()
+    r = {"init_s": time.perf_counter() - t0, "walls": [],
+         "frozen_bytes": tree_bytes(built["args"][0])}
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = built["fn"](*built["args"])
+        torch.cuda.synchronize()
+        r["walls"].append(time.perf_counter() - t0)
+        if len(r["walls"]) == 1:
+            r["peak"] = torch.cuda.max_memory_allocated() - base
+        r["loss"] = _check_step_out(built["step"], out, built)
+        del out
+    t0 = time.perf_counter()
+    cost = analyze_step(built["fn"], *built["args"])
+    torch.cuda.synchronize()
+    r["analyze_s"] = time.perf_counter() - t0
+    del cost["out"]
+    r["cost"] = cost
+    del built
+    _free_cuda()
+    return r
+
+
+def lm_int8_decode(dev, batch: int) -> dict:
+    """perf_iter's ``int8_base`` variant of gemma3-4b's decode_32k at the
+    cut ``batch`` on the card: the frozen bytes, a cold and a warm step;
+    then its width at depth 2 with random caches, card against the CPU
+    from one tree (the logits within ``LM_CARD_CPU_REL`` of max)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import perf_iter, steps
+    from repro_torch.utils.tree import tree_bytes, tree_leaves, tree_map
+    entry = registry.get("gemma3-4b")
+    plan = perf_iter.variants_for("gemma3-4b", "decode_32k")["int8_base"]
+    _free_cuda()
+    built = steps.build_cell(entry, "decode_32k", plan=plan, batch=batch,
+                             device=dev)
+    r = {"frozen_bytes": tree_bytes(built["args"][0]), "walls": []}
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = built["fn"](*built["args"])
+        torch.cuda.synchronize()
+        r["walls"].append(time.perf_counter() - t0)
+        _check_step_out("decode", out, built)
+        del out
+    del built
+    _free_cuda()
+    cfg = dataclasses.replace(entry.full(), n_layers=2)
+    built = steps.build_cell(entry, "decode_32k", plan=plan,
+                             cfg_override=cfg, batch=batch, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for t in tree_leaves(built["args"][3]):
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    cpu_args = tree_map(lambda t: t.to("cpu", copy=True), built["args"])
+    card = built["fn"](*built["args"])[0].float().cpu()
+    t0 = time.perf_counter()
+    cpu = built["fn"](*cpu_args)[0].float()
+    r["cpu_s"] = time.perf_counter() - t0
+    r["scale"] = float(cpu.abs().max())
+    r["err"] = float((card - cpu).abs().max())
+    r["agree"] = float((card.argmax(-1) == cpu.argmax(-1)).float().mean())
+    del built, cpu_args
+    _free_cuda()
+    if not r["err"] <= LM_CARD_CPU_REL * r["scale"]:
+        raise AssertionError(f"int8 base depth 2: card vs CPU {r['err']} "
+                             f"of {r['scale']}")
+    return r
+
+
+def lm_serve_quantized(dev) -> dict:
+    """``launch.serve_quantized.run`` at gemma3-4b's published config (the
+    store at d = 2,560) with the kernels' launch counts set to 0 just
+    before and read just after: B1 packs the store's flat messages, B4
+    serves the multi-tenant step (fused against the oracle within
+    ``SERVE_TOL`` of max|y|), and no other kernel launches."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve_quantized
+    cfg = registry.get("gemma3-4b").full()
+    _free_cuda()
+    t0 = time.perf_counter()
+    out, counts = _counted(lambda: serve_quantized.run(cfg, dev, log=None))
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = counts
+    scale = float(out["y_oracle"].abs().max())
+    others = {k: v for k, v in counts.items()
+              if k not in ("quant_pack_rows", "multi_lora_matmul_packed")}
+    if counts["quant_pack_rows"] <= 0 \
+            or counts["multi_lora_matmul_packed"] <= 0 or any(
+                others.values()):
+        raise AssertionError(f"serve_quantized launches {counts}")
+    if not out["err"] <= SERVE_TOL * scale:
+        raise AssertionError(f"serve_quantized fused vs oracle "
+                             f"{out['err']} of {scale}")
+    if tuple(out["tokens"].shape) != (2, 9) \
+            or out["y"].shape[1] != cfg.d_model:
+        raise AssertionError("serve_quantized: unexpected shapes")
+    out["scale"] = scale
+    del out["store"], out["train_edge"]
+    _free_cuda()
+    return out
+
+
+def lm_step_phase(dev, card: str) -> dict:
+    """Phase 4f: the dry run on meta at the published shapes
+    (``LM_DRYRUN_CELLS``) and at the card's cuts, in spawned processes
+    while the same step programs run on the card (``LM_STEP_BATCH``);
+    then each cut's FLOPs on the card must equal the dry run's, its
+    predicted peak lie under ``LM_STEP_PEAK_MAX`` and its measured peak
+    within ``LM_STEP_PEAK_REL`` of the prediction; then perf_iter's
+    ``int8_base`` decode and the quantized-serving driver, which
+    launches B1 and B4."""
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    out: dict = {"cells": {}}
+    jobs = [(a, s, None) for a, s in LM_DRYRUN_CELLS] + [
+        (a, s, b) for (a, s), b in LM_STEP_BATCH.items()]
+    with _dryrun_pool(jobs) as records:
+        for (arch, shape), batch in LM_STEP_BATCH.items():
+            out["cells"][(arch, shape)] = lm_step_cell(arch, shape, batch,
+                                                       dev)
+        t0 = time.perf_counter()
+        recs = records()
+    print(f"dry run: {len(jobs)} traces on meta in {LM_DRYRUN_WORKERS} "
+          f"processes beside the card's steps, "
+          f"{time.perf_counter() - t0:.1f} s waited after them")
+    for rec in recs:
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {rec['arch']} {rec['shape']}: "
+                                 f"{rec.get('error', rec['status'])}\n"
+                                 f"{rec.get('traceback', '')}")
+    published = dict(zip(LM_DRYRUN_CELLS, recs))
+    cut = dict(zip(LM_STEP_BATCH, recs[len(LM_DRYRUN_CELLS):]))
+    for rec in recs[:len(LM_DRYRUN_CELLS)]:
+        print(f"dry run published {dryrun.summary(rec)} "
+              f"(model {rec['model_flops_global']:.6e})")
+    if published[("nemotron-4-340b", "prefill_32k")]["fits_one_card"]:
+        raise AssertionError("nemotron-4-340b prefill_32k fits one card")
+    out["dryrun"] = published
+    for (arch, shape), r in out["cells"].items():
+        pred = cut[(arch, shape)]
+        if pred["memory"]["peak_bytes"] >= LM_STEP_PEAK_MAX:
+            raise AssertionError(f"{arch} {shape} at batch {pred['batch']}"
+                                 f": predicted peak "
+                                 f"{pred['memory']['peak_bytes']}")
+        if r["cost"]["flops"] != pred["hlo_flops_global"]:
+            raise AssertionError(f"{arch} {shape}: FLOPs on the card "
+                                 f"{r['cost']['flops']} != on meta "
+                                 f"{pred['hlo_flops_global']}")
+        r["gap"] = r["peak"] / pred["memory"]["peak_bytes"] - 1.0
+        t = pred["roofline"]
+        bound = max(t["t_compute_s"], t["t_memory_s"])
+        eager = max(t["t_compute_s"], t["t_memory_eager_s"])
+        print(f"lm step {arch} {shape} batch {pred['batch']} (published "
+              f"{published[(arch, shape)]['batch']}), microbatch "
+              f"{pred['plan']['microbatch']} ({card}): init "
+              f"{r['init_s']:.2f} s; step {1e3 * r['walls'][0]:.1f} ms cold "
+              f"/ {1e3 * r['walls'][1]:.1f} warm"
+              + (f" (loss {r['loss']:.4f})" if r["loss"] == r["loss"]
+                 else "")
+              + f"; dry run: {t['hlo_flops_per_chip']:.6e} FLOPs, "
+              f"{t['min_bytes_per_chip']:.6e} B least (arguments and "
+              f"outputs once), {t['eager_bytes_per_chip']:.6e} B eager, "
+              f"t_compute {1e3 * t['t_compute_s']:.3f} ms, t_memory "
+              f"{1e3 * t['t_memory_s']:.3f} ms least / "
+              f"{1e3 * t['t_memory_eager_s']:.3f} ms eager, dominant "
+              f"{t['dominant']} / {t['dominant_eager']}, "
+              f"useful_flops_ratio {pred['useful_flops_ratio']:.4f}, the "
+              f"warm step at {100 * bound / r['walls'][1]:.2f}% of its "
+              f"roofline and {100 * eager / r['walls'][1]:.2f}% of its "
+              f"eager-traffic bound; FLOPs on the card "
+              f"{r['cost']['flops']:.6e} = on "
+              f"meta; peak {r['peak'] / 1e9:.3f} GB measured vs "
+              f"{pred['memory']['peak_bytes'] / 1e9:.3f} GB predicted "
+              f"({100 * r['gap']:+.2f}%; the tracker on the card "
+              f"{r['cost']['peak_bytes'] / 1e9:.3f} GB), arguments "
+              f"{pred['memory']['argument_bytes'] / 1e9:.3f} GB; "
+              f"analyze_step on the card {r['analyze_s']:.1f} s, trace "
+              f"on meta {pred['trace_s']} s")
+    gaps = {k: v["gap"] for k, v in out["cells"].items()}
+    bad = {k: g for k, g in gaps.items() if abs(g) > LM_STEP_PEAK_REL}
+    if bad:
+        raise AssertionError(f"measured peaks part from the dry run's by "
+                             f"more than {LM_STEP_PEAK_REL}: {bad}")
+    batch = LM_STEP_BATCH[("gemma3-4b", "decode_32k")]
+    r = out["int8"] = lm_int8_decode(dev, batch)
+    bf16 = out["cells"][("gemma3-4b", "decode_32k")]
+    print(f"perf_iter int8_base gemma3-4b decode_32k batch {batch} "
+          f"({card}): frozen {r['frozen_bytes'] / 1e9:.3f} GB int8 + fp16 "
+          f"scales vs {bf16['frozen_bytes'] / 1e9:.3f} GB bf16 "
+          f"({r['frozen_bytes'] / bf16['frozen_bytes']:.4f}x); step "
+          f"{1e3 * r['walls'][0]:.1f} ms cold / {1e3 * r['walls'][1]:.1f} "
+          f"warm (bf16 {1e3 * bf16['walls'][1]:.1f} warm); depth 2 card vs "
+          f"CPU logits max err {r['err']:.4g} of {r['scale']:.4g} "
+          f"(tolerance {LM_CARD_CPU_REL}), argmax agreement "
+          f"{r['agree']:.4f}, CPU side {r['cpu_s']:.1f} s")
+    sq = out["serve_quantized"] = lm_serve_quantized(dev)
+    print(f"serve_quantized gemma3-4b ({card}): adapters "
+          f"{sq['wire_bytes']:,} B int4 vs {sq['fp_bytes']:,} B fp32; "
+          f"generate 2 x (12 + 9) prefill {1e3 * sq['timing']['prefill_s']:.1f}"
+          f" ms, {sq['timing']['decode_steps']} decode steps "
+          f"{1e3 * sq['timing']['decode_s']:.1f} ms; multi-tenant store at "
+          f"d = {sq['y'].shape[1]:,} (8 clients, ranks 4 and 8, int4): "
+          f"fused vs oracle "
+          f"max err {sq['err']:.3g} of {sq['scale']:.4g} (tolerance "
+          f"{SERVE_TOL}); launches {sq['launches']}; "
+          f"{sq['wall_s']:.1f} s")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 4f: {out['wall_s']:.1f} s; peak gaps "
+          + ", ".join(f"{a} {s} {100 * g:+.2f}%"
+                      for (a, s), g in gaps.items())
+          + f" (limit {100 * LM_STEP_PEAK_REL:.0f}%)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5264,6 +5611,9 @@ def main(argv=None) -> int:
     # 4e. the prefix-LM and the encoder-decoder, and the training entry point
     lm_a9d_phase(dev, card)
 
+    # 4f. the step builder, the dry run and the quantized-serving driver
+    steps4f = lm_step_phase(dev, card)
+
     # 5. times at the paths' shapes ---------------------------------------
     t_flat = time_flat_kernels(update, k, dev, "resnet8")
     time_flat_kernels(update18, table4["k"], dev, "resnet18")
@@ -5278,7 +5628,8 @@ def main(argv=None) -> int:
     t_leaf = time_leaf_and_lora(leaf, chain, dev)
 
     # B1 and B2 launch on the main path and on the modes' paths
-    for m in list(modes.values()) + list(fleets.values()):
+    for m in list(modes.values()) + list(fleets.values()) + [
+            steps4f["serve_quantized"]]:
         _add_counts(launches, {key: m["launches"].get(key, 0)
                                for key in ("quant_pack_rows",
                                            "dequant_agg_rows")})
@@ -5294,7 +5645,9 @@ def main(argv=None) -> int:
              launches["dequant_agg_rows"]),
             ("multi_lora_matmul_packed",
              *t_serve["multi_lora_matmul_packed"], err_mq,
-             sv["launches"]["multi_lora_matmul_packed"]),
+             sv["launches"]["multi_lora_matmul_packed"]
+             + steps4f["serve_quantized"]["launches"][
+                 "multi_lora_matmul_packed"]),
             ("multi_lora_matmul", *t_serve["multi_lora_matmul"], err_mf,
              sv["launches"]["multi_lora_matmul"]),
             ("dequant_agg", *t_leaf["dequant_agg"], err_b3,

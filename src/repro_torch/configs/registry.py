@@ -4,19 +4,24 @@ cells, as in the JAX package's ``configs/registry.py``.
 40 cells = 10 archs x 4 shapes. ``long_500k`` needs sub-quadratic
 attention state: runnable for gemma3 (5:1 local:global), mamba2 (SSM)
 and zamba2 (hybrid); skipped for the 7 pure full-attention archs, and
-the skips are recorded, not dropped. The dry run's ``input_specs``
-comes with its launch part (ROADMAP A9e).
+the skips are recorded, not dropped. ``input_specs`` gives a cell's
+step inputs as ``meta`` tensors (shapes and dtypes, no allocation),
+where the JAX package gives ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
+
+import torch
 
 from repro_torch.configs import (deepseek_v2_236b, gemma3_4b,
                                  llama4_maverick_400b, mamba2_370m,
                                  minitron_4b, nemotron_4_340b, paligemma_3b,
                                  qwen15_110b, seamless_m4t_medium,
                                  zamba2_2p7b)
+from repro_torch.models import encdec as ED
+from repro_torch.models import lm as LM
 
 SHAPES: dict[str, dict] = {
     "train_4k": {"seq": 4096, "batch": 256, "step": "train"},
@@ -86,3 +91,49 @@ def cells() -> list[dict]:
                         "skip": skip,
                         "skip_reason": e.skip_reason if skip else ""})
     return out
+
+
+# ---------------------------------------------------------------------------
+# input specs (meta tensors: shapes and dtypes, no allocation)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(entry: ArchEntry, cfg: Any, shape_name: str,
+                batch: Optional[int] = None) -> dict:
+    """{'batch': ..., and for a decode cell the caches} for the cell's
+    step, as ``meta`` tensors: a train batch of ``seq - prefix + 1``
+    tokens (a prefix-LM's ``prefix_embed`` beside it), a prefill batch of
+    ``seq - prefix`` tokens, a decode step's (B, 1) token with the caches
+    of ``seq`` slots; the enc-dec model's ``src_embed`` of ``seq`` frames
+    and ``tgt_tokens`` (B, seq + 1), its decode step's ``self_caches``
+    and ``cross_caches`` (L, B, seq, Hkv, Dh) bf16. ``batch`` replaces
+    the shape's batch size (a cut to fit one card)."""
+    info = SHAPES[shape_name]
+    b, s = batch or info["batch"], info["seq"]
+    step = info["step"]
+    bf16, i32 = torch.bfloat16, torch.int32
+    if entry.kind == "encdec":
+        if step == "train":
+            return {"batch": {"src_embed": _meta((b, s, cfg.d_model), bf16),
+                              "tgt_tokens": _meta((b, s + 1), i32)}}
+        if step == "prefill":
+            return {"batch": {"src_embed": _meta((b, s, cfg.d_model), bf16)}}
+        cross = (cfg.n_dec_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
+        return {"batch": {"token": _meta((b, 1), i32)},
+                "self_caches": ED.self_cache_init(cfg, b, s, device="meta"),
+                "cross_caches": {"k": _meta(cross, bf16),
+                                 "v": _meta(cross, bf16)}}
+
+    prefix = cfg.prefix_len if cfg.prefix_lm else 0
+    if step in ("train", "prefill"):
+        n = s - prefix + (1 if step == "train" else 0)
+        out = {"batch": {"tokens": _meta((b, n), i32)}}
+        if prefix:
+            out["batch"]["prefix_embed"] = _meta((b, prefix, cfg.d_model),
+                                                 bf16)
+        return out
+    return {"batch": {"token": _meta((b, 1), i32)},
+            "caches": LM.cache_init(cfg, b, s, device="meta")}

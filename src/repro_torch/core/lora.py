@@ -222,6 +222,32 @@ def frozen_weight(frozen: dict,
     return frozen["w"].to(compute_dtype)
 
 
+def quantize_frozen_tree(frozen: Any) -> Any:
+    """Replace every frozen linear {'w': (..., in, out)} with a symmetric
+    per-output-channel int8 pack {'w_q8', 'w_s'}, as the JAX package's
+    ``quantize_frozen_tree``: ``s = max(amax over in, 1e-8) / 127``,
+    levels ``clip(round(w / s), -127, 127)`` (round half to even) and
+    ``w_s`` fp16 of shape (stack..., out). The base is random and never
+    updated, so the static int8 pack halves its bytes against bf16.
+    Works on ``meta`` tensors (shapes only)."""
+    def walk(node):
+        if isinstance(node, dict):
+            w = node.get("w")
+            if isinstance(w, torch.Tensor) and w.ndim >= 2:
+                w = w.to(torch.float32)
+                s = torch.clamp(w.abs().amax(dim=-2), min=1e-8) / 127.0
+                q = torch.clamp(torch.round(w / s[..., None, :]), -127,
+                                127).to(torch.int8)
+                rest = {k: walk(v) for k, v in node.items() if k != "w"}
+                return {"w_q8": q, "w_s": s.to(torch.float16), **rest}
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(frozen)
+
+
 def linear_apply(frozen: dict, trainable: dict, x: torch.Tensor,
                  scale: float = 1.0,
                  compute_dtype: torch.dtype = torch.bfloat16

@@ -1,0 +1,89 @@
+"""Dry run of the LM cells on one H100: trace every (arch x shape) cell's
+step (``launch/steps.py``), record its operations, bytes, memory and
+roofline terms (``launch/dryrun_lib.py``) under ``results/dryrun_torch/``
+(``DRYRUN_RESULTS`` overrides), and print one line a cell.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch ID]
+        [--shape NAME] [--tag TAG] [--microbatch M] [--list]
+        [--device meta|cuda]
+
+On ``meta`` (the default) nothing is allocated and no card is needed: a
+full-size cell traces on the host in seconds to minutes. ``--device
+cuda`` runs the step on the card (it must fit). The JAX package's
+``--mesh``, ``--fl-round``, ``--bits`` and ``--seq-parallel`` are
+distribution (ROADMAP A8).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+
+from repro_torch.configs import registry
+
+
+def summary(rec: dict) -> str:
+    """One line of a record: its status, and for a traced cell the
+    FLOPs, the least and the eager bytes, argument and peak memory, the
+    roofline terms (``tm`` from the least bytes, ``tme`` from the eager
+    bytes), the dominant term of each bound, the useful-FLOPs ratio,
+    whether it fits one card and the trace time."""
+    head = f"[{rec['mesh']}] {rec['arch']} x {rec['shape']}: {rec['status']}"
+    if rec["status"] == "skipped":
+        return f"{head} ({rec['skip_reason']})"
+    if rec["status"] == "error":
+        return f"{head} {rec['error'][:200]}"
+    m, t = rec["memory"], rec["roofline"]
+    return (f"{head} batch={rec['batch']} "
+            f"flops={t['hlo_flops_per_chip']:.6e} "
+            f"min_bytes={t['min_bytes_per_chip']:.6e} "
+            f"eager_bytes={t['eager_bytes_per_chip']:.6e} "
+            f"arg={m['argument_bytes'] / 1e9:.3f}GB "
+            f"peak={m['peak_bytes'] / 1e9:.3f}GB "
+            f"tc={t['t_compute_s']:.4e}s tm={t['t_memory_s']:.4e}s "
+            f"tme={t['t_memory_eager_s']:.4e}s "
+            f"dominant={t['dominant']}/{t['dominant_eager']} "
+            f"useful={rec['useful_flops_ratio']:.4f} "
+            f"fits={rec['fits_one_card']} ops={rec['n_ops']} "
+            f"trace={rec['trace_s']}s")
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        description="Dry run on one H100: trace every (arch x shape) "
+                    "cell; record FLOPs, bytes, memory and the roofline.")
+    p.add_argument("--arch", default=None, help="arch id (default: all)")
+    p.add_argument("--shape", default=None,
+                   choices=[None, *registry.SHAPES], help="shape cell")
+    p.add_argument("--tag", default="baseline")
+    p.add_argument("--microbatch", type=int, default=None)
+    p.add_argument("--list", action="store_true", help="list cells")
+    p.add_argument("--device", default="meta", choices=["meta", "cuda"])
+    args = p.parse_args(argv)
+
+    if args.list:
+        for c in registry.cells():
+            print(c)
+        return 0
+
+    from repro_torch.launch import dryrun_lib, steps as steps_lib
+
+    cells = [c for c in registry.cells()
+             if (args.arch is None or c["arch"] == args.arch)
+             and (args.shape is None or c["shape"] == args.shape)]
+    failures = 0
+    for c in cells:
+        plan = None
+        if args.microbatch is not None:
+            plan = dataclasses.replace(
+                steps_lib.plan_for(c["arch"], c["shape"]),
+                microbatch=args.microbatch)
+        rec = dryrun_lib.run_cell(c["arch"], c["shape"], plan=plan,
+                                  tag=args.tag, device=args.device)
+        failures += rec["status"] == "error"
+        print(summary(rec), flush=True)
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

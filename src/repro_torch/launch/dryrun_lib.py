@@ -1,0 +1,130 @@
+"""Dry-run core: trace one (arch x shape) cell's step on one card, count
+its operations, bytes and memory (``roofline.op_cost.analyze_step``),
+and keep the record as JSON: the JAX package's ``launch/dryrun_lib.py``
+for one H100 without shardings.
+
+On ``meta`` tensors (the default) nothing is allocated and no card is
+needed, so a cell too large for one card still gets its record, with
+``fits_one_card`` false. A record holds the JAX package's fields where
+they mean the same thing (``memory``, ``roofline``,
+``model_flops_global``, ``useful_flops_ratio``, ``params_total``,
+``params_active``, ``plan``), ``chips`` 1 and ``mesh`` "h100x1", and
+``trace_s`` (the trace's wall time on the host) in place of ``lower_s``
+and ``compile_s``. The reference's ``run_fl_round`` (the multi-pod
+round's collectives) is distribution (ROADMAP A8)."""
+from __future__ import annotations
+
+import json
+import os
+import time
+import traceback
+from typing import Any, Optional
+
+from repro_torch.configs import registry
+from repro_torch.launch import steps as steps_lib
+from repro_torch.roofline.analysis import HW, model_flops, roofline_terms
+from repro_torch.roofline.op_cost import analyze_step
+from repro_torch.utils.tree import tree_size
+
+RESULTS_DIR = os.environ.get("DRYRUN_RESULTS", "results/dryrun_torch")
+MESH = "h100x1"
+
+
+def _active_params(entry, cfg) -> tuple[int, int]:
+    """(total_params, active_params_per_token): active discounts the MoE
+    experts to top_k (the reference's count: the MoE block's frozen
+    values over n_experts make one expert) and subtracts the embedding
+    gather."""
+    from repro_torch.models import moe as MOE
+    mod = steps_lib._model(entry)
+    p = mod.init(0, cfg, device="meta")
+    total = tree_size(p["frozen"]) + tree_size(p["train"])
+    active = total - cfg.vocab * cfg.d_model   # the gather is no matmul
+    moe = getattr(cfg, "moe", None)
+    if moe is not None:
+        n_moe_layers = cfg.n_layers // getattr(cfg, "moe_every", 1)
+        per_expert = tree_size(MOE.moe_init(
+            None, moe, "lora", cfg.lora, device="meta")[0]) // moe.n_experts
+        active -= n_moe_layers * per_expert * (moe.n_experts - moe.top_k)
+    return total, active
+
+
+def run_cell(arch: str, shape: str, *,
+             plan: Optional[steps_lib.CellPlan] = None,
+             tag: str = "baseline", save: bool = True, device="meta",
+             batch: Optional[int] = None) -> dict:
+    """Trace one cell on ``device`` and return (and with ``save`` keep)
+    its record. ``batch`` replaces the shape's batch size (a cut)."""
+    entry = registry.get(arch)
+    cell_info = [c for c in registry.cells()
+                 if c["arch"] == arch and c["shape"] == shape][0]
+    rec: dict[str, Any] = {"arch": arch, "shape": shape, "mesh": MESH,
+                           "tag": tag, "step": cell_info["step"],
+                           "device": str(device)}
+    if cell_info["skip"]:
+        rec.update({"status": "skipped",
+                    "skip_reason": cell_info["skip_reason"]})
+        if save:
+            _append(rec)
+        return rec
+
+    plan = plan or steps_lib.plan_for(arch, shape)
+    t0 = time.time()
+    try:
+        built = steps_lib.build_cell(entry, shape, plan=plan, device=device,
+                                     batch=batch)
+        cost = analyze_step(built["fn"], *built["args"])
+        trace_s = time.time() - t0
+        del cost["out"]
+        terms = roofline_terms(cost)
+        cfg = built["cfg"]
+        total, active = _active_params(entry, cfg)
+        b, s = built["batch"], built["seq"]
+        tokens = b if cell_info["step"] == "decode" else b * s
+        mf = model_flops(active, tokens, cell_info["step"] == "train")
+        rec.update({
+            "status": "ok",
+            "trace_s": round(trace_s, 1),
+            "chips": 1,
+            "batch": b,
+            "memory": {"argument_bytes": cost["argument_bytes"],
+                       "output_bytes": cost["output_bytes"],
+                       "peak_bytes": cost["peak_bytes"]},
+            "fits_one_card": cost["peak_bytes"] <= HW["hbm_bytes"],
+            "roofline": terms,
+            "n_ops": cost["n_ops"],
+            "model_flops_global": mf,
+            "hlo_flops_global": cost["flops"],
+            "useful_flops_ratio": mf / cost["flops"] if cost["flops"]
+            else None,
+            "params_total": total,
+            "params_active": active,
+            "plan": {"microbatch": plan.microbatch,
+                     "quantize_base": plan.quantize_base,
+                     "cfg_updates": plan.cfg_updates},
+        })
+    except Exception as e:  # record failures: they are actionable bugs
+        rec.update({"status": "error", "error": f"{type(e).__name__}: {e}",
+                    "traceback": traceback.format_exc()[-2000:]})
+    if save:
+        _append(rec)
+    return rec
+
+
+def _append(rec: dict) -> None:
+    os.makedirs(RESULTS_DIR, exist_ok=True)
+    key = f"{rec['arch']}__{rec['shape']}__{rec['mesh']}__{rec['tag']}"
+    with open(os.path.join(RESULTS_DIR, key + ".json"), "w") as f:
+        json.dump(rec, f, indent=1, default=str)
+
+
+def load_all(results_dir: Optional[str] = None) -> list[dict]:
+    d = results_dir or RESULTS_DIR
+    if not os.path.isdir(d):
+        return []
+    out = []
+    for fn in sorted(os.listdir(d)):
+        if fn.endswith(".json"):
+            with open(os.path.join(d, fn)) as f:
+                out.append(json.load(f))
+    return out

@@ -264,6 +264,29 @@ for steps in (1, 2):
                       "1"])
 assert out["start"] == 1 and len(out["losses"]) == 1
 """,
+    "step_builder_dryrun": """
+import dataclasses, os, tempfile
+os.environ["DRYRUN_RESULTS"] = tempfile.mkdtemp()
+from repro_torch.configs import registry
+from repro_torch.core.lora import quantize_frozen_tree
+from repro_torch.launch import dryrun, dryrun_lib, perf_iter, serve_quantized
+from repro_torch.launch import steps
+from repro_torch.models import lm
+from repro_torch.roofline import analyze_step
+e = registry.get("gemma3-4b")
+registry.SHAPES["decode_32k"] = {"seq": 32, "batch": 2, "step": "decode"}
+b = steps.build_cell(e, "decode_32k", cfg_override=e.smoke(), device="cpu")
+r = analyze_step(b["fn"], *b["args"])
+assert r["flops"] > 0 and r["peak_bytes"] >= r["argument_bytes"] > 0
+p = lm.init(0, e.full(), device="meta")
+assert quantize_frozen_tree(p["frozen"])["embed"]["w_q8"].is_meta
+registry.REGISTRY["gemma3-4b"] = dataclasses.replace(e, full=e.smoke)
+assert dryrun.main(["--arch", "gemma3-4b", "--shape", "decode_32k"]) == 0
+assert dryrun_lib.load_all()[0]["status"] == "ok"
+assert "int8_base" in perf_iter.variants_for("gemma3-4b", "decode_32k")
+out = serve_quantized.run(serve_quantized.edge_cfg(), "cpu", log=None)
+assert out["err"] <= 1e-4 * float(out["y_oracle"].abs().max())
+""",
 }
 
 
@@ -276,8 +299,10 @@ def test_slice_modules_run_without_jax_or_reference(use, tmp_path):
     deadline cohorts and FedBuff), the LM's serving, its launch entry
     points and the telemetry, the MLA and MoE archs with the tree
     algebra and the paper's ResNet configs, and the enc-dec model, the
-    prefix-LM and the training entry point with its resume run (on the CPU)
-    with jax and repro unimportable."""
+    prefix-LM and the training entry point with its resume run, and the
+    step builder, the dry run, the roofline counts, the int8 base and the
+    quantized-serving driver (on the CPU) with jax and repro
+    unimportable."""
     out = _run(_USE_WITHOUT_JAX.format(src=str(ROOT / "src"),
                                        body=_USES[use]), tmp_path)
     assert out.returncode == 0, out.stderr
@@ -320,7 +345,8 @@ def _no_cuda():
                                    "streaming_accumulator", "lm_init",
                                    "generate", "launch_serve",
                                    "launch_lm_federated", "encdec_init",
-                                   "launch_train"])
+                                   "launch_train", "build_cell",
+                                   "serve_quantized"])
 def test_default_device_entry_points_raise_without_cuda(entry):
     _no_cuda()
     cfg = resnet.ResNetConfig(lora=LoRAConfig(rank=4, alpha=64.0))
@@ -371,6 +397,14 @@ def test_default_device_entry_points_raise_without_cuda(entry):
             from repro_torch.launch import train
             train.main(["--arch", "paligemma-3b", "--smoke", "--steps",
                         "1"])
+        elif entry == "build_cell":
+            from repro_torch.configs import registry
+            from repro_torch.launch import steps
+            e = registry.get("gemma3-4b")
+            steps.build_cell(e, "decode_32k", cfg_override=e.smoke())
+        elif entry == "serve_quantized":
+            from repro_torch.launch import serve_quantized
+            serve_quantized.main([])
         elif entry == "streaming_accumulator":
             from repro_torch.core import flat
             from repro_torch.core.aggregation import \
