@@ -209,6 +209,24 @@ Phases, each of which raises on failure (the script then exits nonzero):
      ``launch.serve_quantized.run`` at gemma3-4b's config (the store at
      d = 2,560) with the launch counts set to 0 around it: B1 and B4
      launch, no other kernel, fused within ``SERVE_TOL`` of the oracle;
+ 4g. the FL scale-out layer (``SCALE_OUT``) over a real NCCL process
+     group of one rank (no fallback to gloo or the CPU): the 1-rank
+     ``clients`` mesh and a (1, 1, 1) pod/data/model mesh on the card;
+     ``fedavg_packed_flat_sharded`` and ``dequant_agg_rows_sharded`` at
+     Table IV's ResNet-18 r=64 layout (K = 16) and ResNet-8's (K = 64
+     and 13; K = 13 also through B2 padded to 16 by phantom clients),
+     B2 once a call, within rtol 1e-5 / atol 1e-6 of the unsharded call
+     and the plain version; ``build_fl_round`` at minitron-4b's
+     published width and depth with Kp = 16 at bits 8, 2 and None, sync
+     and async (the fp32 partial equal to the weighted mean, a quantized
+     one within half a step of it), its stage 2 (``exchange_pods``) over
+     the 1-rank pod group held to the plain pack (words and sidecars
+     bit-exact, outputs equal), with B1's and B2's launches, walls, peak
+     memory and each collective's bytes; ``elastic_restore`` of the
+     aggregate onto the card's host mesh (leaves equal); then, with the
+     group closed, the round's dry run on the fake 512-rank (2, 16, 16)
+     mesh, its bytes between pods a chip at bits None/8/4/2 and their
+     ratios to fp32;
   5. time each kernel with CUDA events at its path's shapes beside its
      plain version and its bound (B1 and B2, and the ``flat_rows``
      staging before B1, at ResNet-8's and ResNet-18's layouts;
@@ -508,6 +526,19 @@ LM_STEP_PEAK_REL = 0.02
 # dry-run traces at once, each in a spawned process, while the card runs
 # the steps
 LM_DRYRUN_WORKERS = 6
+# phase 4g: the FL scale-out layer on one card over a real NCCL group of
+# one rank. The sharded cohort reduce at Table IV's ResNet-18 r=64 layout
+# (K = 16) and ResNet-8's (K = 64, and K = 13, ragged against no axis
+# here but the phantom pad's path), held to the unsharded B2 call and the
+# plain version within the reference's limits
+# (tests/test_streaming_agg.py:409-412); the multi-pod round at
+# minitron-4b's published width and depth with the reference's
+# clients_per_pod.
+SCALE_OUT = dict(arch="minitron-4b", clients_per_pod=16, half_life=2.0,
+                 seed=25, cohorts=(("resnet18", 16), ("resnet8", 64),
+                                   ("resnet8", 13)))
+SCALE_OUT_TRAIN = 56_724_480        # minitron-4b's trained values, r = 32
+SHARDED_RTOL, SHARDED_ATOL = 1e-5, 1e-6
 
 
 def _card_line() -> str:
@@ -5422,6 +5453,394 @@ def lm_step_phase(dev, card: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _plain_quant_pack():
+    """``kops.quant_pack_rows`` replaced by its plain version on the same
+    device (no launch, no count) for the block."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    real = kops.quant_pack_rows
+
+    def plain(x2d, n_valid, bits):
+        nv = kops._rows(n_valid, x2d.shape[0], x2d.device)
+        return kref.quant_pack_rows_ref(x2d, nv, bits)
+
+    kops.quant_pack_rows = plain
+    try:
+        yield
+    finally:
+        kops.quant_pack_rows = real
+
+
+def _rtn_plain(x, bits: int):
+    """The paper's RTN round trip written out on its own (per last-axis
+    channel, the range widened to hold 0, true fp32 divisions): what a
+    receiver of ``x`` at ``bits`` reconstructs."""
+    import torch
+    qmax = (1 << bits) - 1
+    f = x.reshape(-1, x.shape[-1])
+    lo = torch.clamp(f.amin(0), max=0.0)
+    hi = torch.clamp(f.amax(0), min=0.0)
+    scale = torch.where(hi > lo, (hi - lo) / qmax, torch.ones_like(hi))
+    zp = torch.clamp(torch.round(-lo / scale), 0, qmax)
+    q = torch.clamp(torch.round(x / scale) + zp, 0, qmax)
+    return (q - zp) * scale, scale
+
+
+def _coll_line(log: list) -> str:
+    return ", ".join(f"{r['kind']} over {r['axis']} (group {r['group_size']}"
+                     f") {r['bytes']:,} B {r['dtype']}" for r in log)
+
+
+def scale_out_cohort(label: str, k: int, cm, dev, card: str) -> dict:
+    """K distinct flat messages at ``label``'s layout (int8, packed by B1
+    outside the counted calls), then ``fedavg_packed_flat_sharded`` and
+    ``dequant_agg_rows_sharded`` over the 1-rank ``clients`` mesh, each
+    with the launch counts set to 0 around it (B2 once a call), held to
+    the unsharded ``fedavg_packed_flat`` / ``dequant_agg_rows`` and to the
+    plain version on the card."""
+    import torch
+    from repro_torch.core import flat as flatcodec
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models import resnet
+    from repro_torch.utils import comm
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    cfg = table4_cfg() if label == "resnet18" else resnet.ResNetConfig(
+        arch="resnet8", lora=LoRAConfig(rank=32, alpha=512.0))
+    base = tree_map(lambda x: x.to(dev),
+                    resnet.init(0, cfg, device="cpu")["train"])
+    gen = torch.Generator(device=dev).manual_seed(SCALE_OUT["seed"] + k)
+    msgs = [flatcodec.pack_flat(tree_map(
+        lambda x: x + 0.02 * torch.randn(x.shape, generator=gen, device=dev),
+        base), 8) for _ in range(k)]
+    lo = msgs[0].layout
+    w = torch.linspace(0.5, 2.0, k, device=dev)
+    nv = torch.from_numpy(lo.n_valid_vec()).to(dev)
+    P = torch.stack([m.payload for m in msgs])
+    S = torch.stack([m.scale for m in msgs])
+    Z = torch.stack([m.zp for m in msgs])
+    torch.cuda.synchronize()
+    out: dict = {"launches": {}}
+    with comm.record_collectives() as log:
+        t0 = time.perf_counter()
+        fed, c1 = _counted(lambda: flatcodec.fedavg_packed_flat_sharded(
+            msgs, w, cm))
+        torch.cuda.synchronize()
+        t_fed = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows, c2 = _counted(lambda: kops.dequant_agg_rows_sharded(
+            P, S, Z, w, nv, 8, cm))
+        torch.cuda.synchronize()
+        t_rows = time.perf_counter() - t0
+    for c in (c1, c2):
+        if c["dequant_agg_rows"] != 1 or any(
+                v for key, v in c.items() if key != "dequant_agg_rows"):
+            raise AssertionError(f"{label} K={k}: sharded launches {c}")
+        _add_counts(out["launches"], c)
+    fed1 = flatcodec.fedavg_packed_flat(msgs, w)
+    rows1 = kops.dequant_agg_rows(P, S, Z, w, nv, 8)
+    plain = kref.dequant_agg_rows_ref(P, S, Z, w, nv, 8)
+    err = 0.0
+    for got, want in [(rows, rows1), (rows, plain)] + list(
+            zip(tree_leaves(fed), tree_leaves(fed1))):
+        torch.testing.assert_close(got, want, rtol=SHARDED_RTOL,
+                                   atol=SHARDED_ATOL)
+        err = max(err, float((got - want).abs().max()))
+    out["err"] = err
+    pad = ""
+    if k % 16:
+        # one rank pads nothing: the phantom clients a 16-rank axis would
+        # add, through B2 on the card, change no value
+        padded = kops.pad_clients(P, S, Z, w, 16)
+        if not torch.equal(kops.dequant_agg_rows(*padded, nv, 8), rows1):
+            raise AssertionError(f"{label} K={k}: phantom clients moved "
+                                 f"the sum")
+        pad = f"; K padded to {padded[0].shape[0]} by phantoms: equal"
+    print(f"sharded reduce {label} K={k} ({card}): {lo.c_total} rows x "
+          f"{lo.n_max} levels, {P[0].numel() * 4:,} B of words a client; "
+          f"fedavg_packed_flat_sharded {1e3 * t_fed:.3f} ms, "
+          f"dequant_agg_rows_sharded {1e3 * t_rows:.3f} ms (one call each, "
+          f"host wall); B2 launches {c1['dequant_agg_rows']} + "
+          f"{c2['dequant_agg_rows']}; max err vs unsharded and plain "
+          f"{err:.3g} (rtol {SHARDED_RTOL}, atol {SHARDED_ATOL}){pad}; "
+          f"collectives: {_coll_line(log)}")
+    return out
+
+
+def scale_out_round(entry, mesh, dev, card: str) -> dict:
+    """``build_fl_round`` at the published config with Kp =
+    ``clients_per_pod`` on the (1, 1, 1) mesh, bits 8, 2 and None, sync
+    and async: each round returns the pod's partial (one pod), held to
+    the weighted mean of the clients' plain RTN round trips
+    (``_rtn_plain``; the inputs themselves at fp32). Then stage 2
+    (``exchange_pods``) over the 1-rank pod group: B1 packs every
+    quantizable leaf, NCCL all-gathers the int32 words and fp32
+    sidecars, the words are unpacked; held to the same call with the
+    plain pack on the card (words and sidecars bit-exact, outputs
+    equal), to the per-leaf codec's decode of the same pack (equal) and
+    to the plain RTN round trip of the partial (within a step, at most
+    1e-4 of the levels off it)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import messages
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.launch import fl_round
+    from repro_torch.utils import comm
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+    kp = SCALE_OUT["clients_per_pod"]
+    probe = fl_round.build_fl_round(entry, mesh, clients_per_pod=kp, bits=8)
+    shapes, treedef = tree_flatten(probe["args"][0])
+    n_values = sum(int(np.prod(s.shape[2:])) for s in shapes)
+    if n_values != SCALE_OUT_TRAIN:
+        raise AssertionError(f"{entry.arch_id}: {n_values} trained values")
+    gen = torch.Generator(device=dev).manual_seed(SCALE_OUT["seed"])
+    stacked = [0.02 * torch.randn(s.shape, generator=gen, device=dev)
+               for s in shapes]
+    w = torch.arange(1, kp + 1, dtype=torch.float32, device=dev)[None]
+    stale = (torch.arange(kp, device=dev) % 4).to(torch.float32)[None]
+    hl = SCALE_OUT["half_life"]
+    out: dict = {"launches": {}, "rounds": {}, "exchange": {}}
+    fp = {}
+    for bits in (None, 8, 2):
+        for asy in (False, True):
+            built = fl_round.build_fl_round(
+                entry, mesh, clients_per_pod=kp, bits=bits,
+                staleness_half_life=hl if asy else None)
+            args = (tree_unflatten(treedef, stacked), w) + (
+                (stale,) if asy else ())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with comm.record_collectives() as log:
+                t0 = time.perf_counter()
+                res, counts = _counted(lambda: built["fn"](*args))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if any(counts.values()):
+                raise AssertionError(f"stage 1 launched {counts}")
+            part = [x.to_local() for x in tree_flatten(res)[0]]
+            for x, s in zip(part, shapes):
+                if tuple(x.shape) != tuple(s.shape[2:]) \
+                        or not bool(torch.isfinite(x).all()):
+                    raise AssertionError("round: a partial leaf is not "
+                                         "finite or lost its shape")
+            wd = w * torch.exp2(-stale / hl) if asy else w
+            wn = (wd / torch.clamp(wd.sum(), min=1e-8))[0]
+            key = ("async" if asy else "sync")
+            err1 = 0.0
+            for x, st in zip(part, stacked):
+                # the pod's mean of the clients' round trips, from the
+                # plain RTN above, summed in the round's order
+                want = torch.zeros_like(x)
+                for j in range(kp):
+                    rt = st[0, j] if bits is None or st.ndim < 4 \
+                        else _rtn_plain(st[0, j], bits)[0]
+                    want.add_(rt * wn[j])
+                torch.testing.assert_close(x, want, rtol=1e-5, atol=1e-6)
+                err1 = max(err1, float((x - want).abs().max()))
+            if bits is None:
+                fp[key] = part
+            elif not any(bool((x != f).any()) for x, f in
+                         zip(part, fp[key]) if x.ndim >= 2):
+                raise AssertionError(f"round int{bits} {key}: the "
+                                     f"clients' round trips changed nothing")
+            tag = f"{'fp32' if bits is None else f'int{bits}'} {key}"
+            peak = torch.cuda.max_memory_allocated()
+            out["rounds"][tag] = {"wall": wall, "log": log, "peak": peak}
+            print(f"fl round {entry.arch_id} full width and depth, Kp = {kp},"
+                  f" {tag} ({card}): stage 1 {1e3 * wall:.1f} ms (host "
+                  f"wall, one call), peak {peak / 1e9:.3f} GB; max err vs "
+                  f"the plain RTN mean {err1:.3g}; launches "
+                  f"{counts}; collectives: "
+                  f"{_coll_line(log) or 'none (one pod, one data rank)'}")
+            if asy:
+                continue
+            # stage 2 over the pod group of one
+            wsum = w.sum(dim=1)
+            ptree = tree_unflatten(treedef, part)
+            torch.cuda.synchronize()
+            with comm.record_collectives() as log2:
+                t0 = time.perf_counter()
+                (got, wire), c2 = _counted(lambda: fl_round.exchange_pods(
+                    ptree, wsum, mesh, bits))
+                torch.cuda.synchronize()
+                wall2 = time.perf_counter() - t0
+            with _plain_quant_pack():
+                want, wire_p = fl_round.exchange_pods(ptree, wsum, mesh, bits)
+            n_q = sum(1 for x in part if x.ndim >= 2)
+            if c2["quant_pack_rows"] != (n_q if bits else 0) or any(
+                    v for k2, v in c2.items() if k2 != "quant_pack_rows"):
+                raise AssertionError(f"stage 2 launches {c2}")
+            if bits and not torch.equal(wire["words"], wire_p["words"]):
+                raise AssertionError(f"int{bits}: packed words differ from "
+                                     f"the plain pack's")
+            if not torch.equal(wire["floats"], wire_p["floats"]):
+                raise AssertionError(f"int{bits}: sidecars differ")
+            for a, b, x in zip(tree_flatten(got)[0], tree_flatten(want)[0],
+                               part):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"int{bits}: stage 2 outputs "
+                                         f"differ from the plain pack's")
+                if bits is None and not torch.equal(a, x):
+                    raise AssertionError("fp32 stage 2 changed a value")
+            if bits:
+                # one pod (weight 1): the per-leaf codec's own decode of
+                # the same pack, exactly, and the plain RTN round trip of
+                # the partial within one step, a level flipping only at a
+                # rounding tie (B1 multiplies by a reciprocal)
+                codec = iter(messages.unpack_message(messages.pack_message(
+                    [x for x in part if x.numel()], QuantConfig(bits=bits))))
+                flips = total = 0
+                for a, x in zip(tree_flatten(got)[0], part):
+                    if not x.numel():
+                        continue
+                    if not torch.equal(a, next(codec)):
+                        raise AssertionError(f"int{bits}: stage 2 differs "
+                                             f"from the per-leaf codec")
+                    if x.ndim < 2:
+                        continue
+                    rt, step = _rtn_plain(x, bits)
+                    off = ~torch.isclose(a, rt, rtol=1e-5, atol=1e-6)
+                    if bool((torch.abs(a - rt)[off] > step.expand_as(a)[off]
+                             * (1 + 1e-5)).any()):
+                        raise AssertionError(f"int{bits}: stage 2 off the "
+                                             f"plain round trip by > a step")
+                    flips += int(off.sum())
+                    total += x.numel()
+                if flips > 1e-4 * total:
+                    raise AssertionError(f"int{bits}: {flips} of {total} "
+                                         f"levels off the plain round trip")
+                out["exchange_flips"] = {**out.get("exchange_flips", {}),
+                                         f"int{bits}": (flips, total)}
+            _add_counts(out["launches"], c2)
+            sent = sum(r["bytes"] for r in log2)
+            out["exchange"][tag] = {"wall": wall2, "bytes": sent}
+            print(f"fl round stage 2 {tag} ({card}): pack, NCCL all-gather"
+                  f" over the 1-rank pod group, unpack {1e3 * wall2:.1f} ms "
+                  f"(host wall, one call); B1 launches "
+                  f"{c2['quant_pack_rows']} ({n_q} quantizable leaves); "
+                  f"words and sidecars bit-exact against the plain pack, "
+                  f"outputs equal, equal to the per-leaf codec; off the "
+                  f"plain RTN round trip: "
+                  f"{out.get('exchange_flips', {}).get(tag.split()[0], '-')}"
+                  f" (levels, of all); collectives: {_coll_line(log2)}; "
+                  f"{sent:,} B a pod")
+    base = out["exchange"]["fp32 sync"]["bytes"]
+    print(f"fl round stage 2 bytes a pod against fp32 ({card}): " + ", ".join(
+        f"{t} {v['bytes'] / base:.4f}" for t, v in out["exchange"].items()))
+    out["partial"] = tree_unflatten(treedef, fp["sync"])
+    return out
+
+
+def scale_out_elastic(tree, logical, dev, card: str) -> None:
+    """A checkpoint of ``tree`` restored by ``elastic_restore`` onto the
+    card's host mesh (``make_host_mesh()``): every leaf a DTensor on the
+    card, equal to what was saved."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import save
+    from repro_torch.fl.elastic import elastic_restore
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.utils.tree import tree_flatten
+    mesh = make_host_mesh()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        t0 = time.perf_counter()
+        save(d, 1, {"train": tree})
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step, trees, _ = elastic_restore(d, {"train": tree},
+                                         {"train": logical}, mesh)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    n = 0
+    for a, b in zip(tree_flatten(trees["train"])[0], tree_flatten(tree)[0]):
+        loc = a.to_local()
+        if loc.device.type != dev.type or not torch.equal(loc, b):
+            raise AssertionError("elastic restore: a leaf differs")
+        n += 1
+    print(f"elastic restore ({card}): step {step}, {n} leaves onto the "
+          f"(1, 1) {dev.type} mesh, equal; save {t_save:.2f} s, restore "
+          f"{t_restore:.2f} s")
+
+
+def scale_out_phase(dev, card: str) -> dict:
+    """Phase 4g: a real NCCL process group of one rank (a ``FileStore`` in
+    a temporary directory), the 1-rank ``clients`` mesh and the (1, 1, 1)
+    pod/data/model mesh on the card; the sharded cohort reduce, the
+    multi-pod round and its stage 2, and elastic restore on them; then,
+    with the group closed, the round's dry run on the fake 512-rank mesh
+    (its bytes between pods per chip at bits None/8/4/2)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.launch.mesh import make_client_mesh
+    from repro_torch.models import lm as LM
+    t_phase = time.perf_counter()
+    _free_cuda()
+    out: dict = {"launches": {}}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/pg",
+                                rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+        try:
+            print(f"scale-out: process group backend "
+                  f"{dist.get_backend()} world {dist.get_world_size()}")
+            cm = make_client_mesh()
+            mesh = init_device_mesh("cuda", (1, 1, 1),
+                                    mesh_dim_names=("pod", "data", "model"))
+            err = 0.0
+            for label, k in SCALE_OUT["cohorts"]:
+                r = scale_out_cohort(label, k, cm, dev, card)
+                _add_counts(out["launches"], r["launches"])
+                err = max(err, r["err"])
+                _free_cuda()
+            out["err_b2"] = err
+            entry = registry.get(SCALE_OUT["arch"])
+            rd = scale_out_round(entry, mesh, dev, card)
+            _add_counts(out["launches"], rd["launches"])
+            scale_out_elastic(rd.pop("partial"),
+                              LM.logical(entry.full())["train"], dev, card)
+            out["round"] = rd
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+    _free_cuda()
+    cross = {}
+    for bits in (None, 8, 4, 2):
+        rec = dryrun_lib.run_fl_round(SCALE_OUT["arch"], bits=bits,
+                                      save=False)
+        if rec["status"] != "ok":
+            raise AssertionError(f"fl_round dry run bits={bits}: "
+                                 f"{rec.get('error')}\n"
+                                 f"{rec.get('traceback', '')}")
+        cross[bits] = rec
+    base = cross[None]["cross_pod_wire_bytes_per_chip"]
+    for bits, rec in cross.items():
+        c = rec["cross_pod_wire_bytes_per_chip"]
+        print(f"fl round dry run {SCALE_OUT['arch']} pod2x16x16 (fake "
+              f"backend, 512 ranks in one process) bits={bits}: between "
+              f"pods {c:,.0f} B a chip ({c / base:.4f} of fp32), in a pod "
+              f"{rec['collective_by_axis'].get('data', 0.0):,.0f} B, "
+              f"t_collective {rec['roofline']['t_collective_s'] * 1e6:.2f} "
+              f"us at 450 GB/s (NVLink, not measured), "
+              f"{rec['roofline']['n_collectives']} collectives, "
+              f"{rec['run_s']} s")
+    order = [cross[b]["cross_pod_wire_bytes_per_chip"] for b in (2, 4, 8,
+                                                                 None)]
+    if order != sorted(order) or len(set(order)) != 4:
+        raise AssertionError(f"bytes between pods out of order: {order}")
+    out["dryrun"] = cross
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 4g: {out['wall_s']:.1f} s; launches {out['launches']} "
+          f"({card})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5614,6 +6033,9 @@ def main(argv=None) -> int:
     # 4f. the step builder, the dry run and the quantized-serving driver
     steps4f = lm_step_phase(dev, card)
 
+    # 4g. the FL scale-out layer over a real NCCL group of one rank
+    scale4g = scale_out_phase(dev, card)
+
     # 5. times at the paths' shapes ---------------------------------------
     t_flat = time_flat_kernels(update, k, dev, "resnet8")
     time_flat_kernels(update18, table4["k"], dev, "resnet18")
@@ -5629,14 +6051,14 @@ def main(argv=None) -> int:
 
     # B1 and B2 launch on the main path and on the modes' paths
     for m in list(modes.values()) + list(fleets.values()) + [
-            steps4f["serve_quantized"]]:
+            steps4f["serve_quantized"], scale4g]:
         _add_counts(launches, {key: m["launches"].get(key, 0)
                                for key in ("quant_pack_rows",
                                            "dequant_agg_rows")})
     err_q = max(err_q, modes["sparse"]["err_b1"], modes["hetero"]["err_b1"],
                 fleets["async"]["err_b1"], fleets["fleet"]["err_b1"])
     err_d = max(err_d, modes["hetero"]["err_b2"], fleets["async"]["err_b2"],
-                fleets["fleet"]["err_b2"])
+                fleets["fleet"]["err_b2"], scale4g["err_b2"])
     rows = []
     for name, t, tp, bound, err, n_launch in (
             ("quant_pack_rows", *t_flat["quant_pack_rows"], err_q,

@@ -10,7 +10,9 @@ in the directory, is fsynced and only then renamed into place, so a
 killed process never leaves a half-written checkpoint visible.
 
 Leaves are stored on the host as numpy. A bf16 leaf, which numpy cannot
-hold, is stored as its exact fp32 value and cast back on restore.
+hold, is stored as its exact fp32 value and cast back on restore. The
+JAX package stores a bf16 leaf as its ``ml_dtypes`` bits, which numpy
+reads back as a 2-byte void type: restore takes those bits as bf16.
 ``CheckpointManager`` adds retention (``keep_n``) and resume from the
 newest complete step.
 """
@@ -85,6 +87,14 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        # a bf16 leaf of the JAX package (ml_dtypes bits)
+        return torch.from_numpy(np.array(arr).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
 def restore(directory: str, step: int, like: dict[str, Any],
             device=None) -> tuple[dict[str, Any], dict]:
     """Restore trees with the structure of ``like`` (values replaced).
@@ -100,7 +110,7 @@ def restore(directory: str, step: int, like: dict[str, Any],
             for name, ref in flatten_with_names(tree):
                 arr = data[f"{group}::{name}"]
                 if isinstance(ref, torch.Tensor):
-                    leaves.append(torch.from_numpy(np.array(arr)).to(
+                    leaves.append(_tensor(arr).to(
                         device=ref.device if device is None else device,
                         dtype=ref.dtype))
                 else:

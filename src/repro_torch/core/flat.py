@@ -373,6 +373,33 @@ def fedavg_packed_flat(msgs: list, weights) -> Any:
     return tree_unflatten(lo.treedef, out)
 
 
+def fedavg_packed_flat_sharded(msgs: list, weights, mesh=None,
+                               axis: str = kops.CLIENT_AXIS) -> Any:
+    """:func:`fedavg_packed_flat` with the client dim sharded over
+    ``axis`` of ``mesh`` (default: ``launch.mesh.make_client_mesh()`` on
+    the card): the weights are normalised first, each rank reduces its
+    block of clients in ONE ``dequant_agg_rows`` launch and ONE
+    ``all_reduce`` combines the partials
+    (``kernels.ops.dequant_agg_rows_sharded``); the 1-D leaves take the
+    plain weighted sum. A weighted sum in another association order:
+    fp32-tolerance equal to the one-rank path."""
+    lo = msgs[0].layout
+    dev = msgs[0].payload.device
+    w = torch.as_tensor(weights, dtype=torch.float32).to(dev)
+    wn = w / torch.sum(w)
+    agg = kops.dequant_agg_rows_sharded(
+        torch.stack([m.payload for m in msgs]),
+        torch.stack([m.scale for m in msgs]),
+        torch.stack([m.zp for m in msgs]), wn,
+        torch.from_numpy(lo.n_valid_vec()).to(dev), lo.bits, mesh,
+        axis=axis)
+    fp_sums = tuple(
+        torch.tensordot(wn, torch.stack(
+            [m.fp_leaves[i].to(torch.float32) for m in msgs]), dims=1)
+        for i in range(len(msgs[0].fp_leaves)))
+    return flat_mean_from_sum(agg, fp_sums, 1.0, lo)
+
+
 # ---------------------------------------------------------------------------
 # Streaming fold (O(1)-memory FedBuff arrivals)
 # ---------------------------------------------------------------------------

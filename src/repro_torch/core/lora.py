@@ -211,6 +211,23 @@ def linear_init(gen: torch.Generator, d_in: int, d_out: int, mode: str,
     raise ValueError(f"unknown linear mode: {mode}")
 
 
+def linear_logical(d_in_name: Optional[str], d_out_name: Optional[str],
+                   mode: str, stack: bool = False) -> tuple[dict, dict]:
+    """Logical-axis annotations matching :func:`linear_init`'s (frozen,
+    trainable) trees (``utils/sharding.py``); ``stack`` prepends the
+    ``layers`` axis of a stacked linear."""
+    pre = ("layers",) if stack else ()
+    if mode == "lora":
+        return ({"w": (*pre, d_in_name, d_out_name)},
+                {"a": (*pre, d_in_name, "lora_rank"),
+                 "b": (*pre, "lora_rank", d_out_name)})
+    if mode == "dense":
+        return {}, {"w": (*pre, d_in_name, d_out_name)}
+    if mode == "frozen":
+        return {"w": (*pre, d_in_name, d_out_name)}, {}
+    raise ValueError(f"unknown linear mode: {mode}")
+
+
 def frozen_weight(frozen: dict,
                   compute_dtype: torch.dtype = torch.bfloat16
                   ) -> torch.Tensor:

@@ -164,6 +164,57 @@ def dequant_agg_rows(packed: torch.Tensor, scale: torch.Tensor,
 dequant_agg_rows.launches = 0
 
 
+# -- mesh-sharded cohort reduction (the scale-out layer) --------------------
+
+CLIENT_AXIS = "clients"
+
+
+def pad_clients(packed: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor,
+                weights, multiple: int) -> tuple:
+    """(packed, scale, zp, fp32 weights) with the K client dim padded to a
+    multiple of ``multiple`` by phantom clients: zero words, zero scale
+    and zp, zero weight, so each adds an exact zero."""
+    w = torch.as_tensor(weights, dtype=torch.float32).to(packed.device)
+    pad = (-packed.shape[0]) % multiple
+    if not pad:
+        return packed, scale, zp, w
+
+    def padk(t):
+        return torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+    # the words pad as int32: PyTorch's CUDA kernels do not all take uint32
+    return (padk(packed.view(torch.int32)).view(ref.WORD_DTYPE), padk(scale),
+            padk(zp), padk(w))
+
+
+def dequant_agg_rows_sharded(packed: torch.Tensor, scale: torch.Tensor,
+                             zp: torch.Tensor, weights, n_valid, bits: int,
+                             mesh=None, axis: str = CLIENT_AXIS
+                             ) -> torch.Tensor:
+    """:func:`dequant_agg_rows` with the K client dim sharded over
+    ``axis`` of ``mesh`` (default: ``launch.mesh.make_client_mesh()`` on
+    the card). Every rank holds the whole (K, C, Nw) stacks, as the JAX
+    package's global arrays; it folds its block of K / (axis size)
+    clients through ONE ``dequant_agg_rows`` launch, and ONE
+    ``all_reduce(SUM)`` over the axis' group combines the partial sums
+    (the reference's ``psum``), so the reduction's bandwidth scales with
+    the ranks. K pads to a multiple of the axis size with zero-weight
+    phantom clients (exact-zero contributions); no client is dropped.
+    Returns the (C, N) fp32 sum on every rank."""
+    from repro_torch.utils import comm
+    if mesh is None:
+        from repro_torch.launch.mesh import make_client_mesh
+        mesh = make_client_mesh()
+    n_sh = mesh.size(list(mesh.mesh_dim_names).index(axis))
+    packed, scale, zp, w = pad_clients(packed, scale, zp, weights, n_sh)
+    kb = packed.shape[0] // n_sh
+    r = mesh.get_local_rank(axis)
+    blk = slice(r * kb, (r + 1) * kb)
+    part = dequant_agg_rows(packed[blk].contiguous(),
+                            scale[blk].contiguous(), zp[blk].contiguous(),
+                            w[blk].contiguous(), n_valid, bits)
+    return comm.all_reduce(part, mesh, axis)
+
+
 # csrc/dequant_agg.cu, the grouped per-leaf fold: threads a block, packed
 # words a thread (one 16-byte load), and the int64 words of the largest
 # table it takes in its kernel parameters (a larger one is uploaded)

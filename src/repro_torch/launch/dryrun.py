@@ -9,9 +9,16 @@ roofline terms (``launch/dryrun_lib.py``) under ``results/dryrun_torch/``
 
 On ``meta`` (the default) nothing is allocated and no card is needed: a
 full-size cell traces on the host in seconds to minutes. ``--device
-cuda`` runs the step on the card (it must fit). The JAX package's
-``--mesh``, ``--fl-round``, ``--bits`` and ``--seq-parallel`` are
-distribution (ROADMAP A8).
+cuda`` runs the step on the card (it must fit).
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --fl-round
+        [--bits 8] [--arch ID]
+
+counts the multi-pod FL round's collectives on the (2, 16, 16) mesh in
+one process over torch's ``fake`` backend (``dryrun_lib.run_fl_round``;
+minitron-4b at bits None/8/4/2 by default) and prints its bytes between
+pods per chip. The JAX package's ``--mesh`` and ``--seq-parallel`` (a
+cell's sharded step) wait for ROADMAP A8b.
 """
 from __future__ import annotations
 
@@ -59,6 +66,10 @@ def main(argv=None) -> int:
     p.add_argument("--microbatch", type=int, default=None)
     p.add_argument("--list", action="store_true", help="list cells")
     p.add_argument("--device", default="meta", choices=["meta", "cuda"])
+    p.add_argument("--fl-round", action="store_true",
+                   help="count the multi-pod FL round's collectives "
+                        "instead")
+    p.add_argument("--bits", type=int, default=None, choices=[2, 4, 8])
     args = p.parse_args(argv)
 
     if args.list:
@@ -67,6 +78,23 @@ def main(argv=None) -> int:
         return 0
 
     from repro_torch.launch import dryrun_lib, steps as steps_lib
+
+    if args.fl_round:
+        failures = 0
+        for bits in ([args.bits] if args.bits else [None, 8, 4, 2]):
+            for arch in ([args.arch] if args.arch else ["minitron-4b"]):
+                rec = dryrun_lib.run_fl_round(
+                    arch, bits=bits, tag=args.tag
+                    if args.tag != "baseline" else "fl_round")
+                print(f"[fl_round b={bits}] {arch}: {rec['status']} "
+                      + (f"cross_pod={rec['cross_pod_wire_bytes_per_chip']:.6e}"
+                         f"B/chip total={rec['collective_total']:.6e}B/chip"
+                         f" n={rec['roofline']['n_collectives']} "
+                         f"t_coll={rec['roofline']['t_collective_s']:.4e}s"
+                         if rec["status"] == "ok"
+                         else rec.get("error", "")[:200]), flush=True)
+                failures += rec["status"] == "error"
+        return 1 if failures else 0
 
     cells = [c for c in registry.cells()
              if (args.arch is None or c["arch"] == args.arch)

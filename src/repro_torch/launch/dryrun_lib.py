@@ -10,8 +10,16 @@ they mean the same thing (``memory``, ``roofline``,
 ``model_flops_global``, ``useful_flops_ratio``, ``params_total``,
 ``params_active``, ``plan``), ``chips`` 1 and ``mesh`` "h100x1", and
 ``trace_s`` (the trace's wall time on the host) in place of ``lower_s``
-and ``compile_s``. The reference's ``run_fl_round`` (the multi-pod
-round's collectives) is distribution (ROADMAP A8)."""
+and ``compile_s``. A cell's step runs on one card: its sharded
+program (the reference's ``--mesh``, ``--seq-parallel``) waits for
+ROADMAP A8b.
+
+``run_fl_round`` counts the multi-pod FL round's collectives
+(``launch/fl_round.py``) on the (2, 16, 16) production mesh in ONE
+process: torch's ``fake`` process-group backend stands in for the other
+511 ranks, rank 0 runs its own share of the round on the host (the
+fake collectives move nothing), and ``utils/comm.py`` records the bytes
+it hands to each collective; nothing runs on a card."""
 from __future__ import annotations
 
 import json
@@ -20,9 +28,12 @@ import time
 import traceback
 from typing import Any, Optional
 
+import numpy as np
+
 from repro_torch.configs import registry
 from repro_torch.launch import steps as steps_lib
-from repro_torch.roofline.analysis import HW, model_flops, roofline_terms
+from repro_torch.roofline.analysis import HW, collective_bytes, \
+    collective_terms, model_flops, roofline_terms
 from repro_torch.roofline.op_cost import analyze_step
 from repro_torch.utils.tree import tree_size
 
@@ -106,6 +117,81 @@ def run_cell(arch: str, shape: str, *,
     except Exception as e:  # record failures: they are actionable bugs
         rec.update({"status": "error", "error": f"{type(e).__name__}: {e}",
                     "traceback": traceback.format_exc()[-2000:]})
+    if save:
+        _append(rec)
+    return rec
+
+
+def run_fl_round(arch: str, *, bits, multi_pod: bool = True,
+                 clients_per_pod: int = 16, tag: str = "fl_round",
+                 save: bool = True) -> dict:
+    """Run rank 0's share of the hierarchical multi-pod FL round on the
+    production mesh over the ``fake`` backend (this process must have no
+    process group; it opens one and closes it) and record the wire bytes
+    per chip of its collectives: the paper's compression as the traffic
+    between pods. Inputs are drawn from seed 0 on the host."""
+    import torch
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.core import messages
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.launch import fl_round
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.utils import comm
+    from repro_torch.utils.sharding import placement_leaves
+    from repro_torch.utils.tree import tree_flatten, tree_unflatten
+
+    entry = registry.get(arch)
+    mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
+    rec: dict[str, Any] = {"arch": arch, "shape": f"fl_round_b{bits}",
+                           "mesh": mesh_name, "tag": tag,
+                           "step": "fl_round", "bits": bits,
+                           "clients_per_pod": clients_per_pod}
+    t0 = time.time()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=512 if multi_pod else 256)
+    try:
+        mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+        built = fl_round.build_fl_round(
+            entry, mesh, clients_per_pod=clients_per_pod, bits=bits)
+        gen = torch.Generator().manual_seed(0)
+        full, treedef = tree_flatten(built["args"][0])
+        pls = placement_leaves(built["in_placements"][0])
+        local = []
+        for s, pl in zip(full, pls):
+            # this rank's block, drawn at its own shape (no full tensor)
+            shape = fl_round.local_shard(
+                torch.empty(s.shape, device="meta"), pl, mesh).shape
+            local.append(0.02 * torch.randn(shape, generator=gen))
+        weights = torch.ones(built["args"][1].shape)
+        with comm.record_collectives() as log:
+            built["fn"](tree_unflatten(treedef, local), weights)
+        coll = collective_bytes(log)
+        cross = sum(r["bytes"] for r in log if r["axis"] == "pod")
+        share = [x[0, 0] for x in local]
+        qcfg = QuantConfig(bits=bits) if bits else QuantConfig()
+        rec.update({
+            "status": "ok",
+            "run_s": round(time.time() - t0, 1),
+            "chips": int(np.prod(tuple(mesh.shape))),
+            "collectives": {k: coll[k] for k in ("all-gather",
+                                                 "all-reduce")},
+            "collective_total": coll["total"],
+            "collective_by_axis": coll["by_axis"],
+            "cross_pod_bytes_per_chip": cross,
+            "cross_pod_wire_bytes_per_chip": coll["by_axis"].get("pod",
+                                                                 0.0),
+            "message_wire_bytes_per_chip": messages.message_wire_bytes(
+                share, qcfg),
+            "roofline": collective_terms(log),
+            "records": log,
+        })
+    except Exception as e:  # record failures: they are actionable bugs
+        rec.update({"status": "error", "error": f"{type(e).__name__}: {e}",
+                    "traceback": traceback.format_exc()[-2000:]})
+    finally:
+        dist.destroy_process_group()
     if save:
         _append(rec)
     return rec

@@ -7,8 +7,8 @@ variant's tag beside the baseline: the JAX package's
         --cell gemma3-4b:decode_32k --variant int8_base [--device meta]
 
 ``--variant list`` prints the cell's variants. The JAX package's
-``sp_on`` / ``sp_off`` (sequence parallelism) and ``--mesh`` are
-distribution (ROADMAP A8).
+``sp_on`` / ``sp_off`` (sequence parallelism) and ``--mesh`` wait for
+the LM step's shardings (ROADMAP A8b).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Step programs per (arch x shape) cell, on one card: the JAX package's
-``launch/steps.py`` without its shardings.
+``launch/steps.py`` without its shardings (ROADMAP A8b).
 
 ``build_cell`` returns the step function ``fn`` and its arguments
 ``args`` (``fn(*args)`` runs one step): on the ``meta`` device shapes
@@ -23,9 +23,13 @@ Plans: ``microbatch`` scales activation memory down by M;
 ``quantize_base`` runs ``core.lora.quantize_frozen_tree`` on the frozen
 tree (the int8 base); ``cfg_updates`` are ``dataclasses.replace``
 overrides of the config. The reference's ``seq_parallel`` and ``rules``
-(sharding constraints), ``make_constrain`` and donation are
-distribution (ROADMAP A8); its ``kv_cache_dtype`` is read by none of its
-step builders, and the caches stay bf16 (ROADMAP C).
+(sharding constraints), ``make_constrain``, the batch, optimizer and
+cache shardings and donation are the LM step's side of distribution,
+which waits for ROADMAP A8b; the logical sharding rules and the models'
+annotations they would read are ported (``utils/sharding.py``, the
+models' ``logical``), as is the FL side (``launch/fl_round.py``,
+``launch/mesh.py``). Its ``kv_cache_dtype`` is read by none of its step
+builders, and the caches stay bf16 (ROADMAP C).
 """
 from __future__ import annotations
 

@@ -18,7 +18,8 @@ interrupted run would have drawn next.
 
 Runs on the card unless ``--device cpu`` is given; without a card the
 default raises. The reference's ``--mesh`` (a sharded run on a device
-mesh) is distribution, not ported here (ROADMAP A8).
+mesh) waits for the LM step's shardings (ROADMAP A8b); the meshes
+themselves are ``launch/mesh.py``.
 """
 from __future__ import annotations
 

@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.lora import LoRAConfig, frozen_weight, \
-    linear_apply, linear_init
+    linear_apply, linear_init, linear_logical
 from repro_torch.models import layers as L
 from repro_torch.utils.device import resolve_device
 
@@ -66,6 +66,27 @@ def gqa_init(gen: torch.Generator, spec: GQASpec, mode: str,
     if spec.qk_norm:
         tr["q_norm"] = L.rmsnorm_init(dh, stack, dev)
         tr["k_norm"] = L.rmsnorm_init(dh, stack, dev)
+    return fz, tr
+
+
+def gqa_logical(spec: GQASpec, mode: str, stack: bool) -> tuple[dict, dict]:
+    """Logical annotations parallel to :func:`gqa_init`'s trees."""
+    fz, tr = {}, {}
+    for nm, dims in (("wq", ("fsdp", "heads")), ("wk", ("fsdp", "kv_proj")),
+                     ("wv", ("fsdp", "kv_proj")), ("wo", ("heads", "fsdp"))):
+        f, t = linear_logical(*dims, mode, stack)
+        if f:
+            fz[nm] = f
+        if t:
+            tr[nm] = t
+    pre = ("layers",) if stack else ()
+    if spec.qkv_bias:
+        tr["bq"] = (*pre, "heads")
+        tr["bk"] = (*pre, "kv_proj")
+        tr["bv"] = (*pre, "kv_proj")
+    if spec.qk_norm:
+        tr["q_norm"] = {"scale": (*pre, None)}
+        tr["k_norm"] = {"scale": (*pre, None)}
     return fz, tr
 
 
@@ -202,6 +223,24 @@ def mla_init(gen: torch.Generator, spec: MLASpec, mode: str,
             tr[nm] = t
     tr["q_a_norm"] = L.rmsnorm_init(spec.q_lora_rank, stack, dev)
     tr["kv_a_norm"] = L.rmsnorm_init(spec.kv_lora_rank, stack, dev)
+    return fz, tr
+
+
+def mla_logical(spec: MLASpec, mode: str, stack: bool) -> tuple[dict, dict]:
+    """Logical annotations parallel to :func:`mla_init`'s trees."""
+    dims = {"q_a": ("fsdp", "kv_lora"), "q_b": ("kv_lora", "heads"),
+            "kv_a": ("fsdp", "kv_lora"), "k_b": ("kv_lora", "heads"),
+            "v_b": ("kv_lora", "heads"), "wo": ("heads", "fsdp")}
+    fz, tr = {}, {}
+    for nm, d in dims.items():
+        f, t = linear_logical(*d, mode, stack)
+        if f:
+            fz[nm] = f
+        if t:
+            tr[nm] = t
+    pre = ("layers",) if stack else ()
+    tr["q_a_norm"] = {"scale": (*pre, None)}
+    tr["kv_a_norm"] = {"scale": (*pre, None)}
     return fz, tr
 
 

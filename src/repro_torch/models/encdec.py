@@ -26,7 +26,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import lora
-from repro_torch.core.lora import LoRAConfig, linear_apply, linear_init
+from repro_torch.core.lora import LoRAConfig, linear_apply, linear_init, \
+    linear_logical
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.utils.device import resolve_device
@@ -126,6 +127,43 @@ def init(gen, cfg: EncDecConfig, device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 # Training forward
 # ---------------------------------------------------------------------------
+
+def _enc_layer_logical(cfg: EncDecConfig, stack: bool) -> tuple[dict, dict]:
+    """Logical annotations parallel to :func:`_enc_layer_init`'s
+    trees."""
+    pre = ("layers",) if stack else ()
+    fz: dict = {}
+    tr: dict = {"norm1": {"scale": (*pre, None)},
+                "norm2": {"scale": (*pre, None)}}
+    fz["attn"], tr["attn"] = A.gqa_logical(cfg.gqa, "lora", stack)
+    fz["mlp"], tr["mlp"] = L.mlp_logical(cfg.mlp, "lora", stack)
+    return fz, tr
+
+
+def _dec_layer_logical(cfg: EncDecConfig, stack: bool) -> tuple[dict, dict]:
+    """Logical annotations parallel to :func:`_dec_layer_init`'s
+    trees."""
+    fz, tr = _enc_layer_logical(cfg, stack)
+    tr["norm_x"] = {"scale": (("layers",) if stack else ()) + (None,)}
+    fz["cross"], tr["cross"] = A.gqa_logical(cfg.gqa, "lora", stack)
+    return fz, tr
+
+
+def logical(cfg: EncDecConfig) -> dict:
+    """Logical-axis annotation trees parallel to :func:`init`'s frozen
+    and train trees (``utils/sharding.py``)."""
+    lf: dict = {"embed": {"w": ("vocab", "fsdp")}}
+    lt: dict = {"final_norm": {"scale": (None,)},
+                "enc_norm": {"scale": (None,)}}
+    hlf, hlt = linear_logical("fsdp", "vocab", cfg.head_mode)
+    if hlf:
+        lf["head"] = hlf
+    if hlt:
+        lt["head"] = hlt
+    lf["enc"], lt["enc"] = _enc_layer_logical(cfg, stack=True)
+    lf["dec"], lt["dec"] = _dec_layer_logical(cfg, stack=True)
+    return {"frozen": lf, "train": lt}
+
 
 def _at(tree, i: int):
     """Layer ``i`` of a stacked tree (views)."""

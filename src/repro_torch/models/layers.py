@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.lora import LoRAConfig, linear_apply, linear_init
+from repro_torch.core.lora import LoRAConfig, linear_apply, linear_init, \
+    linear_logical
 from repro_torch.utils.device import resolve_device
 
 # ---------------------------------------------------------------------------
@@ -296,6 +297,22 @@ def mlp_init(gen: torch.Generator, spec: MLPSpec, mode: str,
     for nm in names:
         f, t = linear_init(gen, *dims[nm], mode, lora, stack,
                            device=device)
+        if f:
+            fz[nm] = f
+        if t:
+            tr[nm] = t
+    return fz, tr
+
+
+def mlp_logical(spec: MLPSpec, mode: str, stack: bool) -> tuple[dict, dict]:
+    """Logical annotations parallel to :func:`mlp_init`'s trees."""
+    fz, tr = {}, {}
+    names = ["wi", "wg", "wo"] if spec.kind in ("swiglu", "geglu") \
+        else ["wi", "wo"]
+    dims = {"wi": ("fsdp", "mlp"), "wg": ("fsdp", "mlp"),
+            "wo": ("mlp", "fsdp")}
+    for nm in names:
+        f, t = linear_logical(*dims[nm], mode, stack)
         if f:
             fz[nm] = f
         if t:

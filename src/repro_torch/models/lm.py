@@ -44,7 +44,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import lora
-from repro_torch.core.lora import LoRAConfig, linear_apply, linear_init
+from repro_torch.core.lora import LoRAConfig, linear_apply, linear_init, \
+    linear_logical
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -199,6 +200,61 @@ def _layer_init(gen: torch.Generator, cfg: LMConfig, spec: LayerSpec,
     if t:
         tr[key] = t
     return fz, tr
+
+
+def _layer_logical(cfg: LMConfig, spec: LayerSpec, stack: bool
+                   ) -> tuple[dict, dict]:
+    """Logical annotations parallel to :func:`_layer_init`'s trees."""
+    pre = ("layers",) if stack else ()
+    fz: dict = {}
+    tr: dict = {"norm1": {"scale": (*pre, None)}}
+    if spec.mixer in ("gqa", "shared_gqa"):
+        f, t = A.gqa_logical(cfg.gqa, "lora", stack)
+        tr["attn"] = t
+        if spec.mixer == "gqa":
+            fz["attn"] = f
+    elif spec.mixer == "mla":
+        fz["attn"], tr["attn"] = A.mla_logical(cfg.mla, "lora", stack)
+    elif spec.mixer == "mamba":
+        fz["mix"], tr["mix"] = SSM.mamba_logical(cfg.mamba, "lora", stack)
+    if spec.ffn == "dense":
+        tr["norm2"] = {"scale": (*pre, None)}
+        f, t = L.mlp_logical(_mlp_spec(cfg), "lora", stack)
+        if f:
+            fz["mlp"] = f
+        if t:
+            tr["mlp"] = t
+    elif spec.ffn == "moe":
+        tr["norm2"] = {"scale": (*pre, None)}
+        f, t = MOE.moe_logical(cfg.moe, "lora", stack)
+        if f:
+            fz["moe"] = f
+        if t:
+            tr["moe"] = t
+    return fz, tr
+
+
+def logical(cfg: LMConfig) -> dict:
+    """Logical-axis annotation trees parallel to :func:`init`'s frozen
+    and train trees: pure Python (no tensors), for
+    ``utils/sharding.py``."""
+    groups = resolve_groups(cfg)
+    lf: dict = {"embed": {"w": ("vocab", "fsdp")}}
+    lt: dict = {"final_norm": {"scale": (None,)}}
+    hlf, hlt = linear_logical("fsdp", "vocab", cfg.head_mode)
+    if hlf:
+        lf["head"] = hlf
+    if hlt:
+        lt["head"] = hlt
+    if any(s.mixer == "shared_gqa" for g in groups for s in g.pattern):
+        lf["shared_attn"], _ = A.gqa_logical(cfg.gqa, "lora", stack=False)
+    lf["groups"] = []
+    lt["groups"] = []
+    for g in groups:
+        pairs = [_layer_logical(cfg, spec, stack=True) for spec in g.pattern]
+        lf["groups"].append([f for f, _ in pairs])
+        lt["groups"].append([t for _, t in pairs])
+    return {"frozen": lf, "train": lt}
 
 
 def init(gen, cfg: LMConfig, device="cuda") -> dict:

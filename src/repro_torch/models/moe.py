@@ -28,9 +28,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import lora
-from repro_torch.core.lora import LoRAConfig, frozen_weight, linear_init
+from repro_torch.core.lora import LoRAConfig, frozen_weight, linear_init, \
+    linear_logical
 from repro_torch.models.layers import MLPSpec, _maybe_remat, mlp_apply, \
-    mlp_init
+    mlp_init, mlp_logical
 from repro_torch.utils.device import resolve_device
 
 
@@ -85,6 +86,33 @@ def moe_init(gen: torch.Generator, spec: MoESpec, mode: str,
     if spec.n_shared:
         sfz, str_ = mlp_init(gen, _shared_spec(spec), mode, lora_cfg, stack,
                              device=dev)
+        if sfz:
+            fz["shared"] = sfz
+        if str_:
+            tr["shared"] = str_
+    return fz, tr
+
+
+def moe_logical(spec: MoESpec, mode: str, stack: bool) -> tuple[dict, dict]:
+    """Logical annotations parallel to :func:`moe_init`'s trees: the
+    banks carry the ``expert`` axis after the optional layer stack."""
+    pre = ("layers",) if stack else ()
+    fz, tr = {}, {}
+    tr["router"] = {"w": (*pre, "fsdp", None)}
+    dims = {"wi": ("fsdp", "mlp_nosplit"), "wg": ("fsdp", "mlp_nosplit"),
+            "wo": ("mlp_nosplit", "fsdp")}
+
+    def ins(tup):
+        return tup[: len(pre)] + ("expert",) + tup[len(pre):]
+
+    for nm in _bank_names(spec):
+        f, t = linear_logical(*dims[nm], mode, stack)
+        if f:
+            fz[nm] = {k: ins(v) for k, v in f.items()}
+        if t:
+            tr[nm] = {k: ins(v) for k, v in t.items()}
+    if spec.n_shared:
+        sfz, str_ = mlp_logical(_shared_spec(spec), mode, stack)
         if sfz:
             fz["shared"] = sfz
         if str_:

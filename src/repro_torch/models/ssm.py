@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.lora import LoRAConfig, _normal, linear_apply, \
-    linear_init
+    linear_init, linear_logical
 from repro_torch.models import layers as L
 from repro_torch.utils.device import resolve_device
 
@@ -89,6 +89,30 @@ def mamba_init(gen: torch.Generator, spec: MambaSpec, mode: str,
     tr["dt_bias"] = per_head(torch.log(torch.expm1(
         torch.full((h,), 0.01, dtype=torch.float32))))
     tr["norm"] = L.rmsnorm_init(spec.d_inner, stack, dev)
+    return fz, tr
+
+
+def mamba_logical(spec: MambaSpec, mode: str, stack: bool
+                  ) -> tuple[dict, dict]:
+    """Logical annotations parallel to :func:`mamba_init`'s trees."""
+    pre = ("layers",) if stack else ()
+    fz, tr = {}, {}
+    for nm, dims, m in (("wz", ("fsdp", "ssm_inner"), mode),
+                        ("wx", ("fsdp", "ssm_inner"), mode),
+                        ("wb", ("fsdp", None), "dense"),
+                        ("wc", ("fsdp", None), "dense"),
+                        ("wdt", ("fsdp", None), "dense"),
+                        ("wo", ("ssm_inner", "fsdp"), mode)):
+        f, t = linear_logical(*dims, m, stack)
+        if f:
+            fz[nm] = f
+        if t:
+            tr[nm] = t
+    tr["conv"] = {"w": (*pre, None, "ssm_inner"), "b": (*pre, "ssm_inner")}
+    tr["A_log"] = (*pre, None)
+    tr["D"] = (*pre, None)
+    tr["dt_bias"] = (*pre, None)
+    tr["norm"] = {"scale": (*pre, "ssm_inner")}
     return fz, tr
 
 

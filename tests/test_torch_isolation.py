@@ -287,6 +287,42 @@ assert "int8_base" in perf_iter.variants_for("gemma3-4b", "decode_32k")
 out = serve_quantized.run(serve_quantized.edge_cfg(), "cpu", log=None)
 assert out["err"] <= 1e-4 * float(out["y_oracle"].abs().max())
 """,
+    "scale_out": """
+import dataclasses, os, tempfile, torch
+import torch.distributed as dist
+os.environ["DRYRUN_RESULTS"] = tempfile.mkdtemp()
+from repro_torch.checkpoint import save
+from repro_torch.configs import registry
+from repro_torch.core import flat, messages
+from repro_torch.core.quant import QuantConfig
+from repro_torch.fl.elastic import elastic_restore
+from repro_torch.kernels import ops
+from repro_torch.launch import dryrun_lib, fl_round, mesh as meshes
+from repro_torch.models import lm
+d = tempfile.mkdtemp()
+dist.init_process_group("gloo", init_method=f"file://{d}/pg", rank=0,
+                        world_size=1)
+cm = meshes.make_client_mesh(device="cpu")
+tree = {"w": torch.randn(4, 6), "b": torch.zeros(6)}
+msgs = [messages.pack_message(tree, QuantConfig(bits=8), flat=True)] * 3
+out = flat.fedavg_packed_flat_sharded(msgs, [1.0, 2.0, 3.0], cm)
+assert out["w"].shape == (4, 6)
+e = registry.get("minitron-4b")
+e = dataclasses.replace(e, full=e.smoke)
+m3 = meshes.make_host_mesh(device="cpu")
+built = fl_round.build_fl_round(e, m3, clients_per_pod=2, bits=8)
+assert built["args"][0]["head"]["b"].shape[:2] == (1, 2)
+cfg = e.smoke()
+p = lm.init(0, cfg, device="cpu")
+save(os.path.join(d, "ck"), 1, {"train": p["train"]})
+step, trees, _ = elastic_restore(os.path.join(d, "ck"),
+                                 {"train": p["train"]},
+                                 {"train": lm.logical(cfg)["train"]}, m3)
+assert step == 1
+dist.destroy_process_group()
+registry.REGISTRY["minitron-4b"] = e
+assert dryrun_lib.run_fl_round("minitron-4b", bits=2)["status"] == "ok"
+""",
 }
 
 
@@ -301,7 +337,9 @@ def test_slice_modules_run_without_jax_or_reference(use, tmp_path):
     algebra and the paper's ResNet configs, and the enc-dec model, the
     prefix-LM and the training entry point with its resume run, and the
     step builder, the dry run, the roofline counts, the int8 base and the
-    quantized-serving driver (on the CPU) with jax and repro
+    quantized-serving driver, and the scale-out layer (meshes, the
+    sharded cohort reduce, the multi-pod round, elastic restore and the
+    round's dry run on the fake backend) (on the CPU) with jax and repro
     unimportable."""
     out = _run(_USE_WITHOUT_JAX.format(src=str(ROOT / "src"),
                                        body=_USES[use]), tmp_path)
@@ -346,7 +384,9 @@ def _no_cuda():
                                    "generate", "launch_serve",
                                    "launch_lm_federated", "encdec_init",
                                    "launch_train", "build_cell",
-                                   "serve_quantized"])
+                                   "serve_quantized", "make_client_mesh",
+                                   "build_fl_round", "elastic_restore",
+                                   "dequant_agg_rows_sharded"])
 def test_default_device_entry_points_raise_without_cuda(entry):
     _no_cuda()
     cfg = resnet.ResNetConfig(lora=LoRAConfig(rank=4, alpha=64.0))
@@ -402,6 +442,21 @@ def test_default_device_entry_points_raise_without_cuda(entry):
             from repro_torch.launch import steps
             e = registry.get("gemma3-4b")
             steps.build_cell(e, "decode_32k", cfg_override=e.smoke())
+        elif entry == "make_client_mesh":
+            from repro_torch.launch.mesh import make_client_mesh
+            make_client_mesh()
+        elif entry == "build_fl_round":
+            from repro_torch.configs import registry
+            from repro_torch.launch.fl_round import build_fl_round
+            build_fl_round(registry.get("minitron-4b"))
+        elif entry == "elastic_restore":
+            from repro_torch.fl.elastic import elastic_restore
+            elastic_restore("no_such_dir", {"train": {}}, {"train": {}})
+        elif entry == "dequant_agg_rows_sharded":
+            kops.dequant_agg_rows_sharded(
+                torch.zeros((2, 3, 4), dtype=torch.int32).view(torch.uint32),
+                torch.ones((2, 3)), torch.zeros((2, 3)), [1.0, 1.0],
+                [16, 16, 16], 8)
         elif entry == "serve_quantized":
             from repro_torch.launch import serve_quantized
             serve_quantized.main([])
