@@ -227,6 +227,14 @@ Phases, each of which raises on failure (the script then exits nonzero):
      group closed, the round's dry run on the fake 512-rank (2, 16, 16)
      mesh, its bytes between pods a chip at bits None/8/4/2 and their
      ratios to fp32;
+ 4h. the LM step sharded over a real NCCL process group of one rank and
+     the (1, 1) host mesh (``LM_MESH_CELLS``): ``build_cell(..., mesh)``
+     for gemma3-4b train_4k (seq_parallel), prefill_32k and decode_32k
+     at full width and depth, deepseek-v2-236b decode at depth 1,
+     mamba2-370m and seamless-m4t-medium decode; each step held to the
+     one-card step on the same tensors within ``LM_MESH_TOL``, both
+     walls printed, the donated buffers the same storage after the step,
+     no kernel launched;
   5. time each kernel with CUDA events at its path's shapes beside its
      plain version and its bound (B1 and B2, and the ``flat_rows``
      staging before B1, at ResNet-8's and ResNet-18's layouts;
@@ -534,6 +542,24 @@ LM_DRYRUN_WORKERS = 6
 # (tests/test_streaming_agg.py:409-412); the multi-pod round at
 # minitron-4b's published width and depth with the reference's
 # clients_per_pod.
+# phase 4h: the LM step sharded over a real NCCL group of one rank (the
+# (1, 1) host mesh), each step held to the one-card step on the same
+# arguments: gemma3-4b train_4k (seq_parallel on, phase 4f's cut to 4
+# rows), prefill_32k (1 row) and decode_32k (8 rows), full width and
+# depth; deepseek-v2-236b decode at its published width, depth 1 (MLA's
+# latent cache, the MoE dispatch); mamba2-370m and seamless-m4t-medium
+# decode at full depth (8 rows). (arch, shape, batch, depth or None,
+# seq_parallel)
+LM_MESH_CELLS = (("gemma3-4b", "train_4k", 4, None, True),
+                 ("gemma3-4b", "prefill_32k", 1, None, False),
+                 ("gemma3-4b", "decode_32k", 8, None, False),
+                 ("deepseek-v2-236b", "decode_32k", 8, 1, False),
+                 ("mamba2-370m", "decode_32k", 8, None, False),
+                 ("seamless-m4t-medium", "decode_32k", 8, None, False))
+# the loss relative, each trained leaf and AdamW moment in relative L2,
+# logits and caches of their max: tests/test_torch_lm.py's LOSS_REL,
+# GRAD_L2 and REL, which phase 4f's and the LM phases' checks use
+LM_MESH_TOL = dict(loss=2e-3, l2=6e-2, rel=4e-2)
 SCALE_OUT = dict(arch="minitron-4b", clients_per_pod=16, half_life=2.0,
                  seed=25, cohorts=(("resnet18", 16), ("resnet8", 64),
                                    ("resnet8", 13)))
@@ -5841,6 +5867,191 @@ def scale_out_phase(dev, card: str) -> dict:
     return out
 
 
+def _one_card_of(built: dict, entry):
+    """The one-card step on a world-1 sharded cell's own tensors (each
+    DTensor's local tensor IS the whole tensor): its fn and args, the
+    decode caches cloned (both steps write them in place)."""
+    from repro_torch.launch import steps
+    from repro_torch.utils.tree import tree_map
+    local = tree_map(lambda t: t.to_local(), built["args"])
+    mod = steps._model(entry)
+    cfg, plan, step = built["cfg"], built["plan"], built["step"]
+    if step == "train":
+        m = plan.microbatch
+        batch = tree_map(lambda x: x.reshape(-1, *x.shape[2:]), local[3]) \
+            if m > 1 else local[3]
+        return steps._build_train(mod, cfg, plan, local[0], local[1],
+                                  {"batch": batch})
+    if step == "prefill":
+        return steps._build_prefill(entry, cfg, local[0], local[1],
+                                    {"batch": local[2]})
+    clone = lambda t: t.clone()                 # noqa: E731
+    specs = {"batch": local[2]}
+    if entry.kind == "encdec":
+        specs.update(self_caches=tree_map(clone, local[3]),
+                     cross_caches=tree_map(clone, local[4]))
+    else:
+        specs["caches"] = tree_map(clone, local[3])
+    return steps._build_decode(entry, cfg, local[0], local[1], specs,
+                               built["seq"])
+
+
+def _step_gaps(step: str, one, shard) -> dict:
+    """The sharded step's outputs against the one-card step's."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.utils.tree import tree_leaves
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    if step == "train":
+        lu, ls = float(one[2]["loss"]), float(shard[2]["loss"])
+        l2 = max(_rel_l2(a, full(b)) for a, b in zip(
+            tree_leaves(one[:2]), tree_leaves(shard[:2]))
+            if a.dtype.is_floating_point)
+        return {"loss": abs(ls - lu) / abs(lu), "l2": l2,
+                "count": int(full(shard[1]["count"]))}
+    rel, finite = 0.0, True
+    for a, b in zip(tree_leaves(one), tree_leaves(shard)):
+        if not isinstance(a, torch.Tensor):     # prefill's next position
+            if a != b:
+                return {"rel": math.inf, "finite": False}
+            continue
+        b = full(b)
+        # slice by slice of dim 0: a decode's caches take GBs in fp32
+        diff = scale = 0.0
+        for x, y in zip(a.unbind(0) if a.ndim > 2 else [a],
+                        b.unbind(0) if b.ndim > 2 else [b]):
+            x, y = x.float(), y.float()
+            diff = max(diff, float((x - y).abs().max()))
+            scale = max(scale, float(x.abs().max()))
+            finite = finite and bool(y.isfinite().all())
+        rel = max(rel, diff / max(scale, 1e-30))
+    return {"rel": rel, "finite": finite}
+
+
+def lm_mesh_cell(arch: str, shape: str, batch: int, depth, sp: bool, mesh,
+                 dev) -> dict:
+    """One cell's sharded step (``build_cell(..., mesh)``) on the card
+    against the one-card step on the same arguments: each cold then
+    warm, the sharded step's peak over its cold call, and its donated
+    buffers' storage before and after."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.utils.tree import tree_leaves
+    entry = registry.get(arch)
+    cfg = entry.full() if depth is None else dataclasses.replace(
+        entry.full(), n_layers=depth)
+    plan = dataclasses.replace(steps.plan_for(arch, shape), seq_parallel=sp)
+    _free_cuda()
+    t0 = time.perf_counter()
+    built = steps.build_cell(entry, shape, mesh, plan=plan,
+                             cfg_override=cfg, batch=batch, device=dev)
+    torch.cuda.synchronize()
+    r = {"init_s": time.perf_counter() - t0, "one": [], "shard": []}
+    fn1, args1 = _one_card_of(built, entry)
+    donated = [t.to_local().data_ptr() for k in built["donate"]
+               for t in tree_leaves(built["args"][k])]
+    # cold: each step once from the same state (a Mamba decode's state
+    # moves on every call), compared; then warm, timed only
+    # a prefill's cold and warm calls take the same time (phase 4f): once
+    for i in range(1 if built["step"] == "prefill" else 2):
+        t0 = time.perf_counter()
+        one = fn1(*args1)
+        torch.cuda.synchronize()
+        r["one"].append(time.perf_counter() - t0)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        shard = built["fn"](*built["args"])
+        torch.cuda.synchronize()
+        r["shard"].append(time.perf_counter() - t0)
+        if i == 0:
+            r["peak"] = torch.cuda.max_memory_allocated() - base
+            r.update(_step_gaps(built["step"], one, shard))
+    outs = {"train": lambda o: list(o[0:2]), "decode": lambda o: o[1],
+            "prefill": lambda o: []}[built["step"]](shard)
+    r["donated"] = [t.to_local().data_ptr() for t in tree_leaves(outs)]
+    r["donated_ok"] = r["donated"] == donated
+    r["n_donated"] = len(donated)
+    r["step"] = built["step"]
+    del built, fn1, args1, one, shard, outs
+    _free_cuda()
+    return r
+
+
+def lm_mesh_phase(dev, card: str) -> dict:
+    """Phase 4h: the LM step's side of distribution on the card. A real
+    NCCL process group of one rank and the (1, 1) host mesh
+    (``launch/mesh.make_host_mesh``); each cell of ``LM_MESH_CELLS`` is
+    built sharded (DTensor arguments with the reference's placements)
+    and held to the one-card step on the same tensors within
+    ``LM_MESH_TOL``; the walls of both are printed side by side (the
+    sharded step's host overhead), with its peak and its donated
+    buffers (a train step's trained tree and optimizer state, a decode
+    step's caches: the same storage after the step). Launches none of
+    the six kernels: the counts are read around the phase. The one-card
+    step runs on the sharded cell's own tensors, so a train step's
+    warm calls start from the state the cold sharded call wrote."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.perf_counter()
+    before = kops.launch_counts()
+    out: dict = {"cells": {}}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/pg",
+                                rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+        try:
+            mesh = make_host_mesh()
+            for arch, shape, batch, depth, sp in LM_MESH_CELLS:
+                r = lm_mesh_cell(arch, shape, batch, depth, sp, mesh, dev)
+                out["cells"][(arch, shape)] = r
+                head = (f"lm mesh {arch} {shape} batch {batch}"
+                        + (f" depth {depth}" if depth else "")
+                        + (" seq_parallel" if sp else "")
+                        + f" on the (1, 1) host mesh over NCCL ({card}): "
+                        f"init {r['init_s']:.2f} s; sharded step "
+                        f"{' / '.join(f'{1e3 * w:.1f}' for w in r['shard'])}"
+                        f" ms (cold / warm), one-card "
+                        f"{' / '.join(f'{1e3 * w:.1f}' for w in r['one'])}"
+                        f"; peak "
+                        f"{r['peak'] / 1e9:.3f} GB; ")
+                if r["step"] == "train":
+                    ok = r["loss"] <= LM_MESH_TOL["loss"] \
+                        and r["l2"] <= LM_MESH_TOL["l2"] and r["count"] == 1
+                    gap = (f"loss {r['loss']:.3g} relative (tolerance "
+                           f"{LM_MESH_TOL['loss']}), leaves and moments "
+                           f"{r['l2']:.3g} relative L2 (tolerance "
+                           f"{LM_MESH_TOL['l2']})")
+                else:
+                    ok = r["rel"] <= LM_MESH_TOL["rel"] and r["finite"]
+                    gap = (f"outputs {r['rel']:.3g} of max (tolerance "
+                           f"{LM_MESH_TOL['rel']})")
+                print(head + gap + f"; donated {r['n_donated']} buffers, "
+                      f"the same storage after: {r['donated_ok']}")
+                if not ok or not r["donated_ok"]:
+                    raise AssertionError(f"phase 4h {arch} {shape}: {r}")
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+    after = kops.launch_counts()
+    if after != before:
+        raise AssertionError(f"phase 4h launched kernels: {before} -> "
+                             f"{after}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 4h: {out['wall_s']:.1f} s; kernel launches "
+          f"{after == before} (0 of each)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -6035,6 +6246,9 @@ def main(argv=None) -> int:
 
     # 4g. the FL scale-out layer over a real NCCL group of one rank
     scale4g = scale_out_phase(dev, card)
+
+    # 4h. the LM step sharded over a real NCCL group of one rank
+    lm_mesh_phase(dev, card)
 
     # 5. times at the paths' shapes ---------------------------------------
     t_flat = time_flat_kernels(update, k, dev, "resnet8")

@@ -265,6 +265,25 @@ def quantize_frozen_tree(frozen: Any) -> Any:
     return walk(frozen)
 
 
+def quantize_frozen_logical(logical) -> dict:
+    """The logical-annotation tree of :func:`quantize_frozen_tree`'s
+    output: a linear's ``w`` annotation goes to ``w_q8`` as it is, and
+    ``w_s`` (stack..., out) keeps its stack and output axes."""
+    def walk(node):
+        if isinstance(node, dict):
+            if "w" in node and isinstance(node["w"], tuple):
+                ann = node["w"]
+                rest = {k: v for k, v in node.items() if k != "w"}
+                return {"w_q8": ann, "w_s": (*ann[:-2], ann[-1]),
+                        **{k: walk(v) for k, v in rest.items()}}
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(logical)
+
+
 def linear_apply(frozen: dict, trainable: dict, x: torch.Tensor,
                  scale: float = 1.0,
                  compute_dtype: torch.dtype = torch.bfloat16

@@ -5,11 +5,19 @@ roofline terms (``launch/dryrun_lib.py``) under ``results/dryrun_torch/``
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch ID]
         [--shape NAME] [--tag TAG] [--microbatch M] [--list]
-        [--device meta|cuda]
+        [--device meta|cuda] [--mesh single|multi|both]
+        [--seq-parallel | --no-seq-parallel]
 
 On ``meta`` (the default) nothing is allocated and no card is needed: a
 full-size cell traces on the host in seconds to minutes. ``--device
 cuda`` runs the step on the card (it must fit).
+
+``--mesh`` traces each cell's sharded step instead, on the (16, 16)
+single-pod mesh, the (2, 16, 16) multi-pod mesh or both, as rank 0 of
+256 or 512 in one process over torch's ``fake`` backend on ``meta``
+(``dryrun_lib.run_cell(..., multi_pod=...)``): the record's counts are
+per chip and its collectives are the step's. ``--seq-parallel`` /
+``--no-seq-parallel`` override the plan's ``seq_parallel``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --fl-round
         [--bits 8] [--arch ID]
@@ -17,8 +25,7 @@ cuda`` runs the step on the card (it must fit).
 counts the multi-pod FL round's collectives on the (2, 16, 16) mesh in
 one process over torch's ``fake`` backend (``dryrun_lib.run_fl_round``;
 minitron-4b at bits None/8/4/2 by default) and prints its bytes between
-pods per chip. The JAX package's ``--mesh`` and ``--seq-parallel`` (a
-cell's sharded step) wait for ROADMAP A8b.
+pods per chip.
 """
 from __future__ import annotations
 
@@ -41,6 +48,10 @@ def summary(rec: dict) -> str:
     if rec["status"] == "error":
         return f"{head} {rec['error'][:200]}"
     m, t = rec["memory"], rec["roofline"]
+    if rec.get("chips", 1) > 1:
+        head += (f" chips={rec['chips']} coll={rec['collective_total']:.6e}"
+                 f"B/chip n_coll={t['n_collectives']} "
+                 f"tcoll={t['t_collective_s']:.4e}s")
     return (f"{head} batch={rec['batch']} "
             f"flops={t['hlo_flops_per_chip']:.6e} "
             f"min_bytes={t['min_bytes_per_chip']:.6e} "
@@ -66,6 +77,12 @@ def main(argv=None) -> int:
     p.add_argument("--microbatch", type=int, default=None)
     p.add_argument("--list", action="store_true", help="list cells")
     p.add_argument("--device", default="meta", choices=["meta", "cuda"])
+    p.add_argument("--mesh", default=None,
+                   choices=["single", "multi", "both"],
+                   help="trace the sharded step on the production mesh")
+    p.add_argument("--seq-parallel", dest="sp", action="store_true",
+                   default=None)
+    p.add_argument("--no-seq-parallel", dest="sp", action="store_false")
     p.add_argument("--fl-round", action="store_true",
                    help="count the multi-pod FL round's collectives "
                         "instead")
@@ -99,17 +116,23 @@ def main(argv=None) -> int:
     cells = [c for c in registry.cells()
              if (args.arch is None or c["arch"] == args.arch)
              and (args.shape is None or c["shape"] == args.shape)]
+    meshes = {None: [None], "single": [False], "multi": [True],
+              "both": [False, True]}[args.mesh]
     failures = 0
     for c in cells:
         plan = None
-        if args.microbatch is not None:
+        if args.microbatch is not None or args.sp is not None:
+            base = steps_lib.plan_for(c["arch"], c["shape"])
             plan = dataclasses.replace(
-                steps_lib.plan_for(c["arch"], c["shape"]),
-                microbatch=args.microbatch)
-        rec = dryrun_lib.run_cell(c["arch"], c["shape"], plan=plan,
-                                  tag=args.tag, device=args.device)
-        failures += rec["status"] == "error"
-        print(summary(rec), flush=True)
+                base, microbatch=args.microbatch or base.microbatch,
+                seq_parallel=base.seq_parallel if args.sp is None
+                else args.sp)
+        for mp in meshes:
+            rec = dryrun_lib.run_cell(c["arch"], c["shape"], plan=plan,
+                                      tag=args.tag, device=args.device,
+                                      multi_pod=mp)
+            failures += rec["status"] == "error"
+            print(summary(rec), flush=True)
     return 1 if failures else 0
 
 

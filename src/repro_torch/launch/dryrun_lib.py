@@ -10,9 +10,17 @@ they mean the same thing (``memory``, ``roofline``,
 ``model_flops_global``, ``useful_flops_ratio``, ``params_total``,
 ``params_active``, ``plan``), ``chips`` 1 and ``mesh`` "h100x1", and
 ``trace_s`` (the trace's wall time on the host) in place of ``lower_s``
-and ``compile_s``. A cell's step runs on one card: its sharded
-program (the reference's ``--mesh``, ``--seq-parallel``) waits for
-ROADMAP A8b.
+and ``compile_s``.
+
+``run_cell(..., multi_pod=False | True)`` traces the cell's sharded
+step (``launch/steps.py`` with a mesh) on the (16, 16) or (2, 16, 16)
+production mesh in ONE process over torch's ``fake`` process-group
+backend, as rank 0 on ``meta`` tensors: each rank's arguments are drawn
+at their local shapes only, the counts are rank 0's (per chip), and
+``utils/comm.py`` records the collectives the step issues (DTensor's
+redistributes and the step's own sums and gathers), whose wire bytes
+and time ``roofline.analysis.collective_terms`` gives. Such a record
+has ``mesh`` "pod16x16" or "pod2x16x16" and ``chips`` 256 or 512.
 
 ``run_fl_round`` counts the multi-pod FL round's collectives
 (``launch/fl_round.py``) on the (2, 16, 16) production mesh in ONE
@@ -63,9 +71,16 @@ def _active_params(entry, cfg) -> tuple[int, int]:
 def run_cell(arch: str, shape: str, *,
              plan: Optional[steps_lib.CellPlan] = None,
              tag: str = "baseline", save: bool = True, device="meta",
-             batch: Optional[int] = None) -> dict:
+             batch: Optional[int] = None,
+             multi_pod: Optional[bool] = None) -> dict:
     """Trace one cell on ``device`` and return (and with ``save`` keep)
-    its record. ``batch`` replaces the shape's batch size (a cut)."""
+    its record. ``batch`` replaces the shape's batch size (a cut).
+    ``multi_pod`` False or True traces the cell's sharded step on the
+    production mesh over the ``fake`` backend (module docstring; this
+    process must have no process group)."""
+    if multi_pod is not None:
+        return _run_mesh_cell(arch, shape, multi_pod, plan=plan, tag=tag,
+                              save=save, batch=batch)
     entry = registry.get(arch)
     cell_info = [c for c in registry.cells()
                  if c["arch"] == arch and c["shape"] == shape][0]
@@ -85,38 +100,102 @@ def run_cell(arch: str, shape: str, *,
         built = steps_lib.build_cell(entry, shape, plan=plan, device=device,
                                      batch=batch)
         cost = analyze_step(built["fn"], *built["args"])
-        trace_s = time.time() - t0
-        del cost["out"]
-        terms = roofline_terms(cost)
-        cfg = built["cfg"]
-        total, active = _active_params(entry, cfg)
-        b, s = built["batch"], built["seq"]
-        tokens = b if cell_info["step"] == "decode" else b * s
-        mf = model_flops(active, tokens, cell_info["step"] == "train")
+        _record(rec, entry, built, cost, time.time() - t0, 1)
+        rec["plan"] = {"microbatch": plan.microbatch,
+                       "quantize_base": plan.quantize_base,
+                       "cfg_updates": plan.cfg_updates}
+    except Exception as e:  # record failures: they are actionable bugs
+        rec.update({"status": "error", "error": f"{type(e).__name__}: {e}",
+                    "traceback": traceback.format_exc()[-2000:]})
+    if save:
+        _append(rec)
+    return rec
+
+
+def _record(rec: dict, entry, built: dict, cost: dict, trace_s: float,
+            chips: int) -> None:
+    """A traced step's fields of ``rec``: the per-chip counts of
+    ``analyze_step``'s ``cost`` and their roofline terms, the model's
+    useful FLOPs over all ``chips``."""
+    del cost["out"]
+    total, active = _active_params(entry, built["cfg"])
+    b, s = built["batch"], built["seq"]
+    tokens = b if rec["step"] == "decode" else b * s
+    mf = model_flops(active, tokens, rec["step"] == "train")
+    flops = cost["flops"] * chips
+    rec.update({
+        "status": "ok",
+        "trace_s": round(trace_s, 1),
+        "chips": chips,
+        "batch": b,
+        "memory": {"argument_bytes": cost["argument_bytes"],
+                   "output_bytes": cost["output_bytes"],
+                   "peak_bytes": cost["peak_bytes"]},
+        "fits_one_card": cost["peak_bytes"] <= HW["hbm_bytes"],
+        "roofline": roofline_terms(cost),
+        "n_ops": cost["n_ops"],
+        "model_flops_global": mf,
+        "hlo_flops_global": flops,
+        "useful_flops_ratio": mf / flops if flops else None,
+        "params_total": total,
+        "params_active": active,
+    })
+
+
+def _run_mesh_cell(arch: str, shape: str, multi_pod: bool, *, plan, tag,
+                   save, batch) -> dict:
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.utils import comm
+
+    entry = registry.get(arch)
+    cell_info = [c for c in registry.cells()
+                 if c["arch"] == arch and c["shape"] == shape][0]
+    mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
+    rec: dict[str, Any] = {"arch": arch, "shape": shape, "mesh": mesh_name,
+                           "tag": tag, "step": cell_info["step"],
+                           "device": "meta"}
+    if cell_info["skip"]:
+        rec.update({"status": "skipped",
+                    "skip_reason": cell_info["skip_reason"]})
+        if save:
+            _append(rec)
+        return rec
+    plan = plan or steps_lib.plan_for(arch, shape)
+    t0 = time.time()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=512 if multi_pod else 256)
+    try:
+        mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+        chips = int(np.prod(tuple(mesh.shape)))
+        built = steps_lib.build_cell(entry, shape, mesh, plan=plan,
+                                     device="meta", batch=batch)
+        with comm.record_collectives() as log, comm.record_funcol(mesh):
+            cost = analyze_step(built["fn"], *built["args"])
+        _record(rec, entry, built, cost, time.time() - t0, chips)
+        coll = collective_bytes(log)
+        rec["roofline"].update(collective_terms(log))
         rec.update({
-            "status": "ok",
-            "trace_s": round(trace_s, 1),
-            "chips": 1,
-            "batch": b,
-            "memory": {"argument_bytes": cost["argument_bytes"],
-                       "output_bytes": cost["output_bytes"],
-                       "peak_bytes": cost["peak_bytes"]},
-            "fits_one_card": cost["peak_bytes"] <= HW["hbm_bytes"],
-            "roofline": terms,
-            "n_ops": cost["n_ops"],
-            "model_flops_global": mf,
-            "hlo_flops_global": cost["flops"],
-            "useful_flops_ratio": mf / cost["flops"] if cost["flops"]
-            else None,
-            "params_total": total,
-            "params_active": active,
+            "collectives": {k: coll[k] for k in (
+                "all-gather", "all-reduce", "reduce-scatter",
+                "all-to-all")},
+            "collective_total": coll["total"],
+            "collective_by_axis": coll["by_axis"],
+            "batch_axes": list(built["batch_axes"]),
+            "seq_axes": list(built["seq_axes"]),
             "plan": {"microbatch": plan.microbatch,
+                     "seq_parallel": plan.seq_parallel,
+                     "rules": plan.rules,
                      "quantize_base": plan.quantize_base,
                      "cfg_updates": plan.cfg_updates},
         })
     except Exception as e:  # record failures: they are actionable bugs
         rec.update({"status": "error", "error": f"{type(e).__name__}: {e}",
                     "traceback": traceback.format_exc()[-2000:]})
+    finally:
+        dist.destroy_process_group()
     if save:
         _append(rec)
     return rec

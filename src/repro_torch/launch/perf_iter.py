@@ -5,10 +5,13 @@ variant's tag beside the baseline: the JAX package's
 
     PYTHONPATH=src python -m repro_torch.launch.perf_iter \\
         --cell gemma3-4b:decode_32k --variant int8_base [--device meta]
+        [--mesh single|multi]
 
-``--variant list`` prints the cell's variants. The JAX package's
-``sp_on`` / ``sp_off`` (sequence parallelism) and ``--mesh`` wait for
-the LM step's shardings (ROADMAP A8b).
+``--variant list`` prints the cell's variants. ``sp_on`` / ``sp_off``
+turn the plan's sequence parallelism on or off. ``--mesh`` traces the
+variant's sharded step on the (16, 16) or (2, 16, 16) production mesh
+over torch's ``fake`` backend (``dryrun_lib.run_cell(...,
+multi_pod=...)``); without it the step is traced for one card.
 """
 from __future__ import annotations
 
@@ -43,6 +46,10 @@ def variants_for(arch: str, shape: str) -> dict:
                        cfg_updates={"xent_chunk": 256, "kv_chunk": 512})
     v["combo_nem2"] = p(quantize_base=True, microbatch=4,
                         cfg_updates={"xent_chunk": 256})
+    if not base.seq_parallel:
+        v["sp_on"] = p(seq_parallel=True)
+    else:
+        v["sp_off"] = p(seq_parallel=False)
 
     if arch == "deepseek-v2-236b":
         moe = MoESpec(d_model=5120, d_ff=1536, n_experts=160, top_k=6,
@@ -62,6 +69,8 @@ def main(argv=None) -> int:
     ap.add_argument("--variant", required=True,
                     help="variant name or 'list'")
     ap.add_argument("--device", default="meta", choices=["meta", "cuda"])
+    ap.add_argument("--mesh", default=None, choices=["single", "multi"],
+                    help="trace the sharded step on the production mesh")
     args = ap.parse_args(argv)
     arch, shape = args.cell.split(":")
     vs = variants_for(arch, shape)
@@ -69,8 +78,10 @@ def main(argv=None) -> int:
         print("\n".join(vs))
         return 0
     from repro_torch.launch import dryrun_lib
-    rec = dryrun_lib.run_cell(arch, shape, plan=vs[args.variant],
-                              tag=args.variant, device=args.device)
+    rec = dryrun_lib.run_cell(
+        arch, shape, plan=vs[args.variant], tag=args.variant,
+        device=args.device,
+        multi_pod=None if args.mesh is None else args.mesh == "multi")
     if rec["status"] != "ok":
         print(rec.get("error", rec["status"]))
         return 1
@@ -80,6 +91,7 @@ def main(argv=None) -> int:
           f"tc={t['t_compute_s']:.3e} tm={t['t_memory_s']:.3e} "
           f"tme={t['t_memory_eager_s']:.3e} "
           f"tcoll={t['t_collective_s']:.3e} dom={t['dominant']} "
+          f"chips={rec['chips']} "
           f"useful={rec['useful_flops_ratio']:.3f}")
     return 0
 

@@ -17,18 +17,30 @@ resumed run's first step takes the first batch, not the one the
 interrupted run would have drawn next.
 
 Runs on the card unless ``--device cpu`` is given; without a card the
-default raises. The reference's ``--mesh`` (a sharded run on a device
-mesh) waits for the LM step's shardings (ROADMAP A8b); the meshes
-themselves are ``launch/mesh.py``.
+default raises.
+
+``--mesh host|single|multi`` runs the step sharded over a
+``DeviceMesh`` (``launch/mesh.py``): the parameters and the optimizer
+state are DTensors with the reference's shardings, every rank draws the
+same batch and keeps its block, and the step is ``launch/steps.py``'s
+sharded train step (``launch/spmd.py``). ``host`` is the 1-rank (1, 1)
+mesh: without a process group this starts a one-rank group itself
+(NCCL on the card, gloo on the CPU). ``single`` (16, 16) and ``multi``
+(2, 16, 16) need a process group of 256 or 512 ranks, started by the
+launcher (``torch.distributed.init_process_group``, e.g. from
+``torchrun``'s environment); any other world size raises. Under
+``--mesh`` the run keeps no checkpoints (``--checkpoint-dir`` raises).
 """
 from __future__ import annotations
 
 import argparse
+import socket
 import time
 from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import registry
@@ -128,7 +140,79 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None,
+                    choices=["host", "single", "multi"],
+                    help="run the step sharded over this mesh")
     return ap.parse_args(argv)
+
+
+MESH_RANKS = {"host": 1, "single": 256, "multi": 512}
+
+
+def make_mesh(name: str, dev: torch.device):
+    """The ``--mesh`` mesh over the process group that exists (for
+    ``host`` and no group: a one-rank group on a free local port).
+    Raises where the group's size is not the mesh's."""
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    want = MESH_RANKS[name]
+    if not dist.is_initialized():
+        if name != "host":
+            raise RuntimeError(
+                f"--mesh {name} needs a process group of {want} ranks: "
+                "start it with torch.distributed.init_process_group")
+        with socket.socket() as s_:
+            s_.bind(("localhost", 0))
+            port = s_.getsockname()[1]
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    got = dist.get_world_size()
+    if got != want:
+        raise RuntimeError(f"--mesh {name} is a mesh of {want} ranks; the "
+                           f"process group has {got}")
+    if name == "host":
+        return make_host_mesh(device=dev)
+    return make_production_mesh(multi_pod=name == "multi", device=dev)
+
+
+def sharded_loop(frozen: dict, train: Any, cfg: Any, entry,
+                 args: argparse.Namespace, rng: np.random.Generator,
+                 mesh) -> dict:
+    """``train_loop`` over ``mesh``: steps 1 .. ``args.steps``, each the
+    sharded train step. Returns {'train', 'opt', 'losses', 'start'},
+    the trees as DTensors."""
+    from repro_torch.launch import spmd
+    from repro_torch.launch import steps as S
+    from repro_torch.utils.sharding import tree_shardings
+    if args.checkpoint_dir:
+        raise NotImplementedError("--mesh runs keep no checkpoints")
+    mod = ED if entry.kind == "encdec" else LM
+    logical = mod.logical(cfg)
+    frozen = S._distribute(frozen, tree_shardings(
+        logical["frozen"], frozen, mesh), mesh)
+    sh_train = tree_shardings(logical["train"], train, mesh)
+    opt = adamw()
+    opt_state = S._distribute(opt.init(train),
+                              S._opt_shardings(mesh, sh_train), mesh)
+    train = S._distribute(train, sh_train, mesh)
+    plan = S.CellPlan()
+    axes = spmd.split_axes(mesh, args.batch, mesh.mesh_dim_names,
+                           greedy=False)
+    step_fn = S._sharded_train(mod, cfg, mesh, axes, 1, 0, opt,
+                               S._local_constrain(mesh, plan, "train"),
+                               lr=args.lr)
+    dev = LM.param_device(frozen)
+    losses = []
+    for step in range(args.steps):
+        batch = draw_batch(rng, cfg, entry.kind, args.batch, args.seq, dev)
+        batch = S._distribute(batch, S._batch_sharding(mesh, batch), mesh)
+        t0 = time.time()
+        train, opt_state, m = step_fn(frozen, train, opt_state, batch)
+        losses.append(float(m["loss"]))
+        print(f"step {step + 1}: loss={losses[-1]:.4f} "
+              f"({time.time() - t0:.2f}s)", flush=True)
+    print("done")
+    return {"train": train, "opt": opt_state, "losses": losses, "start": 0}
 
 
 def main(argv=None) -> dict:
@@ -141,6 +225,15 @@ def main(argv=None) -> dict:
     frozen, train = params["frozen"], params["train"]
     print(f"{cfg.name}: total={tree_size(frozen) + tree_size(train):,} "
           f"trainable={tree_size(train):,}")
+    if args.mesh:
+        own = not dist.is_initialized()
+        try:
+            return sharded_loop(frozen, train, cfg, entry, args,
+                                np.random.default_rng(0),
+                                make_mesh(args.mesh, dev))
+        finally:
+            if own and dist.is_initialized():
+                dist.destroy_process_group()
     return train_loop(frozen, train, cfg, entry.kind, args,
                       np.random.default_rng(0))
 

@@ -23,6 +23,7 @@ import torch
 from repro_torch.core.lora import LoRAConfig, frozen_weight, \
     linear_apply, linear_init, linear_logical
 from repro_torch.models import layers as L
+from repro_torch.utils import pcontext
 from repro_torch.utils.device import resolve_device
 
 
@@ -147,8 +148,11 @@ def gqa_apply(fz: dict, tr: dict, spec: GQASpec, x: torch.Tensor,
     if window is not None and window < s:
         o = L.local_attention_blocked(q, k, v, window=window)
     else:
+        # sequence parallelism: this block's queries, every key
+        k, v = pcontext.seq_gather(k), pcontext.seq_gather(v)
         o = L.attention_chunked(q, k, v, causal=causal,
-                                prefix_len=prefix_len, kv_chunk=kv_chunk)
+                                prefix_len=prefix_len, kv_chunk=kv_chunk,
+                                q_offset=pcontext.seq_offset())
     return _out(fz, tr, spec, o, lora_scale)
 
 
@@ -163,6 +167,11 @@ def gqa_cache_init(spec: GQASpec, batch: int, max_seq: int,
             "v": torch.zeros(shp, dtype=dtype, device=dev)}
 
 
+def gqa_cache_logical() -> dict:
+    return {"k": ("batch", "kv_seq", None, None),
+            "v": ("batch", "kv_seq", None, None)}
+
+
 def gqa_decode(fz: dict, tr: dict, spec: GQASpec, x: torch.Tensor,
                cache: dict, pos: int, lora_scale: float, rope, *,
                window: Optional[int] = None) -> tuple[torch.Tensor, dict]:
@@ -172,11 +181,14 @@ def gqa_decode(fz: dict, tr: dict, spec: GQASpec, x: torch.Tensor,
     package returns new arrays; here the cache tensors are reused).
     Returns (y, cache)."""
     q, k, v = _qkv(fz, tr, spec, x, lora_scale, rope)
-    smax = cache["k"].shape[1]
+    blk = pcontext.seq_block(cache["k"])    # a sharded step's block
+    smax = cache["k"].shape[1] if blk is None else blk.total
     slot = (pos % smax) if window else pos
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-    o = L.decode_attention(q, cache["k"], cache["v"], min(pos + 1, smax))
+    pcontext.write_slot(cache["k"], slot, k[:, 0].to(cache["k"].dtype))
+    pcontext.write_slot(cache["v"], slot, v[:, 0].to(cache["v"].dtype))
+    kc = pcontext.constrain(cache["k"], "cache4")
+    vc = pcontext.constrain(cache["v"], "cache4")
+    o = L.decode_attention(q, kc, vc, min(pos + 1, smax))
     return _out(fz, tr, spec, o, lora_scale), cache
 
 
@@ -282,8 +294,11 @@ def mla_apply(fz: dict, tr: dict, spec: MLASpec, x: torch.Tensor,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, kr[:, :, None].expand(b, s, h, spec.qk_rope_dim)],
                   dim=-1)
+    # sequence parallelism: this block's queries, every key
+    k, v = pcontext.seq_gather(k), pcontext.seq_gather(v)
     o = L.attention_chunked(q, k, v, causal=True, kv_chunk=kv_chunk,
-                            scale=spec.qk_dim ** -0.5)
+                            scale=spec.qk_dim ** -0.5,
+                            q_offset=pcontext.seq_offset())
     o = o.reshape(b, s, h * spec.v_head_dim)
     return linear_apply(fz.get("wo", {}), tr.get("wo", {}), o, lora_scale)
 
@@ -296,6 +311,11 @@ def mla_cache_init(spec: MLASpec, batch: int, max_seq: int,
                                dtype=dtype, device=dev),
             "kr": torch.zeros((batch, max_seq, spec.qk_rope_dim),
                               dtype=dtype, device=dev)}
+
+
+def mla_cache_logical() -> dict:
+    return {"ckv": ("batch", "kv_seq", None),
+            "kr": ("batch", "kv_seq", None)}
 
 
 def _eff_weight(fz: dict, tr: dict, lora_scale: float) -> torch.Tensor:
@@ -319,9 +339,11 @@ def mla_decode(fz: dict, tr: dict, spec: MLASpec, x: torch.Tensor,
     h = spec.n_heads
     q_nope, q_rope = _mla_q(fz, tr, spec, x, lora_scale, rope)
     ckv_new, kr_new = _mla_latent(fz, tr, spec, x, lora_scale, rope)
-    cache["ckv"][:, pos] = ckv_new[:, 0].to(cache["ckv"].dtype)
-    cache["kr"][:, pos] = kr_new[:, 0].to(cache["kr"].dtype)
-    ckv, kr = cache["ckv"], cache["kr"]
+    pcontext.write_slot(cache["ckv"], pos,
+                        ckv_new[:, 0].to(cache["ckv"].dtype))
+    pcontext.write_slot(cache["kr"], pos, kr_new[:, 0].to(cache["kr"].dtype))
+    ckv = pcontext.constrain(cache["ckv"], "cache3")
+    kr = pcontext.constrain(cache["kr"], "cache3")
     # absorb k_b into q: q_abs[b,h,c] = sum_d q_nope[b,h,d] * k_b[c,(h d)]
     k_b = _eff_weight(fz.get("k_b", {}), tr.get("k_b", {}), lora_scale)
     v_b = _eff_weight(fz.get("v_b", {}), tr.get("v_b", {}), lora_scale)
@@ -333,10 +355,14 @@ def mla_decode(fz: dict, tr: dict, spec: MLASpec, x: torch.Tensor,
     s_rope = L._einsum_f32("bhr,bsr->bhs", q_rope[:, 0], kr)
     scores = (s_lat + s_rope) * spec.qk_dim ** -0.5
     smax = ckv.shape[1]
-    mask = torch.arange(smax, device=x.device) <= pos
+    blk = pcontext.seq_block(ckv)           # a sharded step's block
+    slots = torch.arange(smax, device=x.device)
+    mask = (slots if blk is None else slots + blk.offset) <= pos
     scores = torch.where(mask[None, None, :], scores, -torch.inf)
-    p = torch.softmax(scores, dim=-1)
+    p = L.softmax_blocks(scores, blk)
     ctx = L._einsum_f32("bhs,bsc->bhc", p, ckv)
+    if blk is not None:
+        ctx = blk.sum(ctx)
     o = torch.einsum("bhc,chd->bhd", ctx, v_b.to(torch.float32))
     o = o.reshape(b, 1, h * spec.v_head_dim).to(x.dtype)
     y = linear_apply(fz.get("wo", {}), tr.get("wo", {}), o, lora_scale)

@@ -30,6 +30,7 @@ from repro_torch.core.lora import LoRAConfig, linear_apply, linear_init, \
     linear_logical
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.utils import pcontext
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_map
 
@@ -196,27 +197,33 @@ def _cross_apply(fz: dict, tr: dict, spec: A.GQASpec, x: torch.Tensor,
     return linear_apply(fz.get("wo", {}), tr.get("wo", {}), o, sc)
 
 
+def _same(x):
+    return x
+
+
 def _enc_layer(cfg: EncDecConfig, fz: dict, tr: dict, x: torch.Tensor,
-               rope) -> torch.Tensor:
+               rope, constrain=_same) -> torch.Tensor:
+    fz, tr = pcontext.params(fz), pcontext.params(tr)
     sc = cfg.lora.scale
     h = L.rmsnorm_apply(tr["norm1"], x)
-    x = x + A.gqa_apply(fz["attn"], tr["attn"], cfg.gqa, h, sc, rope,
-                        causal=False, kv_chunk=cfg.kv_chunk)
+    x = constrain(x + A.gqa_apply(fz["attn"], tr["attn"], cfg.gqa, h, sc,
+                                  rope, causal=False, kv_chunk=cfg.kv_chunk))
     h = L.rmsnorm_apply(tr["norm2"], x)
-    return x + L.mlp_apply(fz["mlp"], tr["mlp"], cfg.mlp, h, sc)
+    return constrain(x + L.mlp_apply(fz["mlp"], tr["mlp"], cfg.mlp, h, sc))
 
 
 def _dec_layer(cfg: EncDecConfig, fz: dict, tr: dict, x: torch.Tensor,
-               memory: torch.Tensor, rope) -> torch.Tensor:
+               memory: torch.Tensor, rope, constrain=_same) -> torch.Tensor:
+    fz, tr = pcontext.params(fz), pcontext.params(tr)
     sc = cfg.lora.scale
     h = L.rmsnorm_apply(tr["norm1"], x)
-    x = x + A.gqa_apply(fz["attn"], tr["attn"], cfg.gqa, h, sc, rope,
-                        causal=True, kv_chunk=cfg.kv_chunk)
+    x = constrain(x + A.gqa_apply(fz["attn"], tr["attn"], cfg.gqa, h, sc,
+                                  rope, causal=True, kv_chunk=cfg.kv_chunk))
     h = L.rmsnorm_apply(tr["norm_x"], x)
-    x = x + _cross_apply(fz["cross"], tr["cross"], cfg.gqa, h, memory, sc,
-                         cfg.kv_chunk)
+    x = constrain(x + _cross_apply(fz["cross"], tr["cross"], cfg.gqa, h,
+                                   memory, sc, cfg.kv_chunk))
     h = L.rmsnorm_apply(tr["norm2"], x)
-    return x + L.mlp_apply(fz["mlp"], tr["mlp"], cfg.mlp, h, sc)
+    return constrain(x + L.mlp_apply(fz["mlp"], tr["mlp"], cfg.mlp, h, sc))
 
 
 def _run(layer, cfg: EncDecConfig, n: int, fz: dict, tr: dict,
@@ -235,40 +242,43 @@ def _run(layer, cfg: EncDecConfig, n: int, fz: dict, tr: dict,
 
 
 def encode(frozen: dict, train: dict, cfg: EncDecConfig,
-           src_embed) -> torch.Tensor:
+           src_embed, constrain=None) -> torch.Tensor:
     """src_embed: (B, S_src, d) frame embeddings. Bidirectional
     self-attention with rope over the source positions; returns the
-    ``enc_norm``-ed memory (B, S_src, d) bf16."""
+    ``enc_norm``-ed memory (B, S_src, d) bf16. ``constrain`` is the
+    residual stream's sharding constraint (the identity by default)."""
+    constrain = constrain or _same
     dev = param_device(frozen)
-    x = torch.as_tensor(src_embed, device=dev).to(torch.bfloat16)
+    x = constrain(torch.as_tensor(src_embed, device=dev).to(torch.bfloat16))
     rope = _rope(cfg, torch.arange(x.shape[1], device=dev))
     x = _run(_enc_layer, cfg, cfg.n_enc_layers, frozen["enc"], train["enc"],
-             x, rope)
+             x, rope, constrain)
     return L.rmsnorm_apply(train["enc_norm"], x)
 
 
 def decode_train(frozen: dict, train: dict, cfg: EncDecConfig, tgt,
-                 memory: torch.Tensor) -> torch.Tensor:
+                 memory: torch.Tensor, constrain=None) -> torch.Tensor:
     """Teacher-forced decoder over target tokens (B, S_tgt) against the
     encoder's ``memory``; returns the ``final_norm``-ed hidden states
     (B, S_tgt, d)."""
+    constrain = constrain or _same
     dev = param_device(frozen)
     tgt = torch.as_tensor(tgt, device=dev).to(torch.long)
-    x = frozen["embed"]["w"][tgt]
+    x = constrain(frozen["embed"]["w"][tgt])
     rope = _rope(cfg, torch.arange(x.shape[1], device=dev))
     x = _run(_dec_layer, cfg, cfg.n_dec_layers, frozen["dec"], train["dec"],
-             x, memory, rope)
+             x, memory, rope, constrain)
     return L.rmsnorm_apply(train["final_norm"], x)
 
 
 def loss_fn(frozen: dict, train: dict, cfg: EncDecConfig,
-            batch: dict) -> tuple[torch.Tensor, dict]:
+            batch: dict, constrain=None) -> tuple[torch.Tensor, dict]:
     """batch: {'src_embed': (B, S_src, d), 'tgt_tokens': (B, S_tgt + 1)}.
     Returns (mean next-token cross entropy, {'xent': the same}): no aux
     loss."""
-    memory = encode(frozen, train, cfg, batch["src_embed"])
+    memory = encode(frozen, train, cfg, batch["src_embed"], constrain)
     tgt = torch.as_tensor(batch["tgt_tokens"], device=memory.device)
-    h = decode_train(frozen, train, cfg, tgt[:, :-1], memory)
+    h = decode_train(frozen, train, cfg, tgt[:, :-1], memory, constrain)
     xent = L.chunked_xent(h, frozen.get("head", {}), train.get("head", {}),
                           tgt[:, 1:], cfg.lora.scale, chunk=cfg.xent_chunk)
     return xent, {"xent": xent}
@@ -287,7 +297,8 @@ def cross_cache(frozen: dict, train: dict, cfg: EncDecConfig,
     shp = (b, s, cfg.gqa.n_kv_heads, cfg.head_dim)
     out: dict = {"k": [], "v": []}
     for i in range(cfg.n_dec_layers):
-        fz, tr = _at(frozen["dec"]["cross"], i), _at(train["dec"]["cross"], i)
+        fz = pcontext.params(_at(frozen["dec"]["cross"], i))
+        tr = pcontext.params(_at(train["dec"]["cross"], i))
         for nm in ("k", "v"):
             out[nm].append(linear_apply(fz.get(f"w{nm}", {}),
                                         tr.get(f"w{nm}", {}), memory,
@@ -321,17 +332,22 @@ def decode_step(frozen: dict, train: dict, cfg: EncDecConfig, token,
     b = x.shape[0]
     rope = _rope(cfg, torch.full((b, 1), pos, device=dev))
     for i in range(cfg.n_dec_layers):
-        fz, tr = _at(frozen["dec"], i), _at(train["dec"], i)
-        cache = {k: v[i] for k, v in self_caches.items()}      # views
+        fz = pcontext.params(_at(frozen["dec"], i))
+        tr = pcontext.params(_at(train["dec"], i))
+        cache, put_back = pcontext.layer_cache(self_caches, i)   # views
         h = L.rmsnorm_apply(tr["norm1"], x)
         h, _ = A.gqa_decode(fz["attn"], tr["attn"], spec, h, cache, pos, sc,
                             rope)
+        put_back()
         x = x + h
         h = L.rmsnorm_apply(tr["norm_x"], x)
         q = linear_apply(fz["cross"].get("wq", {}), tr["cross"].get("wq", {}),
                          h, sc).reshape(b, 1, spec.hq, cfg.head_dim)
-        xk, xv = cross_caches["k"][i], cross_caches["v"][i]
-        o = L.decode_attention(q, xk, xv, xk.shape[1])
+        cross, _ = pcontext.layer_cache(cross_caches, i)   # read only
+        xk, xv = cross["k"], cross["v"]
+        blk = pcontext.seq_block(xk)
+        o = L.decode_attention(q, xk, xv,
+                               xk.shape[1] if blk is None else blk.total)
         o = o.reshape(b, 1, spec.hq * cfg.head_dim)
         x = x + linear_apply(fz["cross"].get("wo", {}),
                              tr["cross"].get("wo", {}), o, sc)

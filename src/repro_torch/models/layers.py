@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.lora import LoRAConfig, linear_apply, linear_init, \
     linear_logical
+from repro_torch.utils import pcontext
 from repro_torch.utils.device import resolve_device
 
 # ---------------------------------------------------------------------------
@@ -138,20 +139,25 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True,
                       prefix_len: Optional[torch.Tensor] = None,
                       kv_chunk: int = 1024,
-                      scale: Optional[float] = None) -> torch.Tensor:
+                      scale: Optional[float] = None,
+                      q_offset: int = 0) -> torch.Tensor:
     """Online-softmax attention over KV chunks (the memory high-water
     is (B, H, Sq, kv_chunk)).
 
     q: (B, Sq, H, D); k, v: (B, Skv, Hkv, D) with H % Hkv == 0.
     prefix_len: (B,): bidirectional attention within [0, prefix_len)
     (prefix-LM), causal elsewhere. A query that no key of a chunk may
-    see (a fully masked row) adds nothing for that chunk.
+    see (a fully masked row) adds nothing for that chunk. q_offset: the
+    absolute position of q[0] (a block of the sequence's queries).
     """
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
     k = _repeat_kv(k, h // hkv)
     v = _repeat_kv(v, h // hkv)
+    q = pcontext.constrain(q, "heads")
+    k = pcontext.constrain(k, "heads")
+    v = pcontext.constrain(v, "heads")
     sc = scale if scale is not None else d ** -0.5
     qf = (q * sc).to(torch.bfloat16)
     dev = q.device
@@ -161,9 +167,12 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if pad:
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
-    kc = k.reshape(b, n_chunks, kv_chunk, h, d)
-    vc = v.reshape(b, n_chunks, kv_chunk, h, dv)
-    q_pos = torch.arange(sq, device=dev)
+    # (N, B, C, H, D) views, chunk-major as the reference scans them
+    kc = pcontext.constrain(k.reshape(b, n_chunks, kv_chunk, h, d)
+                            .transpose(0, 1), "kv_chunks")
+    vc = pcontext.constrain(v.reshape(b, n_chunks, kv_chunk, h, dv)
+                            .transpose(0, 1), "kv_chunks")
+    q_pos = torch.arange(sq, device=dev) + q_offset
 
     def body(m, l, acc, kch, vch, cidx: int):
         kv_pos = cidx * kv_chunk + torch.arange(kv_chunk, device=dev)
@@ -197,7 +206,7 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=dev)
     for ci in range(n_chunks):
-        m, l, acc = _maybe_remat(body, m, l, acc, kc[:, ci], vc[:, ci], ci)
+        m, l, acc = _maybe_remat(body, m, l, acc, kc[ci], vc[ci], ci)
     out = acc / torch.clamp(l, min=1e-20)[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)          # (B, Sq, H, D)
 
@@ -224,6 +233,9 @@ def local_attention_blocked(q: torch.Tensor, k: torch.Tensor,
         q = F.pad(q, (0, 0, 0, 0, 0, pad))
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    q = pcontext.constrain(q, "heads")
+    k = pcontext.constrain(k, "heads")
+    v = pcontext.constrain(v, "heads")
     qb = q.reshape(b, nb, w, h, d)
     kb = k.reshape(b, nb, w, h, d)
     vb = v.reshape(b, nb, w, h, d)
@@ -264,15 +276,32 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     sc = scale if scale is not None else d ** -0.5
     qh = (q[:, 0] * sc).reshape(b, hkv, rep, d)
     s_ = _einsum_f32("bgrd,bsgd->bgrs", qh, k_cache)
+    # a sharded step's rank holds a block of the slots (split-KV)
+    blk = pcontext.seq_block(k_cache)
     pos = torch.arange(smax, device=q.device)
+    if blk is not None:
+        pos = pos + blk.offset
     if isinstance(length, torch.Tensor):
         mask = pos[None, :] < length.to(q.device).expand(b)[:, None]
     else:       # an int: compared on the device, no host-to-device copy
         mask = (pos < int(length))[None, :].expand(b, smax)
     s_ = torch.where(mask[:, None, None, :], s_, -torch.inf)
-    p = torch.softmax(s_, dim=-1)
+    p = softmax_blocks(s_, blk)
     o = _einsum_f32("bgrs,bsgd->bgrd", p, v_cache)
+    if blk is not None:
+        o = blk.sum(o)
     return o.reshape(b, 1, h, d).to(q.dtype)
+
+
+def softmax_blocks(s_: torch.Tensor, blk) -> torch.Tensor:
+    """``softmax(s_, -1)``; where the last dim is a rank's block of a
+    sequence (``blk``), the max and the sum run over every block, so
+    each block holds its share of the whole softmax."""
+    if blk is None:
+        return torch.softmax(s_, dim=-1)
+    m = blk.max(torch.amax(s_, dim=-1, keepdim=True))
+    e = torch.exp(s_ - m)
+    return e / blk.sum(torch.sum(e, dim=-1, keepdim=True))
 
 
 # ---------------------------------------------------------------------------
@@ -320,10 +349,22 @@ def mlp_logical(spec: MLPSpec, mode: str, stack: bool) -> tuple[dict, dict]:
     return fz, tr
 
 
+def _out_width(fz: dict, tr: dict, nm: str) -> int:
+    src = tr.get(nm, {}) if "w" in tr.get(nm, {}) else fz.get(nm, {})
+    w = src.get("w", src.get("w_q8"))
+    return int(w.shape[-1])
+
+
 def mlp_apply(fz: dict, tr: dict, spec: MLPSpec, x: torch.Tensor,
               lora_scale: float) -> torch.Tensor:
     def g(nm, xx):
         return linear_apply(fz.get(nm, {}), tr.get(nm, {}), xx, lora_scale)
+
+    # a sharded step's tensor-parallel MLP: its weights are this rank's
+    # blocks of the hidden units, its output a part of the sum
+    tp = _out_width(fz, tr, "wi") != spec.d_ff
+    if tp:
+        x = pcontext.tp_enter(x)
 
     if spec.kind == "swiglu":
         h = F.silu(g("wg", x).to(torch.float32)).to(x.dtype) * g("wi", x)
@@ -340,7 +381,8 @@ def mlp_apply(fz: dict, tr: dict, spec: MLPSpec, x: torch.Tensor,
                    approximate="tanh").to(x.dtype)
     else:
         raise ValueError(spec.kind)
-    return g("wo", h)
+    y = g("wo", h)
+    return pcontext.tp_exit(y) if tp else y
 
 
 # ---------------------------------------------------------------------------
@@ -382,4 +424,6 @@ def chunked_xent(x: torch.Tensor, head_fz: dict, head_tr: dict,
         sl = slice(i * chunk, (i + 1) * chunk)
         t, c = _maybe_remat(body, x[:, sl], labels[:, sl], mask[:, sl])
         tot, cnt = tot + t, cnt + c
+    # a sharded step's batch block: the sums over every rank's tokens
+    tot, cnt = pcontext.batch_sum(tot), pcontext.batch_sum(cnt)
     return tot / torch.clamp(cnt, min=1.0)

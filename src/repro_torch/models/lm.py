@@ -51,6 +51,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.encdec import EncDecConfig
+from repro_torch.utils import pcontext
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_map
 
@@ -327,11 +328,18 @@ def _layers(frozen: dict, train: dict, cfg: LMConfig):
                 yield (gi, i, pi, spec, fz, _at(train["groups"][gi][pi], i))
 
 
+def _same(x):
+    return x
+
+
 def _ffn_block(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
-               x: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The norm, the dense MLP or the MoE, the residual: (x, the MoE's
+               x: torch.Tensor, constrain=_same
+               ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The residual constraint on ``x`` (the mixer's residual sum), then
+    the norm, the dense MLP or the MoE and the residual: (x, the MoE's
     aux loss, None for a dense layer). A layer without an FFN returns
     ``x`` as it is."""
+    x = constrain(x)
     if spec.ffn == "none":
         return x, None
     h = L.rmsnorm_apply(tr["norm2"], x)
@@ -340,15 +348,44 @@ def _ffn_block(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
                         _mlp_spec(cfg), h, cfg.lora.scale)
         aux = None
     else:
-        h, aux = MOE.moe_apply(fz.get("moe", {}), tr.get("moe", {}),
-                               cfg.moe, h, cfg.lora.scale)
-    return x + h, aux
+        # sequence parallelism: the dispatch order runs over whole rows,
+        # so the MoE takes the whole sequence and keeps this block
+        hf = pcontext.seq_gather(h)
+        with pcontext.whole_seq():
+            hf, aux = MOE.moe_apply(fz.get("moe", {}), tr.get("moe", {}),
+                                    cfg.moe, hf, cfg.lora.scale)
+        h = pcontext.seq_slice(hf)
+    return constrain(x + h), aux
+
+
+def _whole_seq_layer(spec: LayerSpec) -> bool:
+    """A layer without a sequence-parallel form: sliding-window
+    attention, Mamba (a scan over the sequence)."""
+    return spec.mixer == "mamba" or spec.window is not None
 
 
 def _apply_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
                  x: torch.Tensor, positions: torch.Tensor,
-                 prefix_len: Optional[torch.Tensor] = None
+                 prefix_len: Optional[torch.Tensor] = None,
+                 constrain=_same
                  ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    fz, tr = pcontext.params(fz), pcontext.params(tr)
+    if pcontext.seq_split() and _whole_seq_layer(spec):
+        # sequence parallelism: the whole sequence, then this block
+        xf = pcontext.seq_gather(x)
+        with pcontext.whole_seq():
+            pf = torch.arange(xf.shape[1], device=xf.device)[None, :]
+            y, aux = _layer_body(cfg, spec, fz, tr, xf, pf, prefix_len,
+                                 constrain)
+        return pcontext.seq_slice(y), aux
+    return _layer_body(cfg, spec, fz, tr, x, positions, prefix_len,
+                       constrain)
+
+
+def _layer_body(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
+                x: torch.Tensor, positions: torch.Tensor,
+                prefix_len: Optional[torch.Tensor], constrain
+                ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = L.rmsnorm_apply(tr["norm1"], x)
     rope = _rope_for(cfg, spec, positions)
     if spec.mixer == "mamba":
@@ -361,7 +398,7 @@ def _apply_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
         h = A.gqa_apply(fz["attn"], tr["attn"], cfg.gqa, h, cfg.lora.scale,
                         rope, window=spec.window, causal=True,
                         prefix_len=prefix_len, kv_chunk=cfg.kv_chunk)
-    return _ffn_block(cfg, spec, fz, tr, x + h)
+    return _ffn_block(cfg, spec, fz, tr, x + h, constrain)
 
 
 def _embed_lookup(frozen: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -400,25 +437,33 @@ def _with_prefix(x: torch.Tensor, prefix_embed
 
 
 def forward(frozen: dict, train: dict, cfg: LMConfig, tokens,
-            prefix_embed=None) -> tuple[torch.Tensor, torch.Tensor]:
+            prefix_embed=None, constrain=None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S); prefix_embed: optional (B, P, d), put before the
-    text. Returns (hidden (B, P + S, d), aux loss)."""
+    text; ``constrain``: the residual stream's sharding constraint (the
+    identity by default). Returns (hidden (B, P + S, d), aux loss)."""
     _check(cfg)
+    constrain = constrain or _same
     x, prefix_len = _with_prefix(_embed(frozen, cfg, tokens), prefix_embed)
+    x = constrain(x)
     if prefix_len is None and cfg.prefix_lm and cfg.prefix_len:
         # the reference's fallback: the first cfg.prefix_len TEXT tokens
         # attend both ways. prefill has none (module docstring).
         prefix_len = torch.full((x.shape[0],), cfg.prefix_len,
                                 dtype=torch.int32, device=x.device)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    # sequence parallelism: this rank's block of the residual stream
+    x = pcontext.seq_slice(x)
+    positions = (torch.arange(x.shape[1], device=x.device)
+                 + pcontext.seq_offset())[None, :]
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, _, _, spec, fz, tr in _layers(frozen, train, cfg):
         if remat:
             x, a = checkpoint(_apply_layer, cfg, spec, fz, tr, x, positions,
-                              prefix_len, use_reentrant=False)
+                              prefix_len, constrain, use_reentrant=False)
         else:
-            x, a = _apply_layer(cfg, spec, fz, tr, x, positions, prefix_len)
+            x, a = _apply_layer(cfg, spec, fz, tr, x, positions, prefix_len,
+                                constrain)
         if a is not None:
             aux = aux + a
     x = L.rmsnorm_apply(train["final_norm"], x)
@@ -426,20 +471,21 @@ def forward(frozen: dict, train: dict, cfg: LMConfig, tokens,
 
 
 def loss_fn(frozen: dict, train: dict, cfg: LMConfig,
-            batch: dict) -> tuple[torch.Tensor, dict]:
+            batch: dict, constrain=None) -> tuple[torch.Tensor, dict]:
     """batch: {'tokens': (B, S+1) int, optional 'prefix_embed' (B, P, d),
     optional 'loss_mask' (B, S) over the text labels}."""
     dev = param_device(frozen)
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     prefix_embed = batch.get("prefix_embed")
-    h, aux = forward(frozen, train, cfg, tokens[:, :-1], prefix_embed)
+    h, aux = forward(frozen, train, cfg, tokens[:, :-1], prefix_embed,
+                     constrain)
     if prefix_embed is not None:
         h = h[:, prefix_embed.shape[1]:]
     mask = batch.get("loss_mask")
     if mask is not None:
-        mask = torch.as_tensor(mask, device=dev)
+        mask = pcontext.seq_slice(torch.as_tensor(mask, device=dev))
     xent = L.chunked_xent(h, frozen.get("head", {}), train.get("head", {}),
-                          tokens[:, 1:], cfg.lora.scale,
+                          pcontext.seq_slice(tokens[:, 1:]), cfg.lora.scale,
                           chunk=cfg.xent_chunk, mask=mask)
     loss = xent + 0.01 * aux
     return loss, {"xent": xent, "aux": aux}
@@ -468,11 +514,30 @@ def cache_init(cfg: LMConfig, batch: int, max_seq: int,
             else:
                 c = A.gqa_cache_init(cfg.gqa, batch, max_seq, spec.window,
                                      device="meta")
-            pos_caches.append({k: torch.zeros((g.repeats, *v.shape),
-                                              dtype=v.dtype, device=dev)
-                               for k, v in c.items()})
+            # a sharded prefill's rank allocates its own block only
+            pos_caches.append({k: torch.zeros(pcontext.constrain(
+                torch.empty((g.repeats, *v.shape), device="meta"),
+                "cache_stack").shape, dtype=v.dtype, device=dev)
+                for k, v in c.items()})
         out.append(pos_caches)
     return out
+
+
+def _layer_cache_logical(cfg: LMConfig, spec: LayerSpec) -> dict:
+    """A layer's cache annotations with the leading layer-stack axis."""
+    if spec.mixer in ("gqa", "shared_gqa"):
+        base = A.gqa_cache_logical()
+    elif spec.mixer == "mla":
+        base = A.mla_cache_logical()
+    else:
+        base = SSM.mamba_cache_logical()
+    return {k: ("layers",) + t for k, t in base.items()}
+
+
+def cache_logical(cfg: LMConfig) -> list:
+    """Logical annotations parallel to :func:`cache_init`'s tree."""
+    return [[_layer_cache_logical(cfg, spec) for spec in g.pattern]
+            for g in resolve_groups(cfg)]
 
 
 def _check_prefill_windows(cfg: LMConfig, s: int, total_seq: int) -> None:
@@ -503,12 +568,28 @@ def _check_prefill_mamba(cfg: LMConfig, s: int) -> None:
 
 def _prefill_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
                    x: torch.Tensor, positions: torch.Tensor, max_seq: int,
-                   prefix_len: Optional[torch.Tensor] = None
-                   ) -> tuple[torch.Tensor, dict]:
+                   prefix_len: Optional[torch.Tensor] = None,
+                   constrain=_same) -> tuple[torch.Tensor, dict]:
     """Like ``_apply_layer``, and also this layer's cache. A
     sliding-window layer ignores ``prefix_len``, as in the reference."""
+    fz, tr = pcontext.params(fz), pcontext.params(tr)
+    if pcontext.seq_split() and _whole_seq_layer(spec):
+        # sequence parallelism: the whole sequence, then this block
+        xf = pcontext.seq_gather(x)
+        with pcontext.whole_seq():
+            pf = torch.arange(xf.shape[1], device=xf.device)[None, :]
+            y, cache = _prefill_body(cfg, spec, fz, tr, xf, pf, max_seq,
+                                     prefix_len, constrain)
+        return pcontext.seq_slice(y), cache
+    return _prefill_body(cfg, spec, fz, tr, x, positions, max_seq,
+                         prefix_len, constrain)
+
+
+def _prefill_body(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
+                  x: torch.Tensor, positions: torch.Tensor, max_seq: int,
+                  prefix_len: Optional[torch.Tensor], constrain
+                  ) -> tuple[torch.Tensor, dict]:
     sc = cfg.lora.scale
-    s = x.shape[1]
     h = L.rmsnorm_apply(tr["norm1"], x)
     rope = _rope_for(cfg, spec, positions)
     if spec.mixer == "mamba":
@@ -516,16 +597,21 @@ def _prefill_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
         # last K - 1 pre-conv inputs are the decode cache
         h, cache = SSM.mamba_forward(fz["mix"], tr["mix"], cfg.mamba, h, sc,
                                      final_state=True)
-        return x + h, cache
+        return constrain(x + h), cache
     if spec.mixer == "mla":
         ckv, kr = A._mla_latent(fz["attn"], tr["attn"], cfg.mla, h, sc, rope)
-        hw = max(0, max_seq - s)
-        cache = {"ckv": F.pad(ckv, (0, 0, 0, hw)).to(torch.bfloat16),
-                 "kr": F.pad(kr, (0, 0, 0, hw)).to(torch.bfloat16)}
+        # sequence parallelism: the cache holds every position
+        ckv, kr = pcontext.seq_gather(ckv), pcontext.seq_gather(kr)
+        hw = max(0, max_seq - ckv.shape[1])
+        cache = {"ckv": pcontext.constrain(
+            F.pad(ckv, (0, 0, 0, hw)).to(torch.bfloat16), "cache3"),
+            "kr": pcontext.constrain(
+            F.pad(kr, (0, 0, 0, hw)).to(torch.bfloat16), "cache3")}
         x = x + A.mla_apply(fz["attn"], tr["attn"], cfg.mla, h, sc, rope,
                             kv_chunk=cfg.kv_chunk)
-        return _ffn_block(cfg, spec, fz, tr, x)[0], cache
+        return _ffn_block(cfg, spec, fz, tr, x, constrain)[0], cache
     q, k, v = A._qkv(fz["attn"], tr["attn"], cfg.gqa, h, sc, rope)
+    s = x.shape[1]
     w = spec.window
     if w is not None and w < s:
         o = L.local_attention_blocked(q, k, v, window=w)
@@ -533,14 +619,19 @@ def _prefill_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
         kc = torch.roll(k[:, -w:], s % w, dims=1)
         vc = torch.roll(v[:, -w:], s % w, dims=1)
     else:
+        # sequence parallelism: this block's queries, every key; the
+        # cache holds every position
+        k, v = pcontext.seq_gather(k), pcontext.seq_gather(v)
         o = L.attention_chunked(q, k, v, causal=True, prefix_len=prefix_len,
-                                kv_chunk=cfg.kv_chunk)
-        hw = max(0, max_seq - s)
+                                kv_chunk=cfg.kv_chunk,
+                                q_offset=pcontext.seq_offset())
+        hw = max(0, max_seq - k.shape[1])
         kc = F.pad(k, (0, 0, 0, 0, 0, hw))
         vc = F.pad(v, (0, 0, 0, 0, 0, hw))
-    cache = {"k": kc.to(torch.bfloat16), "v": vc.to(torch.bfloat16)}
+    cache = {"k": pcontext.constrain(kc.to(torch.bfloat16), "cache4"),
+             "v": pcontext.constrain(vc.to(torch.bfloat16), "cache4")}
     x = x + A._out(fz["attn"], tr["attn"], cfg.gqa, o, sc)
-    return _ffn_block(cfg, spec, fz, tr, x)[0], cache
+    return _ffn_block(cfg, spec, fz, tr, x, constrain)[0], cache
 
 
 def _head_logits(frozen: dict, train: dict, cfg: LMConfig,
@@ -550,30 +641,40 @@ def _head_logits(frozen: dict, train: dict, cfg: LMConfig,
 
 
 def prefill(frozen: dict, train: dict, cfg: LMConfig, tokens,
-            prefix_embed=None, max_seq: Optional[int] = None
-            ) -> tuple[torch.Tensor, list, int]:
+            prefix_embed=None, max_seq: Optional[int] = None,
+            constrain=None) -> tuple[torch.Tensor, list, int]:
     """Forward over the prompt, after ``prefix_embed`` (B, P, d) where
     given, building caches sized ``max_seq`` (default: P + the prompt
     length; generation passes prompt + headroom). Without
     ``prefix_embed`` attention is causal throughout, even for a
     prefix-LM (the reference's prefill has no ``cfg.prefix_len``
     fallback). Returns (last logits (B, V) fp32, caches, next position
-    P + S)."""
+    P + S). ``constrain`` is the residual stream's sharding constraint
+    (the identity by default)."""
     _check(cfg)
+    constrain = constrain or _same
     x, prefix_len = _with_prefix(_embed(frozen, cfg, tokens), prefix_embed)
+    x = constrain(x)
     b, s, _ = x.shape
     total_seq = s if max_seq is None else max(max_seq, s)
     _check_prefill_windows(cfg, s, total_seq)
     _check_prefill_mamba(cfg, s)
-    positions = torch.arange(s, device=x.device)[None, :]
+    # sequence parallelism: this rank's block of the residual stream
+    x = pcontext.seq_slice(x)
+    positions = (torch.arange(x.shape[1], device=x.device)
+                 + pcontext.seq_offset())[None, :]
     caches = cache_init(cfg, b, total_seq, x.device)
     for gi, i, pi, spec, fz, tr in _layers(frozen, train, cfg):
         x, c = _prefill_layer(cfg, spec, fz, tr, x, positions, total_seq,
-                              prefix_len)
+                              prefix_len, constrain)
         for key, val in c.items():
-            caches[gi][pi][key][i] = val
+            # the layer's cache takes the stack's layout
+            caches[gi][pi][key][i] = pcontext.constrain(val[None],
+                                                        "cache_stack")[0]
     x = L.rmsnorm_apply(train["final_norm"], x)
-    return _head_logits(frozen, train, cfg, x[:, -1]), caches, s
+    # the last position (under sequence parallelism, the last block's)
+    last = pcontext.seq_gather(x[:, -1:])[:, -1]
+    return _head_logits(frozen, train, cfg, last), caches, s
 
 
 def decode_step(frozen: dict, train: dict, cfg: LMConfig, token,
@@ -588,7 +689,8 @@ def decode_step(frozen: dict, train: dict, cfg: LMConfig, token,
     sc = cfg.lora.scale
     pos_b = torch.full((x.shape[0], 1), pos, device=x.device)
     for gi, i, pi, spec, fz, tr in _layers(frozen, train, cfg):
-        cache = {k: v[i] for k, v in caches[gi][pi].items()}   # views
+        fz, tr = pcontext.params(fz), pcontext.params(tr)
+        cache, put_back = pcontext.layer_cache(caches[gi][pi], i)  # views
         h = L.rmsnorm_apply(tr["norm1"], x)
         rope = _rope_for(cfg, spec, pos_b)
         if spec.mixer == "mamba":
@@ -602,6 +704,7 @@ def decode_step(frozen: dict, train: dict, cfg: LMConfig, token,
         else:
             h, _ = A.gqa_decode(fz["attn"], tr["attn"], cfg.gqa, h, cache,
                                 pos, sc, rope, window=spec.window)
+        put_back()
         x = _ffn_block(cfg, spec, fz, tr, x + h)[0]
     x = L.rmsnorm_apply(train["final_norm"], x)
     return _head_logits(frozen, train, cfg, x), caches

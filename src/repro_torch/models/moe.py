@@ -32,6 +32,7 @@ from repro_torch.core.lora import LoRAConfig, frozen_weight, linear_init, \
     linear_logical
 from repro_torch.models.layers import MLPSpec, _maybe_remat, mlp_apply, \
     mlp_init, mlp_logical
+from repro_torch.utils import pcontext
 from repro_torch.utils.device import resolve_device
 
 
@@ -163,12 +164,19 @@ def expert_counts(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
         0, flat_e, torch.ones_like(flat_e))
 
 
-def dispatch_plan(spec: MoESpec, idx: torch.Tensor
+def dispatch_plan(spec: MoESpec, idx: torch.Tensor, cap: int = None,
+                  before: torch.Tensor = None
                   ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Where each of a chunk's (token, slot) pairs goes. idx: (t, k)
     expert ids. Returns (pos (t, k): the pair's row in its expert's
     buffer, ``>= cap`` where it is dropped; src (E, cap): the token
-    filling buffer row (e, c), ``-1`` where the row is empty; cap)."""
+    filling buffer row (e, c), ``-1`` where the row is empty; cap).
+
+    A sharded step's rank holds part of a chunk: ``cap`` is then the
+    whole chunk's and ``before`` (E,) the pairs that ranks earlier in the
+    chunk route to each expert. ``pos`` is the pair's row in the whole
+    chunk's buffer; this rank's buffer holds its own kept pairs from row
+    0 (``pos - before[e]``)."""
     t, k = idx.shape
     e = spec.n_experts
     dev = idx.device
@@ -178,27 +186,42 @@ def dispatch_plan(spec: MoESpec, idx: torch.Tensor
     offsets = torch.cumsum(counts, 0) - counts
     pos = torch.empty_like(flat_e)
     pos[order] = torch.arange(t * k, device=dev) - offsets[flat_e[order]]
-    cap = _cap(spec, t)
+    cap = _cap(spec, t) if cap is None else cap
+    room = counts
+    if before is not None:
+        room = torch.clamp(torch.minimum(counts, cap - before), min=0)
+        pos = pos + before[flat_e]
     slot = offsets[:, None] + torch.arange(cap, device=dev)[None, :]
-    full = torch.arange(cap, device=dev)[None, :] < counts[:, None]
+    full = torch.arange(cap, device=dev)[None, :] < room[:, None]
     src = torch.where(full, order[slot.clamp(max=t * k - 1)] // k, -1)
     return pos.reshape(t, k), src, cap
 
 
 def _dispatch_chunk(fz: dict, tr: dict, spec: MoESpec, xt: torch.Tensor,
                     gates: torch.Tensor, idx: torch.Tensor,
-                    lora_scale: float) -> torch.Tensor:
+                    lora_scale: float, cap: int = None,
+                    chunk: int = None) -> torch.Tensor:
     """Sort-dispatch one token chunk through the expert banks.
-    xt: (t, d); gates, idx: (t, k). Returns (t, d) in xt's dtype."""
+    xt: (t, d); gates, idx: (t, k). Returns (t, d) in xt's dtype. In a
+    sharded step whose rank holds part of a ``chunk``-token dispatch
+    chunk, ``cap`` is that chunk's capacity."""
     t, d = xt.shape
-    pos, src, cap = dispatch_plan(spec, idx)
+    before = None
+    if chunk is not None and chunk > t:
+        before = pcontext.pair_offsets(
+            expert_counts(idx.reshape(-1), spec.n_experts), t, chunk)
+    pos, src, cap = dispatch_plan(spec, idx, cap, before)
     full = (src >= 0)[..., None]
-    buf = torch.where(full, xt[src.clamp(min=0)], 0)
-    out = _expert_ffn(fz, tr, spec, buf, lora_scale)
+    buf = pcontext.constrain(torch.where(full, xt[src.clamp(min=0)], 0),
+                             "expert")
+    out = pcontext.constrain(_expert_ffn(fz, tr, spec, buf, lora_scale),
+                             "expert")
     out = F.pad(out, (0, 0, 0, 1))                  # row cap: dropped
     keep = pos < cap
+    if before is not None:
+        pos = pos - before[idx]                     # this rank's rows
     w = (gates * keep).to(out.dtype)                # (t, k)
-    rows = out[idx, pos.clamp(max=cap)]             # (t, k, d)
+    rows = out[idx, torch.where(keep, pos, cap)]    # (t, k, d)
     # fold the k slots one at a time, each token's in ascending expert
     # order (the reference's sorted scatter-add order): no collisions
     slot_order = torch.argsort(idx, dim=1, stable=True)
@@ -207,7 +230,7 @@ def _dispatch_chunk(fz: dict, tr: dict, spec: MoESpec, xt: torch.Tensor,
     for j in range(spec.top_k):
         sj = slot_order[:, j]
         y = y + rows[ar, sj] * w[ar, sj][:, None]
-    return y
+    return pcontext.constrain(y, "tokens")
 
 
 def route(tr: dict, spec: MoESpec, xt: torch.Tensor
@@ -237,21 +260,34 @@ def moe_apply(fz: dict, tr: dict, spec: MoESpec, x: torch.Tensor,
     recomputed in the backward pass."""
     b, s, d = x.shape
     t = b * s
-    xt = x.reshape(t, d)
+    xt = pcontext.constrain(x.reshape(t, d), "tokens")
     gates, idx, probs = route(tr, spec, xt)
-    pe = probs.mean(0)
-    fe = expert_counts(idx.reshape(-1), spec.n_experts).to(torch.float32) / t
+    counts = expert_counts(idx.reshape(-1), spec.n_experts)
+    # a sharded step's rank holds tokens [t0, t0 + t) of tg: the aux
+    # loss and the dispatch chunks are over all tg
+    t0, tg = pcontext.token_block(t)
+    if tg == t:
+        pe = probs.mean(0)
+        fe = counts.to(torch.float32) / t
+    else:
+        pe = pcontext.token_sum(probs.sum(0)) / tg
+        fe = pcontext.token_sum(counts.to(torch.float32)) / tg
     aux = spec.n_experts * torch.sum(pe * fe)
 
-    n_chunks = n_chunks_for(spec, t)
-    if n_chunks == 1:
-        y = _dispatch_chunk(fz, tr, spec, xt, gates, idx, lora_scale)
+    n_chunks = n_chunks_for(spec, tg)
+    tc = tg // n_chunks
+    if tc >= t:     # one chunk, maybe shared with other ranks
+        cap, chunk = (None, None) if tc == t else (_cap(spec, tc), tc)
+        y = _dispatch_chunk(fz, tr, spec, xt, gates, idx, lora_scale, cap,
+                            chunk)
     else:
-        tc = t // n_chunks
+        if t % tc or t0 % tc:
+            raise ValueError(f"a rank's {t} tokens at {t0} do not hold "
+                             f"whole {tc}-token dispatch chunks")
         y = torch.cat([_maybe_remat(
             _dispatch_chunk, fz, tr, spec, xt[i * tc:(i + 1) * tc],
             gates[i * tc:(i + 1) * tc], idx[i * tc:(i + 1) * tc],
-            lora_scale) for i in range(n_chunks)])
+            lora_scale) for i in range(t // tc)])
     if spec.n_shared:
         y = y + mlp_apply(fz.get("shared", {}), tr.get("shared", {}),
                           _shared_spec(spec), xt, lora_scale)

@@ -282,6 +282,11 @@ def mamba_cache_init(spec: MambaSpec, batch: int,
                                 device=dev)}
 
 
+def mamba_cache_logical() -> dict:
+    return {"ssm": ("batch", "ssm_heads", None, None),
+            "conv": ("batch", None, "ssm_inner")}
+
+
 def mamba_decode(fz: dict, tr: dict, spec: MambaSpec, x: torch.Tensor,
                  cache: dict, lora_scale: float
                  ) -> tuple[torch.Tensor, dict]:

@@ -2,8 +2,8 @@
 bytes that ``roofline.op_cost.analyze_step`` counts (no hardware needed:
 the step may run on ``meta`` tensors), and the collective terms of a
 program over a mesh from the records of ``utils/comm.py`` (the multi-pod
-FL round, ``launch/dryrun_lib.py`` ``run_fl_round``; an LM step's
-sharded program waits for ROADMAP A8b).
+FL round, ``launch/dryrun_lib.py`` ``run_fl_round``, and an LM step
+sharded over a mesh, ``run_cell(..., multi_pod=...)``).
 
 Terms, in seconds:
   t_compute      = FLOPs / peak bf16 FLOP/s
@@ -75,19 +75,23 @@ def collective_bytes(records: list) -> dict:
     records (what this rank handed to each call), with the JAX package's
     per-kind rule (``repro/roofline/analysis.py`` ``collective_bytes``):
     an all-gather sends its input to each other rank of its group,
-    ``bytes * (g - 1)``; a ring all-reduce ``2 * bytes * (g - 1) / g``.
-    A one-rank group moves nothing and is not counted. ``by_axis`` splits
-    the total by mesh axis (``pod``: the traffic between pods)."""
-    out = {"all-gather": 0.0, "all-reduce": 0.0, "total": 0.0,
-           "n_ops": 0, "by_axis": {}}
+    ``bytes * (g - 1)``; a ring all-reduce ``2 * bytes * (g - 1) / g``;
+    a reduce-scatter or an all-to-all of a ``bytes`` input
+    ``bytes * (g - 1) / g``. A one-rank group moves nothing and is not
+    counted. ``by_axis`` splits the total by mesh axis (``pod``: the
+    traffic between pods)."""
+    out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0,
+           "all-to-all": 0.0, "total": 0.0, "n_ops": 0, "by_axis": {}}
     for r in records:
         g = r["group_size"]
         if g <= 1:
             continue
         if r["kind"] == "all-gather":
             wire = float(r["bytes"] * (g - 1))
-        else:
+        elif r["kind"] == "all-reduce":
             wire = 2.0 * r["bytes"] * (g - 1) / g
+        else:
+            wire = float(r["bytes"]) * (g - 1) / g
         out[r["kind"]] += wire
         out["total"] += wire
         out["n_ops"] += 1

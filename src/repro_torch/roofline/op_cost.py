@@ -28,6 +28,10 @@ or on the card. It returns:
     are the arguments'; the slot it writes is not counted);
   * ``n_ops`` and ``by_op`` ({aten op: {'calls', 'flops', 'bytes'}}).
 
+A DTensor argument or result counts as this rank's local tensor, so a
+sharded step (``launch/steps.py``) is counted per chip: its work runs on
+local tensors.
+
 A Python loop runs, and is counted, on every pass, so the count is
 loop-aware by itself (``hlo_cost`` multiplies while bodies by their trip
 count), and ``torch.utils.checkpoint``'s recomputation is counted where
@@ -53,6 +57,7 @@ from collections import defaultdict
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
@@ -63,7 +68,10 @@ _SELF = ("roofline",)
 
 
 def _tensors(tree) -> list[torch.Tensor]:
-    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    """The tensors of ``tree``, a DTensor as this rank's local tensor (a
+    sharded step is counted per chip)."""
+    return [t._local_tensor if isinstance(t, DTensor) else t
+            for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
 def _nbytes(t: torch.Tensor) -> int:

@@ -13,6 +13,11 @@ takes the place of the JAX package's reading of the compiled HLO
 Works on any backend: NCCL on the card, gloo on the CPU, and torch's
 ``fake`` backend, on which the calls move nothing and the records still
 count (the dry run's 512-rank mesh in one process).
+
+A sharded LM step (``launch/steps.py``, ``launch/spmd.py``) issues its
+collectives through ``torch.distributed._functional_collectives``,
+DTensor's ``redistribute`` included; inside :func:`record_funcol` each
+such op is recorded the same way, its mesh axis found from its group.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import contextlib
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 _LOGS: list = []
 
@@ -63,3 +69,41 @@ def all_gather(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     outs = [torch.zeros_like(t) for _ in range(n)]
     dist.all_gather(outs, t.contiguous(), group=group)
     return torch.stack(outs)
+
+
+# functional collective -> (record kind, index of its group-name argument)
+_FUNCOL = {"all_gather_into_tensor": ("all-gather", 2),
+           "reduce_scatter_tensor": ("reduce-scatter", 3),
+           "all_reduce": ("all-reduce", 2),
+           "all_to_all_single": ("all-to-all", 3)}
+
+
+class _FuncolRecorder(TorchDispatchMode):
+    def __init__(self, mesh):
+        super().__init__()
+        self.axes = {}
+        for i, name in enumerate(mesh.mesh_dim_names):
+            g = mesh.get_group(i)
+            self.axes[g.group_name] = (name, dist.get_world_size(g))
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        ns = func.namespace
+        name = func._overloadpacket.__name__
+        if ns == "_c10d_functional" and name in _FUNCOL:
+            kind, gi = _FUNCOL[name]
+            axis, size = self.axes.get(args[gi], (str(args[gi]), 0))
+            if size == 0:
+                size = dist.get_world_size(
+                    dist.distributed_c10d._resolve_process_group(args[gi]))
+            _note(kind, args[0], axis, size)
+        return func(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def record_funcol(mesh):
+    """Inside the block, also record every functional collective this
+    process issues (see the module docstring) over ``mesh``'s groups;
+    use inside :func:`record_collectives`."""
+    with _FuncolRecorder(mesh):
+        yield

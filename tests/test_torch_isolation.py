@@ -36,6 +36,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {{"repro_torch.utils.pcontext", "repro_torch.launch.spmd",
+         "repro_torch.launch.steps"}} <= set(names)
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro")

@@ -81,28 +81,30 @@ def test_input_specs_match_jax(arch, shape):
 
 
 def test_plans_match_jax():
-    """``plan_for``'s microbatch counts for all 40 cells, and
-    ``DEFAULT_PLANS`` holding the JAX package's cells whose microbatch
-    count is not 1."""
+    """``plan_for``'s microbatch counts, sequence parallelism and rules
+    for all 40 cells, and ``DEFAULT_PLANS`` holding the JAX package's
+    cells."""
     for c in JR.cells():
         a, s = c["arch"], c["shape"]
         assert TS.plan_for(a, s).microbatch == JS.plan_for(a, s).microbatch
+        assert TS.plan_for(a, s).seq_parallel == \
+            JS.plan_for(a, s).seq_parallel
+        assert TS.plan_for(a, s).rules == JS.plan_for(a, s).rules
         assert not TS.plan_for(a, s).quantize_base
-    assert set(TS.DEFAULT_PLANS) == {k for k, p in JS.DEFAULT_PLANS.items()
-                                     if p.microbatch > 1}
+    assert set(TS.DEFAULT_PLANS) == set(JS.DEFAULT_PLANS)
 
 
 def test_perf_iter_variants_match_jax():
-    """Every cell's variant names, less the sequence-parallel ones
-    (distribution), and the plans they set."""
+    """Every cell's variant names, the sequence-parallel ones included,
+    and the plans they set."""
     for c in JR.cells():
         a, s = c["arch"], c["shape"]
-        want = {k: v for k, v in JP.variants_for(a, s).items()
-                if not k.startswith("sp_")}
+        want = JP.variants_for(a, s)
         got = TP.variants_for(a, s)
         assert list(got) == list(want), (a, s)
         for k in got:
             assert got[k].microbatch == want[k].microbatch, (a, s, k)
+            assert got[k].seq_parallel == want[k].seq_parallel, (a, s, k)
             assert got[k].quantize_base == want[k].quantize_base
             gu, wu = got[k].cfg_updates or {}, want[k].cfg_updates or {}
             assert set(gu) == set(wu)

@@ -1,0 +1,446 @@
+"""The LM step sharded over a device mesh (``launch/steps.py``
+``build_cell(..., mesh)``, ``launch/spmd.py``) against the JAX package's
+``build_cell`` and against the port's own one-card step.
+
+* Placements: at the smoke configs, with the shapes cut as
+  tests/test_dryrun_small.py cuts them, every argument leaf's placements
+  (parameters, batch, optimizer state, caches) over a (2, 2, 2) mesh
+  (torch's ``fake`` backend, world 8, on ``meta``) equal the JAX
+  ``build_cell``'s ``in_shardings`` laid out as DTensor placements. The
+  JAX side runs in a subprocess with 8 host devices (JAX fixes its
+  device count at its first use), as ``eval_shape`` only. Cells: the
+  four of tests/test_dryrun_small.py (minitron-4b, deepseek-v2-236b and
+  mamba2-370m train at microbatch 2, gemma3-4b decode), deepseek-v2's
+  train with ``seq_parallel``, seamless-m4t-medium decode, paligemma-3b
+  prefill, minitron-4b prefill on the int8 base, and gemma3-4b decode at
+  batch 1, where ``kv_seq`` takes both ``data`` and ``model``: there the
+  reference's ``("model", "data")`` is ``("data", "model")`` here (the
+  mesh order, ``launch/steps.py`` docstring), and only there. The
+  reference's decode also takes the position, a replicated scalar; the
+  port's fixes it when it is built.
+* Values: over gloo at 4 ranks on a (2, 2) (data, model) mesh, one spawn
+  running every cell, the sharded steps from the same seed-0 tree, batch
+  and caches as the one-card steps (the adapters' ``b`` factors moved
+  off zero, as tests/test_torch_steps.py does): train (minitron-4b and
+  deepseek-v2-236b with ``seq_parallel`` off and on, deepseek-v2-236b on
+  the one-card step's MoE routes, mamba2-370m sequence-parallel,
+  seamless-m4t-medium, all at microbatch 2; minitron-4b at microbatch 4,
+  its 2 rows over data and its MLPs tensor-parallel), prefill (minitron-4b,
+  gemma3-4b sequence-parallel, its sliding-window layers on the whole
+  sequence, paligemma-3b) and decode (gemma3-4b at batch 8 and 1,
+  deepseek-v2-236b, mamba2-370m, seamless-m4t-medium; the MLPs of the
+  prefill and decode steps tensor-parallel over model); each cell's
+  rows, sequence and MLPs split where the plan says. Held: the loss
+  within ``LOSS_REL`` (2e-3) relative; the trained tree and AdamW's
+  moments within ``GRAD_L2`` (6e-2) relative L2 a leaf and the update
+  (new - old) within ``UPDATE_L2`` (0.4) relative L2 a leaf (the
+  tolerances of tests/test_torch_steps.py: the batch split changes only
+  the order of fp32 sums, which AdamW's first step, about lr * sign(g),
+  can turn into a full-lr difference on a near-zero gradient element);
+  logits and caches within ``SERVE_REL`` (4e-2, tests/test_torch_lm.py's
+  REL) of their max: prefill runs the same row-wise arithmetic on each
+  rank's rows (measured 0); split-KV decode takes each block's share of
+  the softmax outside ``torch.softmax`` and adds the blocks' partial
+  products, which moves a bf16 rounding by an ulp (measured up to
+  3.9e-3 on seamless-m4t-medium's smoke config). Donation:
+  a train step's trained tree and optimizer state and a decode step's
+  caches are the arguments' local storage after the step.
+* ``launch/train.py --mesh host`` runs on a one-rank gloo group with the
+  one-card run's losses, and ``--mesh single`` refuses a group that is
+  not 256 ranks.
+* The dry run's mesh record (``dryrun_lib.run_cell(..., multi_pod=)``)
+  at a smoke config: 256 and 512 chips, per-chip FLOPs below the
+  one-card trace's, and the step's collectives counted."""
+import contextlib
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch.distributed as dist
+
+from test_torch_sharding import spawn_ranks
+from repro_torch.configs import registry as TR
+from repro_torch.launch import steps as TS
+from repro_torch.utils.sharding import placement_leaves, placements
+from repro_torch.utils.tree import tree_leaves
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+LOSS_REL, GRAD_L2, UPDATE_L2, SERVE_REL = 2e-3, 6e-2, 0.4, 4e-2
+
+CUT = {"train_4k": {"seq": 64, "batch": 8, "step": "train"},
+       "prefill_32k": {"seq": 64, "batch": 4, "step": "prefill"},
+       "decode_32k": {"seq": 128, "batch": 8, "step": "decode"},
+       "decode_b1": {"seq": 128, "batch": 1, "step": "decode"}}
+
+# (arch, shape, microbatch, seq_parallel, quantize_base)
+CELLS = [("minitron-4b", "train_4k", 2, False, False),
+         ("deepseek-v2-236b", "train_4k", 2, False, False),
+         ("mamba2-370m", "train_4k", 2, False, False),
+         ("gemma3-4b", "decode_32k", 1, False, False),
+         ("deepseek-v2-236b", "train_4k", 2, True, False),
+         ("seamless-m4t-medium", "decode_32k", 1, False, False),
+         ("paligemma-3b", "prefill_32k", 1, False, False),
+         ("minitron-4b", "prefill_32k", 1, False, True),
+         ("gemma3-4b", "decode_b1", 1, False, False)]
+
+JAX_SCRIPT = textwrap.dedent("""
+    import os, json, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import numpy as np, jax
+    from jax.sharding import Mesh, NamedSharding
+    from repro.configs import registry
+    from repro.launch import steps as S
+    registry.SHAPES.update(json.loads(sys.argv[1]))
+    mesh = Mesh(np.asarray(jax.devices()[:8]).reshape(2, 2, 2),
+                ("pod", "data", "model"))
+    out = []
+    for arch, shape, mb, sp, q in json.loads(sys.argv[2]):
+        e = registry.get(arch)
+        plan = S.CellPlan(microbatch=mb, seq_parallel=sp, quantize_base=q)
+        b = S.build_cell(e, shape, mesh, plan=plan, cfg_override=e.smoke())
+        args = []
+        for sh in b["in_shardings"]:
+            leaves = jax.tree.leaves(
+                sh, is_leaf=lambda x: isinstance(x, NamedSharding))
+            args.append([[list(p) if isinstance(p, tuple) else p
+                          for p in s.spec] for s in leaves])
+        out.append({"args": args, "donate": list(b["donate"])})
+    print("JSON" + json.dumps(out))
+""")
+
+
+@contextlib.contextmanager
+def cut_shapes():
+    saved = dict(TR.SHAPES)
+    TR.SHAPES.update(CUT)
+    try:
+        yield
+    finally:
+        TR.SHAPES.clear()
+        TR.SHAPES.update(saved)
+
+
+@contextlib.contextmanager
+def fake_world(world: int):
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def jax_shardings():
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-c", JAX_SCRIPT, json.dumps(CUT),
+                        json.dumps(CELLS)], env=env, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    line = [x for x in r.stdout.splitlines() if x.startswith("JSON")][-1]
+    return json.loads(line[4:])
+
+
+def _spec(entry_list, decode: bool) -> tuple:
+    """A JAX spec (JSON) as the port lays it out: on a decode cell the
+    reference's ('model', 'data') is the mesh order ('data', 'model')."""
+    out = []
+    for e in entry_list:
+        if isinstance(e, list):
+            e = tuple(e)
+            if decode and e == ("model", "data"):
+                e = ("data", "model")
+        out.append(e)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("i", range(len(CELLS)))
+def test_placements_match_jax_in_shardings(jax_shardings, i):
+    from torch.distributed.device_mesh import init_device_mesh
+    arch, shape, mb, sp, q = CELLS[i]
+    want = jax_shardings[i]
+    decode = CUT[shape]["step"] == "decode"
+    entry = TR.get(arch)
+    with cut_shapes(), fake_world(8):
+        mesh = init_device_mesh("cpu", (2, 2, 2),
+                                mesh_dim_names=("pod", "data", "model"))
+        plan = TS.CellPlan(microbatch=mb, seq_parallel=sp, quantize_base=q)
+        b = TS.build_cell(entry, shape, mesh, plan=plan,
+                          cfg_override=entry.smoke(), device="meta")
+        assert tuple(b["donate"]) == tuple(want["donate"])
+        wargs = want["args"]
+        if decode:
+            # the reference's last argument is the position, a replicated
+            # scalar; the port's step fixes it when it is built
+            assert wargs[-1] == [[]]
+            wargs = wargs[:-1]
+        assert len(b["in_placements"]) == len(wargs)
+        reordered = 0
+        for arg, (pls, specs) in enumerate(zip(b["in_placements"], wargs)):
+            got = placement_leaves(pls)
+            assert len(got) == len(specs), arg
+            for j, (g, s) in enumerate(zip(got, specs)):
+                w = placements(_spec(s, decode), mesh)
+                assert tuple(g) == tuple(w), (arch, shape, arg, j, s)
+                reordered += decode and ["model", "data"] in s
+            # the DTensor arguments carry these placements
+            leaves = tree_leaves(b["args"][arg])
+            assert [tuple(t.placements) for t in leaves] == \
+                [tuple(p) for p in got]
+    # kv_seq over two axes only where the batch leaves 'data' free
+    assert (reordered > 0) == (shape == "decode_b1")
+
+
+# ---------------------------------------------------------------------------
+# values over gloo
+# ---------------------------------------------------------------------------
+
+GLOO_CELLS = [("minitron-4b", "train_4k", 2, False, None),
+              ("minitron-4b", "train_4k", 2, True, None),
+              ("deepseek-v2-236b", "train_4k", 2, False, None),
+              ("deepseek-v2-236b", "train_4k", 2, True, None),
+              ("mamba2-370m", "train_4k", 2, True, None),
+              ("seamless-m4t-medium", "train_4k", 2, False, None),
+              ("minitron-4b", "train_4k", 4, False, None),
+              ("minitron-4b", "prefill_32k", 1, False, None),
+              ("gemma3-4b", "prefill_32k", 1, True, None),
+              ("paligemma-3b", "prefill_32k", 1, False, None),
+              ("gemma3-4b", "decode_32k", 1, False, None),
+              ("gemma3-4b", "decode_32k", 1, False, 1),
+              ("deepseek-v2-236b", "decode_32k", 1, False, None),
+              ("mamba2-370m", "decode_32k", 1, False, None),
+              ("seamless-m4t-medium", "decode_32k", 1, False, None)]
+
+GLOO_BODY = """
+import hashlib
+import time
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor
+from repro_torch.configs import registry as TR
+from repro_torch.launch import spmd, steps as TS
+from repro_torch.models import moe as MOE
+from repro_torch.utils import pcontext
+from repro_torch.utils.tree import tree_flatten, flatten_with_names
+TR.SHAPES.update(json.loads(os.environ["CUT"]))
+mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+_route = MOE.route
+
+
+class Routes:
+    # the one-card step's top-k, recorded call by call, then forced on
+    # the sharded step's rows (a recomputation repeats its forward's)
+    def __init__(self):
+        self.rec, self.memo, self.force, self.i = [], {}, False, 0
+
+    def route(self, tr, spec, xt):
+        gates, idx, probs = _route(tr, spec, xt)
+        key = hashlib.sha1(xt.detach().float().numpy().tobytes()).hexdigest()
+        if key in self.memo:
+            idx = self.memo[key]
+        elif not self.force:
+            self.rec.append(idx)
+        else:
+            t0, _ = pcontext.token_block(xt.shape[0])
+            idx = self.rec[self.i][t0:t0 + xt.shape[0]]
+            self.i += 1
+        self.memo[key] = idx
+        vals = probs.gather(1, idx)
+        return vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9), \\
+            idx, probs
+
+
+def full(x):
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / max(float(a.norm()), 1e-30))
+
+
+def rel_max(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / max(float(a.abs().max()), 1e-30))
+
+
+results = []
+for arch, shape, mb, sp, batch in json.loads(os.environ["CELLS"]):
+    t0 = time.perf_counter()
+    e = TR.get(arch)
+    plan = TS.CellPlan(microbatch=mb, seq_parallel=sp)
+    u = TS.build_cell(e, shape, plan=plan, cfg_override=e.smoke(),
+                      device="cpu", batch=batch)
+    s = TS.build_cell(e, shape, mesh, plan=plan, cfg_override=e.smoke(),
+                      device="cpu", batch=batch)
+    g = torch.Generator().manual_seed(7)
+    # b factors off zero; decode caches random; the same full values
+    for (nm, a), d in zip(flatten_with_names(u["args"][1]),
+                          tree_flatten(s["args"][1])[0]):
+        if nm.endswith("b"):
+            a.add_(0.01 * torch.randn(a.shape, generator=g))
+            d.to_local().copy_(spmd.local_block(a, d.placements, mesh))
+    if u["step"] == "decode":
+        for a, d in zip(tree_flatten(u["args"][3:])[0],
+                        tree_flatten(s["args"][3:])[0]):
+            a.copy_(torch.randn(a.shape, generator=g).to(a.dtype))
+            d.to_local().copy_(spmd.local_block(a, d.placements, mesh))
+    old = [t.clone() for t in tree_flatten(u["args"][1])[0]]
+    ptrs = [t.to_local().data_ptr() for k in s["donate"]
+            for t in tree_flatten(s["args"][k])[0]]
+    routes = Routes()
+    MOE.route = routes.route
+    try:
+        uo = u["fn"](*u["args"])
+        routes.force, routes.memo = True, {}
+        so = s["fn"](*s["args"])
+    finally:
+        MOE.route = _route
+    rec = {"cell": [arch, shape, sp, batch], "step": u["step"],
+           "routes": len(routes.rec), "forced": routes.i,
+           "axes": [list(s["batch_axes"]), list(s["seq_axes"]),
+                    list(s["tp_axes"])]}
+    if u["step"] == "train":
+        rec["loss"] = [float(uo[2]["loss"]), float(so[2]["loss"])]
+        rec["l2"] = max(rel_l2(a, full(b)) for a, b in zip(
+            tree_flatten(uo[:2])[0], tree_flatten(so[:2])[0])
+            if a.dtype.is_floating_point)
+        rec["update"] = max(rel_l2(n - o, full(m) - o) for o, n, m in zip(
+            old, tree_flatten(uo[0])[0], tree_flatten(so[0])[0]))
+        rec["count"] = int(full(so[1]["count"]))
+        out_ptrs = [t.to_local().data_ptr() for t in
+                    tree_flatten((so[0], so[1]))[0]]
+    else:
+        rec["serve"] = max(rel_max(a.float(), full(b).float()) for a, b in
+                           zip(tree_flatten(uo)[0], tree_flatten(so)[0])
+                           if isinstance(a, torch.Tensor))
+        n = len(tree_flatten(uo)[0])
+        rec["n"] = [n, len(tree_flatten(so)[0])]
+        out_ptrs = [t.to_local().data_ptr() for t in
+                    tree_flatten(so[1])[0]] if u["step"] == "decode" else []
+    rec["donated"] = ptrs == out_ptrs
+    rec["s"] = time.perf_counter() - t0
+    results.append(rec)
+if RANK == 0:
+    json.dump(results, open(os.path.join(OUT, "results.json"), "w"))
+"""
+
+
+@pytest.fixture(scope="module")
+def gloo_results(tmp_path_factory):
+    out = spawn_ranks(GLOO_BODY, 4, tmp_path_factory.mktemp("steps_gloo"),
+                      timeout=700, env={"CUT": json.dumps(CUT),
+                                        "CELLS": json.dumps(GLOO_CELLS)})
+    return json.load(open(out / "results.json"))
+
+
+@pytest.mark.parametrize("i", range(len(GLOO_CELLS)))
+def test_sharded_step_matches_one_card(gloo_results, i):
+    rec = gloo_results[i]
+    arch, shape, mb, sp, batch = GLOO_CELLS[i]
+    assert rec["cell"] == [arch, shape, sp, batch]
+    # sequence parallelism splits the sequence over model and the rows
+    # over data; else a train step's rows take model too where it
+    # divides them (4 rows at microbatch 2, 2 at 4), and where model is
+    # left idle the dense MLPs split over it
+    rows = ["data"] if batch != 1 else []
+    want = ([["data"], ["model"], []] if sp else
+            [["data", "model"], [], []] if mb == 2 else
+            [rows, [], ["model"]])
+    assert rec["axes"] == want, rec
+    if rec["step"] == "train":
+        lu, ls = rec["loss"]
+        assert abs(ls - lu) <= LOSS_REL * abs(lu), rec
+        assert rec["l2"] <= GRAD_L2, rec
+        assert rec["update"] <= UPDATE_L2, rec
+        assert rec["count"] == 1
+    else:
+        assert rec["n"][0] == rec["n"][1], rec
+        assert rec["serve"] <= SERVE_REL, rec
+    if GLOO_CELLS[i][0] == "deepseek-v2-236b":
+        # every MoE call of the sharded step ran on the recorded routes
+        assert rec["routes"] > 0 and rec["forced"] == rec["routes"], rec
+    assert rec["donated"] or rec["step"] == "prefill", rec
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def test_train_cli_mesh_host_matches_one_card():
+    from repro_torch.launch import train
+    argv = ["--arch", "minitron-4b", "--smoke", "--steps", "2",
+            "--device", "cpu"]
+    want = train.main(argv)["losses"]
+    got = train.main(argv + ["--mesh", "host"])
+    assert not dist.is_initialized()
+    assert np.allclose(got["losses"], want, rtol=1e-5, atol=0), (got, want)
+    leaf = next(iter(got["train"]["final_norm"].values()))
+    assert tuple(leaf.device_mesh.shape) == (1, 1)
+
+
+def test_train_cli_mesh_refuses_a_wrong_world(tmp_path):
+    from repro_torch.launch import train
+    argv = ["--arch", "minitron-4b", "--smoke", "--steps", "1",
+            "--device", "cpu", "--mesh", "single"]
+    with pytest.raises(RuntimeError, match="256 ranks"):
+        train.main(argv)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="256 ranks.*has 1"):
+            train.main(argv)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dryrun_mesh_records(monkeypatch):
+    from repro_torch.launch import dryrun_lib
+    e = TR.REGISTRY["minitron-4b"]
+    monkeypatch.setitem(TR.REGISTRY, "minitron-4b",
+                        dataclasses.replace(e, full=e.smoke))
+    monkeypatch.setitem(TR.SHAPES, "train_4k",
+                        {"seq": 64, "batch": 256, "step": "train"})
+    one = dryrun_lib.run_cell("minitron-4b", "train_4k", save=False)
+    assert one["status"] == "ok", one
+    for mp, chips, name in ((False, 256, "pod16x16"),
+                            (True, 512, "pod2x16x16")):
+        rec = dryrun_lib.run_cell("minitron-4b", "train_4k", save=False,
+                                  multi_pod=mp)
+        assert rec["status"] == "ok", rec.get("traceback")
+        assert rec["chips"] == chips and rec["mesh"] == name
+        t = rec["roofline"]
+        assert 0 < t["hlo_flops_per_chip"] < one["roofline"][
+            "hlo_flops_per_chip"] / 8
+        assert t["n_collectives"] > 0 and rec["collective_total"] > 0
+        assert rec["collectives"]["all-gather"] > 0
+        assert rec["collectives"]["reduce-scatter"] > 0
+        assert rec["memory"]["argument_bytes"] < \
+            one["memory"]["argument_bytes"] / 8
+    assert not dist.is_initialized()
+
+
+def test_perf_iter_mesh_variant(monkeypatch, capsys):
+    """``perf_iter --mesh single`` traces a variant's sharded step:
+    ``sp_on`` splits minitron-4b's sequence over ``model``."""
+    from repro_torch.launch import perf_iter
+    e = TR.REGISTRY["minitron-4b"]
+    monkeypatch.setitem(TR.REGISTRY, "minitron-4b",
+                        dataclasses.replace(e, full=e.smoke))
+    monkeypatch.setitem(TR.SHAPES, "train_4k",
+                        {"seq": 64, "batch": 64, "step": "train"})
+    from repro_torch.launch import dryrun_lib
+    recs = []
+    monkeypatch.setattr(dryrun_lib, "_append", recs.append)
+    assert perf_iter.main(["--cell", "minitron-4b:train_4k", "--variant",
+                           "sp_on", "--mesh", "single"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("minitron-4b x train_4k [sp_on]: ") and \
+        "chips=256" in out
+    assert recs[0]["seq_axes"] == ["model"] and \
+        recs[0]["batch_axes"] == ["data"] and recs[0]["plan"]["seq_parallel"]
