@@ -234,7 +234,11 @@ Phases, each of which raises on failure (the script then exits nonzero):
      mamba2-370m and seamless-m4t-medium decode; each step held to the
      one-card step on the same tensors within ``LM_MESH_TOL``, both
      walls printed, the donated buffers the same storage after the step,
-     no kernel launched;
+     no kernel launched; each cell prints its head and expert blocks and
+     the collectives of its cold call by kind: at one rank the heads of
+     every train and prefill step split into one block of all of them,
+     deepseek-v2-236b's experts go through the all-to-all dispatch over
+     a one-rank group (``_split_ran``), every error still 0;
   5. time each kernel with CUDA events at its path's shapes beside its
      plain version and its bound (B1 and B2, and the ``flat_rows``
      staging before B1, at ResNet-8's and ResNet-18's layouts;
@@ -5941,6 +5945,7 @@ def lm_mesh_cell(arch: str, shape: str, batch: int, depth, sp: bool, mesh,
     import torch
     from repro_torch.configs import registry
     from repro_torch.launch import steps
+    from repro_torch.utils import comm
     from repro_torch.utils.tree import tree_leaves
     entry = registry.get(arch)
     cfg = entry.full() if depth is None else dataclasses.replace(
@@ -5966,21 +5971,47 @@ def lm_mesh_cell(arch: str, shape: str, batch: int, depth, sp: bool, mesh,
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        shard = built["fn"](*built["args"])
+        # the cold call's collectives recorded (their kinds counted)
+        with (comm.record_collectives() if i == 0
+              else contextlib.nullcontext()) as log, \
+                (comm.record_funcol(mesh) if i == 0
+                 else contextlib.nullcontext()):
+            shard = built["fn"](*built["args"])
         torch.cuda.synchronize()
         r["shard"].append(time.perf_counter() - t0)
         if i == 0:
             r["peak"] = torch.cuda.max_memory_allocated() - base
             r.update(_step_gaps(built["step"], one, shard))
+            r["calls"] = {}
+            for c in log:
+                r["calls"][c["kind"]] = r["calls"].get(c["kind"], 0) + 1
     outs = {"train": lambda o: list(o[0:2]), "decode": lambda o: o[1],
             "prefill": lambda o: []}[built["step"]](shard)
     r["donated"] = [t.to_local().data_ptr() for t in tree_leaves(outs)]
     r["donated_ok"] = r["donated"] == donated
     r["n_donated"] = len(donated)
     r["step"] = built["step"]
+    r["split"] = {k: sorted(v) for k, v in built["split_log"].items()}
+    r["axes"] = {k: built[k] for k in ("head_axes", "expert_axes")}
     del built, fn1, args1, one, shard, outs
     _free_cuda()
     return r
+
+
+def _split_ran(arch: str, r: dict) -> bool:
+    """Whether a phase 4h cell took the head and expert splits where
+    they apply at one rank: the heads of every train and prefill cell
+    (a block of all of them), the experts of deepseek-v2-236b through
+    the all-to-all; and no head split in a decode step."""
+    heads = r["split"].get("heads", [])
+    if r["step"] == "decode":
+        ok = not heads
+    else:
+        ok = bool(heads) and all(c == h and f == 0 for h, f, c in heads)
+    if arch == "deepseek-v2-236b":
+        ok = ok and [e[2] for e in r["split"].get("experts", [])] == \
+            ["a2a"] and r["calls"].get("all-to-all", 0) > 0
+    return ok
 
 
 def lm_mesh_phase(dev, card: str) -> dict:
@@ -6037,7 +6068,19 @@ def lm_mesh_phase(dev, card: str) -> dict:
                            f"{LM_MESH_TOL['rel']})")
                 print(head + gap + f"; donated {r['n_donated']} buffers, "
                       f"the same storage after: {r['donated_ok']}")
-                if not ok or not r["donated_ok"]:
+                # the head and expert splits (a block of every head and
+                # expert at one rank) and the collectives of the cold
+                # call
+                print(f"lm mesh {arch} {shape} splits: head_axes "
+                      f"{r['axes']['head_axes']} blocks (heads, first, "
+                      f"count) {r['split'].get('heads', [])}; expert_axes "
+                      f"{r['axes']['expert_axes']} blocks (first, experts,"
+                      f" mode, chunks) {r['split'].get('experts', [])} "
+                      f"capacity (first, rows, cap) "
+                      f"{r['split'].get('capacity', [])}; collectives "
+                      f"{dict(sorted(r['calls'].items()))}")
+                split_ok = _split_ran(arch, r)
+                if not ok or not r["donated_ok"] or not split_ok:
                     raise AssertionError(f"phase 4h {arch} {shape}: {r}")
             dist.barrier()
         finally:

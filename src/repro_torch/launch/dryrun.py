@@ -51,7 +51,12 @@ def summary(rec: dict) -> str:
     if rec.get("chips", 1) > 1:
         head += (f" chips={rec['chips']} coll={rec['collective_total']:.6e}"
                  f"B/chip n_coll={t['n_collectives']} "
-                 f"tcoll={t['t_collective_s']:.4e}s")
+                 f"tcoll={t['t_collective_s']:.4e}s "
+                 f"a2a={rec['collectives']['all-to-all']:.6e}B "
+                 f"rs={rec['collectives']['reduce-scatter']:.6e}B "
+                 + " ".join(f"{k}={','.join(rec[k + '_axes']) or '-'}"
+                            for k in ("batch", "seq", "tp", "head",
+                                      "expert")))
     return (f"{head} batch={rec['batch']} "
             f"flops={t['hlo_flops_per_chip']:.6e} "
             f"min_bytes={t['min_bytes_per_chip']:.6e} "

@@ -185,6 +185,9 @@ def _run_mesh_cell(arch: str, shape: str, multi_pod: bool, *, plan, tag,
             "collective_by_axis": coll["by_axis"],
             "batch_axes": list(built["batch_axes"]),
             "seq_axes": list(built["seq_axes"]),
+            "tp_axes": list(built["tp_axes"]),
+            "head_axes": list(built["head_axes"]),
+            "expert_axes": list(built["expert_axes"]),
             "plan": {"microbatch": plan.microbatch,
                      "seq_parallel": plan.seq_parallel,
                      "rules": plan.rules,

@@ -92,7 +92,9 @@ def main(argv=None) -> int:
           f"tme={t['t_memory_eager_s']:.3e} "
           f"tcoll={t['t_collective_s']:.3e} dom={t['dominant']} "
           f"chips={rec['chips']} "
-          f"useful={rec['useful_flops_ratio']:.3f}")
+          f"useful={rec['useful_flops_ratio']:.3f}"
+          + "".join(f" {k}={','.join(rec[k + '_axes']) or '-'}"
+                    for k in ("head", "expert") if k + "_axes" in rec))
     return 0
 
 

@@ -22,9 +22,9 @@ model code reaches through ``utils/pcontext.py`` while it runs:
     ranks that hold the other blocks (``layers.softmax_blocks``). A
     Mamba layer's state (split over heads or channels) is gathered and
     written back after the layer.
-  * ``batch_sum``, ``token_sum``, ``token_block``, ``pair_offsets``: the
-    sums over the batch that the reference computes over all tokens (the
-    loss, the MoE aux loss and dispatch).
+  * ``batch_sum``, ``token_sum``, ``token_total``: the sums over the
+    batch that the reference computes over all tokens (the loss, the MoE
+    aux loss).
   * tensor parallelism of the dense MLPs over ``model`` where nothing
     else splits the work over it (a prefill's or a decode's rows, a train
     step's that ``model`` does not divide, without ``seq_parallel``):
@@ -34,35 +34,74 @@ model code reaches through ``utils/pcontext.py`` while it runs:
     over ``model`` (Megatron's column/row split: ``tp_enter`` is the
     identity with an all-reduce backward, ``tp_exit`` an all-reduce
     with the identity backward).
+  * the attention heads over ``model`` (the reference's ``heads`` and
+    ``kv_chunks`` rules) where it splits neither the rows nor the
+    queries: a prefill, a train step whose rows it does not divide
+    without ``seq_parallel``, and under ``seq_parallel`` a
+    sliding-window layer, which runs on the whole sequence; never a
+    decode step (split-KV). The count must divide ``model`` (the
+    configs pad their heads to). Each rank keeps its block of ``wq``
+    (and ``bq``) by columns and ``wo`` by rows, MLA's ``q_b``, ``k_b``,
+    ``v_b`` by columns, and computes ``wk`` / ``wv`` whole (their
+    ``kv_proj`` weights are replicated; a prefill's cache needs every kv
+    head); the keys and values, repeated to every query head, keep the
+    block's (``narrow_heads``, the local ``heads`` constraint); the
+    partial outputs of ``wo`` add over ``model`` in fp32, under
+    ``seq_parallel`` reduce-scattered onto the sequence block. An
+    adapter factor or norm whole on ``model`` gets a ``Partial``
+    gradient over it.
+  * the MoE experts over ``model`` (the ``expert`` rule), whatever
+    splits the rows; a sharded step refuses a MoE whose experts
+    ``model`` does not divide (every config's do). Each rank keeps its
+    block of the banks and computes those experts' rows of every
+    dispatch chunk's buffer, its capacity rows split over ``data``
+    where a chunk spans the data ranks and they divide them; the
+    tokens' kept pairs reach their experts' owners by an all-to-all
+    over ``model`` and come back by another (:class:`ExpertSplit`,
+    ``moe._dispatch_split``). A prefill's, a decode's or a
+    sequence-parallel layer's tokens no longer run whole on every
+    ``model`` rank: ``model`` shares them where it divides them.
   * sequence parallelism (``seq_axes``, a plan's ``seq_parallel``): the
     residual stream holds this rank's block of the sequence over
     ``model``, each token-wise layer (norms, projections, MLPs, the
     loss) runs on the block, attention gathers the keys and values of
     the whole sequence (``seq_gather``, whose backward reduce-scatters)
-    for the block's queries at their positions; a layer without such a
-    form (sliding-window attention, Mamba) gathers its input, runs on
-    the whole sequence and keeps its block of the output, and so does a
-    MoE feed-forward (its dispatch order runs over whole rows).
+    for the block's queries at their positions; a sliding-window layer
+    gathers its input and runs its head block on the whole sequence
+    (above); a layer without a split form (Mamba, or a window layer
+    whose heads do not divide ``model``) gathers its input, runs on the
+    whole sequence and keeps its block of the output. A MoE layer runs
+    on the block: its chunks' order is the whole (micro)batch's, and
+    each rank finds its tokens' places in it (:func:`_token_ids`).
+
+Still repeated over ``model``: a Mamba layer's heads and inner channels
+and the vocab-split head with its cross-entropy (the reference reaches
+both through weight shardings alone, with no constraint).
 
 Every collective is a ``torch.distributed._functional_collectives`` call
-(DTensor's own or this module's) over one named mesh axis, which
+(DTensor's own or this module's autograd Functions, each with its
+adjoint as its backward) over one named mesh axis, which
 ``utils/comm.py`` ``record_funcol`` counts.
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 # the subtrees of a parameter tree stacked over layers (gathered layer by
 # layer); every other subtree is gathered once at the start of a step
 LAYER_STACKS = ("groups", "enc", "dec")
+# a layer's attention subtrees (self and cross) and a MoE's expert banks
+HEAD_TREES = ("attn", "cross")
+BANKS = ("wi", "wg", "wo")
 
 
 def axis_sizes(mesh) -> dict[str, int]:
@@ -197,6 +236,77 @@ class _SumOver(torch.autograd.Function):
         return sum_over(g.contiguous(), ctx.mesh, ctx.axes), None, None
 
 
+
+class _AllToAll(torch.autograd.Function):
+    """Block ``j`` of dim 0 to rank ``j`` of the axis, and block ``j`` of
+    the result from rank ``j``; its adjoint is the same exchange."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, ax):
+        ctx.mesh, ctx.ax = mesh, ax
+        return _a2a(x, mesh, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a(g, ctx.mesh, ctx.ax), None, None
+
+
+def _a2a(x: torch.Tensor, mesh, ax: str) -> torch.Tensor:
+    return _wait(funcol.all_to_all_single(x.contiguous(), None, None,
+                                          _dim(mesh, ax)))
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The SUM over the axis, each rank keeping its block of dim
+    ``dim``; its adjoint is the all-gather of that dim."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, ax, dim):
+        ctx.mesh, ctx.ax, ctx.dim = mesh, ax, dim
+        return _wait(funcol.reduce_scatter_tensor(x.contiguous(), "sum",
+                                                  dim, _dim(mesh, ax)))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _wait(funcol.all_gather_tensor(
+            g.contiguous(), ctx.dim, _dim(ctx.mesh, ctx.ax))), None, None, \
+            None
+
+
+class _RepSlice(torch.autograd.Function):
+    """This rank's block of dim 0 of a tensor that every rank of the axis
+    holds whole (and of which each needs the whole gradient): the
+    gradients of the blocks are gathered."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, ax, index, n):
+        ctx.mesh, ctx.ax = mesh, ax
+        c = x.shape[0] // n
+        return x.narrow(0, index * c, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _wait(funcol.all_gather_tensor(
+            g.contiguous(), 0, _dim(ctx.mesh, ctx.ax))), None, None, None, \
+            None
+
+
+class _RepGather(torch.autograd.Function):
+    """The blocks of dim 0 of every rank of the axis, concatenated; each
+    rank then holds the whole and its whole gradient, of which it keeps
+    its block's."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, ax, index):
+        ctx.index, ctx.c = index, x.shape[0]
+        return _wait(funcol.all_gather_tensor(x.contiguous(), 0,
+                                              _dim(mesh, ax)))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(0, ctx.index * ctx.c, ctx.c), None, None, None
+
+
 def _layer_placements(pl: tuple) -> tuple:
     """Placements of one layer of a tensor stacked over layers (dim 0,
     never sharded)."""
@@ -253,7 +363,8 @@ class LocalStep:
     the module docstring); installed with ``pcontext.use_local``.
     ``axes``: the mesh axes that split the step's batch rows."""
 
-    def __init__(self, mesh, axes=(), seq_axes=(), seq_len: int = 0):
+    def __init__(self, mesh, axes=(), seq_axes=(), seq_len: int = 0,
+                 heads: bool = True, log: Optional[dict] = None):
         self.mesh = mesh
         self.axes = tuple(axes)
         self.seq_axes = tuple(seq_axes)
@@ -265,14 +376,32 @@ class LocalStep:
         self.grad_placements = tuple(
             Partial() if ax in self.sum_axes else Replicate()
             for ax in mesh.mesh_dim_names)
+        sizes = axis_sizes(mesh)
+        names = tuple(mesh.mesh_dim_names)
         # tensor parallelism where model would otherwise repeat the work
         self.tp_axes = tuple(
-            ax for ax in mesh.mesh_dim_names if ax == "model"
-            and ax not in self.sum_axes and axis_sizes(mesh)[ax] > 1)
+            ax for ax in names if ax == "model"
+            and ax not in self.sum_axes and sizes[ax] > 1)
+        # the attention heads over model where it splits no rows (not in
+        # a decode step); under sequence parallelism only in a layer that
+        # runs on the whole sequence (:meth:`head_block`)
+        self.head_axes = ("model",) if heads and "model" in names \
+            and "model" not in self.axes else ()
+        # the MoE experts over model wherever their count divides it
+        self.expert_axes = ("model",) if "model" in names else ()
+        self.msz = sizes.get("model", 1)
+        self.model_index = dict(zip(names, mesh.get_coordinate())).get(
+            "model", 0)
         self._whole = 0
+        self._seq_len = seq_len
         self._block = seq_len // self.seq_n    # a block's positions
-        self.replicated = tuple(Replicate() for _ in mesh.mesh_dim_names)
+        self._heads: Optional[tuple] = None    # (heads, offset, count)
+        self.replicated = tuple(Replicate() for _ in names)
         self.blocks: dict = {}      # id of a cache block -> (it, SeqBlock)
+        self.experts: dict = {}     # (spec, b, s) -> ExpertSplit
+        # what the step split: head and expert blocks (a record for the
+        # caller, filled as the layers run)
+        self.log = log if log is not None else {}
 
     # -- parameters --------------------------------------------------------
     def gather(self, t: Any) -> Any:
@@ -283,15 +412,38 @@ class LocalStep:
             return full.to_local(grad_placements=self.grad_placements)
         return full.to_local()
 
-    def params(self, tree: Any) -> Any:
+    def params(self, tree: Any, heads: Optional[int] = None) -> Any:
         """``tree`` gathered; a layer's dense MLP (its ``mlp`` subtree)
         keeps its ``model`` blocks where the step runs it tensor-parallel
-        (:meth:`tp_gather`)."""
-        if isinstance(tree, dict) and self.tp_axes \
-                and self._tp_mlp(tree.get("mlp")):
-            return {k: tree_map(self.tp_gather, v) if k == "mlp"
-                    else self.params(v) for k, v in tree.items()}
-        return tree_map(self.gather, tree)
+        (:meth:`tp_gather`), its attention (``attn``, ``cross``) where
+        its ``heads`` split over ``model`` (:meth:`head_block`), and a
+        MoE's expert banks their block of experts where ``model`` splits
+        them (the ``expert`` rule)."""
+        if not isinstance(tree, dict):
+            return tree_map(self.gather, tree)
+        split = heads is not None and self.head_block(heads) is not None
+        out = {}
+        for k, v in tree.items():
+            if k == "mlp" and self.tp_axes and self._tp_mlp(v):
+                out[k] = tree_map(self.tp_gather, v)
+            elif k in HEAD_TREES and split:
+                out[k] = tree_map(self.model_gather, v)
+            elif k == "moe" and self._expert_banks(v):
+                out[k] = {b: tree_map(self.model_gather, w) if b in BANKS
+                          else self.params(w) for b, w in v.items()}
+            else:
+                out[k] = self.params(v)
+        return out
+
+    def _expert_banks(self, moe) -> bool:
+        """Whether a MoE subtree's banks are split over ``model`` by
+        their expert dim at rest."""
+        if not isinstance(moe, dict) or "wi" not in moe \
+                or not self.expert_axes:
+            return False
+        mi = self.mesh.mesh_dim_names.index("model")
+        return all(isinstance(t, DTensor) and t.placements[mi] == Shard(0)
+                   for t in tree_leaves(moe["wi"]))
 
     def _tp_mlp(self, mlp) -> bool:
         """Whether an MLP subtree's ``wi`` (the frozen weight, or the
@@ -309,13 +461,18 @@ class LocalStep:
                    if ax in self.tp_axes)
 
     def tp_gather(self, t: Any) -> Any:
-        """``t`` gathered over every axis but the tensor-parallel ones,
-        where it keeps its block; a leaf whole on those axes is used by
-        every rank for its part of the output, so its gradient adds
-        over them."""
+        return self.block_gather(t, self.tp_axes)
+
+    def model_gather(self, t: Any) -> Any:
+        return self.block_gather(t, ("model",))
+
+    def block_gather(self, t: Any, axes: tuple) -> Any:
+        """``t`` gathered over every axis but ``axes``, where it keeps its
+        block; a leaf whole on those axes is used by every rank for its
+        part of the output, so its gradient adds over them."""
         if not isinstance(t, DTensor):
             return t
-        keep = tuple(p if ax in self.tp_axes and isinstance(p, Shard)
+        keep = tuple(p if ax in axes and isinstance(p, Shard)
                      else Replicate()
                      for ax, p in zip(self.mesh.mesh_dim_names,
                                       t.placements))
@@ -324,7 +481,7 @@ class LocalStep:
             return local.to_local()
         grad = tuple(
             k if isinstance(k, Shard) else
-            Partial() if ax in self.sum_axes + self.tp_axes else
+            Partial() if ax in self.sum_axes + tuple(axes) else
             Replicate()
             for ax, k in zip(self.mesh.mesh_dim_names, keep))
         return local.to_local(grad_placements=grad)
@@ -340,6 +497,70 @@ class LocalStep:
         return {k: v if k in LAYER_STACKS else self.params(v)
                 for k, v in tree.items()}
 
+    # -- attention heads -----------------------------------------------------
+    def head_block(self, h: int) -> Optional[tuple[int, int]]:
+        """(first head, heads) of this rank's block of an attention's ``h``
+        (padded) query heads where they split over ``model`` (the
+        reference's ``heads`` rule: ``model`` divides them and splits
+        nothing else here), else None. Remembers ``h`` for
+        :meth:`narrow_heads`."""
+        if not self.head_axes or h % self.msz \
+                or (self.seq_axes and not self._whole):
+            self._heads = None
+            return None
+        c = h // self.msz
+        self._heads = (h, self.model_index * c, c)
+        self.log.setdefault("heads", set()).add(self._heads)
+        return self._heads[1:]
+
+    def narrow_heads(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of dim ``dim`` where it holds every head of
+        the attention that last asked for its block (keys and values
+        after the GQA repeat); else ``x``."""
+        if self._heads is None or x.shape[dim] != self._heads[0]:
+            return x
+        return x.narrow(dim, self._heads[1], self._heads[2])
+
+    def heads_enter(self, x: torch.Tensor) -> torch.Tensor:
+        """An attention's input, whose gradient adds over the ranks'
+        head blocks; under sequence parallelism the whole-sequence input
+        is already a gather whose backward sums."""
+        if self.seq_axes:
+            return x
+        return _TpEnter.apply(x, self.mesh, self.head_axes)
+
+    def heads_exit(self, y: torch.Tensor) -> torch.Tensor:
+        """The sum of the head blocks' partial outputs (the row-parallel
+        ``wo``, in fp32); under sequence parallelism reduce-scattered
+        onto this rank's block of the sequence."""
+        if self.seq_axes:
+            return _ReduceScatter.apply(y.to(torch.float32), self.mesh,
+                                        "model", 1).to(y.dtype)
+        return _TpExit.apply(y, self.mesh, self.head_axes)
+
+    # -- MoE experts ---------------------------------------------------------
+    def check_experts(self, n_experts: int) -> None:
+        """Refuse a MoE of ``n_experts`` that ``model`` cannot split."""
+        if not self.expert_axes or n_experts % self.msz:
+            raise ValueError(
+                f"a sharded MoE needs a model axis that divides its "
+                f"{n_experts} experts; the mesh has "
+                f"{dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))}")
+
+    def expert_split(self, spec, b: int, s: int) -> "ExpertSplit":
+        """The dispatch of a MoE layer over ``b`` x ``s`` local tokens
+        split over the mesh: its experts over ``model``."""
+        self.check_experts(spec.n_experts)
+        key = (spec, b, s, self.seq_split())
+        if key not in self.experts:
+            self.experts[key] = ExpertSplit(self, spec, b, s)
+        return self.experts[key]
+
+    def token_ids(self, t: int) -> torch.Tensor:
+        """The places of this rank's ``t`` local tokens in its step's
+        (micro)batch, row-major over (rows, sequence)."""
+        return torch.as_tensor(_token_ids(self, None, t))
+
     # -- batch -------------------------------------------------------------
     def batch_block(self, t: DTensor, dim: int) -> torch.Tensor:
         """This rank's rows (dim ``dim`` split over ``axes``) of a batch
@@ -352,13 +573,19 @@ class LocalStep:
             return x
         return _SumOver.apply(x, self.mesh, self.sum_axes)
 
-    def token_sum(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.axes:
-            return x
-        return _SumOver.apply(x, self.mesh, self.axes)
+    def _token_axes(self) -> tuple:
+        """The axes that split a MoE layer's tokens: the rows', and the
+        sequence's where the layer runs on a sequence block."""
+        return self.sum_axes if self.seq_split() else self.axes
 
-    def token_block(self, t: int) -> tuple[int, int]:
-        return self.index * t, self.n_rows * t
+    def token_sum(self, x: torch.Tensor) -> torch.Tensor:
+        axes = self._token_axes()
+        if not axes:
+            return x
+        return _SumOver.apply(x, self.mesh, axes)
+
+    def token_total(self, t: int) -> int:
+        return t * (self.n if self.seq_split() else self.n_rows)
 
     # -- sequence parallelism -----------------------------------------------
     def seq_split(self) -> bool:
@@ -388,13 +615,6 @@ class LocalStep:
             yield
         finally:
             self._whole -= 1
-
-    def pair_offsets(self, counts: torch.Tensor, t: int,
-                     chunk: int) -> torch.Tensor:
-        per = chunk // t                  # ranks that share a chunk
-        every = gather_over(counts, self.mesh, self.axes)   # (n_rows, E)
-        first = self.index - self.index % per
-        return every[first:self.index].sum(0)
 
     # -- caches ------------------------------------------------------------
     def seq_block(self, t) -> Optional[SeqBlock]:
@@ -442,3 +662,222 @@ class LocalStep:
                 local.copy_(as_dtensor(full, self.mesh, keep, shape)
                             .redistribute(self.mesh, pl).to_local())
         return out, put_back
+
+
+# ---------------------------------------------------------------------------
+# the MoE dispatch over the mesh
+# ---------------------------------------------------------------------------
+
+def _token_ids(step: LocalStep, coord: Optional[dict], t: int,
+               share: int = 1) -> np.ndarray:
+    """The places, in the step's (micro)batch of tokens (row-major over
+    rows and sequence), of the ``t`` local tokens of the rank at mesh
+    coordinates ``coord`` (this rank's where None); with ``share`` > 1
+    only its part of them, one of ``share`` by its ``model``
+    coordinate."""
+    mesh = step.mesh
+    names = tuple(mesh.mesh_dim_names)
+    sizes = axis_sizes(mesh)
+    coord = coord or dict(zip(names, mesh.get_coordinate()))
+
+    def block(axes):
+        idx = 0
+        for ax in names:
+            if ax in axes:
+                idx = idx * sizes[ax] + coord[ax]
+        return idx
+
+    seq = step.seq_split()
+    s = step._block if seq else None
+    l = np.arange(t, dtype=np.int64)
+    if s is None:
+        ids = block(step.axes) * t + l
+    else:
+        ids = ((block(step.axes) * (t // s) + l // s) * step._seq_len
+               + block(step.seq_axes) * s + l % s)
+    if share > 1:
+        c = t // share
+        ids = ids[coord["model"] * c:(coord["model"] + 1) * c]
+    return ids
+
+
+class Chunk(NamedTuple):
+    """A dispatch chunk as one rank of :class:`ExpertSplit` sees it."""
+    lo: int                 # this rank's tokens [lo, hi) in it (its share)
+    hi: int
+    own_p: np.ndarray       # (chunk,): the group member holding each token
+    own_l: np.ndarray       # (chunk,): the token's place in the member's
+    at: np.ndarray          # (hi - lo,): this rank's tokens' places in it
+    most: int               # the most tokens a member holds in it
+
+
+class ExpertSplit:
+    """A MoE layer's dispatch over the mesh (expert parallelism, the
+    reference's ``expert`` and ``tokens`` rules): the static layout of a
+    layer called on ``b`` x ``s`` local tokens, and the exchanges of
+    ``moe._dispatch_split``.
+
+    * Experts: rank ``j`` of ``model`` holds experts ``[j E/m, (j + 1)
+      E/m)`` of every bank (``LocalStep.params``) and computes those rows
+      of each dispatch chunk's (E, C, d) buffer, for every token of the
+      chunk.
+    * Tokens: the step's rows split them over the batch axes (and
+      ``model``, where it splits the rows), a sequence-parallel layer's
+      blocks over ``model``; where ``model`` splits neither and divides
+      the rank's tokens, each ``model`` rank dispatches its share of them
+      (the ``tokens`` rule) and the outputs are gathered after. The
+      router runs on every local token (its gradient stays whole).
+    * A chunk (``moe.n_chunks_for`` over the (micro)batch's tokens, in
+      their row-major order, as the one-card step cuts them) held whole
+      by the ranks of one batch block (``local``) is dispatched within
+      them; a chunk across batch blocks by all of them, whose partial
+      buffers add over the batch axes, the capacity rows split over
+      ``data`` where it divides them (a reduce-scatter; else an
+      all-reduce).
+    * ``mode``: ``"a2a"`` where ``model`` splits the tokens (each kept
+      pair's row goes to its expert's owner by an all-to-all over
+      ``model`` and comes back by another), ``"rep"`` where every
+      ``model`` rank holds the same tokens (each fills its own experts'
+      rows; the pairs' rows add over ``model``, one rank holding each).
+
+    Every rank computes the chunk's dispatch order from the expert ids of
+    all its tokens (gathered over ``group``), so which pairs a capacity
+    drops is the one-card step's."""
+
+    def __init__(self, step: LocalStep, spec, b: int, s: int):
+        from repro_torch.models.moe import n_chunks_for
+        mesh = step.mesh
+        self.mesh = mesh
+        names = tuple(mesh.mesh_dim_names)
+        sizes = axis_sizes(mesh)
+        coord = dict(zip(names, mesh.get_coordinate()))
+        t = b * s
+        seq = step.seq_split()
+        self.msz = sizes["model"]
+        self.j = coord["model"]
+        self.eb = spec.n_experts // self.msz
+        split = "model" in step.axes or (seq and "model" in step.seq_axes)
+        # model shares the rank's tokens (the tokens rule); at one model
+        # rank too, whose share is every token
+        self.shared = not split and t % self.msz == 0
+        self.share = self.msz if self.shared else 1
+        self.mode = "a2a" if split or self.shared else "rep"
+        total = step.token_total(t)
+        n_chunks = n_chunks_for(spec, total)
+        tc = total // n_chunks
+        batch_axes = tuple(ax for ax in names
+                           if ax in step.axes and ax != "model")
+        n_bb = math.prod(sizes[ax] for ax in batch_axes)
+        self.local = (total // n_bb) % tc == 0
+        self.da = () if self.local else batch_axes
+        self.group = tuple(ax for ax in names if ax in self.da
+                           or (ax == "model" and self.mode == "a2a"))
+        self.m_group = self.msz if self.mode == "a2a" else 1
+        gsizes = [sizes[ax] for ax in self.group]
+        self.n_members = math.prod(gsizes)
+        ids, me = [], 0
+        for p in range(self.n_members):
+            c, rem = dict(coord), p
+            for ax, n in reversed(list(zip(self.group, gsizes))):
+                c[ax], rem = rem % n, rem // n
+            if all(c[ax] == coord[ax] for ax in self.group):
+                me = p
+            ids.append(_token_ids(step, c, t, self.share))
+        self.ids = np.stack(ids)            # (members, tokens a member)
+        self.me = me
+        if self.local:
+            bb = block_index(mesh, batch_axes)[0]
+            per = total // n_bb // tc
+            chunks = range(bb * per, (bb + 1) * per)
+        else:
+            chunks = range(n_chunks)
+        self.chunks: list[Chunk] = []
+        for c in chunks:
+            inside = (self.ids >= c * tc) & (self.ids < (c + 1) * tc)
+            if int(inside.sum()) != tc:
+                raise ValueError(f"MoE chunk {c} of {tc} tokens is not "
+                                 f"held by the ranks of {self.group}")
+            own_p = np.empty(tc, dtype=np.int64)
+            own_l = np.empty(tc, dtype=np.int64)
+            p_, l_ = np.nonzero(inside)
+            own_p[self.ids[p_, l_] - c * tc] = p_
+            own_l[self.ids[p_, l_] - c * tc] = l_
+            mine = np.nonzero(inside[me])[0]
+            lo, hi = (int(mine[0]), int(mine[-1]) + 1) if len(mine) \
+                else (0, 0)
+            self.chunks.append(Chunk(lo, hi, own_p, own_l,
+                                     self.ids[me, lo:hi] - c * tc,
+                                     int(inside.sum(1).max())))
+        self.data = "data" in self.da and sizes["data"] > 1
+        self.dsz = sizes.get("data", 1)
+        self.i = coord.get("data", 0)
+        self._dev: dict = {}
+        self.log = step.log
+        self.log.setdefault("experts", set()).add(
+            (self.j * self.eb, self.eb, self.mode, len(self.chunks)))
+
+    def tensors(self, ch: Chunk, dev) -> tuple:
+        """(own_p, own_l, at) of a chunk on ``dev`` (copied once)."""
+        key = (id(ch), str(dev))
+        if key not in self._dev:
+            self._dev[key] = tuple(torch.as_tensor(a, device=dev)
+                                   for a in (ch.own_p, ch.own_l, ch.at))
+        return self._dev[key]
+
+    def c_block(self, cap: int) -> tuple[int, int]:
+        """(first row, rows) of this rank's capacity block of a chunk's
+        buffer of ``cap`` rows an expert: split over ``data`` where the
+        chunk's tokens span it and it divides them."""
+        blk = (0, cap)
+        if self.data and cap % self.dsz == 0:
+            c = cap // self.dsz
+            blk = (self.i * c, c)
+        self.log.setdefault("capacity", set()).add(blk + (cap,))
+        return blk
+
+    def mine(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's share of its local tokens (dim 0)."""
+        if not self.shared:
+            return x
+        return _RepSlice.apply(x, self.mesh, "model", self.j, self.share)
+
+    def whole(self, y: torch.Tensor) -> torch.Tensor:
+        """The shares' outputs gathered back into the local tokens'."""
+        if not self.shared:
+            return y
+        return _RepGather.apply(y, self.mesh, "model", self.j)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(members, *x.shape): ``x`` of every member of the group."""
+        if not self.group:
+            return x[None]
+        g = gather_over(x, self.mesh, self.group)
+        return g.reshape(self.n_members, *x.shape)
+
+    def a2a(self, x: torch.Tensor) -> torch.Tensor:
+        return _AllToAll.apply(x, self.mesh, "model")
+
+    def rep_enter(self, x: torch.Tensor) -> torch.Tensor:
+        return _TpEnter.apply(x, self.mesh, ("model",))
+
+    def rep_exit(self, x: torch.Tensor) -> torch.Tensor:
+        return _TpExit.apply(x, self.mesh, ("model",))
+
+    def reduce(self, buf: torch.Tensor, cap: int) -> torch.Tensor:
+        """A chunk's partial (E/m, cap, d) buffer summed over the batch
+        axes that span the chunk (each row filled on one rank), kept as
+        this rank's capacity block."""
+        for ax in self.da:
+            if ax == "data" and self.c_block(cap)[1] < cap:
+                buf = _ReduceScatter.apply(buf, self.mesh, ax, 1)
+            else:
+                buf = _SumOver.apply(buf, self.mesh, (ax,))
+        return buf
+
+    def unreduce(self, out: torch.Tensor, cap: int) -> torch.Tensor:
+        """The capacity blocks' outputs gathered back (the adjoint of
+        :meth:`reduce`'s reduce-scatter)."""
+        if self.c_block(cap)[1] < cap:
+            out = _wait(funcol.all_gather_tensor_autograd(
+                out.contiguous(), 1, _dim(self.mesh, "data")))
+        return out

@@ -46,14 +46,31 @@ with their gradients reduce-scattered back, the loss and the MoE's
 token statistics summed over the batch ranks, a decode cache kept as
 this rank's block of the sequence (split-KV), ``seq_parallel`` as the
 sequence over ``model``, and where ``model`` is otherwise idle the
-dense MLPs split over it by hidden units. The reference's
-``with_sharding_constraint`` points are ``utils/pcontext.constrain``
-calls; :func:`make_constrain` is their callback on DTensors (a
-``redistribute`` to the kind's placements), and on a rank's local
-blocks the step's own callback acts only where the layout is the step's
-output: a prefill's caches keep this rank's sequence block over
-``model`` (``cache_stack``). The attention heads and the MoE experts
-are not split over ``model`` (``PERF.md``).
+dense MLPs split over it by hidden units. What else splits over
+``model``:
+
+  * the attention heads (the reference's ``heads`` and ``kv_chunks``
+    rules), where ``model`` divides them and splits neither the rows
+    nor the queries: every prefill, a train step whose rows it does not
+    divide (without ``seq_parallel``), and under ``seq_parallel`` the
+    sliding-window layers, which run on the whole sequence; a decode
+    step never (it has no ``heads`` constraint in the reference);
+  * the MoE experts (the ``expert`` rule), in every step (a sharded
+    step refuses a MoE whose experts ``model`` does not divide; every
+    config's do): a rank's block of the banks, the
+    capacity rows of a dispatch chunk that spans the data ranks split
+    over ``data`` where it divides them, the tokens over the batch axes
+    and ``model`` (the ``tokens`` rule: ``model`` shares a rank's tokens
+    where it splits neither rows nor sequence and divides them).
+
+The cell records them as ``head_axes`` and ``expert_axes`` beside
+``tp_axes``. The reference's ``with_sharding_constraint`` points are
+``utils/pcontext.constrain`` calls; :func:`make_constrain` is their
+callback on DTensors (a ``redistribute`` to the kind's placements), and
+on a rank's local blocks the step's own callback
+(:func:`_local_constrain`) narrows a tensor of every head to the
+rank's head block (``heads``, ``kv_chunks``) and a prefill's caches to
+this rank's sequence block over ``model`` (``cache_stack``).
 
 ``kv_seq`` (split-KV decode): the reference maps it to ``("model",
 "data")``, against the mesh order (pod, data, model) in which DTensor
@@ -228,17 +245,31 @@ def make_constrain(mesh, plan: CellPlan) -> Callable:
 
 
 def _local_constrain(mesh, plan: CellPlan, step: str) -> Callable:
-    """A sharded step's callback on its local blocks: a prefill's cache
-    stack (and a layer's cache written into it) keeps this rank's block
-    of the sequence dim where the reference shards it over ``model``.
-    The rows are already this rank's (the batch split); every other kind
-    is left as it is (module docstring)."""
-    if step != "prefill" or "model" not in mesh.mesh_dim_names:
-        return lambda x, kind="residual": x
+    """A sharded step's callback on its local blocks. ``heads`` (B, S,
+    H, Dh) and ``kv_chunks`` (N, B, C, H, D): a tensor that holds every
+    head of the attention being run (keys and values after the GQA
+    repeat) keeps this rank's block of them where the heads split over
+    ``model`` (``spmd.LocalStep.head_block``; the queries are already
+    the block, from ``wq``'s columns). A prefill's cache stack (and a
+    layer's cache written into it) keeps this rank's block of the
+    sequence dim where the reference shards it over ``model``. The rows
+    are already this rank's (the batch split); ``tokens`` and ``expert``
+    are laid out by the MoE dispatch itself (``spmd.ExpertSplit``: each
+    rank dispatches its tokens into its block of experts and capacity
+    rows), and every other kind is left as it is."""
+    cache = step == "prefill" and "model" in mesh.mesh_dim_names
     idx, n = spmd.block_index(mesh, ("model",))
 
+    def heads(x, dim):
+        ctx = pcontext.local()
+        return x if ctx is None else ctx.narrow_heads(x, dim)
+
     def constrain(x, kind: str = "residual"):
-        if kind != "cache_stack" or \
+        if kind == "heads" and x.ndim == 4:
+            return heads(x, 2)
+        if kind == "kv_chunks" and x.ndim == 5:
+            return heads(x, 3)
+        if kind != "cache_stack" or not cache or \
                 not _cache_seq_split(mesh, plan, x.shape):
             return x
         c = x.shape[2] // n
@@ -346,8 +377,10 @@ def build_cell(entry: ArchEntry, shape_name: str, mesh=None,
     """{'fn', 'args', 'cfg', 'plan', 'step', 'batch', 'seq'} for one
     cell, and with a ``mesh`` also 'in_placements', 'out_placements',
     'donate', 'mesh', and the axes the step splits its rows over
-    ('batch_axes'), its sequence over ('seq_axes', sequence parallelism)
-    and its dense MLPs' hidden units over ('tp_axes'). ``batch``
+    ('batch_axes'), its sequence over ('seq_axes', sequence parallelism),
+    its dense MLPs' hidden units over ('tp_axes'), its attention heads
+    over ('head_axes') and its MoE experts over ('expert_axes'), with
+    'split_log' (:func:`_split_axes`). ``batch``
     replaces the shape's batch size (a cut to fit one card; a multiple of
     the plan's microbatch count)."""
     plan = plan or plan_for(entry.arch_id, shape_name)
@@ -496,6 +529,7 @@ def _build_sharded(entry, mod, cfg, plan: CellPlan, mesh, frozen, train,
     local_c = _local_constrain(mesh, plan, step)
 
     sp = _seq_parallel(entry, cfg, plan, mesh, batch, step)
+    log: dict = {}
     if step == "train":
         # the rows over every axis that divides them (model too), or
         # under sequence parallelism over the batch axes, the sequence
@@ -506,22 +540,25 @@ def _build_sharded(entry, mod, cfg, plan: CellPlan, mesh, frozen, train,
         sh_opt = _opt_shardings(mesh, sh_train)
         opt_d = _distribute(opt.init(train), sh_opt, mesh)
         fn = _sharded_train(mod, cfg, mesh, axes, m, row_dim, opt, local_c,
-                            sp=sp)
+                            sp=sp, log=log)
         return {"fn": fn, "args": (frozen_d, train_d, opt_d, batch_d),
                 "in_placements": (sh_frozen, sh_train, sh_opt, sh_batch),
                 "out_placements": (sh_train, sh_opt, None),
                 "donate": (1, 2), "mesh": mesh, "batch_axes": axes,
                 "seq_axes": sp[0] if sp else (),
-                "tp_axes": spmd.LocalStep(mesh, axes, *sp).tp_axes}
+                **_split_axes(entry, cfg, spmd.LocalStep(mesh, axes, *sp),
+                              sp, log)}
 
     if step == "prefill":
         axes = spmd.split_axes(mesh, rows, ("pod", "data"), greedy=False)
-        fn = _sharded_prefill(entry, cfg, plan, mesh, axes, local_c, sp=sp)
+        fn = _sharded_prefill(entry, cfg, plan, mesh, axes, local_c, sp=sp,
+                              log=log)
         return {"fn": fn, "args": (frozen_d, train_d, batch_d),
                 "in_placements": (sh_frozen, sh_train, sh_batch),
                 "out_placements": None, "donate": (), "mesh": mesh,
                 "batch_axes": axes, "seq_axes": sp[0] if sp else (),
-                "tp_axes": spmd.LocalStep(mesh, axes, *sp).tp_axes}
+                **_split_axes(entry, cfg, spmd.LocalStep(mesh, axes, *sp),
+                              sp, log)}
 
     # the caches' batch dim follows the reference's greedy rule
     axes = spmd.split_axes(mesh, rows, ("pod", "data"))
@@ -530,7 +567,7 @@ def _build_sharded(entry, mod, cfg, plan: CellPlan, mesh, frozen, train,
     sh_caches = {k: tree_shardings(cl[k], specs[k], mesh, drules)
                  for k in cl}
     caches_d = {k: _distribute(specs[k], sh_caches[k], mesh) for k in cl}
-    fn = _sharded_decode(entry, cfg, mesh, axes, seq - 1)
+    fn = _sharded_decode(entry, cfg, mesh, axes, seq - 1, log=log)
     names_c = list(cl)
     return {"fn": fn, "args": (frozen_d, train_d, batch_d,
                                *(caches_d[k] for k in names_c)),
@@ -538,7 +575,34 @@ def _build_sharded(entry, mod, cfg, plan: CellPlan, mesh, frozen, train,
                               *(sh_caches[k] for k in names_c)),
             "out_placements": None, "donate": (3,), "mesh": mesh,
             "batch_axes": axes, "seq_axes": (),
-            "tp_axes": spmd.LocalStep(mesh, axes).tp_axes}
+            **_split_axes(entry, cfg, spmd.LocalStep(mesh, axes,
+                                                     heads=False), (), log)}
+
+
+def _split_axes(entry, cfg, ctx: spmd.LocalStep, sp: tuple,
+                log: dict) -> dict:
+    """The cell's record of what splits over ``model`` besides rows and
+    sequence: the dense MLPs' hidden units (``tp_axes``), the attention
+    heads of some layer (``head_axes``: under sequence parallelism only
+    a sliding-window layer's), the MoE experts (``expert_axes``), and
+    ``split_log``, which the step fills as it runs (the head blocks,
+    expert blocks and capacity blocks it used)."""
+    heads, experts = set(), False
+    if entry.kind == "encdec":
+        heads.add(cfg.gqa.hq)
+    else:
+        for g in LM.resolve_groups(cfg):
+            for spec in g.pattern:
+                if spec.mixer != "mamba" and (not sp or spec.window):
+                    heads.add(LM._n_heads(cfg, spec))
+                experts = experts or spec.ffn == "moe"
+    head_axes = ctx.head_axes if any(
+        h % ctx.msz == 0 for h in heads) else ()
+    if experts:
+        ctx.check_experts(cfg.moe.n_experts)
+    expert_axes = ctx.expert_axes if experts else ()
+    return {"tp_axes": ctx.tp_axes, "head_axes": head_axes,
+            "expert_axes": expert_axes, "split_log": log}
 
 
 def _seq_parallel(entry, cfg, plan: CellPlan, mesh, batch, step: str
@@ -560,9 +624,10 @@ def _local_batch(ctx: spmd.LocalStep, batch: Any, row_dim: int) -> Any:
 
 
 def _sharded_train(mod, cfg, mesh, axes, m: int, row_dim: int, opt,
-                   local_c, lr: float = LR, sp: tuple = ()):
+                   local_c, lr: float = LR, sp: tuple = (),
+                   log: Optional[dict] = None):
     def train_step(frozen, train, opt_state, batch):
-        ctx = spmd.LocalStep(mesh, axes, *sp)
+        ctx = spmd.LocalStep(mesh, axes, *sp, log=log)
         leaves, treedef = tree_flatten(train)
         leaves = [t.detach().requires_grad_(True) for t in leaves]
         tr = tree_unflatten(treedef, leaves)
@@ -602,7 +667,8 @@ def _out_dtensor(local: torch.Tensor, mesh, dims: dict, shape) -> DTensor:
                            shape)
 
 
-def _sharded_prefill(entry, cfg, plan, mesh, axes, local_c, sp: tuple = ()):
+def _sharded_prefill(entry, cfg, plan, mesh, axes, local_c, sp: tuple = (),
+                     log: Optional[dict] = None):
 
     def rows_out(local, rows_dim, total_rows):
         shape = list(local.shape)
@@ -611,7 +677,7 @@ def _sharded_prefill(entry, cfg, plan, mesh, axes, local_c, sp: tuple = ()):
 
     @torch.no_grad()
     def prefill_step(frozen, train, batch):
-        ctx = spmd.LocalStep(mesh, axes, *sp)
+        ctx = spmd.LocalStep(mesh, axes, *sp, log=log)
         local = _local_batch(ctx, batch, 0)
         with pcontext.use(local_c), pcontext.use_local(ctx):
             fz, tr = ctx.top(frozen), ctx.top(train)
@@ -643,10 +709,13 @@ def _sharded_prefill(entry, cfg, plan, mesh, axes, local_c, sp: tuple = ()):
     return prefill_step
 
 
-def _sharded_decode(entry, cfg, mesh, axes, pos: int):
+def _sharded_decode(entry, cfg, mesh, axes, pos: int,
+                    log: Optional[dict] = None):
     @torch.no_grad()
     def decode_step(frozen, train, batch, *caches):
-        ctx = spmd.LocalStep(mesh, axes)
+        # decode splits no heads (the reference has no heads constraint
+        # there); its KV cache is split by sequence (split-KV)
+        ctx = spmd.LocalStep(mesh, axes, heads=False, log=log)
         local = _local_batch(ctx, batch, 0)
         with pcontext.use(lambda x, kind="residual": x), \
                 pcontext.use_local(ctx):

@@ -91,17 +91,30 @@ def gqa_logical(spec: GQASpec, mode: str, stack: bool) -> tuple[dict, dict]:
     return fz, tr
 
 
-def _head_mask(spec: GQASpec, dtype, device) -> Optional[torch.Tensor]:
+def _head_mask(spec: GQASpec, dtype, device,
+               block: Optional[tuple[int, int]] = None
+               ) -> Optional[torch.Tensor]:
+    """The padded heads' mask, ``block`` (first head, heads) of it where
+    a sharded step splits the heads."""
     if not spec.pad_heads_to or spec.pad_heads_to == spec.n_heads:
         return None
     m = torch.zeros((spec.hq,), dtype=dtype, device=device)
     m[: spec.n_heads] = 1.0
+    if block is not None:
+        m = m[block[0]:block[0] + block[1]]
     return m[None, None, :, None]
 
 
 def _qkv(fz, tr, spec: GQASpec, x: torch.Tensor, lora_scale: float, rope):
+    """q of this rank's head block where a sharded step splits the heads
+    (``pcontext.head_block``: ``wq`` and ``bq`` are its columns), k and v
+    of every kv head (their projections are whole)."""
     b, s, _ = x.shape
     dh = spec.head_dim
+    blk = pcontext.head_block(spec.hq)
+    hq = spec.hq if blk is None else blk[1]
+    if blk is not None:
+        x = pcontext.heads_enter(x)
     q = linear_apply(fz.get("wq", {}), tr.get("wq", {}), x, lora_scale)
     k = linear_apply(fz.get("wk", {}), tr.get("wk", {}), x, lora_scale)
     v = linear_apply(fz.get("wv", {}), tr.get("wv", {}), x, lora_scale)
@@ -109,7 +122,7 @@ def _qkv(fz, tr, spec: GQASpec, x: torch.Tensor, lora_scale: float, rope):
         q = q + tr["bq"].to(q.dtype)
         k = k + tr["bk"].to(k.dtype)
         v = v + tr["bv"].to(v.dtype)
-    q = q.reshape(b, s, spec.hq, dh)
+    q = q.reshape(b, s, hq, dh)
     k = k.reshape(b, s, spec.n_kv_heads, dh)
     v = v.reshape(b, s, spec.n_kv_heads, dh)
     if spec.qk_norm:
@@ -119,7 +132,7 @@ def _qkv(fz, tr, spec: GQASpec, x: torch.Tensor, lora_scale: float, rope):
         cos, sin = rope
         q = L.apply_rope(q, cos, sin)
         k = L.apply_rope(k, cos, sin)
-    hm = _head_mask(spec, q.dtype, q.device)
+    hm = _head_mask(spec, q.dtype, q.device, blk)
     if hm is not None:
         q = q * hm
     return q, k, v
@@ -127,13 +140,16 @@ def _qkv(fz, tr, spec: GQASpec, x: torch.Tensor, lora_scale: float, rope):
 
 def _out(fz, tr, spec: GQASpec, o: torch.Tensor,
          lora_scale: float) -> torch.Tensor:
-    """Head mask, merge the heads, output projection."""
-    b, s = o.shape[:2]
-    hm = _head_mask(spec, o.dtype, o.device)
+    """Head mask, merge the heads, output projection; of a head block
+    (``wo``'s rows) the partial outputs summed over the blocks."""
+    b, s, h = o.shape[:3]
+    blk = pcontext.head_block(spec.hq)
+    hm = _head_mask(spec, o.dtype, o.device, blk)
     if hm is not None:
         o = o * hm
-    o = o.reshape(b, s, spec.hq * spec.head_dim)
-    return linear_apply(fz.get("wo", {}), tr.get("wo", {}), o, lora_scale)
+    o = o.reshape(b, s, h * spec.head_dim)
+    y = linear_apply(fz.get("wo", {}), tr.get("wo", {}), o, lora_scale)
+    return y if blk is None else pcontext.heads_exit(y)
 
 
 def gqa_apply(fz: dict, tr: dict, spec: GQASpec, x: torch.Tensor,
@@ -146,13 +162,15 @@ def gqa_apply(fz: dict, tr: dict, spec: GQASpec, x: torch.Tensor,
     s = x.shape[1]
     q, k, v = _qkv(fz, tr, spec, x, lora_scale, rope)
     if window is not None and window < s:
-        o = L.local_attention_blocked(q, k, v, window=window)
+        o = L.local_attention_blocked(q, k, v, window=window,
+                                      n_heads=spec.hq)
     else:
         # sequence parallelism: this block's queries, every key
         k, v = pcontext.seq_gather(k), pcontext.seq_gather(v)
         o = L.attention_chunked(q, k, v, causal=causal,
                                 prefix_len=prefix_len, kv_chunk=kv_chunk,
-                                q_offset=pcontext.seq_offset())
+                                q_offset=pcontext.seq_offset(),
+                                n_heads=spec.hq)
     return _out(fz, tr, spec, o, lora_scale)
 
 
@@ -257,12 +275,15 @@ def mla_logical(spec: MLASpec, mode: str, stack: bool) -> tuple[dict, dict]:
 
 
 def _mla_q(fz, tr, spec: MLASpec, x: torch.Tensor, lora_scale: float,
-           rope) -> tuple[torch.Tensor, torch.Tensor]:
+           rope, h: Optional[int] = None
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(q_nope, q_rope) of ``h`` heads (every head by default; a head
+    block where ``q_b`` is its columns)."""
     b, s, _ = x.shape
     qa = linear_apply(fz.get("q_a", {}), tr.get("q_a", {}), x, lora_scale)
     qa = L.rmsnorm_apply(tr["q_a_norm"], qa)
     q = linear_apply(fz.get("q_b", {}), tr.get("q_b", {}), qa, lora_scale)
-    q = q.reshape(b, s, spec.n_heads, spec.qk_dim)
+    q = q.reshape(b, s, h or spec.n_heads, spec.qk_dim)
     q_nope = q[..., : spec.qk_nope_dim]
     q_rope = L.apply_rope(q[..., spec.qk_nope_dim:], *rope)
     return q_nope, q_rope
@@ -284,8 +305,13 @@ def mla_apply(fz: dict, tr: dict, spec: MLASpec, x: torch.Tensor,
     """Training / prefill: per-head K and V materialized from the latent
     (q/k width ``qk_dim``, v width ``v_head_dim``). Returns (B, S, d)."""
     b, s, _ = x.shape
-    h = spec.n_heads
-    q_nope, q_rope = _mla_q(fz, tr, spec, x, lora_scale, rope)
+    # a sharded step's head block: q_b, k_b and v_b its columns, wo its
+    # rows (the latent is whole)
+    blk = pcontext.head_block(spec.n_heads)
+    h = spec.n_heads if blk is None else blk[1]
+    if blk is not None:
+        x = pcontext.heads_enter(x)
+    q_nope, q_rope = _mla_q(fz, tr, spec, x, lora_scale, rope, h)
     ckv, kr = _mla_latent(fz, tr, spec, x, lora_scale, rope)
     k_nope = linear_apply(fz.get("k_b", {}), tr.get("k_b", {}), ckv,
                           lora_scale).reshape(b, s, h, spec.qk_nope_dim)
@@ -300,7 +326,8 @@ def mla_apply(fz: dict, tr: dict, spec: MLASpec, x: torch.Tensor,
                             scale=spec.qk_dim ** -0.5,
                             q_offset=pcontext.seq_offset())
     o = o.reshape(b, s, h * spec.v_head_dim)
-    return linear_apply(fz.get("wo", {}), tr.get("wo", {}), o, lora_scale)
+    y = linear_apply(fz.get("wo", {}), tr.get("wo", {}), o, lora_scale)
+    return y if blk is None else pcontext.heads_exit(y)
 
 
 def mla_cache_init(spec: MLASpec, batch: int, max_seq: int,

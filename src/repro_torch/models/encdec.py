@@ -186,15 +186,22 @@ def _cross_apply(fz: dict, tr: dict, spec: A.GQASpec, x: torch.Tensor,
     ``memory``; no rope, no mask."""
     b, s, _ = x.shape
     dh = spec.head_dim
+    # a sharded step's head block: wq its columns, wo its rows
+    blk = pcontext.head_block(spec.hq)
+    hq = spec.hq if blk is None else blk[1]
+    if blk is not None:
+        x, memory = pcontext.heads_enter(x), pcontext.heads_enter(memory)
     q = linear_apply(fz.get("wq", {}), tr.get("wq", {}), x, sc)
     k = linear_apply(fz.get("wk", {}), tr.get("wk", {}), memory, sc)
     v = linear_apply(fz.get("wv", {}), tr.get("wv", {}), memory, sc)
-    q = q.reshape(b, s, spec.hq, dh)
+    q = q.reshape(b, s, hq, dh)
     k = k.reshape(b, memory.shape[1], spec.n_kv_heads, dh)
     v = v.reshape(b, memory.shape[1], spec.n_kv_heads, dh)
-    o = L.attention_chunked(q, k, v, causal=False, kv_chunk=kv_chunk)
-    o = o.reshape(b, s, spec.hq * dh)
-    return linear_apply(fz.get("wo", {}), tr.get("wo", {}), o, sc)
+    o = L.attention_chunked(q, k, v, causal=False, kv_chunk=kv_chunk,
+                            n_heads=spec.hq)
+    o = o.reshape(b, s, hq * dh)
+    y = linear_apply(fz.get("wo", {}), tr.get("wo", {}), o, sc)
+    return y if blk is None else pcontext.heads_exit(y)
 
 
 def _same(x):
@@ -203,7 +210,8 @@ def _same(x):
 
 def _enc_layer(cfg: EncDecConfig, fz: dict, tr: dict, x: torch.Tensor,
                rope, constrain=_same) -> torch.Tensor:
-    fz, tr = pcontext.params(fz), pcontext.params(tr)
+    fz = pcontext.params(fz, cfg.gqa.hq)
+    tr = pcontext.params(tr, cfg.gqa.hq)
     sc = cfg.lora.scale
     h = L.rmsnorm_apply(tr["norm1"], x)
     x = constrain(x + A.gqa_apply(fz["attn"], tr["attn"], cfg.gqa, h, sc,
@@ -214,7 +222,8 @@ def _enc_layer(cfg: EncDecConfig, fz: dict, tr: dict, x: torch.Tensor,
 
 def _dec_layer(cfg: EncDecConfig, fz: dict, tr: dict, x: torch.Tensor,
                memory: torch.Tensor, rope, constrain=_same) -> torch.Tensor:
-    fz, tr = pcontext.params(fz), pcontext.params(tr)
+    fz = pcontext.params(fz, cfg.gqa.hq)
+    tr = pcontext.params(tr, cfg.gqa.hq)
     sc = cfg.lora.scale
     h = L.rmsnorm_apply(tr["norm1"], x)
     x = constrain(x + A.gqa_apply(fz["attn"], tr["attn"], cfg.gqa, h, sc,

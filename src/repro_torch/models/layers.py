@@ -140,7 +140,8 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       prefix_len: Optional[torch.Tensor] = None,
                       kv_chunk: int = 1024,
                       scale: Optional[float] = None,
-                      q_offset: int = 0) -> torch.Tensor:
+                      q_offset: int = 0,
+                      n_heads: Optional[int] = None) -> torch.Tensor:
     """Online-softmax attention over KV chunks (the memory high-water
     is (B, H, Sq, kv_chunk)).
 
@@ -149,12 +150,15 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (prefix-LM), causal elsewhere. A query that no key of a chunk may
     see (a fully masked row) adds nothing for that chunk. q_offset: the
     absolute position of q[0] (a block of the sequence's queries).
+    n_heads: the attention's query heads where q holds a sharded step's
+    block of them: k and v repeat to ``n_heads`` and the ``heads``
+    constraint keeps the block's.
     """
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
-    k = _repeat_kv(k, h // hkv)
-    v = _repeat_kv(v, h // hkv)
+    k = _repeat_kv(k, (n_heads or h) // hkv)
+    v = _repeat_kv(v, (n_heads or h) // hkv)
     q = pcontext.constrain(q, "heads")
     k = pcontext.constrain(k, "heads")
     v = pcontext.constrain(v, "heads")
@@ -213,18 +217,19 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def local_attention_blocked(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, window: int,
-                            scale: Optional[float] = None) -> torch.Tensor:
+                            scale: Optional[float] = None,
+                            n_heads: Optional[int] = None) -> torch.Tensor:
     """Exact causal sliding-window attention (window W), O(S·2W).
 
     Each query block of length W attends to its own and the previous
     block, which covers every key within the causal window
     [pos-W+1, pos]. q: (B, S, H, D); k, v: (B, S, Hkv, D). S % W need
-    not hold (padded).
+    not hold (padded). n_heads: as :func:`attention_chunked`'s.
     """
     b, s, h, d = q.shape
     hkv = k.shape[2]
-    k = _repeat_kv(k, h // hkv)
-    v = _repeat_kv(v, h // hkv)
+    k = _repeat_kv(k, (n_heads or h) // hkv)
+    v = _repeat_kv(v, (n_heads or h) // hkv)
     sc = scale if scale is not None else d ** -0.5
     w = window
     nb = -(-s // w)

@@ -348,13 +348,8 @@ def _ffn_block(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
                         _mlp_spec(cfg), h, cfg.lora.scale)
         aux = None
     else:
-        # sequence parallelism: the dispatch order runs over whole rows,
-        # so the MoE takes the whole sequence and keeps this block
-        hf = pcontext.seq_gather(h)
-        with pcontext.whole_seq():
-            hf, aux = MOE.moe_apply(fz.get("moe", {}), tr.get("moe", {}),
-                                    cfg.moe, hf, cfg.lora.scale)
-        h = pcontext.seq_slice(hf)
+        h, aux = MOE.moe_apply(fz.get("moe", {}), tr.get("moe", {}),
+                               cfg.moe, h, cfg.lora.scale)
     return constrain(x + h), aux
 
 
@@ -364,40 +359,72 @@ def _whole_seq_layer(spec: LayerSpec) -> bool:
     return spec.mixer == "mamba" or spec.window is not None
 
 
+def _n_heads(cfg: LMConfig, spec: LayerSpec) -> Optional[int]:
+    """The (padded) query heads of a layer's attention; None for Mamba."""
+    if spec.mixer == "mamba":
+        return None
+    return cfg.mla.n_heads if spec.mixer == "mla" else cfg.gqa.hq
+
+
+def _window_heads(cfg: LMConfig, spec: LayerSpec) -> bool:
+    """Whether a sequence-parallel step runs this sliding-window layer's
+    attention on its head block of the whole sequence (then its output
+    is reduce-scattered onto the sequence block and its FFN runs on the
+    block), rather than the whole layer on the whole sequence."""
+    if spec.mixer == "mamba":
+        return False
+    with pcontext.whole_seq():
+        return pcontext.head_block(_n_heads(cfg, spec)) is not None
+
+
 def _apply_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
                  x: torch.Tensor, positions: torch.Tensor,
                  prefix_len: Optional[torch.Tensor] = None,
                  constrain=_same
                  ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    fz, tr = pcontext.params(fz), pcontext.params(tr)
+    heads = _n_heads(cfg, spec)
     if pcontext.seq_split() and _whole_seq_layer(spec):
         # sequence parallelism: the whole sequence, then this block
         xf = pcontext.seq_gather(x)
+        split = _window_heads(cfg, spec)
         with pcontext.whole_seq():
+            fz, tr = pcontext.params(fz, heads), pcontext.params(tr, heads)
             pf = torch.arange(xf.shape[1], device=xf.device)[None, :]
-            y, aux = _layer_body(cfg, spec, fz, tr, xf, pf, prefix_len,
-                                 constrain)
+            if split:
+                h = _mixer(cfg, spec, fz, tr, xf, pf, prefix_len)
+            else:
+                y, aux = _layer_body(cfg, spec, fz, tr, xf, pf, prefix_len,
+                                     constrain)
+        if split:
+            return _ffn_block(cfg, spec, fz, tr, x + h, constrain)
         return pcontext.seq_slice(y), aux
+    fz, tr = pcontext.params(fz, heads), pcontext.params(tr, heads)
     return _layer_body(cfg, spec, fz, tr, x, positions, prefix_len,
                        constrain)
+
+
+def _mixer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
+           x: torch.Tensor, positions: torch.Tensor,
+           prefix_len: Optional[torch.Tensor]) -> torch.Tensor:
+    """The norm and the mixer: the residual branch before the FFN."""
+    h = L.rmsnorm_apply(tr["norm1"], x)
+    rope = _rope_for(cfg, spec, positions)
+    if spec.mixer == "mamba":
+        return SSM.mamba_apply(fz["mix"], tr["mix"], cfg.mamba, h,
+                               cfg.lora.scale)
+    if spec.mixer == "mla":
+        return A.mla_apply(fz["attn"], tr["attn"], cfg.mla, h,
+                           cfg.lora.scale, rope, kv_chunk=cfg.kv_chunk)
+    return A.gqa_apply(fz["attn"], tr["attn"], cfg.gqa, h, cfg.lora.scale,
+                       rope, window=spec.window, causal=True,
+                       prefix_len=prefix_len, kv_chunk=cfg.kv_chunk)
 
 
 def _layer_body(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
                 x: torch.Tensor, positions: torch.Tensor,
                 prefix_len: Optional[torch.Tensor], constrain
                 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    h = L.rmsnorm_apply(tr["norm1"], x)
-    rope = _rope_for(cfg, spec, positions)
-    if spec.mixer == "mamba":
-        h = SSM.mamba_apply(fz["mix"], tr["mix"], cfg.mamba, h,
-                            cfg.lora.scale)
-    elif spec.mixer == "mla":
-        h = A.mla_apply(fz["attn"], tr["attn"], cfg.mla, h, cfg.lora.scale,
-                        rope, kv_chunk=cfg.kv_chunk)
-    else:
-        h = A.gqa_apply(fz["attn"], tr["attn"], cfg.gqa, h, cfg.lora.scale,
-                        rope, window=spec.window, causal=True,
-                        prefix_len=prefix_len, kv_chunk=cfg.kv_chunk)
+    h = _mixer(cfg, spec, fz, tr, x, positions, prefix_len)
     return _ffn_block(cfg, spec, fz, tr, x + h, constrain)
 
 
@@ -572,15 +599,24 @@ def _prefill_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
                    constrain=_same) -> tuple[torch.Tensor, dict]:
     """Like ``_apply_layer``, and also this layer's cache. A
     sliding-window layer ignores ``prefix_len``, as in the reference."""
-    fz, tr = pcontext.params(fz), pcontext.params(tr)
+    heads = _n_heads(cfg, spec)
     if pcontext.seq_split() and _whole_seq_layer(spec):
         # sequence parallelism: the whole sequence, then this block
         xf = pcontext.seq_gather(x)
+        split = _window_heads(cfg, spec)
         with pcontext.whole_seq():
+            fz, tr = pcontext.params(fz, heads), pcontext.params(tr, heads)
             pf = torch.arange(xf.shape[1], device=xf.device)[None, :]
-            y, cache = _prefill_body(cfg, spec, fz, tr, xf, pf, max_seq,
-                                     prefix_len, constrain)
+            if split:
+                h, cache = _prefill_attn(cfg, spec, fz, tr, xf, pf,
+                                         max_seq, prefix_len)
+            else:
+                y, cache = _prefill_body(cfg, spec, fz, tr, xf, pf, max_seq,
+                                         prefix_len, constrain)
+        if split:
+            return _ffn_block(cfg, spec, fz, tr, x + h, constrain)[0], cache
         return pcontext.seq_slice(y), cache
+    fz, tr = pcontext.params(fz, heads), pcontext.params(tr, heads)
     return _prefill_body(cfg, spec, fz, tr, x, positions, max_seq,
                          prefix_len, constrain)
 
@@ -589,15 +625,27 @@ def _prefill_body(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
                   x: torch.Tensor, positions: torch.Tensor, max_seq: int,
                   prefix_len: Optional[torch.Tensor], constrain
                   ) -> tuple[torch.Tensor, dict]:
-    sc = cfg.lora.scale
-    h = L.rmsnorm_apply(tr["norm1"], x)
-    rope = _rope_for(cfg, spec, positions)
     if spec.mixer == "mamba":
         # the SSD over the prompt; its recurrence's last state and the
         # last K - 1 pre-conv inputs are the decode cache
-        h, cache = SSM.mamba_forward(fz["mix"], tr["mix"], cfg.mamba, h, sc,
-                                     final_state=True)
+        h = L.rmsnorm_apply(tr["norm1"], x)
+        h, cache = SSM.mamba_forward(fz["mix"], tr["mix"], cfg.mamba, h,
+                                     cfg.lora.scale, final_state=True)
         return constrain(x + h), cache
+    h, cache = _prefill_attn(cfg, spec, fz, tr, x, positions, max_seq,
+                             prefix_len)
+    return _ffn_block(cfg, spec, fz, tr, x + h, constrain)[0], cache
+
+
+def _prefill_attn(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
+                  x: torch.Tensor, positions: torch.Tensor, max_seq: int,
+                  prefix_len: Optional[torch.Tensor]
+                  ) -> tuple[torch.Tensor, dict]:
+    """An attention layer's norm and attention over the prompt, and its
+    cache: (the residual branch, cache)."""
+    sc = cfg.lora.scale
+    h = L.rmsnorm_apply(tr["norm1"], x)
+    rope = _rope_for(cfg, spec, positions)
     if spec.mixer == "mla":
         ckv, kr = A._mla_latent(fz["attn"], tr["attn"], cfg.mla, h, sc, rope)
         # sequence parallelism: the cache holds every position
@@ -607,14 +655,13 @@ def _prefill_body(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
             F.pad(ckv, (0, 0, 0, hw)).to(torch.bfloat16), "cache3"),
             "kr": pcontext.constrain(
             F.pad(kr, (0, 0, 0, hw)).to(torch.bfloat16), "cache3")}
-        x = x + A.mla_apply(fz["attn"], tr["attn"], cfg.mla, h, sc, rope,
-                            kv_chunk=cfg.kv_chunk)
-        return _ffn_block(cfg, spec, fz, tr, x, constrain)[0], cache
+        return A.mla_apply(fz["attn"], tr["attn"], cfg.mla, h, sc, rope,
+                           kv_chunk=cfg.kv_chunk), cache
     q, k, v = A._qkv(fz["attn"], tr["attn"], cfg.gqa, h, sc, rope)
     s = x.shape[1]
     w = spec.window
     if w is not None and w < s:
-        o = L.local_attention_blocked(q, k, v, window=w)
+        o = L.local_attention_blocked(q, k, v, window=w, n_heads=cfg.gqa.hq)
         # the ring holds the last w tokens, token t in slot t % w
         kc = torch.roll(k[:, -w:], s % w, dims=1)
         vc = torch.roll(v[:, -w:], s % w, dims=1)
@@ -624,14 +671,14 @@ def _prefill_body(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
         k, v = pcontext.seq_gather(k), pcontext.seq_gather(v)
         o = L.attention_chunked(q, k, v, causal=True, prefix_len=prefix_len,
                                 kv_chunk=cfg.kv_chunk,
-                                q_offset=pcontext.seq_offset())
+                                q_offset=pcontext.seq_offset(),
+                                n_heads=cfg.gqa.hq)
         hw = max(0, max_seq - k.shape[1])
         kc = F.pad(k, (0, 0, 0, 0, 0, hw))
         vc = F.pad(v, (0, 0, 0, 0, 0, hw))
     cache = {"k": pcontext.constrain(kc.to(torch.bfloat16), "cache4"),
              "v": pcontext.constrain(vc.to(torch.bfloat16), "cache4")}
-    x = x + A._out(fz["attn"], tr["attn"], cfg.gqa, o, sc)
-    return _ffn_block(cfg, spec, fz, tr, x, constrain)[0], cache
+    return A._out(fz["attn"], tr["attn"], cfg.gqa, o, sc), cache
 
 
 def _head_logits(frozen: dict, train: dict, cfg: LMConfig,

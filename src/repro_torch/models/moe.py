@@ -164,53 +164,43 @@ def expert_counts(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
         0, flat_e, torch.ones_like(flat_e))
 
 
-def dispatch_plan(spec: MoESpec, idx: torch.Tensor, cap: int = None,
-                  before: torch.Tensor = None
+def _cumcount(keys: torch.Tensor, n: int) -> tuple:
+    """(each entry's place among the entries of its key, in order; the
+    entries' stable order by key; each key's count; each key's first
+    place in that order) of ``keys`` in [0, n)."""
+    counts = expert_counts(keys, n)
+    first = torch.cumsum(counts, 0) - counts
+    order = torch.argsort(keys, stable=True)
+    rank = torch.empty_like(keys)
+    rank[order] = torch.arange(keys.numel(), device=keys.device) \
+        - first[keys[order]]
+    return rank, order, counts, first
+
+
+def dispatch_plan(spec: MoESpec, idx: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Where each of a chunk's (token, slot) pairs goes. idx: (t, k)
     expert ids. Returns (pos (t, k): the pair's row in its expert's
     buffer, ``>= cap`` where it is dropped; src (E, cap): the token
-    filling buffer row (e, c), ``-1`` where the row is empty; cap).
-
-    A sharded step's rank holds part of a chunk: ``cap`` is then the
-    whole chunk's and ``before`` (E,) the pairs that ranks earlier in the
-    chunk route to each expert. ``pos`` is the pair's row in the whole
-    chunk's buffer; this rank's buffer holds its own kept pairs from row
-    0 (``pos - before[e]``)."""
+    filling buffer row (e, c), ``-1`` where the row is empty; cap)."""
     t, k = idx.shape
-    e = spec.n_experts
     dev = idx.device
     flat_e = idx.reshape(t * k)
-    order = torch.argsort(flat_e, stable=True)
-    counts = expert_counts(flat_e, e)
-    offsets = torch.cumsum(counts, 0) - counts
-    pos = torch.empty_like(flat_e)
-    pos[order] = torch.arange(t * k, device=dev) - offsets[flat_e[order]]
-    cap = _cap(spec, t) if cap is None else cap
-    room = counts
-    if before is not None:
-        room = torch.clamp(torch.minimum(counts, cap - before), min=0)
-        pos = pos + before[flat_e]
+    pos, order, counts, offsets = _cumcount(flat_e, spec.n_experts)
+    cap = _cap(spec, t)
     slot = offsets[:, None] + torch.arange(cap, device=dev)[None, :]
-    full = torch.arange(cap, device=dev)[None, :] < room[:, None]
+    full = torch.arange(cap, device=dev)[None, :] < counts[:, None]
     src = torch.where(full, order[slot.clamp(max=t * k - 1)] // k, -1)
     return pos.reshape(t, k), src, cap
 
 
 def _dispatch_chunk(fz: dict, tr: dict, spec: MoESpec, xt: torch.Tensor,
                     gates: torch.Tensor, idx: torch.Tensor,
-                    lora_scale: float, cap: int = None,
-                    chunk: int = None) -> torch.Tensor:
-    """Sort-dispatch one token chunk through the expert banks.
-    xt: (t, d); gates, idx: (t, k). Returns (t, d) in xt's dtype. In a
-    sharded step whose rank holds part of a ``chunk``-token dispatch
-    chunk, ``cap`` is that chunk's capacity."""
-    t, d = xt.shape
-    before = None
-    if chunk is not None and chunk > t:
-        before = pcontext.pair_offsets(
-            expert_counts(idx.reshape(-1), spec.n_experts), t, chunk)
-    pos, src, cap = dispatch_plan(spec, idx, cap, before)
+                    lora_scale: float) -> torch.Tensor:
+    """Sort-dispatch one token chunk through the expert banks (the
+    one-card step's dispatch). xt: (t, d); gates, idx: (t, k). Returns
+    (t, d) in xt's dtype."""
+    pos, src, cap = dispatch_plan(spec, idx)
     full = (src >= 0)[..., None]
     buf = pcontext.constrain(torch.where(full, xt[src.clamp(min=0)], 0),
                              "expert")
@@ -218,19 +208,106 @@ def _dispatch_chunk(fz: dict, tr: dict, spec: MoESpec, xt: torch.Tensor,
                              "expert")
     out = F.pad(out, (0, 0, 0, 1))                  # row cap: dropped
     keep = pos < cap
-    if before is not None:
-        pos = pos - before[idx]                     # this rank's rows
-    w = (gates * keep).to(out.dtype)                # (t, k)
-    rows = out[idx, torch.where(keep, pos, cap)]    # (t, k, d)
-    # fold the k slots one at a time, each token's in ascending expert
-    # order (the reference's sorted scatter-add order): no collisions
+    rows = out[idx, pos.clamp(max=cap)]             # (t, k, d)
+    return pcontext.constrain(_combine(spec, rows, gates, idx, keep),
+                              "tokens")
+
+
+def _combine(spec: MoESpec, rows: torch.Tensor, gates: torch.Tensor,
+             idx: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Each token's k expert rows (t, k, d), weighted by its gates where
+    kept, folded one slot at a time in ascending expert order (the
+    reference's sorted scatter-add order): no collisions."""
+    t, d = rows.shape[0], rows.shape[-1]
+    w = (gates * keep).to(rows.dtype)               # (t, k)
     slot_order = torch.argsort(idx, dim=1, stable=True)
-    ar = torch.arange(t, device=xt.device)
-    y = torch.zeros((t, d), dtype=out.dtype, device=xt.device)
+    ar = torch.arange(t, device=rows.device)
+    y = torch.zeros((t, d), dtype=rows.dtype, device=rows.device)
     for j in range(spec.top_k):
         sj = slot_order[:, j]
         y = y + rows[ar, sj] * w[ar, sj][:, None]
-    return pcontext.constrain(y, "tokens")
+    return y
+
+
+def _dispatch_split(fz: dict, tr: dict, spec: MoESpec, xt: torch.Tensor,
+                    gates: torch.Tensor, idx: torch.Tensor,
+                    lora_scale: float, sp) -> torch.Tensor:
+    """The dispatch of a sharded step whose ``model`` axis splits the
+    experts (``launch/spmd.py`` ``ExpertSplit`` ``sp``): xt (t, d), gates
+    and idx (t, k) of this rank's local tokens; the banks in ``fz`` /
+    ``tr`` this rank's block of experts. Returns (t, d)."""
+    w = next(iter(fz.get("wi", tr.get("wi", {})).values()))
+    if w.shape[0] != sp.eb:
+        raise ValueError(f"expert banks of {w.shape[0]} experts where "
+                         f"the split gives this rank {sp.eb}")
+    x_m, g_m, i_m = sp.mine(xt), sp.mine(gates), sp.mine(idx)
+    every = sp.gather(i_m)              # (members, tokens, k) expert ids
+    ys = []
+    for ch in sp.chunks:
+        args = (fz, tr, spec, sp, ch, x_m, g_m, i_m, every, lora_scale)
+        ys.append(_maybe_remat(_split_chunk, *args) if len(sp.chunks) > 1
+                  else _split_chunk(*args))
+    return sp.whole(torch.cat(ys))
+
+
+def _split_chunk(fz: dict, tr: dict, spec: MoESpec, sp, ch,
+                 x_m: torch.Tensor, g_m: torch.Tensor, i_m: torch.Tensor,
+                 every: torch.Tensor, lora_scale: float) -> torch.Tensor:
+    """One chunk of :func:`_dispatch_split`: the chunk's dispatch order
+    from every token's expert ids, this rank's (E/m, C) block of its
+    buffer filled from the ranks that hold the tokens, the banks, and
+    the rows back to their tokens. Returns this rank's tokens' outputs
+    in the chunk (hi - lo, d)."""
+    dev, d, k = x_m.device, x_m.shape[1], spec.top_k
+    own_p, own_l, at = sp.tensors(ch, dev)
+    pos, src, cap = dispatch_plan(spec, every[own_p, own_l])
+    eb, j, m, n = sp.eb, sp.j, sp.m_group, sp.n_members
+    # the member holding the token of each buffer row, and its place
+    p_row = torch.where(src >= 0, own_p[src.clamp(min=0)], -1)
+    l_row = own_l[src.clamp(min=0)]
+    p_b, l_b = p_row[j * eb:(j + 1) * eb], l_row[j * eb:(j + 1) * eb]
+    # this rank's block's rows whose tokens its batch block holds
+    fill = (p_b >= 0) & (p_b // m == sp.me // m)
+    idx_m = i_m[ch.lo:ch.hi]
+    pos_m = pos[at]
+    keep = pos_m < cap
+    if sp.mode == "a2a":
+        # a kept pair's slot: its place among the rows of one expert
+        # block that one member's tokens fill, in buffer order
+        e_all = spec.n_experts
+        key = torch.where(src >= 0, torch.arange(e_all, device=dev)[:, None]
+                          // eb * n + p_row, e_all // eb * n)
+        slot = _cumcount(key.reshape(-1), e_all // eb * n + 1
+                         )[0].reshape(e_all, cap)
+        width = min(ch.most * k, eb * cap)
+        dest = idx_m // eb
+        at_s = torch.where(keep, slot[idx_m, pos_m.clamp(max=cap - 1)],
+                           width)
+        rows_in = x_m[ch.lo:ch.hi, None].expand(-1, k, -1).reshape(-1, d)
+        send = x_m.new_zeros(m, width + 1, d).index_put(
+            (dest.reshape(-1), at_s.reshape(-1)), rows_in)
+        got = sp.a2a(send[:, :width])               # (m, width, d)
+        src_m = (p_b % m).clamp(min=0)
+        s_b = slot[j * eb:(j + 1) * eb].clamp(max=width - 1)
+        buf = torch.where(fill[..., None], got[src_m, s_b], 0)
+    else:
+        buf = torch.where(fill[..., None], sp.rep_enter(x_m)[l_b], 0)
+    buf = pcontext.constrain(sp.reduce(buf, cap), "expert")
+    out = sp.unreduce(_expert_ffn(fz, tr, spec, buf, lora_scale), cap)
+    if sp.mode == "a2a":
+        back = out.new_zeros(m, width + 1, d).index_put(
+            (torch.where(fill, src_m, 0).reshape(-1),
+             torch.where(fill, s_b, width).reshape(-1)),
+            out.reshape(-1, d))
+        got = sp.a2a(back[:, :width])
+        rows = torch.where(keep[..., None],
+                           got[dest, at_s.clamp(max=width - 1)], 0)
+    else:
+        ours = keep & (idx_m // eb == j)
+        rows = sp.rep_exit(torch.where(
+            ours[..., None], out[(idx_m - j * eb).clamp(0, eb - 1),
+                                 pos_m.clamp(max=cap - 1)], 0))
+    return _combine(spec, rows, g_m[ch.lo:ch.hi], idx_m, keep)
 
 
 def route(tr: dict, spec: MoESpec, xt: torch.Tensor
@@ -263,9 +340,9 @@ def moe_apply(fz: dict, tr: dict, spec: MoESpec, x: torch.Tensor,
     xt = pcontext.constrain(x.reshape(t, d), "tokens")
     gates, idx, probs = route(tr, spec, xt)
     counts = expert_counts(idx.reshape(-1), spec.n_experts)
-    # a sharded step's rank holds tokens [t0, t0 + t) of tg: the aux
-    # loss and the dispatch chunks are over all tg
-    t0, tg = pcontext.token_block(t)
+    # a sharded step's rank holds t of the tg tokens: the aux loss is
+    # over all tg
+    tg = pcontext.token_total(t)
     if tg == t:
         pe = probs.mean(0)
         fe = counts.to(torch.float32) / t
@@ -274,20 +351,19 @@ def moe_apply(fz: dict, tr: dict, spec: MoESpec, x: torch.Tensor,
         fe = pcontext.token_sum(counts.to(torch.float32)) / tg
     aux = spec.n_experts * torch.sum(pe * fe)
 
-    n_chunks = n_chunks_for(spec, tg)
-    tc = tg // n_chunks
-    if tc >= t:     # one chunk, maybe shared with other ranks
-        cap, chunk = (None, None) if tc == t else (_cap(spec, tc), tc)
-        y = _dispatch_chunk(fz, tr, spec, xt, gates, idx, lora_scale, cap,
-                            chunk)
+    # a sharded step splits the experts over its model axis
+    sp = pcontext.expert_split(spec, b, s)
+    n_chunks = n_chunks_for(spec, t)
+    if sp is not None:
+        y = _dispatch_split(fz, tr, spec, xt, gates, idx, lora_scale, sp)
+    elif n_chunks == 1:
+        y = _dispatch_chunk(fz, tr, spec, xt, gates, idx, lora_scale)
     else:
-        if t % tc or t0 % tc:
-            raise ValueError(f"a rank's {t} tokens at {t0} do not hold "
-                             f"whole {tc}-token dispatch chunks")
+        tc = t // n_chunks
         y = torch.cat([_maybe_remat(
             _dispatch_chunk, fz, tr, spec, xt[i * tc:(i + 1) * tc],
             gates[i * tc:(i + 1) * tc], idx[i * tc:(i + 1) * tc],
-            lora_scale) for i in range(t // tc)])
+            lora_scale) for i in range(n_chunks)])
     if spec.n_shared:
         y = y + mlp_apply(fz.get("shared", {}), tr.get("shared", {}),
                           _shared_spec(spec), xt, lora_scale)

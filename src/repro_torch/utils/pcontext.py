@@ -26,9 +26,27 @@ propagation. ``use_local(ctx)`` installs the object that supplies what
 such a computation needs from the other ranks; the model code reaches
 it through the functions below, each the identity without it:
 
-  params(tree)           a layer's parameters as full local tensors
+  params(tree, heads)    a layer's parameters as full local tensors
                          (all-gathered at use; their gradients reduce
-                         back to the owners' shards);
+                         back to the owners' shards), but for the blocks
+                         a split keeps: the dense MLP's (tensor
+                         parallelism), the attention's where its
+                         ``heads`` split, the MoE banks' where the
+                         experts split;
+  head_block(h)          (first head, heads) of this rank's block of an
+                         attention's query heads where they split over
+                         ``model`` (column-parallel q, row-parallel
+                         ``wo``), else None; heads_enter(x) /
+                         heads_exit(y) the input whose gradient adds
+                         over the blocks and the blocks' partial outputs
+                         summed (under sequence parallelism
+                         reduce-scattered onto the sequence block);
+  expert_split(spec, b, s)
+                         a MoE dispatch split over the mesh (experts
+                         over ``model``, each kept pair's row sent to its
+                         expert's owner; a sharded step's only
+                         dispatch), else None; token_ids(t) the places
+                         of the local tokens in the batch;
   layer_cache(tree, i)   layer ``i`` of a stacked cache tree as local
                          tensors, and a function that writes the updated
                          layer back into this rank's shards: a KV or
@@ -61,14 +79,9 @@ it through the functions below, each the identity without it:
                          opens a region where a layer without a
                          sequence-parallel form runs on the whole
                          sequence (these three are then the identity);
-  token_block(t)         (global token offset of this rank's first
-                         token, tokens over all ranks), for a MoE
-                         dispatch that must count the tokens of other
-                         ranks;
-  pair_offsets(counts, t, chunk)
-                         per expert, the (token, slot) pairs that ranks
-                         earlier in this rank's dispatch chunk route to
-                         it.
+  token_total(t)         the tokens of a MoE layer over all the ranks
+                         that split them, of which this rank holds
+                         ``t`` (its aux loss is over all of them).
 """
 from __future__ import annotations
 
@@ -107,8 +120,43 @@ def use_local(ctx: Any):
         _local = prev
 
 
-def params(tree: Any) -> Any:
-    return tree if _local is None else _local.params(tree)
+def params(tree: Any, heads: Optional[int] = None) -> Any:
+    """``heads``: the (padded) query heads of the layer's attention,
+    which keeps this rank's head block where they split."""
+    return tree if _local is None else _local.params(tree, heads)
+
+
+def local():
+    """The installed local-block context (None without one)."""
+    return _local
+
+
+def head_block(h: int) -> Optional[tuple[int, int]]:
+    """(first head, heads) of this rank's block of an attention's ``h``
+    query heads where they split over ``model``; None (every head)
+    without a split."""
+    return None if _local is None else _local.head_block(h)
+
+
+def heads_enter(x):
+    return x if _local is None else _local.heads_enter(x)
+
+
+def heads_exit(y):
+    return y if _local is None else _local.heads_exit(y)
+
+
+def expert_split(spec, b: int, s: int):
+    """A MoE layer's dispatch split over the mesh (``launch/spmd.py``
+    ``ExpertSplit``) for ``b`` x ``s`` local tokens; None without one."""
+    return None if _local is None else _local.expert_split(spec, b, s)
+
+
+def token_ids(t: int):
+    """The places of the ``t`` local tokens in the step's (micro)batch
+    (``arange(t)`` without a context)."""
+    import torch
+    return torch.arange(t) if _local is None else _local.token_ids(t)
 
 
 def layer_cache(tree: dict, i: int) -> tuple[dict, Callable[[], None]]:
@@ -176,14 +224,5 @@ def whole_seq():
         yield
 
 
-def token_block(t: int) -> tuple[int, int]:
-    return (0, t) if _local is None else _local.token_block(t)
-
-
-def pair_offsets(counts, t: int, chunk: int):
-    """``counts``: (E,) pairs this rank routes to each expert in a
-    dispatch chunk of ``chunk`` tokens starting at its local token
-    ``t``; zeros without a context."""
-    if _local is None:
-        return counts * 0
-    return _local.pair_offsets(counts, t, chunk)
+def token_total(t: int) -> int:
+    return t if _local is None else _local.token_total(t)

@@ -48,9 +48,8 @@ def test_pcontext_is_a_noop_without_callback():
     tree = {"w": x, "b": [x]}
     assert pcontext.params(tree) is tree
     assert pcontext.batch_sum(x) is x
-    assert pcontext.token_block(7) == (0, 7)
-    assert torch.equal(pcontext.pair_offsets(torch.tensor([3, 1]), 4, 8),
-                       torch.zeros(2, dtype=torch.long))
+    assert pcontext.token_total(7) == 7
+    assert pcontext.expert_split(None, 2, 3) is None
     stack = {"k": torch.randn(3, 2, 5)}
     cache, put_back = pcontext.layer_cache(stack, 1)
     assert cache["k"].data_ptr() == stack["k"][1].data_ptr()

@@ -23,9 +23,10 @@
   and caches as the one-card steps (the adapters' ``b`` factors moved
   off zero, as tests/test_torch_steps.py does): train (minitron-4b and
   deepseek-v2-236b with ``seq_parallel`` off and on, deepseek-v2-236b on
-  the one-card step's MoE routes, mamba2-370m sequence-parallel,
-  seamless-m4t-medium, all at microbatch 2; minitron-4b at microbatch 4,
-  its 2 rows over data and its MLPs tensor-parallel), prefill (minitron-4b,
+  the one-card step's MoE routes, mamba2-370m and gemma3-4b
+  sequence-parallel, seamless-m4t-medium, all at microbatch 2;
+  minitron-4b at microbatch 4, its 2 rows over data and its MLPs
+  tensor-parallel), prefill (minitron-4b,
   gemma3-4b sequence-parallel, its sliding-window layers on the whole
   sequence, paligemma-3b) and decode (gemma3-4b at batch 8 and 1,
   deepseek-v2-236b, mamba2-370m, seamless-m4t-medium; the MLPs of the
@@ -36,7 +37,11 @@
   (new - old) within ``UPDATE_L2`` (0.4) relative L2 a leaf (the
   tolerances of tests/test_torch_steps.py: the batch split changes only
   the order of fp32 sums, which AdamW's first step, about lr * sign(g),
-  can turn into a full-lr difference on a near-zero gradient element);
+  can turn into a full-lr difference on a near-zero gradient element),
+  and on every leaf no gradient element whose sign the sharded step
+  flips exceeds the leaf's gradient error (``flip``); gemma3-4b's
+  sequence-parallel cell is held by ``flip`` instead of ``UPDATE_L2``
+  (``SIGN_ONLY``: two near-zero elements of a 32-element ``q_norm``);
   logits and caches within ``SERVE_REL`` (4e-2, tests/test_torch_lm.py's
   REL) of their max: prefill runs the same row-wise arithmetic on each
   rank's rows (measured 0); split-KV decode takes each block's share of
@@ -44,7 +49,19 @@
   products, which moves a bf16 rounding by an ulp (measured up to
   3.9e-3 on seamless-m4t-medium's smoke config). Donation:
   a train step's trained tree and optimizer state and a decode step's
-  caches are the arguments' local storage after the step.
+  caches are the arguments' local storage after the step. Each cell's
+  ``head_axes`` / ``expert_axes`` and the blocks rank 0 used: the heads
+  over model where it splits no rows (train at microbatch 4, prefill,
+  gemma3-4b's sliding-window layers under ``seq_parallel``), the experts
+  of deepseek-v2-236b and llama4-maverick-400b-a17b in every step (their
+  train at microbatch 4, prefill and batch-1 decode, on the one-card
+  routes, are cells too). The split MoE dispatch (``moe._dispatch_split``)
+  equals the one-rank ``_dispatch_chunk`` bit for bit on skewed expert
+  ids that overflow the capacity, in seven layouts (``DISPATCH``). The
+  exchanges' autograd Functions over each mesh axis (``spmd._AllToAll``,
+  ``_ReduceScatter``: the dispatch's all-to-all, a sequence-parallel
+  head block's reduce-scatter) move what they should and their
+  gradients are their adjoints' (the all-to-all back, the all-gather).
 * ``launch/train.py --mesh host`` runs on a one-rank gloo group with the
   one-card run's losses, and ``--mesh single`` refuses a group that is
   not 256 ranks.
@@ -215,7 +232,41 @@ GLOO_CELLS = [("minitron-4b", "train_4k", 2, False, None),
               ("gemma3-4b", "decode_32k", 1, False, 1),
               ("deepseek-v2-236b", "decode_32k", 1, False, None),
               ("mamba2-370m", "decode_32k", 1, False, None),
-              ("seamless-m4t-medium", "decode_32k", 1, False, None)]
+              ("seamless-m4t-medium", "decode_32k", 1, False, None),
+              ("deepseek-v2-236b", "train_4k", 4, False, None),
+              ("llama4-maverick-400b-a17b", "train_4k", 4, False, None),
+              ("deepseek-v2-236b", "prefill_32k", 1, False, None),
+              ("deepseek-v2-236b", "decode_32k", 1, False, 1),
+              ("gemma3-4b", "train_4k", 2, True, None)]
+
+# cells whose AdamW update is held element by element (``flip``) rather
+# than by its relative L2 a leaf: gemma3-4b's sequence-parallel train
+# step, whose 32-element ``q_norm`` leaves hold gradient elements of
+# ~2e-7 (1e-3 of the leaf's norm), below the leaf's gradient error over
+# the head blocks' reduce-scatter (~3e-6); their signs, and so AdamW's
+# first step there (about lr * sign(g)), may differ, and two of 32 such
+# elements give the leaf a relative L2 of 0.5
+SIGN_ONLY = [("gemma3-4b", "train_4k", 2, True, None)]
+
+# the split MoE dispatch against the one-rank one on the same expert ids:
+# (name, global rows, sequence, row axes, sequence axes, chunk tokens)
+# (name, global rows, sequence, row axes, sequence axes, chunk tokens,
+#  and what the split makes of it: mode, chunks held within one batch
+#  block, model sharing the rank's tokens, this rank's chunks)
+DISPATCH = [("rows over data and model", 4, 8, ["data", "model"], [], None,
+             "a2a", False, False, 1),
+            ("sequence blocks over model", 2, 8, ["data"], ["model"], None,
+             "a2a", False, False, 1),
+            ("model shares the rows' tokens", 2, 16, ["data"], [], None,
+             "a2a", False, True, 1),
+            ("every model rank all tokens", 1, 33, [], [], None,
+             "rep", True, False, 1),
+            ("all tokens, chunk over data", 2, 17, ["data"], [], None,
+             "rep", False, False, 1),
+            ("chunks within a batch block", 4, 16, ["data"], [], 16,
+             "a2a", True, True, 2),
+            ("chunks within rows over model", 4, 16, ["data", "model"], [],
+             32, "a2a", True, False, 1)]
 
 GLOO_BODY = """
 import hashlib
@@ -246,8 +297,7 @@ class Routes:
         elif not self.force:
             self.rec.append(idx)
         else:
-            t0, _ = pcontext.token_block(xt.shape[0])
-            idx = self.rec[self.i][t0:t0 + xt.shape[0]]
+            idx = self.rec[self.i][pcontext.token_ids(xt.shape[0])]
             self.i += 1
         self.memo[key] = idx
         vals = probs.gather(1, idx)
@@ -304,7 +354,8 @@ for arch, shape, mb, sp, batch in json.loads(os.environ["CELLS"]):
     rec = {"cell": [arch, shape, sp, batch], "step": u["step"],
            "routes": len(routes.rec), "forced": routes.i,
            "axes": [list(s["batch_axes"]), list(s["seq_axes"]),
-                    list(s["tp_axes"])]}
+                    list(s["tp_axes"])],
+           "split": [list(s["head_axes"]), list(s["expert_axes"])]}
     if u["step"] == "train":
         rec["loss"] = [float(uo[2]["loss"]), float(so[2]["loss"])]
         rec["l2"] = max(rel_l2(a, full(b)) for a, b in zip(
@@ -312,6 +363,17 @@ for arch, shape, mb, sp, batch in json.loads(os.environ["CELLS"]):
             if a.dtype.is_floating_point)
         rec["update"] = max(rel_l2(n - o, full(m) - o) for o, n, m in zip(
             old, tree_flatten(uo[0])[0], tree_flatten(so[0])[0]))
+        # the largest one-card gradient element whose sign the sharded
+        # step flips, over its leaf's gradient error (at most 1: only
+        # elements within the sums' rounding may flip)
+        rec["flip"] = 0.0
+        for a, b in zip(tree_flatten(uo[1]["mu"])[0],
+                        tree_flatten(so[1]["mu"])[0]):
+            a, b = a.double(), full(b).double()
+            flip = torch.sign(a) != torch.sign(b)
+            if flip.any():
+                rec["flip"] = max(rec["flip"], float(
+                    a.abs()[flip].max() / (a - b).norm()))
         rec["count"] = int(full(so[1]["count"]))
         out_ptrs = [t.to_local().data_ptr() for t in
                     tree_flatten((so[0], so[1]))[0]]
@@ -324,10 +386,91 @@ for arch, shape, mb, sp, batch in json.loads(os.environ["CELLS"]):
         out_ptrs = [t.to_local().data_ptr() for t in
                     tree_flatten(so[1])[0]] if u["step"] == "decode" else []
     rec["donated"] = ptrs == out_ptrs
+    rec["log"] = {k: sorted(list(x) for x in v)
+                  for k, v in s["split_log"].items()}
     rec["s"] = time.perf_counter() - t0
     results.append(rec)
+dispatch = []
+for name, rows, seq, axes, seq_axes, chunk, *_ in json.loads(
+        os.environ["DISPATCH"]):
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.utils.sharding import tree_shardings
+    spec = MOE.MoESpec(d_model=16, d_ff=32, n_experts=8, top_k=2,
+                       capacity_factor=1.0,
+                       max_chunk_tokens=chunk or 65536)
+    g = torch.Generator().manual_seed(11)
+    fz, tr = MOE.moe_init(g, spec, "lora", LoRAConfig(rank=4, alpha=8.0),
+                          device="cpu")
+    tr = {k: {n: (v + 0.05 * torch.randn(v.shape, generator=g)
+                  if n == "b" else v) for n, v in d.items()}
+          for k, d in tr.items()}
+    t = rows * seq
+    x = torch.randn(t, 16, generator=g).to(torch.bfloat16)
+    # skewed ids: 3 of 4 tokens put expert 0 first, so its rows overflow
+    idx = torch.stack([torch.randperm(8, generator=g)[:2]
+                       for _ in range(t)])
+    first = torch.rand(t, generator=g) < 0.75
+    idx = torch.where(first[:, None] & (idx == 0), idx[:, :1], idx)
+    idx[:, 0] = torch.where(first, 0, idx[:, 0])
+    idx[:, 1] = torch.where(first & (idx[:, 1] == 0), 1 + (idx[:, 0] % 7),
+                            idx[:, 1])
+    gates = torch.softmax(torch.randn(t, 2, generator=g), -1)
+    n_chunks = MOE.n_chunks_for(spec, t)
+    tc = t // n_chunks
+    want = torch.cat([MOE._dispatch_chunk(
+        fz, tr, spec, x[i * tc:(i + 1) * tc], gates[i * tc:(i + 1) * tc],
+        idx[i * tc:(i + 1) * tc], 2.0) for i in range(n_chunks)])
+    pos = torch.cat([MOE.dispatch_plan(spec, idx[i * tc:(i + 1) * tc])[0]
+                     for i in range(n_chunks)])
+    dropped = int((pos >= MOE._cap(spec, tc)).sum())
+    lfz, ltr = MOE.moe_logical(spec, "lora", False)
+    dfz = TS._distribute(fz, tree_shardings(lfz, fz, mesh), mesh)
+    dtr = TS._distribute(tr, tree_shardings(ltr, tr, mesh), mesh)
+    ctx = spmd.LocalStep(mesh, axes, seq_axes, seq_len=seq)
+    b = rows // ctx.n_rows
+    s_ = seq // ctx.seq_n
+    ids = ctx.token_ids(b * s_)
+    with pcontext.use_local(ctx):
+        lf = ctx.params({"moe": dfz})["moe"]
+        lt = ctx.params({"moe": dtr})["moe"]
+        sp_ = ctx.expert_split(spec, b, s_)
+        got = MOE._dispatch_split(lf, lt, spec, x[ids], gates[ids],
+                                  idx[ids], 2.0, sp_)
+    d = (got.double() - want[ids].double()).abs().max()
+    dispatch.append({"name": name, "err": float(d),
+                     "scale": float(want.double().abs().max()),
+                     "dropped": dropped, "mode": sp_.mode,
+                     "local": sp_.local, "chunks": len(sp_.chunks),
+                     "shared": sp_.shared,
+                     "cap": [list(x) for x in sorted(ctx.log["capacity"])]})
+adjoints = []
+for ax in ("data", "model"):
+    g = torch.Generator().manual_seed(5)
+    xs = [torch.randn(4, 3, generator=g) for _ in range(4)]
+    ys = [torch.randn(4, 3, generator=g) for _ in range(4)]
+    peers = dist.get_process_group_ranks(mesh.get_group(ax))
+    i = peers.index(RANK)
+    x = xs[RANK].clone().requires_grad_(True)
+    out = spmd._AllToAll.apply(x, mesh, ax)
+    grad, = torch.autograd.grad((out * ys[RANK]).sum(), x)
+    # block j of the output is peer j's block i, and back
+    want = torch.cat([xs[p].chunk(2)[i] for p in peers])
+    want_g = torch.cat([ys[p].chunk(2)[i] for p in peers])
+    x = xs[RANK].clone().requires_grad_(True)
+    out_rs = spmd._ReduceScatter.apply(x, mesh, ax, 0)
+    grad_rs, = torch.autograd.grad((out_rs * ys[RANK][:2]).sum(), x)
+    adjoints.append({
+        "axis": ax,
+        "a2a": float((out - want).abs().max()),
+        "a2a_grad": float((grad - want_g).abs().max()),
+        "rs": float((out_rs - sum(xs[p].chunk(2)[i] for p in peers)
+                     ).abs().max()),
+        "rs_grad": float((grad_rs - torch.cat(
+            [ys[p][:2] for p in peers])).abs().max())})
 if RANK == 0:
-    json.dump(results, open(os.path.join(OUT, "results.json"), "w"))
+    json.dump({"cells": results, "dispatch": dispatch,
+               "adjoints": adjoints},
+              open(os.path.join(OUT, "results.json"), "w"))
 """
 
 
@@ -335,13 +478,17 @@ if RANK == 0:
 def gloo_results(tmp_path_factory):
     out = spawn_ranks(GLOO_BODY, 4, tmp_path_factory.mktemp("steps_gloo"),
                       timeout=700, env={"CUT": json.dumps(CUT),
-                                        "CELLS": json.dumps(GLOO_CELLS)})
+                                        "CELLS": json.dumps(GLOO_CELLS),
+                                        "DISPATCH": json.dumps(DISPATCH)})
     return json.load(open(out / "results.json"))
+
+
+MOE_ARCHS = ("deepseek-v2-236b", "llama4-maverick-400b-a17b")
 
 
 @pytest.mark.parametrize("i", range(len(GLOO_CELLS)))
 def test_sharded_step_matches_one_card(gloo_results, i):
-    rec = gloo_results[i]
+    rec = gloo_results["cells"][i]
     arch, shape, mb, sp, batch = GLOO_CELLS[i]
     assert rec["cell"] == [arch, shape, sp, batch]
     # sequence parallelism splits the sequence over model and the rows
@@ -353,19 +500,64 @@ def test_sharded_step_matches_one_card(gloo_results, i):
             [["data", "model"], [], []] if mb == 2 else
             [rows, [], ["model"]])
     assert rec["axes"] == want, rec
+    # the attention heads split over model where it splits no rows (not
+    # in decode; under sequence parallelism only gemma3-4b's
+    # sliding-window layers), the experts wherever they divide it; rank
+    # 0 holds the first block of each
+    free = arch == "gemma3-4b" if sp else "model" not in want[0]
+    heads = rec["step"] != "decode" and arch != "mamba2-370m" and free
+    experts = arch in MOE_ARCHS
+    assert rec["split"] == [["model"] if heads else [],
+                            ["model"] if experts else []], rec
+    if heads:
+        h = 8 if arch == "minitron-4b" else 4
+        assert rec["log"]["heads"] == [[h, 0, h // 2]], rec
+    if experts:
+        mode = "rep" if batch == 1 else "a2a"
+        assert rec["log"]["experts"] == [[0, 4, mode, 1]], rec
+    else:
+        assert "experts" not in rec["log"], rec
     if rec["step"] == "train":
         lu, ls = rec["loss"]
         assert abs(ls - lu) <= LOSS_REL * abs(lu), rec
         assert rec["l2"] <= GRAD_L2, rec
-        assert rec["update"] <= UPDATE_L2, rec
+        assert rec["flip"] <= 1.0, rec
+        if list(GLOO_CELLS[i]) not in [list(c) for c in SIGN_ONLY]:
+            assert rec["update"] <= UPDATE_L2, rec
         assert rec["count"] == 1
     else:
         assert rec["n"][0] == rec["n"][1], rec
         assert rec["serve"] <= SERVE_REL, rec
-    if GLOO_CELLS[i][0] == "deepseek-v2-236b":
+    if arch in MOE_ARCHS:
         # every MoE call of the sharded step ran on the recorded routes
         assert rec["routes"] > 0 and rec["forced"] == rec["routes"], rec
     assert rec["donated"] or rec["step"] == "prefill", rec
+
+
+@pytest.mark.parametrize("i", range(len(DISPATCH)))
+def test_split_dispatch_matches_one_rank(gloo_results, i):
+    """``moe._dispatch_split`` at 4 ranks on a (2, 2) mesh equals the
+    one-rank ``_dispatch_chunk`` on the same tokens, gates and expert
+    ids, bit for bit, where the capacity drops pairs (ids skewed onto
+    expert 0): each rank's tokens' outputs. The layouts: rows over both
+    axes, sequence blocks, model sharing a rank's tokens (the tokens
+    rule), every model rank holding the same tokens (``rep``), a chunk
+    across the data ranks (its capacity rows split over data) and chunks
+    held within a batch block."""
+    rec = gloo_results["dispatch"][i]
+    name, *_, mode, local, shared, chunks = DISPATCH[i]
+    assert rec["name"] == name
+    assert rec["dropped"] > 0, rec
+    assert rec["err"] == 0.0 and rec["scale"] > 0, rec
+    assert [rec["mode"], rec["local"], rec["shared"], rec["chunks"]] == \
+        [mode, local, shared, chunks], rec
+
+
+@pytest.mark.parametrize("axis", ["data", "model"])
+def test_exchange_functions_and_adjoints(gloo_results, axis):
+    rec = next(r for r in gloo_results["adjoints"] if r["axis"] == axis)
+    assert rec["a2a"] == 0.0 and rec["a2a_grad"] == 0.0, rec
+    assert rec["rs"] <= 1e-6 and rec["rs_grad"] == 0.0, rec
 
 
 # ---------------------------------------------------------------------------
