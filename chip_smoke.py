@@ -197,10 +197,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
      three and nemotron-4-340b's prefill_32k (which must not fit one
      card), and at the card's cuts, in spawned processes while the card
      runs the same step programs from ``build_cell`` at gemma3-4b's and
-     seamless-m4t-medium's published configs (full width and depth,
-     random weights from seed 0, r = 32), published seq lengths and
-     microbatch counts, the batch cut (``LM_STEP_BATCH``; gemma3-4b's
-     long_500k uncut): each step cold and warm, then once more under
+     seamless-m4t-medium's published configs (full width and depth but
+     the train steps, cut to ``LM_STEP_DEPTH``; random
+     weights from seed 0, r = 32), published seq lengths and microbatch
+     counts, the batch cut (``LM_STEP_BATCH``; gemma3-4b's long_500k
+     uncut), the trace at the same cuts: each step cold and warm, then
+     once more under
      ``analyze_step``, whose FLOPs on the card must equal the dry run's
      on meta, the dry run's peak under ``LM_STEP_PEAK_MAX`` and the
      measured peak within ``LM_STEP_PEAK_REL`` of it; perf_iter's
@@ -231,14 +233,17 @@ Phases, each of which raises on failure (the script then exits nonzero):
      the (1, 1) host mesh (``LM_MESH_CELLS``): ``build_cell(..., mesh)``
      for gemma3-4b train_4k (seq_parallel), prefill_32k and decode_32k
      at full width and depth, deepseek-v2-236b decode at depth 1,
-     mamba2-370m and seamless-m4t-medium decode; each step held to the
-     one-card step on the same tensors within ``LM_MESH_TOL``, both
-     walls printed, the donated buffers the same storage after the step,
-     no kernel launched; each cell prints its head and expert blocks and
-     the collectives of its cold call by kind: at one rank the heads of
-     every train and prefill step split into one block of all of them,
-     deepseek-v2-236b's experts go through the all-to-all dispatch over
-     a one-rank group (``_split_ran``), every error still 0;
+     mamba2-370m and seamless-m4t-medium decode, mamba2-370m train_4k;
+     each step held to the one-card step on the same tensors within
+     ``LM_MESH_TOL``, both walls printed, the donated buffers the same
+     storage after the step, no kernel launched; each cell prints its
+     head, Mamba head, vocab and expert blocks and the collectives of
+     its cold call by kind: at one rank the attention heads of every
+     train and prefill step split into one block of all of them, the
+     Mamba heads of every Mamba cell and the vocab of every cell
+     without ``seq_parallel`` likewise, deepseek-v2-236b's experts go
+     through the all-to-all dispatch over a one-rank group
+     (``_split_ran``);
   5. time each kernel with CUDA events at its path's shapes beside its
      plain version and its bound (B1 and B2, and the ``flat_rows``
      staging before B1, at ResNet-8's and ResNet-18's layouts;
@@ -527,6 +532,13 @@ LM_STEP_BATCH = {("gemma3-4b", "train_4k"): 4,
                  ("seamless-m4t-medium", "train_4k"): 8,
                  ("seamless-m4t-medium", "prefill_32k"): 1,
                  ("seamless-m4t-medium", "decode_32k"): 8}
+# the layers a cell's step keeps (an enc-dec's in each stack), so that
+# the whole script stays under 900 s beside phase 4h's mamba2-370m train
+# cell: the two train steps, whose three calls each led the phase (85 s
+# and 33 s at full depth), 3 of seamless-m4t-medium's 12 + 12 and 8 of
+# gemma3-4b's 34 (a group of 5 local and 1 global layer, 2 local)
+LM_STEP_DEPTH = {("seamless-m4t-medium", "train_4k"): 3,
+                 ("gemma3-4b", "train_4k"): 8}
 LM_STEP_PEAK_MAX = 60e9
 # the card's peak (max_memory_allocated over a cold step, less what was
 # allocated before the cell's arguments) against the dry run's peak_bytes
@@ -552,14 +564,16 @@ LM_DRYRUN_WORKERS = 6
 # rows), prefill_32k (1 row) and decode_32k (8 rows), full width and
 # depth; deepseek-v2-236b decode at its published width, depth 1 (MLA's
 # latent cache, the MoE dispatch); mamba2-370m and seamless-m4t-medium
-# decode at full depth (8 rows). (arch, shape, batch, depth or None,
-# seq_parallel)
+# decode at full depth (8 rows); mamba2-370m train_4k at full depth (4
+# rows: the Mamba head split and the vocab split of the loss). (arch,
+# shape, batch, depth or None, seq_parallel)
 LM_MESH_CELLS = (("gemma3-4b", "train_4k", 4, None, True),
                  ("gemma3-4b", "prefill_32k", 1, None, False),
                  ("gemma3-4b", "decode_32k", 8, None, False),
                  ("deepseek-v2-236b", "decode_32k", 8, 1, False),
                  ("mamba2-370m", "decode_32k", 8, None, False),
-                 ("seamless-m4t-medium", "decode_32k", 8, None, False))
+                 ("seamless-m4t-medium", "decode_32k", 8, None, False),
+                 ("mamba2-370m", "train_4k", 4, None, False))
 # the loss relative, each trained leaf and AdamW moment in relative L2,
 # logits and caches of their max: tests/test_torch_lm.py's LOSS_REL,
 # GRAD_L2 and REL, which phase 4f's and the LM phases' checks use
@@ -5191,20 +5205,45 @@ def lm_a9d_phase(dev, card: str) -> dict:
     return out
 
 
+def _at_depth(cfg, depth):
+    """``cfg`` with ``depth`` layers (an enc-dec's in each stack); as it
+    is where ``depth`` is None."""
+    import dataclasses
+    if depth is None:
+        return cfg
+    if hasattr(cfg, "n_enc_layers"):
+        return dataclasses.replace(cfg, n_enc_layers=depth,
+                                   n_dec_layers=depth)
+    return dataclasses.replace(cfg, n_layers=depth)
+
+
+def _dryrun_job(arch: str, shape: str, batch, depth):
+    """``dryrun_lib.run_cell`` on meta, the arch cut to ``depth`` layers
+    (None: as published)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun_lib
+    e = registry.REGISTRY[arch]
+    cfg = _at_depth(e.full(), depth)
+    registry.REGISTRY[arch] = dataclasses.replace(e, full=lambda: cfg)
+    try:
+        return dryrun_lib.run_cell(arch, shape, save=False, batch=batch)
+    finally:
+        registry.REGISTRY[arch] = e
+
+
 @contextlib.contextmanager
 def _dryrun_pool(jobs):
-    """``dryrun_lib.run_cell`` on meta for each (arch, shape, batch) job,
+    """:func:`_dryrun_job` for each (arch, shape, batch, depth) job,
     started in ``LM_DRYRUN_WORKERS`` spawned processes at once; yields a
     function that waits for the records, in the jobs' order. Leaving the
     block stops the processes."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
-    from repro_torch.launch import dryrun_lib
     with ProcessPoolExecutor(min(LM_DRYRUN_WORKERS, len(jobs)),
                              mp_context=multiprocessing.get_context(
                                  "spawn")) as ex:
-        futs = [ex.submit(dryrun_lib.run_cell, a, s, save=False, batch=b)
-                for a, s, b in jobs]
+        futs = [ex.submit(_dryrun_job, *job) for job in jobs]
         try:
             yield lambda: [f.result() for f in futs]
         finally:
@@ -5254,9 +5293,10 @@ def _check_step_out(step: str, out, built: dict) -> float:
 
 def lm_step_cell(arch: str, shape: str, batch, dev) -> dict:
     """One cell's step on the card at its published shapes, the batch cut
-    to ``batch``: init from seed 0, a cold and a warm step (the peak over
-    the cold one, less what was allocated before the arguments), then
-    the step once more under ``analyze_step``."""
+    to ``batch`` (and the depth to ``LM_STEP_DEPTH``'s): init from seed
+    0, a cold and a warm step (the peak over the cold one, less what was
+    allocated before the arguments), then the step once more under
+    ``analyze_step``."""
     import torch
     from repro_torch.configs import registry
     from repro_torch.launch import steps
@@ -5265,8 +5305,10 @@ def lm_step_cell(arch: str, shape: str, batch, dev) -> dict:
     _free_cuda()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    built = steps.build_cell(registry.get(arch), shape, batch=batch,
-                             device=dev)
+    entry = registry.get(arch)
+    built = steps.build_cell(
+        entry, shape, batch=batch, device=dev, cfg_override=_at_depth(
+            entry.full(), LM_STEP_DEPTH.get((arch, shape))))
     torch.cuda.synchronize()
     r = {"init_s": time.perf_counter() - t0, "walls": [],
          "frozen_bytes": tree_bytes(built["args"][0])}
@@ -5383,8 +5425,9 @@ def lm_step_phase(dev, card: str) -> dict:
     from repro_torch.launch import dryrun
     t_phase = time.perf_counter()
     out: dict = {"cells": {}}
-    jobs = [(a, s, None) for a, s in LM_DRYRUN_CELLS] + [
-        (a, s, b) for (a, s), b in LM_STEP_BATCH.items()]
+    jobs = [(a, s, None, None) for a, s in LM_DRYRUN_CELLS] + [
+        (a, s, b, LM_STEP_DEPTH.get((a, s)))
+        for (a, s), b in LM_STEP_BATCH.items()]
     with _dryrun_pool(jobs) as records:
         for (arch, shape), batch in LM_STEP_BATCH.items():
             out["cells"][(arch, shape)] = lm_step_cell(arch, shape, batch,
@@ -5421,8 +5464,11 @@ def lm_step_phase(dev, card: str) -> dict:
         t = pred["roofline"]
         bound = max(t["t_compute_s"], t["t_memory_s"])
         eager = max(t["t_compute_s"], t["t_memory_eager_s"])
+        depth = LM_STEP_DEPTH.get((arch, shape))
         print(f"lm step {arch} {shape} batch {pred['batch']} (published "
-              f"{published[(arch, shape)]['batch']}), microbatch "
+              f"{published[(arch, shape)]['batch']})"
+              + (f", depth {depth} a stack" if depth else "")
+              + f", microbatch "
               f"{pred['plan']['microbatch']} ({card}): init "
               f"{r['init_s']:.2f} s; step {1e3 * r['walls'][0]:.1f} ms cold "
               f"/ {1e3 * r['walls'][1]:.1f} warm"
@@ -5992,22 +6038,33 @@ def lm_mesh_cell(arch: str, shape: str, batch: int, depth, sp: bool, mesh,
     r["n_donated"] = len(donated)
     r["step"] = built["step"]
     r["split"] = {k: sorted(v) for k, v in built["split_log"].items()}
-    r["axes"] = {k: built[k] for k in ("head_axes", "expert_axes")}
+    r["axes"] = {k: built[k] for k in ("head_axes", "ssm_axes",
+                                       "vocab_axes", "expert_axes")}
     del built, fn1, args1, one, shard, outs
     _free_cuda()
     return r
 
 
-def _split_ran(arch: str, r: dict) -> bool:
-    """Whether a phase 4h cell took the head and expert splits where
-    they apply at one rank: the heads of every train and prefill cell
-    (a block of all of them), the experts of deepseek-v2-236b through
-    the all-to-all; and no head split in a decode step."""
+def _split_ran(arch: str, r: dict, sp: bool) -> bool:
+    """Whether a phase 4h cell took the head, Mamba head, vocab and
+    expert splits where they apply at one rank: the attention heads of
+    every train and prefill cell of an attention model (a block of all
+    of them) and no head split in a decode step, the Mamba heads of
+    every Mamba cell, the vocab of every cell without ``seq_parallel``
+    (the embedding's and the head's blocks, every row), the experts of
+    deepseek-v2-236b through the all-to-all."""
     heads = r["split"].get("heads", [])
-    if r["step"] == "decode":
+    if r["step"] == "decode" or arch == "mamba2-370m":
         ok = not heads
     else:
         ok = bool(heads) and all(c == h and f == 0 for h, f, c in heads)
+    ssm = r["split"].get("ssm_heads", [])
+    if arch == "mamba2-370m":
+        ok = ok and bool(ssm) and all(c == h and f == 0 for h, f, c in ssm)
+    vocab = r["split"].get("vocab", [])
+    if not sp:
+        ok = ok and sorted(k for k, *_ in vocab) == ["embed", "head"] \
+            and all(c == n and f == 0 for _, n, f, c in vocab)
     if arch == "deepseek-v2-236b":
         ok = ok and [e[2] for e in r["split"].get("experts", [])] == \
             ["a2a"] and r["calls"].get("all-to-all", 0) > 0
@@ -6073,13 +6130,18 @@ def lm_mesh_phase(dev, card: str) -> dict:
                 # call
                 print(f"lm mesh {arch} {shape} splits: head_axes "
                       f"{r['axes']['head_axes']} blocks (heads, first, "
-                      f"count) {r['split'].get('heads', [])}; expert_axes "
+                      f"count) {r['split'].get('heads', [])}; ssm_axes "
+                      f"{r['axes']['ssm_axes']} Mamba head blocks (heads, "
+                      f"first, count) {r['split'].get('ssm_heads', [])}; "
+                      f"vocab_axes {r['axes']['vocab_axes']} vocab blocks "
+                      f"(tree, vocab, first, rows) "
+                      f"{r['split'].get('vocab', [])}; expert_axes "
                       f"{r['axes']['expert_axes']} blocks (first, experts,"
                       f" mode, chunks) {r['split'].get('experts', [])} "
                       f"capacity (first, rows, cap) "
                       f"{r['split'].get('capacity', [])}; collectives "
                       f"{dict(sorted(r['calls'].items()))}")
-                split_ok = _split_ran(arch, r)
+                split_ok = _split_ran(arch, r, sp)
                 if not ok or not r["donated_ok"] or not split_ok:
                     raise AssertionError(f"phase 4h {arch} {shape}: {r}")
             dist.barrier()

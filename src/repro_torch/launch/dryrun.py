@@ -55,8 +55,8 @@ def summary(rec: dict) -> str:
                  f"a2a={rec['collectives']['all-to-all']:.6e}B "
                  f"rs={rec['collectives']['reduce-scatter']:.6e}B "
                  + " ".join(f"{k}={','.join(rec[k + '_axes']) or '-'}"
-                            for k in ("batch", "seq", "tp", "head",
-                                      "expert")))
+                            for k in ("batch", "seq", "tp", "head", "ssm",
+                                      "vocab", "expert")))
     return (f"{head} batch={rec['batch']} "
             f"flops={t['hlo_flops_per_chip']:.6e} "
             f"min_bytes={t['min_bytes_per_chip']:.6e} "

@@ -187,6 +187,8 @@ def _run_mesh_cell(arch: str, shape: str, multi_pod: bool, *, plan, tag,
             "seq_axes": list(built["seq_axes"]),
             "tp_axes": list(built["tp_axes"]),
             "head_axes": list(built["head_axes"]),
+            "ssm_axes": list(built["ssm_axes"]),
+            "vocab_axes": list(built["vocab_axes"]),
             "expert_axes": list(built["expert_axes"]),
             "plan": {"microbatch": plan.microbatch,
                      "seq_parallel": plan.seq_parallel,

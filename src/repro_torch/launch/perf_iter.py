@@ -94,7 +94,8 @@ def main(argv=None) -> int:
           f"chips={rec['chips']} "
           f"useful={rec['useful_flops_ratio']:.3f}"
           + "".join(f" {k}={','.join(rec[k + '_axes']) or '-'}"
-                    for k in ("head", "expert") if k + "_axes" in rec))
+                    for k in ("head", "ssm", "vocab", "expert")
+                    if k + "_axes" in rec))
     return 0
 
 

@@ -20,8 +20,9 @@ model code reaches through ``utils/pcontext.py`` while it runs:
     decode): the new slot is written by the rank that holds it, and the
     attention's softmax max and sum and its output are summed over the
     ranks that hold the other blocks (``layers.softmax_blocks``). A
-    Mamba layer's state (split over heads or channels) is gathered and
-    written back after the layer.
+    Mamba layer's SSM state stays its block of heads where they split
+    (below); its conv cache (split over channels that are not laid out
+    by heads) is gathered and written back after the layer.
   * ``batch_sum``, ``token_sum``, ``token_total``: the sums over the
     batch that the reference computes over all tokens (the loss, the MoE
     aux loss).
@@ -50,14 +51,44 @@ model code reaches through ``utils/pcontext.py`` while it runs:
     ``seq_parallel`` reduce-scattered onto the sequence block. An
     adapter factor or norm whole on ``model`` gets a ``Partial``
     gradient over it.
+  * a Mamba mixer's heads and inner channels over ``model`` (the
+    reference's ``ssm_heads`` and ``ssm_inner`` rules) where it splits
+    no rows: a prefill, a decode step (a state has no sequence to
+    split), a train step whose rows it does not divide, and under
+    ``seq_parallel`` a Mamba layer, which runs on the whole sequence.
+    The count must divide ``model``. Rank ``j`` holds heads ``[j H/m,
+    (j + 1) H/m)``, head ``h`` channels ``[h P, (h + 1) P)`` of
+    ``d_inner``: ``wz`` / ``wx`` (and the adapters' ``b``) by columns,
+    ``wo`` by rows, the gated norm's scale by channels (their
+    ``ssm_inner`` blocks at rest); ``wb`` / ``wc`` / ``wdt``, the conv
+    (whose channels at rest are not laid out by heads) and ``A_log`` /
+    ``D`` / ``dt_bias`` whole, taken at the block, their gradients
+    summed over ``model``. The gated norm's mean square is the blocks'
+    sums of squares summed over ``model`` (:meth:`LocalStep.ssm_sum`);
+    ``wo``'s partial outputs add over it in fp32 (under
+    ``seq_parallel`` reduce-scattered onto the sequence block), as the
+    attention's do.
+  * the vocab over ``model`` (the ``vocab`` rule) where the tokens that
+    reach the head are split over neither the rows nor the sequence: a
+    prefill's last position, a decode step, a train step whose rows it
+    does not divide, without ``seq_parallel``. The count must divide
+    ``model`` (else the placement at rest is whole and so is the head).
+    The embedding keeps its rows' block (a masked lookup summed over
+    ``model``: one block gives each token its row, so the sum is the
+    whole lookup exactly); the head its columns' (``b`` by columns,
+    ``a`` whole); the cross-entropy takes each chunk's max, sum of
+    exponentials and label logit over the blocks
+    (``layers.chunked_xent``); the served logits are gathered.
   * the MoE experts over ``model`` (the ``expert`` rule), whatever
     splits the rows; a sharded step refuses a MoE whose experts
     ``model`` does not divide (every config's do). Each rank keeps its
-    block of the banks and computes those experts' rows of every
-    dispatch chunk's buffer, its capacity rows split over ``data``
-    where a chunk spans the data ranks and they divide them; the
-    tokens' kept pairs reach their experts' owners by an all-to-all
-    over ``model`` and come back by another (:class:`ExpertSplit`,
+    block of the banks and computes those experts' rows of the
+    dispatch chunks that its batch block holds tokens of, the capacity
+    rows split over the chunk's holders where a chunk spans several
+    batch blocks and they divide them (over a mesh of its own, made
+    when the step is built: :func:`holder_mesh`); the tokens' kept
+    pairs reach their experts' owners by an all-to-all over ``model``
+    and come back by another (:class:`ExpertSplit`,
     ``moe._dispatch_split``). A prefill's, a decode's or a
     sequence-parallel layer's tokens no longer run whole on every
     ``model`` rank: ``model`` shares them where it divides them.
@@ -66,17 +97,20 @@ model code reaches through ``utils/pcontext.py`` while it runs:
     ``model``, each token-wise layer (norms, projections, MLPs, the
     loss) runs on the block, attention gathers the keys and values of
     the whole sequence (``seq_gather``, whose backward reduce-scatters)
-    for the block's queries at their positions; a sliding-window layer
-    gathers its input and runs its head block on the whole sequence
-    (above); a layer without a split form (Mamba, or a window layer
-    whose heads do not divide ``model``) gathers its input, runs on the
-    whole sequence and keeps its block of the output. A MoE layer runs
-    on the block: its chunks' order is the whole (micro)batch's, and
-    each rank finds its tokens' places in it (:func:`_token_ids`).
+    for the block's queries at their positions; a sliding-window or
+    Mamba layer gathers its input and runs its head block on the whole
+    sequence (above); a layer without a split form (a window or Mamba
+    layer whose heads do not divide ``model``) gathers its input, runs
+    on the whole sequence and keeps its block of the output. A MoE
+    layer runs on the block: its chunks' order is the whole
+    (micro)batch's, and each rank finds its tokens' places in it
+    (:func:`_token_ids`).
 
-Still repeated over ``model``: a Mamba layer's heads and inner channels
-and the vocab-split head with its cross-entropy (the reference reaches
-both through weight shardings alone, with no constraint).
+The reference reaches the Mamba and vocab splits through its weight
+shardings alone, with no constraint; here they are the blocks a rank
+keeps. What its rules leave whole (``wk`` / ``wv``, Mamba's B, C, dt
+and the chunks' C·B scores) every ``model`` rank computes whole, as
+there.
 
 Every collective is a ``torch.distributed._functional_collectives`` call
 (DTensor's own or this module's autograd Functions, each with its
@@ -97,11 +131,15 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 # the subtrees of a parameter tree stacked over layers (gathered layer by
-# layer); every other subtree is gathered once at the start of a step
-LAYER_STACKS = ("groups", "enc", "dec")
+# layer), and zamba2's shared attention (gathered at each invocation, as
+# the invoking layer's own: its head block where the heads split); every
+# other subtree is gathered once at the start of a step
+AT_USE = ("groups", "enc", "dec", "shared_attn")
 # a layer's attention subtrees (self and cross) and a MoE's expert banks
 HEAD_TREES = ("attn", "cross")
 BANKS = ("wi", "wg", "wo")
+# the subtrees whose vocab dim the ``vocab`` rule splits
+VOCAB_TREES = ("embed", "head")
 
 
 def axis_sizes(mesh) -> dict[str, int]:
@@ -179,6 +217,22 @@ def _dim(mesh, ax: str) -> tuple:
 def sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     for ax in axes:
         x = _wait(funcol.all_reduce(x, "sum", _dim(mesh, ax)))
+    return x
+
+
+def max_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    x = x.contiguous()
+    for ax in axes:
+        x = _wait(funcol.all_reduce(x, "max", _dim(mesh, ax)))
+    return x
+
+
+def cat_last_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The last dim of every rank's block over ``axes`` concatenated, in
+    block order (no gradient)."""
+    for ax in axes:
+        x = _wait(funcol.all_gather_tensor(x.contiguous(), x.ndim - 1,
+                                           _dim(mesh, ax)))
     return x
 
 
@@ -352,10 +406,7 @@ class SeqBlock:
         return sum_over(x.contiguous(), self.mesh, self.axes)
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.contiguous()
-        for ax in self.axes:
-            x = _wait(funcol.all_reduce(x, "max", _dim(self.mesh, ax)))
-        return x
+        return max_over(x, self.mesh, self.axes)
 
 
 class LocalStep:
@@ -364,7 +415,8 @@ class LocalStep:
     ``axes``: the mesh axes that split the step's batch rows."""
 
     def __init__(self, mesh, axes=(), seq_axes=(), seq_len: int = 0,
-                 heads: bool = True, log: Optional[dict] = None):
+                 heads: bool = True, log: Optional[dict] = None,
+                 holders: Optional[dict] = None):
         self.mesh = mesh
         self.axes = tuple(axes)
         self.seq_axes = tuple(seq_axes)
@@ -387,8 +439,21 @@ class LocalStep:
         # runs on the whole sequence (:meth:`head_block`)
         self.head_axes = ("model",) if heads and "model" in names \
             and "model" not in self.axes else ()
+        # a Mamba mixer's heads over model where it splits no rows (a
+        # decode step too: its state has no sequence); under sequence
+        # parallelism in the layer, which runs on the whole sequence
+        self.ssm_axes = ("model",) if "model" in names \
+            and "model" not in self.axes else ()
+        # the vocab over model where the tokens that reach the head are
+        # split over neither the rows nor the sequence (:meth:`top`)
+        self.vocab_axes = ("model",) if "model" in names \
+            and "model" not in self.axes and not self.seq_axes else ()
+        self._vocab: dict = {}      # "embed" / "head" -> (first, rows)
         # the MoE experts over model wherever their count divides it
         self.expert_axes = ("model",) if "model" in names else ()
+        # {batch blocks a dispatch chunk spans: the mesh of its holders}
+        # (:func:`holder_mesh`, made when the step is built)
+        self.holders = dict(holders or {})
         self.msz = sizes.get("model", 1)
         self.model_index = dict(zip(names, mesh.get_coordinate())).get(
             "model", 0)
@@ -399,8 +464,8 @@ class LocalStep:
         self.replicated = tuple(Replicate() for _ in names)
         self.blocks: dict = {}      # id of a cache block -> (it, SeqBlock)
         self.experts: dict = {}     # (spec, b, s) -> ExpertSplit
-        # what the step split: head and expert blocks (a record for the
-        # caller, filled as the layers run)
+        # what the step split: head, Mamba head, vocab and expert blocks
+        # (a record for the caller, filled as the layers run)
         self.log = log if log is not None else {}
 
     # -- parameters --------------------------------------------------------
@@ -415,19 +480,28 @@ class LocalStep:
     def params(self, tree: Any, heads: Optional[int] = None) -> Any:
         """``tree`` gathered; a layer's dense MLP (its ``mlp`` subtree)
         keeps its ``model`` blocks where the step runs it tensor-parallel
-        (:meth:`tp_gather`), its attention (``attn``, ``cross``) where
-        its ``heads`` split over ``model`` (:meth:`head_block`), and a
-        MoE's expert banks their block of experts where ``model`` splits
-        them (the ``expert`` rule)."""
+        (:meth:`tp_gather`), its attention (``attn``, ``cross``) or its
+        Mamba mixer (``mix``) where its ``heads`` split over ``model``
+        (:meth:`head_block`, :meth:`ssm_block`), and a MoE's expert
+        banks their block of experts where ``model`` splits them (the
+        ``expert`` rule)."""
         if not isinstance(tree, dict):
             return tree_map(self.gather, tree)
-        split = heads is not None and self.head_block(heads) is not None
         out = {}
         for k, v in tree.items():
             if k == "mlp" and self.tp_axes and self._tp_mlp(v):
                 out[k] = tree_map(self.tp_gather, v)
-            elif k in HEAD_TREES and split:
+            elif k in HEAD_TREES and heads is not None \
+                    and self.head_block(heads) is not None:
                 out[k] = tree_map(self.model_gather, v)
+            elif k == "mix" and heads is not None \
+                    and self.ssm_block(heads) is not None:
+                # a Mamba mixer's head block: its ``ssm_inner`` leaves
+                # keep their blocks; the conv, whose channels at rest
+                # are not laid out by heads, comes whole
+                out[k] = {n: tree_map(self.model_whole if n == "conv"
+                                      else self.model_gather, w)
+                          for n, w in v.items()}
             elif k == "moe" and self._expert_banks(v):
                 out[k] = {b: tree_map(self.model_gather, w) if b in BANKS
                           else self.params(w) for b, w in v.items()}
@@ -466,13 +540,18 @@ class LocalStep:
     def model_gather(self, t: Any) -> Any:
         return self.block_gather(t, ("model",))
 
-    def block_gather(self, t: Any, axes: tuple) -> Any:
+    def model_whole(self, t: Any) -> Any:
+        """``t`` whole, used by every ``model`` rank for its block."""
+        return self.block_gather(t, ("model",), keep=False)
+
+    def block_gather(self, t: Any, axes: tuple, keep: bool = True) -> Any:
         """``t`` gathered over every axis but ``axes``, where it keeps its
-        block; a leaf whole on those axes is used by every rank for its
-        part of the output, so its gradient adds over them."""
+        block (everywhere, without ``keep``); a leaf whole on those axes
+        is used by every rank for its part of the output, so its
+        gradient adds over them."""
         if not isinstance(t, DTensor):
             return t
-        keep = tuple(p if ax in axes and isinstance(p, Shard)
+        keep = tuple(p if keep and ax in axes and isinstance(p, Shard)
                      else Replicate()
                      for ax, p in zip(self.mesh.mesh_dim_names,
                                       t.placements))
@@ -493,9 +572,67 @@ class LocalStep:
         return _TpExit.apply(x, self.mesh, self.tp_axes)
 
     def top(self, tree: dict) -> dict:
-        """``tree`` with every subtree but the layer stacks gathered."""
-        return {k: v if k in LAYER_STACKS else self.params(v)
-                for k, v in tree.items()}
+        """``tree`` with every subtree but those gathered at use (the
+        layer stacks, a shared attention) gathered; the
+        embedding and the head keep their ``model`` blocks of the vocab
+        where it splits over ``model`` (the ``vocab`` rule: the
+        embedding's rows, the head's columns, the adapter's ``b`` by
+        columns and its ``a`` whole)."""
+        out = {}
+        for k, v in tree.items():
+            if k in AT_USE:
+                out[k] = v
+            elif k in VOCAB_TREES and self._vocab_split(k, v):
+                out[k] = tree_map(self.model_gather, v)
+            else:
+                out[k] = self.params(v)
+        return out
+
+    def _vocab_split(self, k: str, tree: dict) -> bool:
+        """Whether an embedding's or a head's vocab dim (the embedding's
+        rows, the head's last dim) is split over ``model`` at rest and
+        the step keeps the blocks; records the block."""
+        if not self.vocab_axes or not isinstance(tree, dict):
+            return False
+        mi = self.mesh.mesh_dim_names.index("model")
+        n = None
+        for nm in ("w", "w_q8", "b"):
+            t = tree.get(nm)
+            if not isinstance(t, DTensor):
+                continue
+            dim = 0 if k == "embed" else t.ndim - 1
+            if t.placements[mi] != Shard(dim):
+                return False
+            n = t.shape[dim]
+        if n is None:
+            return False
+        c = n // self.msz
+        self._vocab[k] = (self.model_index * c, c)
+        self.log.setdefault("vocab", set()).add((k, n, *self._vocab[k]))
+        return True
+
+    def vocab_block(self, kind: str) -> Optional[tuple[int, int]]:
+        """(first row, rows) of this rank's block of the vocab of the
+        embedding (``kind`` "embed") or the head ("head") where
+        :meth:`top` kept it, else None."""
+        return self._vocab.get(kind)
+
+    def vocab_enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The head's input, whose gradient adds over the vocab blocks."""
+        return _TpEnter.apply(x, self.mesh, self.vocab_axes)
+
+    def vocab_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the vocab blocks (in fp32) of a quantity every
+        rank then holds whole: the identity backward."""
+        return _TpExit.apply(x, self.mesh, self.vocab_axes)
+
+    def vocab_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The max over the vocab blocks (no gradient)."""
+        return max_over(x.detach(), self.mesh, self.vocab_axes)
+
+    def vocab_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The vocab blocks of the last dim gathered, in vocab order."""
+        return cat_last_over(x, self.mesh, self.vocab_axes)
 
     # -- attention heads -----------------------------------------------------
     def head_block(self, h: int) -> Optional[tuple[int, int]]:
@@ -521,22 +658,61 @@ class LocalStep:
             return x
         return x.narrow(dim, self._heads[1], self._heads[2])
 
-    def heads_enter(self, x: torch.Tensor) -> torch.Tensor:
-        """An attention's input, whose gradient adds over the ranks'
-        head blocks; under sequence parallelism the whole-sequence input
-        is already a gather whose backward sums."""
+    def heads_enter(self, x: torch.Tensor,
+                    axes: Optional[tuple] = None) -> torch.Tensor:
+        """An attention's input (a Mamba mixer's, with ``axes`` its
+        :attr:`ssm_axes`), whose gradient adds over the ranks' head
+        blocks; under sequence parallelism the whole-sequence input is
+        already a gather whose backward sums."""
         if self.seq_axes:
             return x
-        return _TpEnter.apply(x, self.mesh, self.head_axes)
+        return _TpEnter.apply(x, self.mesh, self.head_axes if axes is None
+                              else axes)
 
-    def heads_exit(self, y: torch.Tensor) -> torch.Tensor:
+    def heads_exit(self, y: torch.Tensor,
+                   axes: Optional[tuple] = None) -> torch.Tensor:
         """The sum of the head blocks' partial outputs (the row-parallel
         ``wo``, in fp32); under sequence parallelism reduce-scattered
         onto this rank's block of the sequence."""
         if self.seq_axes:
             return _ReduceScatter.apply(y.to(torch.float32), self.mesh,
                                         "model", 1).to(y.dtype)
-        return _TpExit.apply(y, self.mesh, self.head_axes)
+        return _TpExit.apply(y, self.mesh, self.head_axes if axes is None
+                             else axes)
+
+    # -- Mamba heads ---------------------------------------------------------
+    def _ssm_split(self, h: int) -> bool:
+        return bool(self.ssm_axes) and h % self.msz == 0 \
+            and not (self.seq_axes and not self._whole)
+
+    def ssm_block(self, h: int) -> Optional[tuple[int, int]]:
+        """(first head, heads) of this rank's block of a Mamba mixer's
+        ``h`` heads where they split over ``model`` (the reference's
+        ``ssm_heads`` / ``ssm_inner`` rules: ``model`` divides them and
+        splits no rows, nor here the sequence), else None."""
+        if not self._ssm_split(h):
+            return None
+        c = h // self.msz
+        blk = (h, self.model_index * c, c)
+        self.log.setdefault("ssm_heads", set()).add(blk)
+        return blk[1:]
+
+    def ssm_enter(self, x: torch.Tensor) -> torch.Tensor:
+        return self.heads_enter(x, self.ssm_axes)
+
+    def ssm_exit(self, y: torch.Tensor) -> torch.Tensor:
+        return self.heads_exit(y, self.ssm_axes)
+
+    def ssm_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the head blocks of a quantity each block gives a
+        part of and uses whole (the gated norm's sum of squares): its
+        gradient is the same sum."""
+        return _SumOver.apply(x, self.mesh, self.ssm_axes)
+
+    def ssm_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The head blocks' channels of the last dim gathered, in order
+        (a decode cache's conv inputs; no gradient)."""
+        return cat_last_over(x, self.mesh, self.ssm_axes)
 
     # -- MoE experts ---------------------------------------------------------
     def check_experts(self, n_experts: int) -> None:
@@ -623,10 +799,11 @@ class LocalStep:
 
     def layer_cache(self, tree: dict, i: int):
         """Layer ``i`` of each stacked cache leaf: a KV or latent cache
-        as this rank's block (registered for :meth:`seq_block`), any
-        other gathered to hold every head and channel of this rank's
-        batch rows; and a function that writes the gathered ones back
-        into this rank's shards."""
+        as this rank's block (registered for :meth:`seq_block`), a Mamba
+        state (``ssm``: (B, H, P, N)) as its block of heads where they
+        split (:meth:`ssm_block`), any other gathered to hold every
+        head and channel of this rank's batch rows; and a function that
+        writes the gathered ones back into this rank's shards."""
         out, backs = {}, []
         for k, v in tree.items():
             if not isinstance(v, DTensor):
@@ -646,8 +823,11 @@ class LocalStep:
                     self.blocks[id(local)] = (local, SeqBlock(
                         self.mesh, axes, idx * s_, n * s_))
                 continue
+            heads = k == "ssm" and self._ssm_split(v.shape[2])
             keep = tuple(p if isinstance(p, Shard) and p.dim == 0
-                         else Replicate() for p in pl)
+                         else Shard(1) if heads and ax in self.ssm_axes
+                         else Replicate()
+                         for ax, p in zip(self.mesh.mesh_dim_names, pl))
             if keep == pl:
                 out[k] = local
                 continue
@@ -711,6 +891,42 @@ class Chunk(NamedTuple):
     most: int               # the most tokens a member holds in it
 
 
+def chunk_span(spec, total: int, n_bb: int) -> int:
+    """The batch blocks that hold one dispatch chunk of a MoE layer over
+    ``total`` tokens (``moe.n_chunks_for``, in row-major order) split
+    into ``n_bb`` equal batch blocks: 1 where each block holds whole
+    chunks, the run of blocks a chunk covers where that run divides
+    them, else every block."""
+    from repro_torch.models.moe import n_chunks_for
+    tc = total // n_chunks_for(spec, total)
+    tb = total // n_bb
+    if tb % tc == 0:
+        return 1
+    if tc % tb == 0 and n_bb % (tc // tb) == 0:
+        return tc // tb
+    return n_bb
+
+
+def holder_mesh(mesh, batch_axes, span: int):
+    """A mesh over the same ranks whose ``holders`` axis is each run of
+    ``span`` batch blocks (over ``batch_axes``, in their order) that
+    hold one dispatch chunk, between the ``runs`` of them and ``model``
+    (the other axes first). Its process groups are made here: every
+    rank calls this, in the same order, when a step is built."""
+    from torch.distributed.device_mesh import DeviceMesh
+    names = tuple(mesh.mesh_dim_names)
+    sizes = axis_sizes(mesh)
+    other = [ax for ax in names if ax not in batch_axes and ax != "model"]
+    tail = ["model"] if "model" in names else []
+    order = other + [ax for ax in names if ax in batch_axes] + tail
+    n_bb = math.prod(sizes[ax] for ax in batch_axes)
+    ranks = mesh.mesh.permute([names.index(ax) for ax in order]).reshape(
+        *(sizes[ax] for ax in other), n_bb // span, span,
+        *(sizes[ax] for ax in tail))
+    return DeviceMesh(mesh.device_type, ranks, mesh_dim_names=(
+        *other, "runs", "holders", *tail))
+
+
 class ExpertSplit:
     """A MoE layer's dispatch over the mesh (expert parallelism, the
     reference's ``expert`` and ``tokens`` rules): the static layout of a
@@ -728,21 +944,23 @@ class ExpertSplit:
       (the ``tokens`` rule) and the outputs are gathered after. The
       router runs on every local token (its gradient stays whole).
     * A chunk (``moe.n_chunks_for`` over the (micro)batch's tokens, in
-      their row-major order, as the one-card step cuts them) held whole
-      by the ranks of one batch block (``local``) is dispatched within
-      them; a chunk across batch blocks by all of them, whose partial
-      buffers add over the batch axes, the capacity rows split over
-      ``data`` where it divides them (a reduce-scatter; else an
-      all-reduce).
+      their row-major order, as the one-card step cuts them) is
+      dispatched only by the ranks of the batch blocks that hold its
+      tokens (:func:`chunk_span`): within one batch block (``local``);
+      by a run of them, over the ``holders`` axis of the mesh that the
+      step was built with (:func:`holder_mesh`); else by every batch
+      block. Across blocks the partial buffers add over them, the
+      capacity rows split over the ``holders`` (or ``data``) axis where
+      it divides them (a reduce-scatter; else an all-reduce).
     * ``mode``: ``"a2a"`` where ``model`` splits the tokens (each kept
       pair's row goes to its expert's owner by an all-to-all over
       ``model`` and comes back by another), ``"rep"`` where every
       ``model`` rank holds the same tokens (each fills its own experts'
       rows; the pairs' rows add over ``model``, one rank holding each).
 
-    Every rank computes the chunk's dispatch order from the expert ids of
-    all its tokens (gathered over ``group``), so which pairs a capacity
-    drops is the one-card step's."""
+    Every rank computes each of its chunks' dispatch order from the
+    expert ids of all the chunk's tokens (gathered over ``group``), so
+    which pairs a capacity drops is the one-card step's."""
 
     def __init__(self, step: LocalStep, spec, b: int, s: int):
         from repro_torch.models.moe import n_chunks_for
@@ -750,11 +968,10 @@ class ExpertSplit:
         self.mesh = mesh
         names = tuple(mesh.mesh_dim_names)
         sizes = axis_sizes(mesh)
-        coord = dict(zip(names, mesh.get_coordinate()))
         t = b * s
         seq = step.seq_split()
         self.msz = sizes["model"]
-        self.j = coord["model"]
+        self.j = dict(zip(names, mesh.get_coordinate()))["model"]
         self.eb = spec.n_experts // self.msz
         split = "model" in step.axes or (seq and "model" in step.seq_axes)
         # model shares the rank's tokens (the tokens rule); at one model
@@ -768,33 +985,43 @@ class ExpertSplit:
         batch_axes = tuple(ax for ax in names
                            if ax in step.axes and ax != "model")
         n_bb = math.prod(sizes[ax] for ax in batch_axes)
-        self.local = (total // n_bb) % tc == 0
-        self.da = () if self.local else batch_axes
-        self.group = tuple(ax for ax in names if ax in self.da
+        span = chunk_span(spec, total, n_bb)
+        self.local = span == 1
+        # the mesh whose axes ``da`` reach the other holders of a chunk
+        hm = step.holders.get(span) if 1 < span < n_bb else None
+        self.gmesh = mesh if hm is None else hm
+        self.da = () if self.local else ("holders",) if hm is not None \
+            else batch_axes
+        gnames = tuple(self.gmesh.mesh_dim_names)
+        self.group = tuple(ax for ax in gnames if ax in self.da
                            or (ax == "model" and self.mode == "a2a"))
         self.m_group = self.msz if self.mode == "a2a" else 1
-        gsizes = [sizes[ax] for ax in self.group]
-        self.n_members = math.prod(gsizes)
+        gsizes = axis_sizes(self.gmesh)
+        self.n_members = math.prod(gsizes[ax] for ax in self.group)
+        # each member's mesh coordinates, in the group's gather order
+        where = {int(r): dict(zip(names, i))
+                 for i, r in np.ndenumerate(mesh.mesh.cpu().numpy())}
+        gcoord = dict(zip(gnames, self.gmesh.get_coordinate()))
+        granks = self.gmesh.mesh.cpu().numpy()
         ids, me = [], 0
         for p in range(self.n_members):
-            c, rem = dict(coord), p
-            for ax, n in reversed(list(zip(self.group, gsizes))):
-                c[ax], rem = rem % n, rem // n
-            if all(c[ax] == coord[ax] for ax in self.group):
+            c, rem = dict(gcoord), p
+            for ax in reversed(self.group):
+                c[ax], rem = rem % gsizes[ax], rem // gsizes[ax]
+            if c == gcoord:
                 me = p
-            ids.append(_token_ids(step, c, t, self.share))
+            rank = int(granks[tuple(c[ax] for ax in gnames)])
+            ids.append(_token_ids(step, where[rank], t, self.share))
         self.ids = np.stack(ids)            # (members, tokens a member)
         self.me = me
-        if self.local:
-            bb = block_index(mesh, batch_axes)[0]
-            per = total // n_bb // tc
-            chunks = range(bb * per, (bb + 1) * per)
-        else:
-            chunks = range(n_chunks)
+        # the chunks the group holds (each whole): this rank's
         self.chunks: list[Chunk] = []
-        for c in chunks:
+        for c in range(n_chunks):
             inside = (self.ids >= c * tc) & (self.ids < (c + 1) * tc)
-            if int(inside.sum()) != tc:
+            held = int(inside.sum())
+            if held == 0:
+                continue
+            if held != tc:
                 raise ValueError(f"MoE chunk {c} of {tc} tokens is not "
                                  f"held by the ranks of {self.group}")
             own_p = np.empty(tc, dtype=np.int64)
@@ -808,9 +1035,11 @@ class ExpertSplit:
             self.chunks.append(Chunk(lo, hi, own_p, own_l,
                                      self.ids[me, lo:hi] - c * tc,
                                      int(inside.sum(1).max())))
-        self.data = "data" in self.da and sizes["data"] > 1
-        self.dsz = sizes.get("data", 1)
-        self.i = coord.get("data", 0)
+        # the axis of ``da`` that splits the capacity rows
+        self.cap_ax = "holders" if hm is not None else \
+            "data" if "data" in self.da and sizes["data"] > 1 else None
+        self.dsz = gsizes.get(self.cap_ax, 1)
+        self.i = gcoord.get(self.cap_ax, 0)
         self._dev: dict = {}
         self.log = step.log
         self.log.setdefault("experts", set()).add(
@@ -826,10 +1055,11 @@ class ExpertSplit:
 
     def c_block(self, cap: int) -> tuple[int, int]:
         """(first row, rows) of this rank's capacity block of a chunk's
-        buffer of ``cap`` rows an expert: split over ``data`` where the
-        chunk's tokens span it and it divides them."""
+        buffer of ``cap`` rows an expert: split over the chunk's
+        ``holders`` (or ``data``) where its tokens span them and they
+        divide the rows."""
         blk = (0, cap)
-        if self.data and cap % self.dsz == 0:
+        if self.cap_ax is not None and cap % self.dsz == 0:
             c = cap // self.dsz
             blk = (self.i * c, c)
         self.log.setdefault("capacity", set()).add(blk + (cap,))
@@ -851,7 +1081,7 @@ class ExpertSplit:
         """(members, *x.shape): ``x`` of every member of the group."""
         if not self.group:
             return x[None]
-        g = gather_over(x, self.mesh, self.group)
+        g = gather_over(x, self.gmesh, self.group)
         return g.reshape(self.n_members, *x.shape)
 
     def a2a(self, x: torch.Tensor) -> torch.Tensor:
@@ -865,13 +1095,13 @@ class ExpertSplit:
 
     def reduce(self, buf: torch.Tensor, cap: int) -> torch.Tensor:
         """A chunk's partial (E/m, cap, d) buffer summed over the batch
-        axes that span the chunk (each row filled on one rank), kept as
-        this rank's capacity block."""
+        blocks that hold the chunk (each row filled on one rank), kept
+        as this rank's capacity block."""
         for ax in self.da:
-            if ax == "data" and self.c_block(cap)[1] < cap:
-                buf = _ReduceScatter.apply(buf, self.mesh, ax, 1)
+            if ax == self.cap_ax and self.c_block(cap)[1] < cap:
+                buf = _ReduceScatter.apply(buf, self.gmesh, ax, 1)
             else:
-                buf = _SumOver.apply(buf, self.mesh, (ax,))
+                buf = _SumOver.apply(buf, self.gmesh, (ax,))
         return buf
 
     def unreduce(self, out: torch.Tensor, cap: int) -> torch.Tensor:
@@ -879,5 +1109,5 @@ class ExpertSplit:
         :meth:`reduce`'s reduce-scatter)."""
         if self.c_block(cap)[1] < cap:
             out = _wait(funcol.all_gather_tensor_autograd(
-                out.contiguous(), 1, _dim(self.mesh, "data")))
+                out.contiguous(), 1, _dim(self.gmesh, self.cap_ax)))
         return out

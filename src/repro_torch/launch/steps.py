@@ -55,17 +55,29 @@ dense MLPs split over it by hidden units. What else splits over
     divide (without ``seq_parallel``), and under ``seq_parallel`` the
     sliding-window layers, which run on the whole sequence; a decode
     step never (it has no ``heads`` constraint in the reference);
+  * a Mamba mixer's heads and inner channels (the ``ssm_heads`` and
+    ``ssm_inner`` rules), where ``model`` divides the heads and splits
+    no rows: every prefill and decode step, a train step whose rows it
+    does not divide, and under ``seq_parallel`` the Mamba layers, which
+    run on the whole sequence;
+  * the vocab of the embedding, the head and its cross-entropy (the
+    ``vocab`` rule), where ``model`` divides it and splits neither the
+    rows nor the sequence: every prefill and decode step and a train
+    step whose rows it does not divide, without ``seq_parallel``;
   * the MoE experts (the ``expert`` rule), in every step (a sharded
     step refuses a MoE whose experts ``model`` does not divide; every
-    config's do): a rank's block of the banks, the
-    capacity rows of a dispatch chunk that spans the data ranks split
-    over ``data`` where it divides them, the tokens over the batch axes
-    and ``model`` (the ``tokens`` rule: ``model`` shares a rank's tokens
-    where it splits neither rows nor sequence and divides them).
+    config's do): a rank's block of the banks, each dispatch chunk
+    dispatched by the batch blocks that hold its tokens only (over a
+    mesh of its holders, :func:`_holders`, where a chunk spans some of
+    them), its capacity rows split over them where they divide them,
+    the tokens over the batch axes and ``model`` (the ``tokens`` rule:
+    ``model`` shares a rank's tokens where it splits neither rows nor
+    sequence and divides them).
 
-The cell records them as ``head_axes`` and ``expert_axes`` beside
-``tp_axes``. The reference's ``with_sharding_constraint`` points are
-``utils/pcontext.constrain`` calls; :func:`make_constrain` is their
+The cell records them as ``head_axes``, ``ssm_axes``, ``vocab_axes``
+and ``expert_axes`` beside ``tp_axes``. The reference's
+``with_sharding_constraint`` points are ``utils/pcontext.constrain``
+calls; :func:`make_constrain` is their
 callback on DTensors (a ``redistribute`` to the kind's placements), and
 on a rank's local blocks the step's own callback
 (:func:`_local_constrain`) narrows a tensor of every head to the
@@ -379,7 +391,8 @@ def build_cell(entry: ArchEntry, shape_name: str, mesh=None,
     'donate', 'mesh', and the axes the step splits its rows over
     ('batch_axes'), its sequence over ('seq_axes', sequence parallelism),
     its dense MLPs' hidden units over ('tp_axes'), its attention heads
-    over ('head_axes') and its MoE experts over ('expert_axes'), with
+    over ('head_axes'), its Mamba heads over ('ssm_axes'), its vocab
+    over ('vocab_axes') and its MoE experts over ('expert_axes'), with
     'split_log' (:func:`_split_axes`). ``batch``
     replaces the shape's batch size (a cut to fit one card; a multiple of
     the plan's microbatch count)."""
@@ -540,7 +553,8 @@ def _build_sharded(entry, mod, cfg, plan: CellPlan, mesh, frozen, train,
         sh_opt = _opt_shardings(mesh, sh_train)
         opt_d = _distribute(opt.init(train), sh_opt, mesh)
         fn = _sharded_train(mod, cfg, mesh, axes, m, row_dim, opt, local_c,
-                            sp=sp, log=log)
+                            sp=sp, log=log,
+                            holders=_holders(cfg, mesh, axes, batch, step))
         return {"fn": fn, "args": (frozen_d, train_d, opt_d, batch_d),
                 "in_placements": (sh_frozen, sh_train, sh_opt, sh_batch),
                 "out_placements": (sh_train, sh_opt, None),
@@ -552,7 +566,8 @@ def _build_sharded(entry, mod, cfg, plan: CellPlan, mesh, frozen, train,
     if step == "prefill":
         axes = spmd.split_axes(mesh, rows, ("pod", "data"), greedy=False)
         fn = _sharded_prefill(entry, cfg, plan, mesh, axes, local_c, sp=sp,
-                              log=log)
+                              log=log,
+                              holders=_holders(cfg, mesh, axes, batch, step))
         return {"fn": fn, "args": (frozen_d, train_d, batch_d),
                 "in_placements": (sh_frozen, sh_train, sh_batch),
                 "out_placements": None, "donate": (), "mesh": mesh,
@@ -567,7 +582,8 @@ def _build_sharded(entry, mod, cfg, plan: CellPlan, mesh, frozen, train,
     sh_caches = {k: tree_shardings(cl[k], specs[k], mesh, drules)
                  for k in cl}
     caches_d = {k: _distribute(specs[k], sh_caches[k], mesh) for k in cl}
-    fn = _sharded_decode(entry, cfg, mesh, axes, seq - 1, log=log)
+    fn = _sharded_decode(entry, cfg, mesh, axes, seq - 1, log=log,
+                         holders=_holders(cfg, mesh, axes, batch, step))
     names_c = list(cl)
     return {"fn": fn, "args": (frozen_d, train_d, batch_d,
                                *(caches_d[k] for k in names_c)),
@@ -584,16 +600,20 @@ def _split_axes(entry, cfg, ctx: spmd.LocalStep, sp: tuple,
     """The cell's record of what splits over ``model`` besides rows and
     sequence: the dense MLPs' hidden units (``tp_axes``), the attention
     heads of some layer (``head_axes``: under sequence parallelism only
-    a sliding-window layer's), the MoE experts (``expert_axes``), and
-    ``split_log``, which the step fills as it runs (the head blocks,
-    expert blocks and capacity blocks it used)."""
-    heads, experts = set(), False
+    a sliding-window layer's), the Mamba mixers' heads (``ssm_axes``),
+    the vocab of the embedding, the head and the loss (``vocab_axes``),
+    the MoE experts (``expert_axes``), and ``split_log``, which the step
+    fills as it runs (the head, Mamba head, vocab, expert and capacity
+    blocks it used)."""
+    heads, ssm, experts = set(), False, False
     if entry.kind == "encdec":
         heads.add(cfg.gqa.hq)
     else:
         for g in LM.resolve_groups(cfg):
             for spec in g.pattern:
-                if spec.mixer != "mamba" and (not sp or spec.window):
+                if spec.mixer == "mamba":
+                    ssm = cfg.mamba.n_heads % ctx.msz == 0
+                elif not sp or spec.window:
                     heads.add(LM._n_heads(cfg, spec))
                 experts = experts or spec.ffn == "moe"
     head_axes = ctx.head_axes if any(
@@ -602,7 +622,30 @@ def _split_axes(entry, cfg, ctx: spmd.LocalStep, sp: tuple,
         ctx.check_experts(cfg.moe.n_experts)
     expert_axes = ctx.expert_axes if experts else ()
     return {"tp_axes": ctx.tp_axes, "head_axes": head_axes,
+            "ssm_axes": ctx.ssm_axes if ssm else (),
+            "vocab_axes": ctx.vocab_axes if cfg.vocab % ctx.msz == 0
+            else (),
             "expert_axes": expert_axes, "split_log": log}
+
+
+def _holders(cfg, mesh, axes: tuple, batch: Any, step: str) -> dict:
+    """{batch blocks: the mesh of their ``holders`` axis} for a MoE
+    model's dispatch chunks that span a run of the step's batch blocks
+    but not all of them (``spmd.chunk_span``): the process groups are
+    made here, once, on every rank in the same order, not in the step's
+    call."""
+    moe = getattr(cfg, "moe", None)
+    batch_axes = tuple(ax for ax in axes if ax != "model")
+    if moe is None or not batch_axes:
+        return {}
+    tok = batch["tokens"] if "tokens" in batch else batch["token"]
+    # a MoE layer's call: the (micro)batch's rows over its positions
+    total = tok.shape[-2] * (tok.shape[-1] - (step == "train"))
+    n_bb = _size(mesh, batch_axes)
+    span = spmd.chunk_span(moe, total, n_bb)
+    if not 1 < span < n_bb:
+        return {}
+    return {span: spmd.holder_mesh(mesh, batch_axes, span)}
 
 
 def _seq_parallel(entry, cfg, plan: CellPlan, mesh, batch, step: str
@@ -625,9 +668,10 @@ def _local_batch(ctx: spmd.LocalStep, batch: Any, row_dim: int) -> Any:
 
 def _sharded_train(mod, cfg, mesh, axes, m: int, row_dim: int, opt,
                    local_c, lr: float = LR, sp: tuple = (),
-                   log: Optional[dict] = None):
+                   log: Optional[dict] = None,
+                   holders: Optional[dict] = None):
     def train_step(frozen, train, opt_state, batch):
-        ctx = spmd.LocalStep(mesh, axes, *sp, log=log)
+        ctx = spmd.LocalStep(mesh, axes, *sp, log=log, holders=holders)
         leaves, treedef = tree_flatten(train)
         leaves = [t.detach().requires_grad_(True) for t in leaves]
         tr = tree_unflatten(treedef, leaves)
@@ -668,7 +712,8 @@ def _out_dtensor(local: torch.Tensor, mesh, dims: dict, shape) -> DTensor:
 
 
 def _sharded_prefill(entry, cfg, plan, mesh, axes, local_c, sp: tuple = (),
-                     log: Optional[dict] = None):
+                     log: Optional[dict] = None,
+                     holders: Optional[dict] = None):
 
     def rows_out(local, rows_dim, total_rows):
         shape = list(local.shape)
@@ -677,7 +722,7 @@ def _sharded_prefill(entry, cfg, plan, mesh, axes, local_c, sp: tuple = (),
 
     @torch.no_grad()
     def prefill_step(frozen, train, batch):
-        ctx = spmd.LocalStep(mesh, axes, *sp, log=log)
+        ctx = spmd.LocalStep(mesh, axes, *sp, log=log, holders=holders)
         local = _local_batch(ctx, batch, 0)
         with pcontext.use(local_c), pcontext.use_local(ctx):
             fz, tr = ctx.top(frozen), ctx.top(train)
@@ -710,12 +755,14 @@ def _sharded_prefill(entry, cfg, plan, mesh, axes, local_c, sp: tuple = (),
 
 
 def _sharded_decode(entry, cfg, mesh, axes, pos: int,
-                    log: Optional[dict] = None):
+                    log: Optional[dict] = None,
+                    holders: Optional[dict] = None):
     @torch.no_grad()
     def decode_step(frozen, train, batch, *caches):
         # decode splits no heads (the reference has no heads constraint
         # there); its KV cache is split by sequence (split-KV)
-        ctx = spmd.LocalStep(mesh, axes, heads=False, log=log)
+        ctx = spmd.LocalStep(mesh, axes, heads=False, log=log,
+                             holders=holders)
         local = _local_batch(ctx, batch, 0)
         with pcontext.use(lambda x, kind="residual": x), \
                 pcontext.use_local(ctx):

@@ -273,7 +273,7 @@ def decode_train(frozen: dict, train: dict, cfg: EncDecConfig, tgt,
     constrain = constrain or _same
     dev = param_device(frozen)
     tgt = torch.as_tensor(tgt, device=dev).to(torch.long)
-    x = constrain(frozen["embed"]["w"][tgt])
+    x = constrain(L.embed_lookup(frozen["embed"], tgt))
     rope = _rope(cfg, torch.arange(x.shape[1], device=dev))
     x = _run(_dec_layer, cfg, cfg.n_dec_layers, frozen["dec"], train["dec"],
              x, memory, rope, constrain)
@@ -335,7 +335,7 @@ def decode_step(frozen: dict, train: dict, cfg: EncDecConfig, token,
     pos = int(pos)
     dev = param_device(frozen)
     token = torch.as_tensor(token, device=dev).to(torch.long)
-    x = frozen["embed"]["w"][token]
+    x = L.embed_lookup(frozen["embed"], token)
     sc = cfg.lora.scale
     spec = cfg.gqa
     b = x.shape[0]
@@ -363,6 +363,6 @@ def decode_step(frozen: dict, train: dict, cfg: EncDecConfig, token,
         h = L.rmsnorm_apply(tr["norm2"], x)
         x = x + L.mlp_apply(fz["mlp"], tr["mlp"], cfg.mlp, h, sc)
     x = L.rmsnorm_apply(train["final_norm"], x)
-    logits = linear_apply(frozen.get("head", {}), train.get("head", {}), x,
-                          sc).to(torch.float32)
+    logits = L.head_logits(frozen.get("head", {}), train.get("head", {}), x,
+                           sc)
     return logits, self_caches

@@ -50,6 +50,46 @@ def rmsnorm_apply(p: dict, x: torch.Tensor,
     return y.to(x.dtype)
 
 
+def rmsnorm_blocks(p: dict, x: torch.Tensor, total: int,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rmsnorm_apply` over a last dim of ``total`` channels of
+    which ``x`` (and ``p['scale']``) holds this rank's block (a Mamba
+    mixer's head block): the mean square is the blocks' sums of squares
+    summed (``pcontext.ssm_sum``) over ``total``."""
+    xf = x.to(torch.float32)
+    var = pcontext.ssm_sum(torch.sum(xf * xf, dim=-1, keepdim=True)) / total
+    y = xf * torch.rsqrt(var + eps) * p["scale"]
+    return y.to(x.dtype)
+
+
+def embed_lookup(e: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of the embedding table ``e`` ({'w'} or an int8 base
+    {'w_q8', 'w_s'}) for ``tokens``. Of a sharded step's block of the
+    vocab (``pcontext.vocab_block``): the rows the block holds, zeros
+    for the others, summed over the blocks; one block gives each token
+    its row, so the sum is the whole table's lookup exactly."""
+    blk = pcontext.vocab_block("embed")
+    if blk is not None:
+        local = tokens - blk[0]
+        inside = (local >= 0) & (local < blk[1])
+        tokens = local.clamp(0, blk[1] - 1)
+    if "w_q8" in e:
+        x = e["w_q8"][tokens].to(torch.bfloat16) * e["w_s"].to(torch.bfloat16)
+    else:
+        x = e["w"][tokens]
+    if blk is None:
+        return x
+    return pcontext.vocab_sum(torch.where(inside[..., None], x, 0))
+
+
+def head_logits(fz: dict, tr: dict, x: torch.Tensor,
+                lora_scale: float) -> torch.Tensor:
+    """The head's fp32 logits of ``x`` over the whole vocab (of a
+    sharded step's vocab block, gathered)."""
+    return pcontext.vocab_gather(linear_apply(fz, tr, x, lora_scale).to(
+        torch.float32))
+
+
 def groupnorm_init(c: int, device="cuda") -> dict:
     dev = resolve_device(device)
     return {"scale": torch.ones((c,), dtype=torch.float32, device=dev),
@@ -401,7 +441,14 @@ def chunked_xent(x: torch.Tensor, head_fz: dict, head_tr: dict,
 
     Walks sequence chunks; per chunk computes logits (B, c, V),
     logsumexp and the label logit, then drops the logits (recomputed in
-    the backward pass), so live memory stays at (B, chunk, V)."""
+    the backward pass), so live memory stays at (B, chunk, V). Of a
+    sharded step's block of the vocab (``pcontext.vocab_block``) the
+    logits are (B, c, V/m): the max, the sum of the exponentials and the
+    label's logit (from the block that holds it) are taken over the
+    blocks, the same collectives in the recomputation."""
+    blk = pcontext.vocab_block("head")
+    if blk is not None:
+        x = pcontext.vocab_enter(x)
     b, s, d = x.shape
     n = -(-s // chunk)
     pad = n * chunk - s
@@ -418,8 +465,11 @@ def chunked_xent(x: torch.Tensor, head_fz: dict, head_tr: dict,
         logits = linear_apply(head_fz, head_tr, xch, lora_scale,
                               compute_dtype=torch.bfloat16
                               ).to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        lab = torch.gather(logits, -1, lch[..., None])[..., 0]
+        if blk is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            lab = torch.gather(logits, -1, lch[..., None])[..., 0]
+        else:
+            lse, lab = _lse_label_blocks(logits, lch, blk)
         nll = (lse - lab) * mch
         return torch.sum(nll), torch.sum(mch)
 
@@ -432,3 +482,37 @@ def chunked_xent(x: torch.Tensor, head_fz: dict, head_tr: dict,
     # a sharded step's batch block: the sums over every rank's tokens
     tot, cnt = pcontext.batch_sum(tot), pcontext.batch_sum(cnt)
     return tot / torch.clamp(cnt, min=1.0)
+
+
+def _lse_label_blocks(logits: torch.Tensor, labels: torch.Tensor,
+                      blk: tuple[int, int]
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp, the label's logit) over the whole vocab from this
+    rank's block of the logits (..., V/m) holding vocab rows
+    ``[blk[0], blk[0] + blk[1])``."""
+    local = labels - blk[0]
+    inside = (local >= 0) & (local < blk[1])
+    lab = torch.gather(logits, -1, local.clamp(0, blk[1] - 1)[..., None])
+    return _BlockLogSumExp.apply(logits), \
+        pcontext.vocab_sum(torch.where(inside, lab[..., 0], 0.0))
+
+
+class _BlockLogSumExp(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dim of the vocab blocks of every
+    rank from this rank's block, its max and its sum of exponentials
+    taken over the blocks; the backward is logsumexp's own, ``g *
+    exp(x - lse)``, on the block (one block: ``torch.logsumexp`` to the
+    bit)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        mx = pcontext.vocab_max(torch.amax(x, dim=-1))
+        lse = torch.log(pcontext.vocab_sum(
+            torch.sum(torch.exp(x - mx[..., None]), dim=-1))) + mx
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g[..., None] * torch.exp(x - lse[..., None])

@@ -44,8 +44,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import lora
-from repro_torch.core.lora import LoRAConfig, linear_apply, linear_init, \
-    linear_logical
+from repro_torch.core.lora import LoRAConfig, linear_init, linear_logical
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -359,21 +358,23 @@ def _whole_seq_layer(spec: LayerSpec) -> bool:
     return spec.mixer == "mamba" or spec.window is not None
 
 
-def _n_heads(cfg: LMConfig, spec: LayerSpec) -> Optional[int]:
-    """The (padded) query heads of a layer's attention; None for Mamba."""
+def _n_heads(cfg: LMConfig, spec: LayerSpec) -> int:
+    """The (padded) query heads of a layer's attention, or the heads of
+    its Mamba mixer."""
     if spec.mixer == "mamba":
-        return None
+        return cfg.mamba.n_heads
     return cfg.mla.n_heads if spec.mixer == "mla" else cfg.gqa.hq
 
 
-def _window_heads(cfg: LMConfig, spec: LayerSpec) -> bool:
-    """Whether a sequence-parallel step runs this sliding-window layer's
-    attention on its head block of the whole sequence (then its output
-    is reduce-scattered onto the sequence block and its FFN runs on the
-    block), rather than the whole layer on the whole sequence."""
-    if spec.mixer == "mamba":
-        return False
+def _split_heads(cfg: LMConfig, spec: LayerSpec) -> bool:
+    """Whether a sequence-parallel step runs this whole-sequence layer's
+    mixer (sliding-window attention, Mamba) on its head block of the
+    whole sequence (then its output is reduce-scattered onto the
+    sequence block and its FFN runs on the block), rather than the whole
+    layer on the whole sequence."""
     with pcontext.whole_seq():
+        if spec.mixer == "mamba":
+            return pcontext.ssm_block(_n_heads(cfg, spec)) is not None
         return pcontext.head_block(_n_heads(cfg, spec)) is not None
 
 
@@ -386,7 +387,7 @@ def _apply_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
     if pcontext.seq_split() and _whole_seq_layer(spec):
         # sequence parallelism: the whole sequence, then this block
         xf = pcontext.seq_gather(x)
-        split = _window_heads(cfg, spec)
+        split = _split_heads(cfg, spec)
         with pcontext.whole_seq():
             fz, tr = pcontext.params(fz, heads), pcontext.params(tr, heads)
             pf = torch.arange(xf.shape[1], device=xf.device)[None, :]
@@ -428,14 +429,6 @@ def _layer_body(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
     return _ffn_block(cfg, spec, fz, tr, x + h, constrain)
 
 
-def _embed_lookup(frozen: dict, tokens: torch.Tensor) -> torch.Tensor:
-    e = frozen["embed"]
-    if "w_q8" in e:
-        return (e["w_q8"][tokens].to(torch.bfloat16)
-                * e["w_s"].to(torch.bfloat16))
-    return e["w"][tokens]
-
-
 def param_device(frozen: dict) -> torch.device:
     """The device an LM's parameters lie on (its embedding's)."""
     return next(iter(frozen["embed"].values())).device
@@ -444,7 +437,7 @@ def param_device(frozen: dict) -> torch.device:
 def _embed(frozen: dict, cfg: LMConfig, tokens) -> torch.Tensor:
     tokens = torch.as_tensor(tokens, device=param_device(frozen)).to(
         torch.long)
-    x = _embed_lookup(frozen, tokens)
+    x = L.embed_lookup(frozen["embed"], tokens)
     if cfg.embed_scale:
         x = (x.to(torch.float32) * (cfg.d_model ** 0.5)).to(x.dtype)
     return x
@@ -603,13 +596,13 @@ def _prefill_layer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
     if pcontext.seq_split() and _whole_seq_layer(spec):
         # sequence parallelism: the whole sequence, then this block
         xf = pcontext.seq_gather(x)
-        split = _window_heads(cfg, spec)
+        split = _split_heads(cfg, spec)
         with pcontext.whole_seq():
             fz, tr = pcontext.params(fz, heads), pcontext.params(tr, heads)
             pf = torch.arange(xf.shape[1], device=xf.device)[None, :]
             if split:
-                h, cache = _prefill_attn(cfg, spec, fz, tr, xf, pf,
-                                         max_seq, prefix_len)
+                h, cache = _prefill_mixer(cfg, spec, fz, tr, xf, pf,
+                                          max_seq, prefix_len)
             else:
                 y, cache = _prefill_body(cfg, spec, fz, tr, xf, pf, max_seq,
                                          prefix_len, constrain)
@@ -625,26 +618,24 @@ def _prefill_body(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
                   x: torch.Tensor, positions: torch.Tensor, max_seq: int,
                   prefix_len: Optional[torch.Tensor], constrain
                   ) -> tuple[torch.Tensor, dict]:
-    if spec.mixer == "mamba":
-        # the SSD over the prompt; its recurrence's last state and the
-        # last K - 1 pre-conv inputs are the decode cache
-        h = L.rmsnorm_apply(tr["norm1"], x)
-        h, cache = SSM.mamba_forward(fz["mix"], tr["mix"], cfg.mamba, h,
-                                     cfg.lora.scale, final_state=True)
-        return constrain(x + h), cache
-    h, cache = _prefill_attn(cfg, spec, fz, tr, x, positions, max_seq,
-                             prefix_len)
+    h, cache = _prefill_mixer(cfg, spec, fz, tr, x, positions, max_seq,
+                              prefix_len)
     return _ffn_block(cfg, spec, fz, tr, x + h, constrain)[0], cache
 
 
-def _prefill_attn(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
-                  x: torch.Tensor, positions: torch.Tensor, max_seq: int,
-                  prefix_len: Optional[torch.Tensor]
-                  ) -> tuple[torch.Tensor, dict]:
-    """An attention layer's norm and attention over the prompt, and its
-    cache: (the residual branch, cache)."""
+def _prefill_mixer(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
+                   x: torch.Tensor, positions: torch.Tensor, max_seq: int,
+                   prefix_len: Optional[torch.Tensor]
+                   ) -> tuple[torch.Tensor, dict]:
+    """A layer's norm and mixer over the prompt, and its cache: (the
+    residual branch, cache)."""
     sc = cfg.lora.scale
     h = L.rmsnorm_apply(tr["norm1"], x)
+    if spec.mixer == "mamba":
+        # the SSD over the prompt; its recurrence's last state and the
+        # last K - 1 pre-conv inputs are the decode cache
+        return SSM.mamba_forward(fz["mix"], tr["mix"], cfg.mamba, h, sc,
+                                 final_state=True)
     rope = _rope_for(cfg, spec, positions)
     if spec.mixer == "mla":
         ckv, kr = A._mla_latent(fz["attn"], tr["attn"], cfg.mla, h, sc, rope)
@@ -683,8 +674,8 @@ def _prefill_attn(cfg: LMConfig, spec: LayerSpec, fz: dict, tr: dict,
 
 def _head_logits(frozen: dict, train: dict, cfg: LMConfig,
                  x: torch.Tensor) -> torch.Tensor:
-    return linear_apply(frozen.get("head", {}), train.get("head", {}), x,
-                        cfg.lora.scale).to(torch.float32)
+    return L.head_logits(frozen.get("head", {}), train.get("head", {}), x,
+                         cfg.lora.scale)
 
 
 def prefill(frozen: dict, train: dict, cfg: LMConfig, tokens,
@@ -715,9 +706,12 @@ def prefill(frozen: dict, train: dict, cfg: LMConfig, tokens,
         x, c = _prefill_layer(cfg, spec, fz, tr, x, positions, total_seq,
                               prefix_len, constrain)
         for key, val in c.items():
-            # the layer's cache takes the stack's layout
-            caches[gi][pi][key][i] = pcontext.constrain(val[None],
-                                                        "cache_stack")[0]
+            # the layer's cache takes the stack's layout (a Mamba state
+            # of a head block has it already)
+            dst = caches[gi][pi][key]
+            if val.shape != dst.shape[1:]:
+                val = pcontext.constrain(val[None], "cache_stack")[0]
+            dst[i] = val
     x = L.rmsnorm_apply(train["final_norm"], x)
     # the last position (under sequence parallelism, the last block's)
     last = pcontext.seq_gather(x[:, -1:])[:, -1]
@@ -736,7 +730,8 @@ def decode_step(frozen: dict, train: dict, cfg: LMConfig, token,
     sc = cfg.lora.scale
     pos_b = torch.full((x.shape[0], 1), pos, device=x.device)
     for gi, i, pi, spec, fz, tr in _layers(frozen, train, cfg):
-        fz, tr = pcontext.params(fz), pcontext.params(tr)
+        heads = _n_heads(cfg, spec)     # a Mamba mixer's may split
+        fz, tr = pcontext.params(fz, heads), pcontext.params(tr, heads)
         cache, put_back = pcontext.layer_cache(caches[gi][pi], i)  # views
         h = L.rmsnorm_apply(tr["norm1"], x)
         rope = _rope_for(cfg, spec, pos_b)

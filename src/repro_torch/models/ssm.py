@@ -21,6 +21,16 @@ recurrence in fp32, and the intra-chunk product as a bf16 x bf16 product
 whose output is rounded to bf16 and widened to fp32. One departure: the
 decay mask is applied before its ``exp``, not after (same forward
 values; a finite backward where the reference's overflows).
+
+A sharded step may run a mixer on its block of heads
+(``pcontext.ssm_block``, the reference's ``ssm_heads`` / ``ssm_inner``
+rules): head ``h`` owns channels ``[h P, (h + 1) P)`` of ``d_inner``, so
+``wz`` / ``wx`` / the norm hold the block's channels and ``wo`` its rows;
+B, C and ``dt`` are computed whole and the per-head leaves, ``dt`` and
+the conv (whole: its channels at rest are not laid out by heads) taken
+at the block; the gated norm's mean square is summed over the blocks and
+``wo``'s partial outputs add over them. The SSM state is the block's
+heads; the conv cache is gathered whole.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ import torch.nn.functional as F
 from repro_torch.core.lora import LoRAConfig, _normal, linear_apply, \
     linear_init, linear_logical
 from repro_torch.models import layers as L
+from repro_torch.utils import pcontext
 from repro_torch.utils.device import resolve_device
 
 
@@ -121,6 +132,15 @@ def _proj(fz: dict, tr: dict, nm: str, x: torch.Tensor,
     return linear_apply(fz.get(nm, {}), tr.get(nm, {}), x, scale)
 
 
+def _bc_dt(fz: dict, tr: dict, x: torch.Tensor, scale: float,
+           blk: Optional[tuple]) -> tuple:
+    """(B, C, dt in fp32 of the block's heads): the projections that a
+    head block computes whole."""
+    bmat, cmat, dt = (linear_apply(fz.get(nm, {}), tr.get(nm, {}), x, scale)
+                      for nm in ("wb", "wc", "wdt"))
+    return bmat, cmat, _heads_of(dt.to(torch.float32), blk)
+
+
 def _causal_depthwise_conv(xbc: torch.Tensor, w: torch.Tensor,
                            b: torch.Tensor,
                            state: Optional[torch.Tensor] = None
@@ -142,10 +162,44 @@ def _causal_depthwise_conv(xbc: torch.Tensor, w: torch.Tensor,
     return y, xp[:, s:]
 
 
-def _gate(tr: dict, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """The silu(z) gate and the rmsnorm (before the out projection)."""
-    return L.rmsnorm_apply(tr["norm"],
-                           y * F.silu(z.to(torch.float32)).to(y.dtype))
+def _gate(tr: dict, y: torch.Tensor, z: torch.Tensor,
+          total: Optional[int] = None) -> torch.Tensor:
+    """The silu(z) gate and the rmsnorm (before the out projection); of
+    a head block, the norm over the whole ``total`` channels."""
+    g = y * F.silu(z.to(torch.float32)).to(y.dtype)
+    if total is None:
+        return L.rmsnorm_apply(tr["norm"], g)
+    return L.rmsnorm_blocks(tr["norm"], g, total)
+
+
+def _heads_of(v: torch.Tensor, blk: Optional[tuple]) -> torch.Tensor:
+    """The block's heads of a last dim over every head."""
+    return v if blk is None else v[..., blk[0]:blk[0] + blk[1]]
+
+
+def _inner_cols(t: torch.Tensor, spec: MambaSpec,
+                blk: Optional[tuple]) -> torch.Tensor:
+    """The block's channels of a last dim over the conv's ``d_inner + 2
+    G N`` channels: its heads' x channels, then every B and C one."""
+    if blk is None:
+        return t
+    p = spec.head_dim
+    return torch.cat([t[..., blk[0] * p:(blk[0] + blk[1]) * p],
+                      t[..., spec.d_inner:]], dim=-1)
+
+
+def _whole_conv(state: torch.Tensor, di: int) -> torch.Tensor:
+    """A conv cache of a head block's channels (x block, B, C) with
+    every block's x channels gathered in."""
+    return torch.cat([pcontext.ssm_gather(state[..., :di]),
+                      state[..., di:]], dim=-1)
+
+
+def _check_block(z: torch.Tensor, di: int) -> None:
+    if z.shape[-1] != di:
+        raise ValueError(f"a Mamba mixer split over model into blocks of "
+                         f"{di} channels got wz's {z.shape[-1]}: its "
+                         "d_inner is not split over model at rest")
 
 
 def check_final_state(spec: MambaSpec, s: int) -> None:
@@ -184,6 +238,11 @@ def mamba_forward(fz: dict, tr: dict, spec: MambaSpec, x: torch.Tensor,
     a multiple of it, and at least K - 1 (``check_final_state``)."""
     bsz, s0, _ = x.shape
     h, p, n, g = spec.n_heads, spec.head_dim, spec.d_state, spec.n_groups
+    blk = pcontext.ssm_block(h)         # a sharded step's head block
+    if blk is not None:
+        x = pcontext.ssm_enter(x)
+        h = blk[1]
+    di = h * p                          # the block's d_inner channels
     lc = min(spec.chunk, s0)
     pad = (-s0) % lc
     if final_state:
@@ -195,20 +254,20 @@ def mamba_forward(fz: dict, tr: dict, spec: MambaSpec, x: torch.Tensor,
     f32 = torch.float32
 
     z = _proj(fz, tr, "wz", x, lora_scale)
+    _check_block(z, di)
     xs = _proj(fz, tr, "wx", x, lora_scale)
-    bmat = _proj(fz, tr, "wb", x, lora_scale)
-    cmat = _proj(fz, tr, "wc", x, lora_scale)
-    dt = _proj(fz, tr, "wdt", x, lora_scale).to(f32)
+    bmat, cmat, dt = _bc_dt(fz, tr, x, lora_scale, blk)
 
     xbc_in = torch.cat([xs, bmat, cmat], dim=-1)
-    xbc, _ = _causal_depthwise_conv(xbc_in, tr["conv"]["w"],
-                                    tr["conv"]["b"])
-    xs = xbc[..., :spec.d_inner]
-    bmat = xbc[..., spec.d_inner:spec.d_inner + g * n]
-    cmat = xbc[..., spec.d_inner + g * n:]
+    xbc, _ = _causal_depthwise_conv(
+        xbc_in, _inner_cols(tr["conv"]["w"], spec, blk),
+        _inner_cols(tr["conv"]["b"], spec, blk))
+    xs = xbc[..., :di]
+    bmat = xbc[..., di:di + g * n]
+    cmat = xbc[..., di + g * n:]
 
-    dt = F.softplus(dt + tr["dt_bias"])                     # (B,S,H)
-    a = -torch.exp(tr["A_log"].to(f32))                     # (H,)
+    dt = F.softplus(dt + _heads_of(tr["dt_bias"], blk))     # (B,S,H)
+    a = -torch.exp(_heads_of(tr["A_log"], blk).to(f32))     # (H,)
 
     xh = xs.reshape(bsz, nc, lc, h, p)
     bh = bmat.reshape(bsz, nc, lc, g, n).to(f32)
@@ -251,15 +310,20 @@ def mamba_forward(fz: dict, tr: dict, spec: MambaSpec, x: torch.Tensor,
         * torch.exp(cum)[..., None]
 
     y = (y_intra + y_inter).reshape(bsz, s, h, p)
-    y = y + tr["D"].to(f32)[None, None, :, None] \
+    y = y + _heads_of(tr["D"], blk).to(f32)[None, None, :, None] \
         * xs.reshape(bsz, s, h, p).to(f32)
-    y = _gate(tr, y.reshape(bsz, s, spec.d_inner).to(x.dtype), z)
+    y = _gate(tr, y.reshape(bsz, s, di).to(x.dtype), z,
+              None if blk is None else spec.d_inner)
     out = _proj(fz, tr, "wo", y[:, :s0] if pad else y, lora_scale)
+    if blk is not None:
+        out = pcontext.ssm_exit(out)
     if not final_state:
         return out, None
     k1 = spec.conv_kernel - 1
-    return out, {"ssm": hc,
-                 "conv": xbc_in[:, s0 - k1:].to(torch.bfloat16)}
+    conv = xbc_in[:, s0 - k1:]
+    return out, {"ssm": hc, "conv": (conv if blk is None else
+                                     _whole_conv(conv, di)
+                                     ).to(torch.bfloat16)}
 
 
 def mamba_apply(fz: dict, tr: dict, spec: MambaSpec, x: torch.Tensor,
@@ -291,25 +355,33 @@ def mamba_decode(fz: dict, tr: dict, spec: MambaSpec, x: torch.Tensor,
                  cache: dict, lora_scale: float
                  ) -> tuple[torch.Tensor, dict]:
     """x: (B, 1, d). The O(1) recurrent step; returns (y, the new cache
-    {'ssm' fp32, 'conv' in x's compute dtype bf16}) as new tensors."""
+    {'ssm' fp32, 'conv' in x's compute dtype bf16}) as new tensors. Of a
+    head block, ``cache['ssm']`` is the block's heads and
+    ``cache['conv']`` whole."""
     bsz = x.shape[0]
     h, p, n, g = spec.n_heads, spec.head_dim, spec.d_state, spec.n_groups
+    blk = pcontext.ssm_block(h)         # a sharded step's head block
+    if blk is not None:
+        x = pcontext.ssm_enter(x)
+        h = blk[1]
+    di = h * p
     f32 = torch.float32
     z = _proj(fz, tr, "wz", x, lora_scale)
+    _check_block(z, di)
     xs = _proj(fz, tr, "wx", x, lora_scale)
-    bmat = _proj(fz, tr, "wb", x, lora_scale)
-    cmat = _proj(fz, tr, "wc", x, lora_scale)
-    dt = _proj(fz, tr, "wdt", x, lora_scale).to(f32)
+    bmat, cmat, dt = _bc_dt(fz, tr, x, lora_scale, blk)
 
     xbc = torch.cat([xs, bmat, cmat], dim=-1)
     xbc, conv_state = _causal_depthwise_conv(
-        xbc, tr["conv"]["w"], tr["conv"]["b"], cache["conv"])
-    xs = xbc[:, 0, :spec.d_inner]                           # (B, d_inner)
-    bvec = xbc[:, 0, spec.d_inner:spec.d_inner + g * n]
-    cvec = xbc[:, 0, spec.d_inner + g * n:]
+        xbc, _inner_cols(tr["conv"]["w"], spec, blk),
+        _inner_cols(tr["conv"]["b"], spec, blk),
+        _inner_cols(cache["conv"], spec, blk))
+    xs = xbc[:, 0, :di]                                     # (B, d_inner)
+    bvec = xbc[:, 0, di:di + g * n]
+    cvec = xbc[:, 0, di + g * n:]
 
-    dt = F.softplus(dt[:, 0] + tr["dt_bias"])               # (B,H)
-    a = -torch.exp(tr["A_log"].to(f32))
+    dt = F.softplus(dt[:, 0] + _heads_of(tr["dt_bias"], blk))  # (B,H)
+    a = -torch.exp(_heads_of(tr["A_log"], blk).to(f32))
     da = torch.exp(dt * a)
     xh = xs.reshape(bsz, h, p).to(f32)
     bn = bvec.reshape(bsz, g, n).to(f32)[:, 0]              # (B,N)
@@ -318,7 +390,11 @@ def mamba_decode(fz: dict, tr: dict, spec: MambaSpec, x: torch.Tensor,
     ssm = cache["ssm"] * da[..., None, None] \
         + (dt[..., None] * xh)[..., None] * bn[:, None, None, :]
     y = torch.einsum("bhpn,bn->bhp", ssm, cn) \
-        + tr["D"].to(f32)[None, :, None] * xh
-    y = y.reshape(bsz, 1, spec.d_inner).to(x.dtype)
-    return _proj(fz, tr, "wo", _gate(tr, y, z), lora_scale), \
-        {"ssm": ssm, "conv": conv_state}
+        + _heads_of(tr["D"], blk).to(f32)[None, :, None] * xh
+    y = y.reshape(bsz, 1, di).to(x.dtype)
+    out = _proj(fz, tr, "wo", _gate(tr, y, z, None if blk is None
+                                    else spec.d_inner), lora_scale)
+    if blk is None:
+        return out, {"ssm": ssm, "conv": conv_state}
+    return pcontext.ssm_exit(out), {"ssm": ssm,
+                                    "conv": _whole_conv(conv_state, di)}

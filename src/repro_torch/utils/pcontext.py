@@ -30,9 +30,9 @@ it through the functions below, each the identity without it:
                          (all-gathered at use; their gradients reduce
                          back to the owners' shards), but for the blocks
                          a split keeps: the dense MLP's (tensor
-                         parallelism), the attention's where its
-                         ``heads`` split, the MoE banks' where the
-                         experts split;
+                         parallelism), the attention's or the Mamba
+                         mixer's where its ``heads`` split, the MoE
+                         banks' where the experts split;
   head_block(h)          (first head, heads) of this rank's block of an
                          attention's query heads where they split over
                          ``model`` (column-parallel q, row-parallel
@@ -41,6 +41,24 @@ it through the functions below, each the identity without it:
                          over the blocks and the blocks' partial outputs
                          summed (under sequence parallelism
                          reduce-scattered onto the sequence block);
+  ssm_block(h)           (first head, heads) of this rank's block of a
+                         Mamba mixer's heads where they split over
+                         ``model`` (``wz`` / ``wx`` / the norm by
+                         channels, ``wo`` by rows, the per-head leaves
+                         and the state by heads), else None;
+                         ssm_enter(x) / ssm_exit(y) as heads_enter /
+                         heads_exit; ssm_sum(x) the gated norm's sum of
+                         squares over the blocks (its gradient the same
+                         sum); ssm_gather(x) the blocks' channels of a
+                         conv cache gathered;
+  vocab_block(kind)      (first row, rows) of this rank's block of the
+                         vocab of the embedding or the head where it
+                         splits over ``model``, else None;
+                         vocab_enter(x) the head's input (its gradient
+                         summed over the blocks), vocab_sum(x) /
+                         vocab_max(x) a sum (identity backward) / max
+                         over the blocks, vocab_gather(x) the logits'
+                         blocks gathered;
   expert_split(spec, b, s)
                          a MoE dispatch split over the mesh (experts
                          over ``model``, each kept pair's row sent to its
@@ -51,8 +69,9 @@ it through the functions below, each the identity without it:
                          tensors, and a function that writes the updated
                          layer back into this rank's shards: a KV or
                          latent cache keeps this rank's block of the
-                         sequence (split-KV decode), any other cache is
-                         gathered whole;
+                         sequence (split-KV decode), a Mamba state its
+                         block of heads where they split, any other
+                         cache is gathered whole;
   seq_block(t)           for such a block, its place in the whole
                          sequence and the sums and maxima over the ranks
                          that hold the other blocks (None for a whole
@@ -144,6 +163,55 @@ def heads_enter(x):
 
 def heads_exit(y):
     return y if _local is None else _local.heads_exit(y)
+
+
+def ssm_block(h: int) -> Optional[tuple[int, int]]:
+    """(first head, heads) of this rank's block of a Mamba mixer's ``h``
+    heads where they split over ``model``; None (every head) without a
+    split."""
+    return None if _local is None else _local.ssm_block(h)
+
+
+def ssm_enter(x):
+    return x if _local is None else _local.ssm_enter(x)
+
+
+def ssm_exit(y):
+    return y if _local is None else _local.ssm_exit(y)
+
+
+def ssm_sum(x):
+    return x if _local is None else _local.ssm_sum(x)
+
+
+def ssm_gather(x):
+    return x if _local is None else _local.ssm_gather(x)
+
+
+def vocab_block(kind: str) -> Optional[tuple[int, int]]:
+    """(first row, rows) of this rank's block of the vocab of the
+    embedding (``kind`` "embed") or the head ("head"); None (the whole
+    vocab) without a split."""
+    return None if _local is None else _local.vocab_block(kind)
+
+
+def vocab_enter(x):
+    return x if _local is None else _local.vocab_enter(x)
+
+
+def vocab_sum(x):
+    return x if _local is None else _local.vocab_sum(x)
+
+
+def vocab_max(x):
+    return x if _local is None else _local.vocab_max(x)
+
+
+def vocab_gather(x):
+    """A head's logits (..., V/m) of a vocab block gathered whole."""
+    if _local is None or _local.vocab_block("head") is None:
+        return x
+    return _local.vocab_gather(x)
 
 
 def expert_split(spec, b: int, s: int):

@@ -30,8 +30,10 @@
   gemma3-4b sequence-parallel, its sliding-window layers on the whole
   sequence, paligemma-3b) and decode (gemma3-4b at batch 8 and 1,
   deepseek-v2-236b, mamba2-370m, seamless-m4t-medium; the MLPs of the
-  prefill and decode steps tensor-parallel over model); each cell's
-  rows, sequence and MLPs split where the plan says. Held: the loss
+  prefill and decode steps tensor-parallel over model); mamba2-370m and
+  zamba2-2.7b train at microbatch 4 (2 rows over data, the Mamba heads
+  over model); each cell's rows, sequence and MLPs split where the plan
+  says. Held: the loss
   within ``LOSS_REL`` (2e-3) relative; the trained tree and AdamW's
   moments within ``GRAD_L2`` (6e-2) relative L2 a leaf and the update
   (new - old) within ``UPDATE_L2`` (0.4) relative L2 a leaf (the
@@ -50,14 +52,26 @@
   3.9e-3 on seamless-m4t-medium's smoke config). Donation:
   a train step's trained tree and optimizer state and a decode step's
   caches are the arguments' local storage after the step. Each cell's
-  ``head_axes`` / ``expert_axes`` and the blocks rank 0 used: the heads
-  over model where it splits no rows (train at microbatch 4, prefill,
-  gemma3-4b's sliding-window layers under ``seq_parallel``), the experts
-  of deepseek-v2-236b and llama4-maverick-400b-a17b in every step (their
-  train at microbatch 4, prefill and batch-1 decode, on the one-card
-  routes, are cells too). The split MoE dispatch (``moe._dispatch_split``)
-  equals the one-rank ``_dispatch_chunk`` bit for bit on skewed expert
-  ids that overflow the capacity, in seven layouts (``DISPATCH``). The
+  ``head_axes`` / ``ssm_axes`` / ``vocab_axes`` / ``expert_axes`` and
+  the blocks rank 0 used: the heads over model where it splits no rows
+  (train at microbatch 4, prefill, gemma3-4b's sliding-window layers
+  under ``seq_parallel``), the Mamba heads wherever model splits no rows
+  (a decode step and a sequence-parallel step too), the vocab of the
+  embedding, the head and the loss where model splits neither rows nor
+  sequence, the experts of deepseek-v2-236b and
+  llama4-maverick-400b-a17b in every step (their train at microbatch 4,
+  prefill and batch-1 decode, on the one-card routes, are cells too).
+  ``HOLDER_CELLS``: deepseek-v2-236b's prefill and train on a (pod 2,
+  data 2, model 1) mesh whose 2-row dispatch chunks span 2 of the 4
+  batch blocks, each dispatched by its 2 holders only (one chunk a
+  rank, its capacity rows split over them), held to the one-card step
+  as above. The vocab-split embedding lookup equals the whole table's
+  bit for bit (bf16 and int8 base); a Mamba head block's gated norm
+  equals ``rmsnorm_apply`` over the whole ``d_inner`` (exactly on
+  dyadic inputs, to fp32 rounding on random ones). The split MoE
+  dispatch (``moe._dispatch_split``) equals the one-rank
+  ``_dispatch_chunk`` bit for bit on skewed expert ids that overflow the
+  capacity, in seven layouts (``DISPATCH``). The
   exchanges' autograd Functions over each mesh axis (``spmd._AllToAll``,
   ``_ReduceScatter``: the dispatch's all-to-all, a sequence-parallel
   head block's reduce-scatter) move what they should and their
@@ -237,7 +251,16 @@ GLOO_CELLS = [("minitron-4b", "train_4k", 2, False, None),
               ("llama4-maverick-400b-a17b", "train_4k", 4, False, None),
               ("deepseek-v2-236b", "prefill_32k", 1, False, None),
               ("deepseek-v2-236b", "decode_32k", 1, False, 1),
-              ("gemma3-4b", "train_4k", 2, True, None)]
+              ("gemma3-4b", "train_4k", 2, True, None),
+              ("mamba2-370m", "train_4k", 4, False, None),
+              ("zamba2-2.7b", "train_4k", 4, False, None)]
+
+# MoE cells on a (pod 2, data 2, model 1) mesh whose dispatch chunks (at
+# ``chunk`` tokens, 2 rows) span 2 of the 4 batch blocks: each chunk is
+# dispatched by its 2 holders only, over the step's ``holders`` mesh
+# (arch, shape, microbatch, seq_parallel, batch, chunk tokens)
+HOLDER_CELLS = [("deepseek-v2-236b", "prefill_32k", 1, False, None, 128),
+                ("deepseek-v2-236b", "train_4k", 2, False, None, 128)]
 
 # cells whose AdamW update is held element by element (``flip``) rather
 # than by its relative L2 a leaf: gemma3-4b's sequence-parallel train
@@ -245,8 +268,12 @@ GLOO_CELLS = [("minitron-4b", "train_4k", 2, False, None),
 # ~2e-7 (1e-3 of the leaf's norm), below the leaf's gradient error over
 # the head blocks' reduce-scatter (~3e-6); their signs, and so AdamW's
 # first step there (about lr * sign(g)), may differ, and two of 32 such
-# elements give the leaf a relative L2 of 0.5
-SIGN_ONLY = [("gemma3-4b", "train_4k", 2, True, None)]
+# elements give the leaf a relative L2 of 0.5. zamba2-2.7b's train step
+# with its attention and Mamba heads split: its 16-element ``A_log``
+# leaf (measured 0.43; its gradient within 2.6% relative L2, every other
+# leaf's update within 0.28) is the same case
+SIGN_ONLY = [("gemma3-4b", "train_4k", 2, True, None),
+             ("zamba2-2.7b", "train_4k", 4, False, None)]
 
 # the split MoE dispatch against the one-rank one on the same expert ids:
 # (name, global rows, sequence, row axes, sequence axes, chunk tokens)
@@ -269,6 +296,7 @@ DISPATCH = [("rows over data and model", 4, 8, ["data", "model"], [], None,
              32, "a2a", True, False, 1)]
 
 GLOO_BODY = """
+import dataclasses
 import hashlib
 import time
 from torch.distributed.device_mesh import init_device_mesh
@@ -280,6 +308,8 @@ from repro_torch.utils import pcontext
 from repro_torch.utils.tree import tree_flatten, flatten_with_names
 TR.SHAPES.update(json.loads(os.environ["CUT"]))
 mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+mesh3 = init_device_mesh("cpu", (2, 2, 1),
+                         mesh_dim_names=("pod", "data", "model"))
 _route = MOE.route
 
 
@@ -319,14 +349,17 @@ def rel_max(a, b):
     return float((a - b).abs().max() / max(float(a.abs().max()), 1e-30))
 
 
-results = []
-for arch, shape, mb, sp, batch in json.loads(os.environ["CELLS"]):
+def run_cell(mesh, arch, shape, mb, sp, batch, chunk=None):
     t0 = time.perf_counter()
     e = TR.get(arch)
+    cfg = e.smoke()
+    if chunk:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, max_chunk_tokens=chunk))
     plan = TS.CellPlan(microbatch=mb, seq_parallel=sp)
-    u = TS.build_cell(e, shape, plan=plan, cfg_override=e.smoke(),
+    u = TS.build_cell(e, shape, plan=plan, cfg_override=cfg,
                       device="cpu", batch=batch)
-    s = TS.build_cell(e, shape, mesh, plan=plan, cfg_override=e.smoke(),
+    s = TS.build_cell(e, shape, mesh, plan=plan, cfg_override=cfg,
                       device="cpu", batch=batch)
     g = torch.Generator().manual_seed(7)
     # b factors off zero; decode caches random; the same full values
@@ -355,7 +388,8 @@ for arch, shape, mb, sp, batch in json.loads(os.environ["CELLS"]):
            "routes": len(routes.rec), "forced": routes.i,
            "axes": [list(s["batch_axes"]), list(s["seq_axes"]),
                     list(s["tp_axes"])],
-           "split": [list(s["head_axes"]), list(s["expert_axes"])]}
+           "split": [list(s["head_axes"]), list(s["expert_axes"])],
+           "ssm_vocab": [list(s["ssm_axes"]), list(s["vocab_axes"])]}
     if u["step"] == "train":
         rec["loss"] = [float(uo[2]["loss"]), float(so[2]["loss"])]
         rec["l2"] = max(rel_l2(a, full(b)) for a, b in zip(
@@ -389,7 +423,11 @@ for arch, shape, mb, sp, batch in json.loads(os.environ["CELLS"]):
     rec["log"] = {k: sorted(list(x) for x in v)
                   for k, v in s["split_log"].items()}
     rec["s"] = time.perf_counter() - t0
-    results.append(rec)
+    return rec
+
+
+results = [run_cell(mesh, *c) for c in json.loads(os.environ["CELLS"])]
+holders = [run_cell(mesh3, *c) for c in json.loads(os.environ["HOLDERS"])]
 dispatch = []
 for name, rows, seq, axes, seq_axes, chunk, *_ in json.loads(
         os.environ["DISPATCH"]):
@@ -467,9 +505,69 @@ for ax in ("data", "model"):
                      ).abs().max()),
         "rs_grad": float((grad_rs - torch.cat(
             [ys[p][:2] for p in peers])).abs().max())})
+# the vocab-split embedding lookup against the whole table's, bit for
+# bit, on the bf16 and the int8 base (rows over data, vocab over model)
+from repro_torch.core.lora import quantize_frozen_logical, \
+    quantize_frozen_tree
+from repro_torch.models import layers as L, ssm as SSM
+from repro_torch.utils.sharding import tree_shardings
+lookups = []
+g = torch.Generator().manual_seed(3)
+table = {"embed": {"w": torch.randn(64, 16, generator=g).to(
+    torch.bfloat16)}}
+tokens = torch.randint(0, 64, (2, 3, 40), generator=g)[
+    dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))["data"]]
+for base in ("bf16", "int8"):
+    logical = {"embed": {"w": ("vocab", "fsdp")}}
+    whole = table
+    if base == "int8":
+        whole = quantize_frozen_tree(table)
+        logical = quantize_frozen_logical(logical)
+    dist_t = TS._distribute(whole, tree_shardings(logical, whole, mesh),
+                            mesh)
+    want = L.embed_lookup(whole["embed"], tokens)
+    ctx = spmd.LocalStep(mesh, ("data",))
+    with pcontext.use_local(ctx):
+        got = L.embed_lookup(ctx.top(dist_t)["embed"], tokens)
+    lookups.append({"base": base, "block": list(ctx.vocab_block("embed")),
+                    "bits": bool(torch.equal(got.view(torch.int16),
+                                             want.view(torch.int16))),
+                    "dtype": str(got.dtype), "shape": list(got.shape)})
+# the gated norm of a Mamba head block (8 heads of 16 channels, 4 a
+# rank) against the whole d_inner's: exactly on dyadic inputs (every
+# sum of squares exact in fp32, in any order), to fp32 rounding on
+# random ones; and a norm over the block's channels alone differs
+norms = []
+g = torch.Generator().manual_seed(4)
+ctx = spmd.LocalStep(mesh, ("data",))
+for kind in ("dyadic", "random"):
+    if kind == "dyadic":
+        y = (torch.randint(-8, 9, (2, 5, 128), generator=g) / 4).to(
+            torch.bfloat16)
+        z = 32.0 * 2.0 ** torch.randint(0, 3, (2, 5, 128), generator=g)
+        scale = 2.0 ** torch.randint(-2, 3, (128,), generator=g).float()
+    else:
+        y = torch.randn(2, 5, 128, generator=g)
+        z = torch.randn(2, 5, 128, generator=g)
+        scale = 1 + 0.1 * torch.randn(128, generator=g)
+    want = SSM._gate({"norm": {"scale": scale}}, y, z)
+    with pcontext.use_local(ctx):
+        h0, hn = ctx.ssm_block(8)
+        sl = slice(h0 * 16, (h0 + hn) * 16)
+        got = SSM._gate({"norm": {"scale": scale[sl]}}, y[..., sl],
+                        z[..., sl], 128)
+    local = SSM._gate({"norm": {"scale": scale[sl]}}, y[..., sl],
+                      z[..., sl])
+    w_ = want[..., sl].double()
+    norms.append({"kind": kind, "block": [h0, hn],
+                  "equal": bool(torch.equal(got, want[..., sl])),
+                  "rel": float((got.double() - w_).abs().max()
+                               / w_.abs().max()),
+                  "local_rel": float((local.double() - w_).abs().max()
+                                     / w_.abs().max())})
 if RANK == 0:
-    json.dump({"cells": results, "dispatch": dispatch,
-               "adjoints": adjoints},
+    json.dump({"cells": results, "holders": holders, "dispatch": dispatch,
+               "adjoints": adjoints, "lookups": lookups, "norms": norms},
               open(os.path.join(OUT, "results.json"), "w"))
 """
 
@@ -479,6 +577,7 @@ def gloo_results(tmp_path_factory):
     out = spawn_ranks(GLOO_BODY, 4, tmp_path_factory.mktemp("steps_gloo"),
                       timeout=700, env={"CUT": json.dumps(CUT),
                                         "CELLS": json.dumps(GLOO_CELLS),
+                                        "HOLDERS": json.dumps(HOLDER_CELLS),
                                         "DISPATCH": json.dumps(DISPATCH)})
     return json.load(open(out / "results.json"))
 
@@ -512,6 +611,19 @@ def test_sharded_step_matches_one_card(gloo_results, i):
     if heads:
         h = 8 if arch == "minitron-4b" else 4
         assert rec["log"]["heads"] == [[h, 0, h // 2]], rec
+    # the Mamba heads wherever model splits no rows (in a
+    # sequence-parallel step too: a Mamba layer runs on the whole
+    # sequence), the vocab where it splits neither rows nor sequence;
+    # rank 0 holds the first block of each
+    ssm = arch in ("mamba2-370m", "zamba2-2.7b") and \
+        "model" not in want[0]
+    vocab = not sp and "model" not in want[0]
+    assert rec["ssm_vocab"] == [["model"] if ssm else [],
+                                ["model"] if vocab else []], rec
+    assert rec["log"].get("ssm_heads") == ([[8, 0, 4]] if ssm else None)
+    assert rec["log"].get("vocab") == ([["embed", 512, 0, 256],
+                                        ["head", 512, 0, 256]]
+                                       if vocab else None), rec
     if experts:
         mode = "rep" if batch == 1 else "a2a"
         assert rec["log"]["experts"] == [[0, 4, mode, 1]], rec
@@ -532,6 +644,59 @@ def test_sharded_step_matches_one_card(gloo_results, i):
         # every MoE call of the sharded step ran on the recorded routes
         assert rec["routes"] > 0 and rec["forced"] == rec["routes"], rec
     assert rec["donated"] or rec["step"] == "prefill", rec
+
+
+@pytest.mark.parametrize("i", range(len(HOLDER_CELLS)))
+def test_chunks_dispatched_by_their_holders(gloo_results, i):
+    """A MoE step on the (pod 2, data 2, model 1) mesh whose dispatch
+    chunks span 2 of its 4 batch blocks equals the one-card step (on its
+    routes): each rank dispatches only the one chunk its block holds,
+    its capacity rows split over the chunk's 2 holders."""
+    rec = gloo_results["holders"][i]
+    arch, shape, mb, sp, batch, _ = HOLDER_CELLS[i]
+    assert rec["cell"] == [arch, shape, sp, batch]
+    assert rec["axes"] == [["pod", "data"], [], []], rec
+    assert rec["log"]["experts"] == [[0, 8, "a2a", 1]], rec
+    (first, rows, cap), = rec["log"]["capacity"]
+    assert first == 0 and 2 * rows == cap, rec
+    assert rec["routes"] > 0 and rec["forced"] == rec["routes"], rec
+    if rec["step"] == "train":
+        lu, ls = rec["loss"]
+        assert abs(ls - lu) <= LOSS_REL * abs(lu), rec
+        assert rec["l2"] <= GRAD_L2 and rec["update"] <= UPDATE_L2, rec
+        assert rec["flip"] <= 1.0 and rec["count"] == 1, rec
+        assert rec["donated"], rec
+    else:
+        assert rec["n"][0] == rec["n"][1], rec
+        assert rec["serve"] <= SERVE_REL, rec
+
+
+@pytest.mark.parametrize("base", ["bf16", "int8"])
+def test_vocab_split_embedding_lookup_is_exact(gloo_results, base):
+    """The embedding lookup on this rank's vocab block (rows outside it
+    zero, summed over ``model``) equals the whole table's, bit for bit,
+    on the bf16 and the int8 base."""
+    rec = next(r for r in gloo_results["lookups"] if r["base"] == base)
+    assert rec["block"] == [0, 32], rec
+    assert rec["bits"] and rec["dtype"] == "torch.bfloat16", rec
+    assert rec["shape"] == [3, 40, 16], rec
+
+
+@pytest.mark.parametrize("kind", ["dyadic", "random"])
+def test_split_gated_norm_equals_whole(gloo_results, kind):
+    """A Mamba head block's gated norm (``ssm._gate`` over its channels,
+    the mean square summed over ``model``) equals ``rmsnorm_apply``'s
+    over the whole ``d_inner`` on those channels: exactly on dyadic
+    inputs, whose sums of squares are exact in fp32 in any order, and
+    to fp32 rounding on random ones. The norm over the block's channels
+    alone parts from it by over 10%."""
+    rec = next(r for r in gloo_results["norms"] if r["kind"] == kind)
+    assert rec["block"] == [0, 4], rec
+    if kind == "dyadic":
+        assert rec["equal"] and rec["rel"] == 0.0, rec
+    else:
+        assert rec["rel"] <= 1e-6, rec
+    assert rec["local_rel"] > 0.1, rec
 
 
 @pytest.mark.parametrize("i", range(len(DISPATCH)))
