@@ -36,11 +36,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
      ``quant_pack_rows`` also on rows of every length in
      ``QUANT_ROW_LEVELS``;
   3. drive the FL round: the synchronous FLoCoRA round of
-     ``examples/quickstart.py`` ``run_uniform`` (ResNet-8, r=32, alpha=512,
-     int8 flat wire, 20 clients with LDA 0.5 over 2000 synthetic images,
-     K=5, batch 32, lr 0.01, 1 local epoch) through ``FLServer`` on the
-     card, with the kernels' launch counts read around it, then replay
-     round 1 on the CPU (plain versions) and compare. Then the same
+     ``launch.quickstart``'s ``uniform_setup`` (``examples/quickstart.py``
+     ``run_uniform``: ResNet-8, r=32, alpha=512, int8 flat wire, 20
+     clients with LDA 0.5 over 2000 synthetic images, K=5, batch 32, lr
+     0.01, 1 local epoch) through ``FLServer`` on the card, with the
+     kernels' launch counts read around it, then replay round 1 on the
+     CPU (plain versions) and compare. Then the same
      setting's other options, each with the counts set to 0 around it:
      the per-leaf wire (``flat_wire=False``, 2 rounds: the flat run's
      bytes, ONE grouped ``dequant_agg`` launch and no
@@ -58,7 +59,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
      engine (4 clients from 4 start trees, each held to
      ``make_local_trainer`` from its own start); then the quickstart's
      other synchronous modes, each 2 rounds with round 1 replayed on the
-     CPU: ``run_sparse`` (int4, EF, top-k density 0.1: every uplink
+     CPU, each from its ``launch.quickstart`` builder: ``run_sparse``
+     (int4, EF, top-k density 0.1: every uplink
      55,419 B and every downlink 150,744 B, every uplink's sparse pack
      bit-exact against the plain version, the scatter-add aggregate
      bit-identical over two calls), ``run_hetero`` (10 clients in rank
@@ -90,12 +92,25 @@ Phases, each of which raises on failure (the script then exits nonzero):
      a mixed-rank round on ``FedBuffAggregator(rank_staleness=True)``
      replayed on the CPU); then the paper's Table
      IV training row (``benchmarks/table4_comparison.py --train`` (64,
-     8) through ``fl_experiment``'s settings: ResNet-18, r=64,
+     8) through ``launch.fl_experiment``: ResNet-18, r=64,
      alpha=1024, int8, 20 clients with LDA 1.0 over 2000 synthetic
      images, K=4, eval every 2 rounds on 1000 held-out images), 4 of
      its 12 rounds: every uplink 2,379,064 B, test_acc in rounds 2 and
      4, one B1 launch a message and one B2 launch a round, round 1
-     replayed on the CPU;
+     replayed on the CPU; then the paper's baseline (3f,
+     ``baseline_phase``): ``launch.fl_experiment`` at its defaults
+     (ResNet-8 at full width, 40 clients, K = 4, 4,000 images), 2 rounds
+     evaluated at the second, under cuDNN's deterministic algorithms, as
+     the dense fp32 FedAvg baseline, FLoCoRA at int8 and Table II's
+     (LoRA stem, LoRA classifier) row on the fp32 wire: uplinks 4,910,376
+     / 277,816 / 1,055,872 B measured and static, the FedAvg : FLoCoRA
+     message ratio, one B1 launch a message and one B2 a round at int8
+     and none on the fp32 wire, round 1 replayed on the CPU (trees as
+     ``hold_trees``: the fp32 wire's within ``FP_WIRE_TREE_MOVE`` of each
+     leaf's movement in the round, and a mean that leaves a client out
+     must fail that check), test_acc within 2 of 1,000 images of the CPU's
+     evaluation of the card's tree, the round walls and the peak memory;
+     then one FedAvg round of ResNet-18 at K = 4 for its peak memory;
   4. drive the serving path: ``benchmarks/round_throughput.py`` run_serve's
      1024-client int4 store (ranks 4 and 8, 2 layers, seed 0) at
      d = 2560 (gemma3-4b's hidden width), an m = 64 step on the fused and
@@ -198,7 +213,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
      card), and at the card's cuts, in spawned processes while the card
      runs the same step programs from ``build_cell`` at gemma3-4b's and
      seamless-m4t-medium's published configs (full width and depth but
-     the train steps, cut to ``LM_STEP_DEPTH``; random
+     the train and prefill steps, cut to ``LM_STEP_DEPTH``; random
      weights from seed 0, r = 32), published seq lengths and microbatch
      counts, the batch cut (``LM_STEP_BATCH``; gemma3-4b's long_500k
      uncut), the trace at the same cuts: each step cold and warm, then
@@ -231,9 +246,10 @@ Phases, each of which raises on failure (the script then exits nonzero):
      ratios to fp32;
  4h. the LM step sharded over a real NCCL process group of one rank and
      the (1, 1) host mesh (``LM_MESH_CELLS``): ``build_cell(..., mesh)``
-     for gemma3-4b train_4k (seq_parallel), prefill_32k and decode_32k
-     at full width and depth, deepseek-v2-236b decode at depth 1,
-     mamba2-370m and seamless-m4t-medium decode, mamba2-370m train_4k;
+     for gemma3-4b train_4k (seq_parallel, depth 6), prefill_32k (depth
+     8) and decode_32k at full width, deepseek-v2-236b decode at depth
+     1, mamba2-370m and seamless-m4t-medium decode, mamba2-370m train_4k
+     at depth 6;
      each step held to the one-card step on the same tensors within
      ``LM_MESH_TOL``, both walls printed, the donated buffers the same
      storage after the step, no kernel launched; each cell prints its
@@ -278,6 +294,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -341,19 +358,43 @@ ENGINE_ROUNDS = 3
 # uplink (paper: 2.4 MB) as the JAX package's message_wire_bytes counts
 # it
 TABLE4 = dict(rank=64, alpha=1024.0, rounds=4, up_bytes=2_379_064)
-# the quickstart's other synchronous modes (examples/quickstart.py
+# the paper's baseline and a Table II row (benchmarks/fig2_rank_alpha.py
+# and table2_ablation.py through fl_experiment) at fl_experiment's
+# defaults (ResNet-8 at full width, r = 32, alpha = 512, 40 clients with
+# LDA 0.5 over 4,000 images, K = 4, momentum 0.9), 2 rounds evaluated
+# at the second on 1,000 held-out images; each run's uplink as the JAX
+# package counts it (tests/test_torch_fl_experiment*.py hold the
+# round bytes equal); then one FedAvg round of ResNet-18 for its peak
+# memory
+BASELINE = dict(rounds=2, eval_every=2, runs=(
+    ("fedavg", dict(mode="fedavg", quant_bits=None), 4_910_376),
+    ("flocora int8", dict(mode="flocora", quant_bits=8), 277_816),
+    ("table2 lora stem+fc", dict(mode="flocora", quant_bits=None,
+                                 stem_mode="lora", fc_mode="lora"),
+     1_055_872)))
+# test_acc on the card against the CPU's evaluation of the same tree:
+# argmax near-ties, 2 images of 1,000
+BASELINE_ACC_TOL = 0.002
+# an fp32 wire's leaves after round 1, card against the CPU replay, as a
+# share of how far the round moved each leaf (``fp_wire_share``).
+# Summation order alone (cuDNN against the CPU's convs, 1 thread against
+# 8) parts the Table II run's zero-started ``a`` factors most, by ~1-2%
+# of their movement; a mean that leaves one of the K = 4 clients out
+# parts some leaf by ~0.4-0.7 of its movement, and ``compare_with_cpu``
+# requires that planted fault to fail
+FP_WIRE_TREE_MOVE = 0.1
+# the quickstart's other synchronous modes (launch.quickstart's
 # run_sparse, run_hetero, run_uniform(dp_noise=0.3)) and the bytes and
 # epsilons the JAX package gives them
 SPARSE = dict(density=0.1, up_bytes=55_419, down_bytes=150_744)
-HETERO = dict(tiers=(4, 8, 16), n_clients=10, k=6, rank=16, alpha=256.0,
+HETERO = dict(tiers=(4, 8, 16), rank=16, alpha=256.0,
               tier_bytes={4: 57_400, 8: 88_888, 16: 151_864})
 DP = dict(clip_norm=1.0, noise_multiplier=0.3, up_bytes=277_816,
           epsilon=(21.559841619903807, 33.736868528818945))
-# examples/quickstart.py run_async (server r = 16, tiers as HETERO's) and
+# launch.quickstart's run_async (server r = 16, tiers as HETERO's:
+# quickstart.async_setup at 90 arrivals, buffers of 6) and
 # benchmarks/round_throughput.py run_fleet's operating point
-ASYNC = dict(n_clients=12, acfg=dict(
-    total_arrivals=90, concurrency=6, buffer_size=6, half_life=4.0,
-    microbatch_window=60.0, seed=0))
+ASYNC = dict(arrivals=90, buffer=6)
 FLEET = dict(n_clients=1_000_000, shard_size=64, cache=256, acfg=dict(
     total_arrivals=200, concurrency=64, buffer_size=10, streaming_agg=True,
     microbatch_window=1200.0, seed=0, checkpoint_every=5))
@@ -533,12 +574,15 @@ LM_STEP_BATCH = {("gemma3-4b", "train_4k"): 4,
                  ("seamless-m4t-medium", "prefill_32k"): 1,
                  ("seamless-m4t-medium", "decode_32k"): 8}
 # the layers a cell's step keeps (an enc-dec's in each stack), so that
-# the whole script stays under 900 s beside phase 4h's mamba2-370m train
-# cell: the two train steps, whose three calls each led the phase (85 s
-# and 33 s at full depth), 3 of seamless-m4t-medium's 12 + 12 and 8 of
-# gemma3-4b's 34 (a group of 5 local and 1 global layer, 2 local)
+# the whole script stays under 900 s beside phases 3f and 4h: the two
+# train steps, whose three calls each led the phase (85 s and 33 s at
+# full depth), and the two prefill_32k steps (6.8 s and 7.5 s a call at
+# full depth), 3 of seamless-m4t-medium's 12 + 12 and 8 of gemma3-4b's
+# 34 (a group of 5 local and 1 global layer, 2 local)
 LM_STEP_DEPTH = {("seamless-m4t-medium", "train_4k"): 3,
-                 ("gemma3-4b", "train_4k"): 8}
+                 ("seamless-m4t-medium", "prefill_32k"): 3,
+                 ("gemma3-4b", "train_4k"): 8,
+                 ("gemma3-4b", "prefill_32k"): 8}
 LM_STEP_PEAK_MAX = 60e9
 # the card's peak (max_memory_allocated over a cold step, less what was
 # allocated before the cell's arguments) against the dry run's peak_bytes
@@ -561,19 +605,23 @@ LM_DRYRUN_WORKERS = 6
 # phase 4h: the LM step sharded over a real NCCL group of one rank (the
 # (1, 1) host mesh), each step held to the one-card step on the same
 # arguments: gemma3-4b train_4k (seq_parallel on, phase 4f's cut to 4
-# rows), prefill_32k (1 row) and decode_32k (8 rows), full width and
-# depth; deepseek-v2-236b decode at its published width, depth 1 (MLA's
-# latent cache, the MoE dispatch); mamba2-370m and seamless-m4t-medium
-# decode at full depth (8 rows); mamba2-370m train_4k at full depth (4
-# rows: the Mamba head split and the vocab split of the loss). (arch,
-# shape, batch, depth or None, seq_parallel)
-LM_MESH_CELLS = (("gemma3-4b", "train_4k", 4, None, True),
-                 ("gemma3-4b", "prefill_32k", 1, None, False),
+# rows; 6 layers, one group of 5 local and 1 global), prefill_32k (1
+# row, 8 layers) and decode_32k (8 rows, full depth), full width;
+# deepseek-v2-236b decode at its published width, depth 1 (MLA's latent
+# cache, the MoE dispatch); mamba2-370m and seamless-m4t-medium decode
+# at full depth (8 rows); mamba2-370m train_4k at 6 of its 48 layers (4
+# rows: the Mamba head split and the vocab split of the loss). The
+# train and prefill cells, whose steps led the phase (~37 s, ~41 s and
+# ~14 s at full depth), are cut so that the whole script stays under
+# 900 s beside phase 3f. (arch, shape, batch, depth or None,
+# seq_parallel)
+LM_MESH_CELLS = (("gemma3-4b", "train_4k", 4, 6, True),
+                 ("gemma3-4b", "prefill_32k", 1, 8, False),
                  ("gemma3-4b", "decode_32k", 8, None, False),
                  ("deepseek-v2-236b", "decode_32k", 8, 1, False),
                  ("mamba2-370m", "decode_32k", 8, None, False),
                  ("seamless-m4t-medium", "decode_32k", 8, None, False),
-                 ("mamba2-370m", "train_4k", 4, None, False))
+                 ("mamba2-370m", "train_4k", 4, 6, False))
 # the loss relative, each trained leaf and AdamW moment in relative L2,
 # logits and caches of their max: tests/test_torch_lm.py's LOSS_REL,
 # GRAD_L2 and REL, which phase 4f's and the LM phases' checks use
@@ -1489,52 +1537,72 @@ def time_serving_high_rank(sv: dict, timed: dict, dev) -> None:
               + ", ".join(f"{nm[:48]} {us:.2f} us" for nm, us in split))
 
 
-def quickstart_data():
-    """examples/quickstart.py run_uniform: 20 non-IID (LDA 0.5) clients
-    over 2000 synthetic 32x32x3 images."""
-    import numpy as np
-    from repro_torch.data import SyntheticVision, lda_partition
-    rng = np.random.default_rng(0)
-    sv = SyntheticVision(seed=0)
-    y = rng.integers(0, 10, 2000)
-    x = sv.sample(rng, y)
-    parts = lda_partition(y, 20, alpha=0.5)
-    return [{"x": x[p], "y": y[p].astype(np.int32)} for p in parts]
-
-
-def make_server(model, data, device, fl=None, server=None, client=None,
+def make_server(model, qs, device, fl=None, server=None, client=None,
                 trace=None):
-    """The quickstart round's FLServer; ``fl``/``server``/``client``
-    override FLoCoRAConfig / ServerConfig / ClientConfig fields (the
-    options' phases); ``trace`` orders deadline cohorts."""
-    from repro_torch.core.flocora import FLoCoRAConfig
-    from repro_torch.core.lora import LoRAConfig
-    from repro_torch.fl import ClientConfig, FLServer, ServerConfig
-    from repro_torch.models import resnet
-    cfg = resnet.ResNetConfig(arch="resnet8",
-                              lora=LoRAConfig(rank=32, alpha=512.0))
-    return FLServer(
-        model, lambda f, t, b: resnet.loss_fn(f, t, cfg, b), data,
-        ServerConfig(n_clients=20, clients_per_round=5, **(server or {})),
-        ClientConfig(local_epochs=1, batch_size=32, lr=0.01,
-                     **(client or {})),
-        FLoCoRAConfig(rank=32, alpha=512.0, **{"quant_bits": 8, **(fl or {})}),
-        trace=trace, device=device)
+    """The server of ``qs`` (a ``launch.quickstart`` mode's ``Setup``) on
+    ``device`` from ``model``, with FLoCoRAConfig (``fl``), ServerConfig
+    (``server``) or ClientConfig (``client``) fields and the deadline
+    ``trace`` replaced (the options' phases)."""
+    fields = {} if trace is None else {"trace": trace}
+    return qs.replace(fl=fl, server=server, client=client,
+                      **fields).server(model, device)
 
 
-def hold_trees(tree_a, tree_b, bits: int, what: str) -> float:
+@functools.lru_cache(maxsize=None)
+def table4_setup():
+    """The paper's Table IV training row (``benchmarks/
+    table4_comparison.py --train`` (64, 8)) through
+    ``launch.fl_experiment``: ResNet-18, r = 64, alpha = 1024, int8, 20
+    clients with LDA 1.0 over 2000 images, K = 4, momentum 0.9, eval
+    every 2 rounds on 1000 held-out images, TABLE4["rounds"] rounds."""
+    from repro_torch.launch import fl_experiment
+    return fl_experiment.experiment_setup(
+        arch="resnet18", rank=TABLE4["rank"], alpha=TABLE4["alpha"],
+        quant_bits=8, rounds=TABLE4["rounds"], lda_alpha=1.0, n_train=2000,
+        n_clients=20, clients_per_round=4)
+
+
+def fp_wire_share(tree_a, tree_b, before) -> tuple:
+    """(share, leaf): the largest difference of two trees of one round on
+    the fp32 wire, over any leaf, as a share of how far the round moved
+    that leaf in ``tree_a`` from ``before`` (max|a - before|, floored at
+    1e-5 of max|a|)."""
+    import numpy as np
+    from repro_torch.utils.tree import flatten_with_names
+    worst = (0.0, "")
+    for (name, a), (_, b), (_, x0) in zip(*(flatten_with_names(t) for t in
+                                            (tree_a, tree_b, before))):
+        a, b, x0 = (t.detach().cpu().numpy() for t in (a, b, x0))
+        move = max(float(np.abs(a - x0).max()), 1e-5 * np.abs(a).max())
+        worst = max(worst, (float(np.abs(a - b).max()) / move, name))
+    return worst
+
+
+def hold_trees(tree_a, tree_b, bits: int | None, what: str,
+               before=None) -> float:
     """Trees of two runs of one round: each quantized leaf within 4
     quantization steps of its range at ``bits``, 1-D leaves within
     1e-4 + 1e-3 of their magnitude. A round's ~10 SGD steps amplify
     summation-order differences in the adapters: on the CPU alone, 1
     thread against 8 moves the ``a`` factors by up to 0.6 of an int8
-    step. Returns the largest difference."""
+    step. On the fp32 wire (``bits`` None) every leaf is also held
+    within ``FP_WIRE_TREE_MOVE`` of how far the round moved it from
+    ``before`` (``fp_wire_share``), and the share is returned; else the
+    largest difference."""
     import numpy as np
     from repro_torch.utils.tree import flatten_with_names
+    if bits is None:
+        share, name = fp_wire_share(tree_a, tree_b, before)
+        if share > FP_WIRE_TREE_MOVE:
+            raise AssertionError(f"{what} {name}: max diff {share:.3g} of "
+                                 f"the round's movement > "
+                                 f"{FP_WIRE_TREE_MOVE}")
     worst = 0.0
     for (name, a), (_, b) in zip(flatten_with_names(tree_a),
                                  flatten_with_names(tree_b)):
         a, b = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+        if a.ndim >= 2 and bits is None:
+            continue
         if a.ndim >= 2:
             tol = 4 * (max(a.max(), 0.0) - min(a.min(), 0.0)) \
                 / ((1 << bits) - 1)
@@ -1544,7 +1612,7 @@ def hold_trees(tree_a, tree_b, bits: int, what: str) -> float:
         worst = max(worst, d)
         if d > tol:
             raise AssertionError(f"{what} {name}: max diff {d} > {tol}")
-    return worst
+    return share if bits is None else worst
 
 
 BYTE_KEYS = ("down_bytes", "up_bytes", "up_bytes_measured", "n_agg",
@@ -1557,23 +1625,50 @@ def compare_with_cpu(rec_gpu: dict, tree_gpu, srv, what: str,
     run on the CPU: the kernels' plain versions, CPU convs) and hold the
     card's round to it: the same cohort and bytes (and ``keys``), loss
     within rtol 1e-3, trees as ``hold_trees`` unless ``trees`` is False.
-    Returns the CPU's record."""
+    On the fp32 wire, a planted fault must fail the trees' check: the
+    replay's mean with its last client left out. Returns the CPU's
+    record."""
+    import torch
+    from repro_torch.utils.tree import tree_map
     t0 = time.perf_counter()
+    bits = srv.fcfg.quant_bits
+    before = tree_map(torch.clone, srv.global_train)
+    mean, sent = srv.aggregator.aggregate, []
+    if trees and bits is None:
+        srv.aggregator.aggregate = lambda msgs, weights: (
+            sent.append((msgs, weights)) or mean(msgs, weights))
     rec = srv.run_round()
     for key in BYTE_KEYS + tuple(keys):
-        if rec[key] != rec_gpu[key]:
-            raise AssertionError(f"cpu replay {key}: {rec[key]} != "
-                                 f"{rec_gpu[key]}")
+        if key == "up_bytes_measured" and not srv.fcfg.qcfg.enabled:
+            # the fp32 wire's messages are the trees: no measured uplink
+            if key in rec or key in rec_gpu:
+                raise AssertionError(f"cpu replay: {key} on the fp32 wire")
+        elif key not in rec or key not in rec_gpu \
+                or rec[key] != rec_gpu[key]:
+            raise AssertionError(f"cpu replay {key}: {rec.get(key)} != "
+                                 f"{rec_gpu.get(key)}")
     if not math.isclose(rec["client_loss"], rec_gpu["client_loss"],
                         rel_tol=1e-3):
         raise AssertionError(f"cpu replay loss {rec['client_loss']} != "
                              f"{rec_gpu['client_loss']}")
-    worst = hold_trees(srv.global_train, tree_gpu, srv.fcfg.quant_bits,
-                       "cpu replay") if trees else float("nan")
+    worst = hold_trees(srv.global_train, tree_gpu, bits, "cpu replay",
+                       before) if trees else float("nan")
+    planted = ""
+    if sent:
+        (msgs, weights), = sent
+        share, name = fp_wire_share(mean(msgs[:-1], weights[:-1]),
+                                    tree_gpu, before)
+        if share <= FP_WIRE_TREE_MOVE:
+            raise AssertionError(f"cpu replay: a mean without client "
+                                 f"{len(msgs)} of {len(msgs)} passes the "
+                                 f"trees' check ({name} {share:.3g})")
+        planted = (f"; the mean without client {len(msgs)} parts by "
+                   f"{share:.3g} ({name}) and fails")
+    diff = "of the movement" if bits is None else "adapter diff"
     print(f"cpu replay of round 1 ({what}): loss "
           f"{rec['client_loss']:.6f} vs card {rec_gpu['client_loss']:.6f}, "
           f"bytes{' and ' + ', '.join(keys) if keys else ''} identical, "
-          f"max adapter diff {worst:.3g} "
+          f"max {diff} {worst:.3g}{planted} "
           f"({time.perf_counter() - t0:.1f} s)")
     return rec
 
@@ -1602,19 +1697,14 @@ def run_rounds(server, rounds: int, label: str) -> tuple:
     return recs, counts, tree1, walls
 
 
-def leaf_round_phase(data, flat_recs, flat_server, captured, dev) -> dict:
+def leaf_round_phase(qs, flat_recs, flat_server, captured, dev) -> dict:
     """The per-leaf wire (``flat_wire=False``) on the card, 2 rounds, and
     the flat run's round-1 uplinks aggregated both ways. Returns what the
     timing phase and the JSON line need."""
     import torch
     from repro_torch.core import aggregation
-    from repro_torch.core.lora import LoRAConfig
-    from repro_torch.models import resnet
     from repro_torch.utils.tree import flatten_with_names
-    cfg = resnet.ResNetConfig(arch="resnet8",
-                              lora=LoRAConfig(rank=32, alpha=512.0))
-    server = make_server(resnet.init(0, cfg, device=dev), data, dev,
-                         fl={"flat_wire": False})
+    server = make_server(qs.init(dev), qs, dev, fl={"flat_wire": False})
     n_leaves = len(leaf_shapes(server.global_train, 8))
     recs, counts, _, walls = run_rounds(server, ROUNDS, "per-leaf")
     k = server.scfg.clients_per_round
@@ -1668,17 +1758,13 @@ def leaf_round_phase(data, flat_recs, flat_server, captured, dev) -> dict:
             "bits": per_msg[0][0].bits}
 
 
-def ef_phase(data, model_cpu, dev) -> dict:
+def ef_phase(qs, model_cpu, dev) -> dict:
     """Error feedback on the card: int4, oversample 1.4 (7 dispatched, 5
     kept, so the straggler fold runs), 2 rounds, round 1 replayed on the
     CPU."""
-    from repro_torch.core.lora import LoRAConfig
-    from repro_torch.models import resnet
     fl = {"quant_bits": 4, "error_feedback": True}
     sv = {"oversample": 1.4}
-    cfg = resnet.ResNetConfig(arch="resnet8",
-                              lora=LoRAConfig(rank=32, alpha=512.0))
-    server = make_server(resnet.init(0, cfg, device=dev), data, dev, fl, sv)
+    server = make_server(qs.init(dev), qs, dev, fl, sv)
     recs, counts, tree1, walls = run_rounds(server, ROUNDS, "ef")
     for rec, c in zip(recs, counts):
         if rec["n_agg"] + rec["n_straggled"] != 7 or rec["n_agg"] != 5:
@@ -1691,7 +1777,7 @@ def ef_phase(data, model_cpu, dev) -> dict:
     print(f"ef: residuals stored for {stored} clients (kept and folded "
           f"stragglers); round walls {[round(t, 4) for t in walls]} s")
     compare_with_cpu(recs[0], tree1,
-                     make_server(model_cpu, data, "cpu", fl, sv),
+                     make_server(model_cpu, qs, "cpu", fl, sv),
                      f"ef {fl} {sv}")
     launches = {}
     for c in counts:
@@ -1699,7 +1785,7 @@ def ef_phase(data, model_cpu, dev) -> dict:
     return {"launches": launches, "walls": walls}
 
 
-def resume_phase(data, dev) -> dict:
+def resume_phase(qs, dev) -> dict:
     """Kill/resume on the card with cuDNN's deterministic algorithms: an
     uninterrupted 2-round run; a run checkpointed every round into a
     directory under build/ that stops after round 1; a FRESH FLServer
@@ -1710,26 +1796,21 @@ def resume_phase(data, dev) -> dict:
     import shutil
     import tempfile
     import torch
-    from repro_torch.core.lora import LoRAConfig
-    from repro_torch.models import resnet
     from repro_torch.utils.tree import flatten_with_names, tree_map
-    cfg = resnet.ResNetConfig(arch="resnet8",
-                              lora=LoRAConfig(rank=32, alpha=512.0))
     (ROOT / "build").mkdir(exist_ok=True)
     d = tempfile.mkdtemp(prefix="ckpt_smoke_", dir=ROOT / "build")
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        whole = make_server(resnet.init(0, cfg, device=dev), data, dev)
+        whole = make_server(qs.init(dev), qs, dev)
         want, _, _, _ = run_rounds(whole, 2, "resume: uninterrupted")
         sv = {"checkpoint_dir": d, "checkpoint_every": 1}
-        first = make_server(resnet.init(0, cfg, device=dev), data, dev,
-                            server=sv)
+        first = make_server(qs.init(dev), qs, dev, server=sv)
         run_rounds(first, 1, "resume: killed after")
         del first
-        model = resnet.init(0, cfg, device=dev)
+        model = qs.init(dev)
         model["train"] = tree_map(torch.zeros_like, model["train"])
-        again = make_server(model, data, dev, server=sv)
+        again = make_server(model, qs, dev, server=sv)
         if not again.try_resume() or again.round != 1:
             raise AssertionError("the fresh server did not resume round 1")
         recs, counts, _, _ = run_rounds(again, 1, "resume: resumed")
@@ -1785,7 +1866,7 @@ def per_client_trainer(loss_fn, ccfg):
     return trainer
 
 
-def engine_phase(data, dev) -> dict:
+def engine_phase(qs, dev) -> dict:
     """The vmapped cohort engine against the per-client baseline on the
     card: two quickstart servers from one init and seed, one training
     through ``make_cohort_trainer``, the other client by client through
@@ -1795,14 +1876,10 @@ def engine_phase(data, dev) -> dict:
     every round's bytes are equal and the global trees held the same
     way. Returns both engines' round walls."""
     import torch
-    from repro_torch.core.lora import LoRAConfig
-    from repro_torch.models import resnet
     from repro_torch.utils.tree import tree_map
-    cfg = resnet.ResNetConfig(arch="resnet8",
-                              lora=LoRAConfig(rank=32, alpha=512.0))
     runs = {}
     for name in ("vmapped", "per-client"):
-        srv = make_server(resnet.init(0, cfg, device=dev), data, dev)
+        srv = make_server(qs.init(dev), qs, dev)
         train = srv.trainer if name == "vmapped" \
             else per_client_trainer(srv.loss_fn, srv.ccfg)
         first = []
@@ -1844,7 +1921,7 @@ def engine_phase(data, dev) -> dict:
             "per-client server": p_srv}
 
 
-def fedprox_phase(data, model_cpu, dev) -> dict:
+def fedprox_phase(qs, model_cpu, dev) -> dict:
     """FedProx (mu = 0.01) on the card: 2 quickstart rounds with round 1
     replayed on the CPU; then the staggered engine trains 4 clients,
     each from its own start tree (the global adapters moved by
@@ -1852,27 +1929,22 @@ def fedprox_phase(data, model_cpu, dev) -> dict:
     each client is held to ``make_local_trainer`` from that start."""
     import numpy as np
     import torch
-    from repro_torch.core.lora import LoRAConfig
     from repro_torch.fl import make_local_trainer, \
         make_staggered_cohort_trainer, stack_cohort_batches
-    from repro_torch.models import resnet
     from repro_torch.utils.tree import tree_map
     client = {"fedprox_mu": 0.01}
-    cfg = resnet.ResNetConfig(arch="resnet8",
-                              lora=LoRAConfig(rank=32, alpha=512.0))
-    server = make_server(resnet.init(0, cfg, device=dev), data, dev,
-                         client=client)
+    server = make_server(qs.init(dev), qs, dev, client=client)
     recs, counts, tree1, walls = run_rounds(server, ROUNDS, "fedprox")
     k = server.scfg.clients_per_round
     for c in counts:
         if c["quant_pack_rows"] < k + 1 or c["dequant_agg_rows"] != 1:
             raise AssertionError(f"fedprox round launch counts {c}")
     compare_with_cpu(recs[0], tree1,
-                     make_server(model_cpu, data, "cpu", client=client),
+                     make_server(model_cpu, qs, "cpu", client=client),
                      f"fedprox {client}")
     ccfg = server.ccfg
     batches, n_steps = stack_cohort_batches(np.random.default_rng(1),
-                                            data[:4], ccfg)
+                                            qs.data[:4], ccfg)
     bd = {key: torch.from_numpy(v).to(dev) for key, v in batches.items()}
     gen = torch.Generator().manual_seed(2)
     starts = [tree_map(lambda p, i=i: p + 0.01 * i * torch.randn(
@@ -1939,9 +2011,10 @@ def to_cpu_messages(msgs) -> list:
                                        device="cpu") for m in msgs]
 
 
-def sparse_phase(data, model_cpu, dev) -> dict:
-    """``examples/quickstart.py`` run_sparse on the card: the quickstart's
-    fleet at int4 with error feedback and top-k uplinks at density 0.1,
+def sparse_phase(model_cpu, dev) -> dict:
+    """``launch.quickstart``'s ``run_sparse`` setup on the card: the
+    quickstart's fleet at int4 with error feedback and top-k uplinks at
+    density 0.1 (``quickstart.sparse_setup``),
     2 rounds. Checks every uplink's measured and static bytes (55,419 B
     against 150,744 B dense int4) and every downlink's, the launches (one
     B1 pack a message, no B2 or B3: the sparse aggregate is a
@@ -1951,17 +2024,13 @@ def sparse_phase(data, model_cpu, dev) -> dict:
     the CPU's, and round 1 against its CPU replay."""
     import torch
     from repro_torch.core import aggregation, messages
-    from repro_torch.core.lora import LoRAConfig
     from repro_torch.core.quant import QuantConfig
-    from repro_torch.core.sparse import SparsityConfig, is_sparse_leaf
-    from repro_torch.models import resnet
+    from repro_torch.core.sparse import is_sparse_leaf
+    from repro_torch.launch import quickstart
     from repro_torch.utils.tree import flatten_with_names, tree_to
     density = SPARSE["density"]
-    fl = {"quant_bits": 4, "error_feedback": True,
-          "sparsity": SparsityConfig(density=density)}
-    cfg = resnet.ResNetConfig(arch="resnet8",
-                              lora=LoRAConfig(rank=32, alpha=512.0))
-    server = make_server(resnet.init(0, cfg, device=dev), data, dev, fl)
+    qs = quickstart.sparse_setup(ROUNDS, density)
+    server = qs.server(qs.init(dev), dev)
     static = messages.message_wire_bytes(server.global_train,
                                          QuantConfig(bits=4), density)
     with recorded(server.aggregator, "aggregate") as captured, \
@@ -2017,7 +2086,7 @@ def sparse_phase(data, model_cpu, dev) -> dict:
         worst = max(worst, d / max(float(x.abs().max()), 1e-30))
         if d > LEAF_TOL * float(x.abs().max()):
             raise AssertionError(f"sparse aggregate {name} vs the CPU: {d}")
-    compare_with_cpu(recs[0], tree1, make_server(model_cpu, data, "cpu", fl),
+    compare_with_cpu(recs[0], tree1, qs.server(model_cpu, "cpu"),
                      f"sparse {SPARSE}", keys=("uplink_density",))
     launches = {}
     for c in counts:
@@ -2091,45 +2160,6 @@ def time_sparse(tree, msgs, w, dev) -> None:
           f"{bound[0] * 1e3:.3f} us ({nbytes} B, {bound[1]})")
 
 
-def hetero_data():
-    """examples/quickstart.py run_hetero: 10 non-IID (LDA 0.5) clients
-    over 1000 synthetic 32x32x3 images."""
-    import numpy as np
-    from repro_torch.data import SyntheticVision, lda_partition
-    rng = np.random.default_rng(0)
-    sv = SyntheticVision(seed=0)
-    y = rng.integers(0, 10, 1000)
-    x = sv.sample(rng, y)
-    parts = lda_partition(y, 10, alpha=0.5)
-    return [{"x": x[p], "y": y[p].astype(np.int32)} for p in parts]
-
-
-def hetero_cfg():
-    from repro_torch.core.lora import LoRAConfig
-    from repro_torch.models import resnet
-    return resnet.ResNetConfig(arch="resnet8", lora=LoRAConfig(
-        rank=HETERO["rank"], alpha=HETERO["alpha"]))
-
-
-def make_hetero_server(model, data, device, aggregator=None):
-    """run_hetero's FLServer: ResNet-8 at server rank 16 (alpha 256),
-    int8, ``RankSchedule.tiered((4, 8, 16), 10)``, K = 6 a round, batch
-    32, lr 0.01, 1 local epoch."""
-    from repro_torch.core.flocora import FLoCoRAConfig, RankSchedule
-    from repro_torch.fl import ClientConfig, FLServer, ServerConfig
-    from repro_torch.models import resnet
-    cfg = hetero_cfg()
-    return FLServer(
-        model, lambda f, t, b: resnet.loss_fn(f, t, cfg, b), data,
-        ServerConfig(n_clients=HETERO["n_clients"],
-                     clients_per_round=HETERO["k"]),
-        ClientConfig(local_epochs=1, batch_size=32, lr=0.01),
-        FLoCoRAConfig(rank=HETERO["rank"], alpha=HETERO["alpha"],
-                      quant_bits=8, rank_schedule=RankSchedule.tiered(
-                          HETERO["tiers"], HETERO["n_clients"])),
-        aggregator=aggregator, device=device)
-
-
 def adapter_products(tree) -> list:
     """down @ up (fp32) of every adapter pair of ``tree``, walk order."""
     import torch
@@ -2177,10 +2207,11 @@ def check_bucket_folds(captured, dev, label: str = "hetero round") -> float:
 
 
 def hetero_phase(dev) -> dict:
-    """``examples/quickstart.py`` run_hetero on the card: 10 clients in
-    rank tiers {4, 8, 16}, server rank 16, int8, K = 6, 2 rounds on the
-    rank-bucketed engine. Checks the tiers' one-way bytes (57,400 /
-    88,888 / 151,864 B) statically and as measured, ONE B2 launch a rank
+    """``launch.quickstart``'s ``run_hetero`` setup on the card
+    (``quickstart.hetero_setup``): 10 clients in rank tiers {4, 8, 16},
+    server rank 16, int8, K = 6, 2 rounds on the rank-bucketed engine.
+    Checks the tiers' one-way bytes (57,400 / 88,888 / 151,864 B)
+    statically and as measured, ONE B2 launch a rank
     bucket and one B1 launch a flat pack (a broadcast a bucket, K
     uplinks, a downlink measured for each rank seen the first time),
     every pack bit-exact against the plain version on the CPU at its
@@ -2197,10 +2228,10 @@ def hetero_phase(dev) -> dict:
     from repro_torch.core.aggregation import SVDRecombinationAggregator
     from repro_torch.core.flat import FlatPackedMessage
     from repro_torch.core.quant import QuantConfig
-    from repro_torch.models import resnet
+    from repro_torch.launch import quickstart
     from repro_torch.utils.tree import tree_to
-    data, cfg = hetero_data(), hetero_cfg()
-    server = make_hetero_server(resnet.init(0, cfg, device=dev), data, dev)
+    hs = quickstart.hetero_setup(ROUNDS)
+    server = hs.server(hs.init(dev), dev)
     tiers = {r: flocora.client_wire_bytes(server.global_train, server.fcfg,
                                           r) for r in HETERO["tiers"]}
     if tiers != HETERO["tier_bytes"]:
@@ -2244,17 +2275,15 @@ def hetero_phase(dev) -> dict:
         raise AssertionError(f"hetero packs checked: {len(packs)} at "
                              f"layouts {sorted(layouts)}")
     err_b2 = check_bucket_folds(captured, dev)
-    compare_with_cpu(recs[0], tree1, make_hetero_server(
-        resnet.init(0, cfg, device="cpu"), data, "cpu"), "hetero",
-        keys=("cohort_ranks", "up_bytes_by_rank"))
+    compare_with_cpu(recs[0], tree1, hs.server(hs.init("cpu"), "cpu"),
+                     "hetero", keys=("cohort_ranks", "up_bytes_by_rank"))
     # one more round, served by the SVD recombination
-    svd = make_hetero_server(resnet.init(0, cfg, device=dev), data, dev,
-                             SVDRecombinationAggregator(QuantConfig(bits=8)))
+    svd = hs.server(hs.init(dev), dev,
+                    SVDRecombinationAggregator(QuantConfig(bits=8)))
     with recorded(svd.aggregator, "aggregate") as svd_in:
         recs_s, counts_s, tree_s, walls_s = run_rounds(svd, 1, "hetero svd")
-    cpu_svd = make_hetero_server(
-        resnet.init(0, cfg, device="cpu"), data, "cpu",
-        SVDRecombinationAggregator(QuantConfig(bits=8)))
+    cpu_svd = hs.server(hs.init("cpu"), "cpu",
+                        SVDRecombinationAggregator(QuantConfig(bits=8)))
     compare_with_cpu(recs_s[0], tree_s, cpu_svd, "hetero svd",
                      keys=("cohort_ranks",), trees=False)
     msgs, w = svd_in[0][0]
@@ -2289,25 +2318,23 @@ def hetero_phase(dev) -> dict:
             "err_b2": err_b2, "server": server}
 
 
-def dp_phase(data, model_cpu, dev) -> dict:
-    """``examples/quickstart.py`` run_uniform(dp_noise=0.3) on the card:
-    the quickstart at int8 with each uplink's delta clipped to L2 norm 1
-    and noised at 0.3 before quantization, 2 rounds. Checks the uplinks
+def dp_phase(model_cpu, dev) -> dict:
+    """``launch.quickstart``'s ``run_uniform(dp_noise=0.3)`` setup on the
+    card: the quickstart at int8 with each uplink's delta clipped to L2
+    norm 1 and noised at 0.3 before quantization, 2 rounds. Checks the uplinks
     (277,816 B), dp_epsilon after rounds 1 and 2 equal to the JAX
     package's values, one B1 launch a message and one B2 a round, every
     privatized delta within 1e-6 * max|x| of ``dp_privatize`` replayed
     on the CPU from the same delta and key (the same noise), and round 1
     against its CPU replay."""
     from repro_torch.core import flocora, quant
-    from repro_torch.core.lora import LoRAConfig
-    from repro_torch.models import resnet
+    from repro_torch.launch import quickstart
     from repro_torch.utils.tree import flatten_with_names, tree_leaves, \
         tree_to
-    fl = {"dp": quant.DPConfig(clip_norm=DP["clip_norm"],
-                               noise_multiplier=DP["noise_multiplier"])}
-    cfg = resnet.ResNetConfig(arch="resnet8",
-                              lora=LoRAConfig(rank=32, alpha=512.0))
-    server = make_server(resnet.init(0, cfg, device=dev), data, dev, fl)
+    qs = quickstart.uniform_setup(ROUNDS, dp_noise=DP["noise_multiplier"])
+    if qs.fcfg.dp.clip_norm != DP["clip_norm"]:
+        raise AssertionError(f"dp config {qs.fcfg.dp}")
+    server = qs.server(qs.init(dev), dev)
     with recorded(flocora, "dp_privatize") as calls:
         recs, counts, tree1, walls = run_rounds(server, ROUNDS, "dp")
     k = server.scfg.clients_per_round
@@ -2331,8 +2358,8 @@ def dp_phase(data, model_cpu, dev) -> dict:
                                      f"{kw['key']}: {d} > {LEAF_TOL} * {xmax}")
     if len(calls) != ROUNDS * k:
         raise AssertionError(f"{len(calls)} privatized uplinks checked")
-    compare_with_cpu(recs[0], tree1, make_server(model_cpu, data, "cpu", fl),
-                     "dp", keys=("dp_epsilon",))
+    compare_with_cpu(recs[0], tree1, qs.server(model_cpu, "cpu"), "dp",
+                     keys=("dp_epsilon",))
     args, kw, _ = calls[0]
     t_dp = _host_ms(lambda: quant.dp_privatize(*args, **kw), iters=10)
     print(f"dp timing: one uplink's privatization (clip, "
@@ -2347,49 +2374,6 @@ def dp_phase(data, model_cpu, dev) -> dict:
           f"deltas within {worst:.3g} of max|x| of the CPU's (same noise); "
           f"round-2 wall {walls[-1]:.4f} s; launches {launches}")
     return {"launches": launches, "walls": walls, "server": server}
-
-
-def async_data():
-    """examples/quickstart.py run_async: 12 non-IID (LDA 0.5) clients
-    over 1000 synthetic 32x32x3 images."""
-    import numpy as np
-    from repro_torch.data import SyntheticVision, lda_partition
-    rng = np.random.default_rng(0)
-    sv = SyntheticVision(seed=0)
-    y = rng.integers(0, 10, 1000)
-    x = sv.sample(rng, y)
-    parts = lda_partition(y, ASYNC["n_clients"], alpha=0.5)
-    return [{"x": x[p], "y": y[p].astype(np.int32)} for p in parts]
-
-
-def async_trace():
-    """run_async's fleet timing: ~45 s median compute, a jittery 20 Mb/s
-    link, each client available 80% of a 10-minute cycle."""
-    from repro_torch.fl import AvailabilityWindows, FleetTrace, \
-        LognormalLatency
-    return FleetTrace(seed=0, latency=LognormalLatency(
-        compute_median_s=45.0, network_mbps=20.0),
-        availability=AvailabilityWindows(period_s=600.0, duty=0.8))
-
-
-def make_async_server(data, device, acfg=None, fcfg=None, trace=None):
-    """run_async's AsyncFLServer: ResNet-8 at server rank 16 (alpha 256),
-    int8, ``RankSchedule.tiered((4, 8, 16), 12)``, batch 32, lr 0.01, 1
-    local epoch; ``acfg``/``fcfg``/``trace`` override (the fleet)."""
-    from repro_torch.core.flocora import FLoCoRAConfig, RankSchedule
-    from repro_torch.fl import AsyncConfig, AsyncFLServer, ClientConfig
-    from repro_torch.models import resnet
-    cfg = hetero_cfg()
-    return AsyncFLServer(
-        resnet.init(0, cfg, device="cpu"),
-        lambda f, t, b: resnet.loss_fn(f, t, cfg, b), data,
-        acfg or AsyncConfig(**ASYNC["acfg"]),
-        ClientConfig(local_epochs=1, batch_size=32, lr=0.01),
-        fcfg or FLoCoRAConfig(
-            rank=HETERO["rank"], alpha=HETERO["alpha"], quant_bits=8,
-            rank_schedule=RankSchedule.tiered(HETERO["tiers"],
-                                              ASYNC["n_clients"])),
-        trace=trace or async_trace(), device=device)
 
 
 @contextlib.contextmanager
@@ -2485,11 +2469,12 @@ EVENT_KEYS = ("version", "t_virtual", "n_arrived", "n_flushed", "n_churned",
 
 
 def async_phase(dev) -> dict:
-    """``examples/quickstart.py`` run_async on the card: 12 clients in rank
-    tiers {4, 8, 16} (server r = 16, int8) through the event-driven
-    FedBuff engine, 90 arrivals, concurrency 6, buffers of 6 (15 flushes),
-    the run_async trace. Checks the tiers' one-way bytes statically and
-    as measured, TCC = initial model + down + up, every B1 pack (the
+    """``launch.quickstart``'s ``run_async`` setup on the card
+    (``quickstart.async_setup``): 12 clients in rank tiers {4, 8, 16}
+    (server r = 16, int8) through the event-driven FedBuff engine, 90
+    arrivals, concurrency 6, buffers of 6 (15 flushes), its trace.
+    Checks the tiers' one-way bytes statically and as measured, TCC =
+    initial model + down + up, every B1 pack (the
     broadcasts, the measured downlinks, the uplinks: counted from the
     engine's own state) bit-exact against the plain version on the CPU,
     each flush's B2 launches (one a rank bucket) and B2 held to its plain
@@ -2500,9 +2485,10 @@ def async_phase(dev) -> dict:
     import torch
     from repro_torch.core import flocora
     from repro_torch.kernels import ops as kops
+    from repro_torch.launch import quickstart
     from repro_torch.utils.tree import tree_bytes
-    data = async_data()
-    srv = make_async_server(data, dev)
+    qa = quickstart.async_setup(ASYNC["arrivals"], ASYNC["buffer"])
+    srv = qa.server(qa.init(dev), dev)
     tiers = {r: flocora.client_wire_bytes(srv.global_train, srv.fcfg, r)
              for r in HETERO["tiers"]}
     if tiers != HETERO["tier_bytes"]:
@@ -2551,7 +2537,7 @@ def async_phase(dev) -> dict:
          for f in probe["flushes"]], dev, "async flush")
     # flush 1 replayed on the CPU
     t1 = time.perf_counter()
-    cpu = make_async_server(data, "cpu")
+    cpu = qa.server(qa.init("cpu"), "cpu")
     cpu._fill_pipeline()
     rec = None
     while rec is None:
@@ -2590,18 +2576,26 @@ def make_fleet(dev, ckpt_dir):
     (70% rank-4 phones that churn and are diurnal, 25% rank-8 laptops,
     5% rank-16 workstations) with 64-image ``client_shard`` vision
     shards behind a 256-client LRU, ``PopulationTrace``; server r = 16,
-    int8, streaming FedBuff, buffers of 10, 64 in flight."""
+    int8, streaming FedBuff, buffers of 10, 64 in flight; batch 32, lr
+    0.01, 1 local epoch."""
     from repro_torch.core.flocora import FLoCoRAConfig
-    from repro_torch.fl import AsyncConfig, Population, PopulationTrace, \
-        default_tiers
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.fl import AsyncConfig, ClientConfig, Population, \
+        PopulationTrace, ServerConfig, default_tiers
+    from repro_torch.launch.fl_experiment import Setup
+    from repro_torch.models import resnet
     pop = Population(FLEET["n_clients"], default_tiers(), seed=0,
                      shard_size=FLEET["shard_size"],
                      cache_clients=FLEET["cache"])
-    acfg = AsyncConfig(**FLEET["acfg"], checkpoint_dir=ckpt_dir)
-    fcfg = FLoCoRAConfig(rank=HETERO["rank"], alpha=HETERO["alpha"],
-                         quant_bits=8)
-    return pop, make_async_server(pop, dev, acfg, fcfg,
-                                  PopulationTrace(seed=0, population=pop))
+    fleet = Setup(
+        pop, resnet.ResNetConfig(arch="resnet8", lora=LoRAConfig(
+            rank=HETERO["rank"], alpha=HETERO["alpha"])),
+        ServerConfig(), ClientConfig(local_epochs=1, batch_size=32, lr=0.01),
+        FLoCoRAConfig(rank=HETERO["rank"], alpha=HETERO["alpha"],
+                      quant_bits=8),
+        acfg=AsyncConfig(**FLEET["acfg"], checkpoint_dir=ckpt_dir),
+        trace=PopulationTrace(seed=0, population=pop))
+    return pop, fleet.server(fleet.init("cpu"), dev)
 
 
 def fleet_phase(dev) -> dict:
@@ -2787,7 +2781,7 @@ def fleet_phase(dev) -> dict:
             "err_b2": err_b2, "fold": (t_k1, t_plain, bound)}
 
 
-def deadline_phase(data, model_cpu, dev) -> dict:
+def deadline_phase(qs, model_cpu, dev) -> dict:
     """Deadline cohorts in the synchronous FLServer on the card: the
     quickstart fleet with ``trace=`` the run_async trace and oversample
     1.5 (8 dispatched, 5 kept), 2 rounds; round 1 replayed on the CPU
@@ -2796,13 +2790,10 @@ def deadline_phase(data, model_cpu, dev) -> dict:
     the mixed-rank fleet on ``FedBuffAggregator(rank_staleness=True)``
     (one B2 launch a rank bucket), held to its CPU replay."""
     from repro_torch.core.aggregation import FedBuffAggregator
-    from repro_torch.core.lora import LoRAConfig
-    from repro_torch.models import resnet
+    from repro_torch.launch import quickstart
     sv = {"oversample": 1.5}
-    cfg = resnet.ResNetConfig(arch="resnet8",
-                              lora=LoRAConfig(rank=32, alpha=512.0))
-    server = make_server(resnet.init(0, cfg, device=dev), data, dev,
-                         server=sv, trace=async_trace())
+    server = make_server(qs.init(dev), qs, dev, server=sv,
+                         trace=quickstart.fleet_trace())
     recs, counts, tree1, walls = run_rounds(server, ROUNDS, "deadline")
     k = server.scfg.clients_per_round
     for rec, c in zip(recs, counts):
@@ -2813,17 +2804,16 @@ def deadline_phase(data, model_cpu, dev) -> dict:
             raise AssertionError(f"deadline round {rec['round']}: {rec}, "
                                  f"launches {c}")
     compare_with_cpu(recs[0], tree1, make_server(
-        model_cpu, data, "cpu", server=sv, trace=async_trace()),
+        model_cpu, qs, "cpu", server=sv, trace=quickstart.fleet_trace()),
         "deadline cohorts")
-    data_h, cfg = hetero_data(), hetero_cfg()
-    fb = make_hetero_server(resnet.init(0, cfg, device=dev), data_h, dev,
-                            FedBuffAggregator(rank_staleness=True))
+    hs = quickstart.hetero_setup(ROUNDS)
+    fb = hs.server(hs.init(dev), dev, FedBuffAggregator(rank_staleness=True))
     recs_f, counts_f, tree_f, walls_f = run_rounds(fb, 1, "fedbuff sync")
     if counts_f[0]["dequant_agg_rows"] != len(recs_f[0]["cohort_ranks"]):
         raise AssertionError(f"fedbuff sync launches {counts_f[0]}")
-    compare_with_cpu(recs_f[0], tree_f, make_hetero_server(
-        resnet.init(0, cfg, device="cpu"), data_h, "cpu",
-        FedBuffAggregator(rank_staleness=True)), "fedbuff sync",
+    compare_with_cpu(recs_f[0], tree_f, hs.server(
+        hs.init("cpu"), "cpu", FedBuffAggregator(rank_staleness=True)),
+        "fedbuff sync",
         keys=("cohort_ranks", "up_bytes_by_rank"))
     launches = {}
     for c in counts + counts_f:
@@ -2837,48 +2827,6 @@ def deadline_phase(data, model_cpu, dev) -> dict:
     return {"launches": launches, "walls": walls}
 
 
-def table4_data():
-    """benchmarks/common.py fl_experiment at table4_comparison.py's
-    --train settings: 2000 synthetic 32x32x3 images over 20 clients (LDA
-    1.0, partition seed 0), then 1000 held-out test images drawn after
-    them from the same rng."""
-    import numpy as np
-    from repro_torch.data import SyntheticVision, lda_partition
-    rng = np.random.default_rng(0)
-    sv = SyntheticVision(seed=0)
-    y = rng.integers(0, 10, 2000)
-    x = sv.sample(rng, y).astype(np.float32)
-    parts = lda_partition(y, 20, alpha=1.0, seed=0)
-    data = [{"x": x[p], "y": y[p].astype(np.int32)} for p in parts]
-    yt = rng.integers(0, 10, 1000)
-    return data, sv.sample(rng, yt), yt
-
-
-def table4_cfg():
-    from repro_torch.core.lora import LoRAConfig
-    from repro_torch.models import resnet
-    return resnet.ResNetConfig(arch="resnet18", lora=LoRAConfig(
-        rank=TABLE4["rank"], alpha=TABLE4["alpha"]))
-
-
-def make_table4_server(model, data, device, eval_fn=None):
-    """fl_experiment's FLServer for Table IV's (r=64, int8) row: K=4 a
-    round, batch 32, lr 0.01, momentum 0.9, 1 local epoch, seed 0,
-    eval every 2 rounds."""
-    from repro_torch.core.flocora import FLoCoRAConfig
-    from repro_torch.fl import ClientConfig, FLServer, ServerConfig
-    from repro_torch.models import resnet
-    cfg = table4_cfg()
-    return FLServer(
-        model, lambda f, t, b: resnet.loss_fn(f, t, cfg, b), data,
-        ServerConfig(rounds=TABLE4["rounds"], n_clients=20,
-                     clients_per_round=4, seed=0, eval_every=2),
-        ClientConfig(local_epochs=1, batch_size=32, lr=0.01, momentum=0.9),
-        FLoCoRAConfig(rank=TABLE4["rank"], alpha=TABLE4["alpha"],
-                      quant_bits=8),
-        eval_fn, device=device)
-
-
 def table4_phase(dev) -> dict:
     """The paper's Table IV training run (ResNet-18, r=64, alpha=1024,
     int8 flat wire) on the card at full width, TABLE4["rounds"] rounds of
@@ -2887,21 +2835,10 @@ def table4_phase(dev) -> dict:
     and 2,379,064 B, test_acc in exactly the even rounds and finite, one
     B1 launch a message and one B2 launch a round, and round 1 against
     its CPU replay."""
-    import torch
     from repro_torch.core import messages
     from repro_torch.core.quant import QuantConfig
-    from repro_torch.models import resnet
-    data, xt, yt = table4_data()
-    cfg = table4_cfg()
-    xt_dev = torch.from_numpy(xt).to(dev)
-
-    def eval_fn(frozen, train):
-        with torch.no_grad():
-            pred = torch.argmax(resnet.apply(frozen, train, cfg, xt_dev), -1)
-        return {"test_acc": float((pred.cpu().numpy() == yt).mean())}
-
-    server = make_table4_server(resnet.init(0, cfg, device=dev), data, dev,
-                                eval_fn)
+    ts = table4_setup()
+    server = ts.server(ts.init(dev), dev)
     static = messages.message_wire_bytes(server.global_train,
                                          QuantConfig(bits=8))
     recs, counts, tree1, walls = run_rounds(server, TABLE4["rounds"],
@@ -2923,8 +2860,9 @@ def table4_phase(dev) -> dict:
         if c["quant_pack_rows"] != packs or c["dequant_agg_rows"] != 1:
             raise AssertionError(f"table4 round {rec['round']} launch "
                                  f"counts {c}, want {packs} packs")
-    compare_with_cpu(recs[0], tree1, make_table4_server(
-        resnet.init(0, cfg, device="cpu"), data, "cpu"), "table4")
+    compare_with_cpu(recs[0], tree1,
+                     ts.server(ts.init("cpu"), "cpu"),
+                     "table4")
     accs = {rec["round"]: rec["test_acc"] for rec in recs
             if "test_acc" in rec}
     print(f"table4 (ResNet-18 r=64 int8, {TABLE4['rounds']} of 12 rounds): "
@@ -2934,6 +2872,132 @@ def table4_phase(dev) -> dict:
     for c in counts:
         _add_counts(launches, c)
     return {"launches": launches, "walls": walls, "accs": accs, "k": k}
+
+
+def baseline_run(name: str, kw: dict, up_bytes: int, dev) -> dict:
+    """One ``fl_experiment`` run of ``BASELINE`` on the card from the
+    port's init, round by round with the launch counts around each; its
+    uplink measured against the static count and ``up_bytes``; its
+    launches (int8: one B1 a message, one B2 a round; the fp32 wire:
+    none, its messages are the trees themselves and the mean is plain
+    PyTorch); round 1 against its CPU replay; the last round's test_acc
+    against the CPU's evaluation of the card's tree. Returns the summary,
+    the walls, the launches and the peak memory the run added, in round
+    1 (training only) and in all."""
+    import torch
+    from repro_torch.core import messages
+    from repro_torch.launch import fl_experiment
+    from repro_torch.utils.tree import tree_to
+    setup = fl_experiment.experiment_setup(
+        rounds=BASELINE["rounds"], eval_every=BASELINE["eval_every"], **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    srv = setup.server(setup.init(dev), dev)
+    recs, counts, tree1, walls = run_rounds(srv, 1, f"baseline {name}")
+    peak_train = torch.cuda.max_memory_allocated() - base
+    more = run_rounds(srv, BASELINE["rounds"] - 1, f"baseline {name}")
+    for have, add in zip((recs, counts, walls), (more[0], more[1], more[3])):
+        have.extend(add)
+    peak = torch.cuda.max_memory_allocated() - base
+    res = fl_experiment.summary(srv)
+    static = messages.message_wire_bytes(srv.global_train, srv.fcfg.qcfg)
+    k = srv.scfg.clients_per_round
+    for rec, c in zip(recs, counts):
+        # the fp32 wire records no measured uplink: its messages are the
+        # trees, counted as the downlink is
+        if kw["quant_bits"] is None:
+            if "up_bytes_measured" in rec:
+                raise AssertionError(f"baseline {name}: a measured uplink "
+                                     f"on the fp32 wire: {rec}")
+            measured = rec["up_bytes"] // k
+        else:
+            measured = rec["up_bytes_measured"]
+        if measured != up_bytes or static != up_bytes \
+                or rec["up_bytes"] != k * up_bytes:
+            raise AssertionError(f"baseline {name} uplink {measured} "
+                                 f"(static {static}) != {up_bytes}: {rec}")
+        want = dict.fromkeys(c, 0)
+        if kw["quant_bits"] is not None:
+            want.update(quant_pack_rows=k + 1 + (rec["round"] == 1),
+                        dequant_agg_rows=1)
+        if c != want:
+            raise AssertionError(f"baseline {name} round {rec['round']} "
+                                 f"launch counts {c}, want {want}")
+    if res["round_bytes"] != 2 * up_bytes \
+            or res["tcc_bytes"] != BASELINE["rounds"] * 2 * up_bytes:
+        raise AssertionError(f"baseline {name} bytes {res['round_bytes']}"
+                             f" / {res['tcc_bytes']}")
+    acc = recs[-1]["test_acc"]
+    if "test_acc" in recs[0] or not math.isfinite(acc):
+        raise AssertionError(f"baseline {name} eval: {recs}")
+    compare_with_cpu(recs[0], tree1,
+                     setup.server(setup.init("cpu"), "cpu"),
+                     f"baseline {name}")
+    t0 = time.perf_counter()
+    acc_cpu = setup.eval_fn("cpu")(tree_to(srv.frozen, "cpu"),
+                                   tree_to(srv.global_train, "cpu"))
+    acc_cpu = acc_cpu["test_acc"]
+    if abs(acc - acc_cpu) > BASELINE_ACC_TOL:
+        raise AssertionError(f"baseline {name} test_acc {acc} on the card, "
+                             f"{acc_cpu} on the CPU for the same tree")
+    launches = {}
+    for c in counts:
+        _add_counts(launches, c)
+    print(f"baseline {name}: uplink {up_bytes} B, round_bytes "
+          f"{res['round_bytes']}, tcc {res['tcc_bytes']} B; round-2 "
+          f"test_acc {acc} (the CPU's evaluation of the same tree "
+          f"{acc_cpu}, {time.perf_counter() - t0:.1f} s); round walls "
+          f"{[round(t, 4) for t in walls]} s; peak memory "
+          f"{peak_train / 2**20:.1f} MiB in round 1 (training), "
+          f"{peak / 2**20:.1f} MiB with round 2's evaluation of 1,000 "
+          f"images; launches {launches}")
+    return {"result": res, "walls": walls, "launches": launches,
+            "peak": peak, "peak_train": peak_train}
+
+
+def baseline_phase(dev, card: str) -> dict:
+    """The paper's baseline on the card through ``launch.fl_experiment``:
+    the dense fp32 FedAvg baseline, FLoCoRA at int8 and Table II's
+    (LoRA stem, LoRA classifier) row on the fp32 wire, each
+    ``baseline_run``, under cuDNN's deterministic algorithms (the
+    vmapped FedAvg trains every client's dense convs); the FedAvg :
+    FLoCoRA message ratio; then one FedAvg round of ResNet-18 (K = 4)
+    for its peak memory. Returns the runs and the launches."""
+    import torch
+    from repro_torch.launch import fl_experiment
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {name: baseline_run(name, kw, up, dev)
+                for name, kw, up in BASELINE["runs"]}
+        setup = fl_experiment.experiment_setup(arch="resnet18",
+                                               mode="fedavg", rounds=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        srv = setup.server(setup.init(dev), dev)
+        recs, _, _, walls18 = run_rounds(srv, 1, "baseline fedavg resnet18")
+        peak18 = torch.cuda.max_memory_allocated() - base
+        del srv
+    finally:
+        torch.backends.cudnn.deterministic = det
+    _free_cuda()
+    ratio = runs["fedavg"]["result"]["round_bytes"] \
+        / runs["flocora int8"]["result"]["round_bytes"]
+    launches = {}
+    for r in runs.values():
+        _add_counts(launches, r["launches"])
+    print(f"baseline phase ({card}): FedAvg / FLoCoRA-int8 message ratio "
+          f"{ratio:.2f}x; round_bytes " + ", ".join(
+              f"{n} {r['result']['round_bytes']}" for n, r in runs.items())
+          + "; round-2 test_acc " + ", ".join(
+              f"{n} {r['result']['final_acc']}" for n, r in runs.items())
+          + f"; ResNet-18 FedAvg round (K = 4, round_bytes "
+          f"{recs[0]['round_bytes']}) {walls18[0]:.3f} s, peak "
+          f"memory {peak18 / 2**20:.1f} MiB; launches {launches}")
+    return {"runs": runs, "ratio": ratio, "launches": launches,
+            "peak18": peak18}
 
 
 def time_flat_kernels(update, k: int, dev, label: str) -> dict:
@@ -5583,8 +5647,9 @@ def scale_out_cohort(label: str, k: int, cm, dev, card: str) -> dict:
     from repro_torch.models import resnet
     from repro_torch.utils import comm
     from repro_torch.utils.tree import tree_leaves, tree_map
-    cfg = table4_cfg() if label == "resnet18" else resnet.ResNetConfig(
-        arch="resnet8", lora=LoRAConfig(rank=32, alpha=512.0))
+    cfg = table4_setup().cfg if label == "resnet18" \
+        else resnet.ResNetConfig(arch="resnet8",
+                                 lora=LoRAConfig(rank=32, alpha=512.0))
     base = tree_map(lambda x: x.to(dev),
                     resnet.init(0, cfg, device="cpu")["train"])
     gen = torch.Generator(device=dev).manual_seed(SCALE_OUT["seed"] + k)
@@ -6176,8 +6241,7 @@ def main(argv=None) -> int:
     from repro_torch.core.quant import QuantConfig
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.build import LIBRARY
-    from repro_torch.core.lora import LoRAConfig
-    from repro_torch.models import resnet
+    from repro_torch.launch import quickstart
     from repro_torch.utils.tree import tree_leaves, tree_map
 
     dev = torch.device("cuda")
@@ -6199,9 +6263,8 @@ def main(argv=None) -> int:
     check_lora_sass()
 
     # 2. kernels vs plain versions at the main path's shapes --------------
-    cfg = resnet.ResNetConfig(arch="resnet8",
-                              lora=LoRAConfig(rank=32, alpha=512.0))
-    model_cpu = resnet.init(0, cfg, device="cpu")
+    qs = quickstart.uniform_setup(ROUNDS)
+    model_cpu = qs.init("cpu")
     gen = torch.Generator().manual_seed(1)
     # a client's update: every adapter moved off its init (``a`` is zero)
     update = tree_map(
@@ -6209,7 +6272,7 @@ def main(argv=None) -> int:
         model_cpu["train"])
     update18 = tree_map(
         lambda p: (p + 0.02 * torch.randn(p.shape, generator=gen)).to(dev),
-        resnet.init(0, table4_cfg(), device="cpu")["train"])
+        table4_setup().init("cpu")["train"])
     layouts, n_valid = {}, {}
     for label, tree, all_bits in (("resnet8", update, (2, 4, 8)),
                                   ("resnet18", update18, (4, 8))):
@@ -6240,8 +6303,7 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s")
 
     # 3. the FL round on the card ----------------------------------------
-    data = quickstart_data()
-    server = make_server(resnet.init(0, cfg, device="cuda"), data, "cuda")
+    server = make_server(qs.init(dev), qs, dev)
     static = messages.message_wire_bytes(server.global_train,
                                          QuantConfig(bits=8))
     # keep the rounds' uplinks: the per-leaf phase aggregates round 1's
@@ -6275,17 +6337,17 @@ def main(argv=None) -> int:
         if leaf.shape != init.shape or not bool(torch.isfinite(leaf).all()):
             raise AssertionError("global adapters are not finite or lost "
                                  "their shape")
-    compare_with_cpu(rec1, tree1, make_server(model_cpu, data, "cpu"),
+    compare_with_cpu(rec1, tree1, make_server(model_cpu, qs, "cpu"),
                      "quickstart")
 
     # 3b. the round's options, and lora_matmul's entry point --------------
     t0 = time.perf_counter()
-    leaf = leaf_round_phase(data, server.history, server, captured, dev)
-    ef = ef_phase(data, model_cpu, dev)
-    resumed = resume_phase(data, dev)
+    leaf = leaf_round_phase(qs, server.history, server, captured, dev)
+    ef = ef_phase(qs, model_cpu, dev)
+    resumed = resume_phase(qs, dev)
     chain = lora_chain_phase(dev)
-    engines = engine_phase(data, dev)
-    prox = fedprox_phase(data, model_cpu, dev)
+    engines = engine_phase(qs, dev)
+    prox = fedprox_phase(qs, model_cpu, dev)
     print(f"options phases: {time.perf_counter() - t0:.1f} s; launches: "
           f"per-leaf {leaf['launches']}, ef {ef['launches']}, resume "
           f"{resumed['launches']}, lora chain {chain['launches']}, fedprox "
@@ -6293,9 +6355,9 @@ def main(argv=None) -> int:
 
     # 3c. the quickstart's sparse, mixed-rank and DP modes ---------------
     t0 = time.perf_counter()
-    modes = {"sparse": sparse_phase(data, model_cpu, dev),
+    modes = {"sparse": sparse_phase(model_cpu, dev),
              "hetero": hetero_phase(dev),
-             "dp": dp_phase(data, model_cpu, dev)}
+             "dp": dp_phase(model_cpu, dev)}
     print(f"quickstart modes phases: {time.perf_counter() - t0:.1f} s; "
           "round-2 walls (s): " + ", ".join(
               f"{name} {m['walls'][-1]:.4f}" for name, m in modes.items()))
@@ -6303,7 +6365,7 @@ def main(argv=None) -> int:
     # 3d. the async engine, the million-client fleet, deadline cohorts --
     t0 = time.perf_counter()
     fleets = {"async": async_phase(dev), "fleet": fleet_phase(dev),
-              "deadline": deadline_phase(data, model_cpu, dev)}
+              "deadline": deadline_phase(qs, model_cpu, dev)}
     print(f"async and fleet phases: {time.perf_counter() - t0:.1f} s; "
           f"async run {fleets['async']['wall']:.3f} s, fleet run "
           f"{fleets['fleet']['wall']:.3f} s, deadline round 2 "
@@ -6314,6 +6376,12 @@ def main(argv=None) -> int:
     table4 = table4_phase(dev)
     print(f"table4 phase: {time.perf_counter() - t0:.1f} s; launches "
           f"{table4['launches']}")
+
+    # 3f. the paper's FedAvg baseline and a Table II row, fl_experiment --
+    t0 = time.perf_counter()
+    baseline = baseline_phase(dev, card)
+    print(f"baseline phase: {time.perf_counter() - t0:.1f} s; launches "
+          f"{baseline['launches']}")
     if args.profile:
         profile_round(server, "vmapped cohort engine, quickstart")
         profile_round(engines["per-client server"],
@@ -6370,7 +6438,7 @@ def main(argv=None) -> int:
 
     # B1 and B2 launch on the main path and on the modes' paths
     for m in list(modes.values()) + list(fleets.values()) + [
-            steps4f["serve_quantized"], scale4g]:
+            baseline, steps4f["serve_quantized"], scale4g]:
         _add_counts(launches, {key: m["launches"].get(key, 0)
                                for key in ("quant_pack_rows",
                                            "dequant_agg_rows")})

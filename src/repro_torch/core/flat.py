@@ -190,6 +190,10 @@ class FlatPackedMessage:
     def bits(self) -> int:
         return self.layout.bits
 
+    @property
+    def per_stack(self) -> bool:
+        return self.layout.per_stack
+
     def shape_tree(self) -> Any:
         """Shape/dtype-only view with the ORIGINAL tree structure."""
         return tree_unflatten(self.layout.treedef,

@@ -49,6 +49,21 @@ from repro_torch.utils.tree import flatten_with_names, tree_flatten, \
     tree_leaves, tree_map, tree_unflatten
 
 
+CHANNEL_AXIS = -1   # output channel == last axis in this codebase's layouts
+
+
+@dataclasses.dataclass
+class EncodedLeaf:
+    """One quantized leaf of the fp-simulation view: its unpacked
+    levels (packing is wire-only), the fp32 sidecars and the leaf's own
+    dtype. ``encode`` returns the same fields as a
+    ``{"q", "scale", "zp"}`` dict, as the JAX package's does."""
+    q: torch.Tensor           # uint8 levels
+    scale: torch.Tensor
+    zp: torch.Tensor
+    dtype: Any
+
+
 def _sparse_on(density: Optional[float]) -> bool:
     return density is not None and density < 1.0
 

@@ -388,7 +388,8 @@ def _no_cuda():
                                    "launch_train", "build_cell",
                                    "serve_quantized", "make_client_mesh",
                                    "build_fl_round", "elastic_restore",
-                                   "dequant_agg_rows_sharded"])
+                                   "dequant_agg_rows_sharded",
+                                   "launch_quickstart", "fl_experiment"])
 def test_default_device_entry_points_raise_without_cuda(entry):
     _no_cuda()
     cfg = resnet.ResNetConfig(lora=LoRAConfig(rank=4, alpha=64.0))
@@ -462,6 +463,12 @@ def test_default_device_entry_points_raise_without_cuda(entry):
         elif entry == "serve_quantized":
             from repro_torch.launch import serve_quantized
             serve_quantized.main([])
+        elif entry == "launch_quickstart":
+            from repro_torch.launch import quickstart
+            quickstart.main(["--rounds", "1"])
+        elif entry == "fl_experiment":
+            from repro_torch.launch.fl_experiment import fl_experiment
+            fl_experiment(rounds=1, n_train=40, n_clients=2)
         elif entry == "streaming_accumulator":
             from repro_torch.core import flat
             from repro_torch.core.aggregation import \
