@@ -545,8 +545,13 @@ LM_A9D_CPU = dict(frames=256, tgt=64, prefix=256, tokens=64, n_layers=2,
 LM_ENCDEC_CARD_CPU_REL = 4e-2
 # python -m repro_torch.launch.train for both at batch 1 and --seq 512,
 # a checkpoint every step: --steps 2, then --steps 3 in a fresh process
-# (``extra``: more arguments, e.g. --smoke for a CPU rehearsal)
+# (``extra``: more arguments, e.g. --smoke for a CPU rehearsal); beside
+# them seamless-m4t-medium under --mesh host, whose resumed step 3 is
+# held to a one-card step from its step-2 file within LM_TRAIN_MESH_REL
+# (tests/test_torch_steps_sharded.py::
+# test_train_cli_mesh_host_matches_one_card's tolerance)
 LM_TRAIN = dict(batch=1, seq=512, extra=[])
+LM_TRAIN_MESH_REL = 1e-5
 # phase 4f: the step builder (launch/steps.py) and its dry run. The dry
 # run traces these cells' steps on meta tensors at the registry's
 # published shapes and plans (configs/registry.py SHAPES, steps.py
@@ -5046,32 +5051,32 @@ def lm_a9d_card_cpu(dev) -> dict:
         if not (math.isfinite(err) and err <= limit(what) * scale)]}
 
 
-def _train_cli(dirs: dict, steps: int, dev) -> dict:
-    """``python -m repro_torch.launch.train`` for each arch of ``dirs``
-    (arch -> checkpoint directory), each in a fresh process, all at
-    once: arch -> (its standard output, its wall time). Every process is
-    stopped before this returns."""
+def _train_cli(runs: dict, steps: int, dev) -> dict:
+    """``python -m repro_torch.launch.train`` for each run of ``runs``
+    (name -> (arch, checkpoint directory, more arguments)), each in a
+    fresh process, all at once: name -> (its standard output, its wall
+    time). Every process is stopped before this returns."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = {}
     t0 = time.perf_counter()
     try:
-        for arch, ckpt in dirs.items():
+        for name, (arch, ckpt, more) in runs.items():
             cmd = [sys.executable, "-m", "repro_torch.launch.train",
                    "--arch", arch, "--steps", str(steps), "--batch",
                    str(LM_TRAIN["batch"]), "--seq", str(LM_TRAIN["seq"]),
                    "--checkpoint-dir", ckpt, "--checkpoint-every", "1",
-                   "--device", dev.type, *LM_TRAIN["extra"]]
-            procs[arch] = subprocess.Popen(
+                   "--device", dev.type, *LM_TRAIN["extra"], *more]
+            procs[name] = subprocess.Popen(
                 cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True)
         out = {}
-        for arch, proc in procs.items():
+        for name, proc in procs.items():
             stdout, stderr = proc.communicate(timeout=600)
             if proc.returncode != 0:
-                raise AssertionError(f"launch.train --arch {arch} --steps "
-                                     f"{steps} exited {proc.returncode}: "
+                raise AssertionError(f"launch.train {name} --steps {steps} "
+                                     f"exited {proc.returncode}: "
                                      f"{stderr[-2000:]}")
-            out[arch] = (stdout, time.perf_counter() - t0)
+            out[name] = (stdout, time.perf_counter() - t0)
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -5080,14 +5085,17 @@ def _train_cli(dirs: dict, steps: int, dev) -> dict:
     return out
 
 
-def _check_resume(arch: str, d: str, first: str, second: str,
-                  dev) -> dict:
+def _check_resume(arch: str, d: str, first: str, second: str, dev,
+                  mesh: bool = False) -> dict:
     """One arch's resumed ``launch.train`` run, held here: it printed a
     resume at step 2 and one step; step 2's checkpoint restored onto the
-    seed-0 model is bit-identical to what was saved; one step from it on
-    the FIRST batch of ``default_rng(0)`` (the reference redraws at
-    every start) is bit-identical to the resumed run's step 3, and
-    unlike a step on the third batch. Frees the model."""
+    seed-0 model on one card is bit-identical to what was saved; one
+    step from it on the FIRST batch of ``default_rng(0)`` (the reference
+    redraws at every start) is bit-identical to the resumed run's step 3
+    (a ``--mesh`` run: its step-3 loss, kept in the checkpoint's
+    manifest, within LM_TRAIN_MESH_REL of that step's), and unlike a
+    step on the third batch (a ``--mesh`` run: the loss outside that
+    tolerance of the third batch's). Frees the model."""
     import numpy as np
     import torch
     from repro_torch.checkpoint import checkpoint
@@ -5126,50 +5134,74 @@ def _check_resume(arch: str, d: str, first: str, second: str,
                                         batches[0], lr)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    saved3, _ = checkpoint.restore(d, 3, like)
+    saved3, man3 = checkpoint.restore(d, 3, like)
     equal = all(torch.equal(a, b) for (_, a), (_, b) in zip(
         flatten_with_names({"train": tr3, "opt": opt3}),
         flatten_with_names(saved3)))
-    other, _, _ = train.train_step(params["frozen"], got["train"],
-                                   got["opt"], cfg, entry.kind, batches[2],
-                                   lr)
+    other, _, loss_other = train.train_step(
+        params["frozen"], got["train"], got["opt"], cfg, entry.kind,
+        batches[2], lr)
     differs = not all(torch.equal(a, b) for (_, a), (_, b) in zip(
         flatten_with_names(other), flatten_with_names(tr3)))
     printed = lines[1].split("loss=")[1].split()[0]
-    if not equal or not differs or printed != f"{float(loss3):.4f}":
+    out = {"loss3": float(loss3), "inprocess_step_s": step_s}
+    if mesh:
+        run3 = man3["metadata"]["loss"]
+        gap = abs(run3 - float(loss3)) / abs(float(loss3))
+        fault = abs(run3 - float(loss_other)) / abs(float(loss_other))
+        out.update(run_loss3=run3, gap=gap, fault_gap=fault,
+                   trees_equal=equal)
+        if not gap <= LM_TRAIN_MESH_REL or printed != f"{run3:.4f}":
+            raise AssertionError(
+                f"{arch} --mesh: resumed step 3's loss {run3} (printed "
+                f"{printed}) against a one-card step from step 2 on batch "
+                f"1: {float(loss3)}, relative gap {gap:.3g} (limit "
+                f"{LM_TRAIN_MESH_REL})")
+        if fault <= LM_TRAIN_MESH_REL:
+            raise AssertionError(
+                f"{arch} --mesh: the step on batch 3 ({float(loss_other)}) "
+                f"is within {LM_TRAIN_MESH_REL} of the resumed step 3's "
+                f"loss {run3}: the check cannot tell the batches apart")
+    elif not equal or not differs or printed != f"{float(loss3):.4f}":
         raise AssertionError(f"{arch}: resumed step 3 equal to the step from "
                              f"step 2 on batch 1: {equal}; a step on batch "
                              f"3 differs: {differs}; loss printed {printed}, "
                              f"here {float(loss3)}")
-    times = [float(ln.split("(")[1].split("s)")[0])
-             for ln in (first + second).splitlines() if ln.startswith("step ")]
+    out["step_s"] = [float(ln.split("(")[1].split("s)")[0])
+                     for ln in (first + second).splitlines()
+                     if ln.startswith("step ")]
     del params, like, got, tr3, opt3, other, saved3, batches
     _free_cuda()
-    return {"step_s": times, "loss3": float(loss3),
-            "inprocess_step_s": step_s}
+    return out
 
 
 def lm_train_cli(dev) -> dict:
-    """``launch.train`` for paligemma-3b and seamless-m4t-medium (both at
-    once) at batch 1 and ``--seq 512``, checkpointing every step:
-    ``--steps 2``, then ``--steps 3`` in fresh processes on the same
-    directories, each resumed run held by ``_check_resume``. arch ->
-    its walls and checks."""
+    """``launch.train`` for paligemma-3b and seamless-m4t-medium on one
+    card and seamless-m4t-medium under ``--mesh host`` (its own one-rank
+    process group), all three at once, at batch 1 and ``--seq 512``,
+    checkpointing every step: ``--steps 2``, then ``--steps 3`` in fresh
+    processes on the same directories, each resumed run held by
+    ``_check_resume``. run name -> its walls and checks."""
     import shutil
     import tempfile
     (ROOT / "build").mkdir(exist_ok=True)
-    dirs = {arch: tempfile.mkdtemp(prefix="train_smoke_",
-                                   dir=ROOT / "build")
-            for arch in (LM_PREFIX["arch"], LM_ENCDEC["arch"])}
+    runs = {arch: (arch, []) for arch in (LM_PREFIX["arch"],
+                                          LM_ENCDEC["arch"])}
+    runs[f"{LM_ENCDEC['arch']} --mesh host"] = (LM_ENCDEC["arch"],
+                                                ["--mesh", "host"])
+    runs = {name: (arch, tempfile.mkdtemp(prefix="train_smoke_",
+                                          dir=ROOT / "build"), more)
+            for name, (arch, more) in runs.items()}
     try:
-        first = _train_cli(dirs, 2, dev)
-        second = _train_cli(dirs, 3, dev)
-        return {arch: {"walls": (first[arch][1], second[arch][1]),
-                       **_check_resume(arch, d, first[arch][0],
-                                       second[arch][0], dev)}
-                for arch, d in dirs.items()}
+        first = _train_cli(runs, 2, dev)
+        second = _train_cli(runs, 3, dev)
+        return {name: {"walls": (first[name][1], second[name][1]),
+                       **_check_resume(arch, d, first[name][0],
+                                       second[name][0], dev,
+                                       mesh="--mesh" in more)}
+                for name, (arch, d, more) in runs.items()}
     finally:
-        for d in dirs.values():
+        for _, d, _ in runs.values():
             shutil.rmtree(d, ignore_errors=True)
 
 
@@ -5177,7 +5209,7 @@ def lm_a9d_phase(dev, card: str) -> dict:
     """Phase 4e: paligemma-3b (the prefix-LM) and seamless-m4t-medium
     (the encoder-decoder) at their published widths and depths, both
     card against CPU from one tree, and ``launch.train`` for both with a
-    resume. Launches none of the six kernels (the reference computes
+    resume, seamless-m4t-medium also under ``--mesh host``. Launches none of the six kernels (the reference computes
     both families with einsums outside any Pallas kernel): the counts
     are read around the phase and must not move."""
     from repro_torch.kernels import ops as kops
@@ -5239,15 +5271,27 @@ def lm_a9d_phase(dev, card: str) -> dict:
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     out["train"] = lm_train_cli(dev)
-    for arch, r in out["train"].items():
-        print(f"launch.train {arch} (batch {LM_TRAIN['batch']}, --seq "
+    for name, r in out["train"].items():
+        if "gap" in r:
+            held = (f"its step 3 (loss {r['run_loss3']!r}, from the "
+                    f"checkpoint's manifest) within relative "
+                    f"{r['gap']:.3g} of a one-card step here from its "
+                    f"step-2 file on the first batch (loss "
+                    f"{r['loss3']!r}, {1e3 * r['inprocess_step_s']:.1f} "
+                    f"ms; limit {LM_TRAIN_MESH_REL}; trees bit-identical: "
+                    f"{r['trees_equal']}), and {r['fault_gap']:.3g} from "
+                    f"a step on the third batch (the planted fault, "
+                    f"refused)")
+        else:
+            held = (f"its step 3 (loss {r['loss3']:.4f}) bit-identical to "
+                    f"a step here from step 2 on the first batch "
+                    f"({1e3 * r['inprocess_step_s']:.1f} ms)")
+        print(f"launch.train {name} (batch {LM_TRAIN['batch']}, --seq "
               f"{LM_TRAIN['seq']}, a checkpoint every step; {card}): "
-              f"--steps 2 then --steps 3 in fresh processes, both archs at "
-              f"once ({r['walls'][0]:.1f} / {r['walls'][1]:.1f} s), step "
+              f"--steps 2 then --steps 3 in fresh processes, the three runs "
+              f"at once ({r['walls'][0]:.1f} / {r['walls'][1]:.1f} s), step "
               f"walls {r['step_s']} s; resumed at step 2 with the trees and "
-              f"AdamW state restored bit-identical; its step 3 (loss "
-              f"{r['loss3']:.4f}) bit-identical to a step here from step 2 "
-              f"on the first batch ({1e3 * r['inprocess_step_s']:.1f} ms)")
+              f"AdamW state restored bit-identical; {held}")
     print(f"launch.train phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cc = out["card_cpu"] = lm_a9d_card_cpu(dev)

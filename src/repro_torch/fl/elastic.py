@@ -4,19 +4,17 @@ Checkpoints store unsharded host arrays (``repro_torch.checkpoint``, the
 JAX package's format); a restarted job builds its own mesh (any shape
 whose axes divide the dims per the best-effort rules) and distributes
 every leaf with the DTensor placements derived from the same logical
-annotations (``utils/sharding.py``). Nothing about the checkpoint
-depends on the old topology: scale 256 -> 512 cards, or down to one,
-without conversion; a checkpoint written by either package restores
-here."""
+annotations (``utils/sharding.py``): ``restore(..., shardings=)``, in
+which each rank reads the file and keeps only its block. Nothing about
+the checkpoint depends on the old topology: scale 256 -> 512 cards, or
+down to one, without conversion; a checkpoint written by either
+package restores here."""
 from __future__ import annotations
 
 from typing import Any, Optional
 
-from torch.distributed.tensor import distribute_tensor
-
 from repro_torch.checkpoint import latest_step, restore
-from repro_torch.utils.sharding import logical_to_spec, map_logical, \
-    placements
+from repro_torch.utils.sharding import tree_shardings
 
 
 def elastic_restore(directory: str, like: dict[str, Any],
@@ -36,12 +34,7 @@ def elastic_restore(directory: str, like: dict[str, Any],
         step = latest_step(directory)
         if step is None:
             return None
-    trees, man = restore(directory, step, like, device="cpu")
-
-    def put(lg, x):
-        spec = logical_to_spec(lg, tuple(x.shape), mesh, rules)
-        return distribute_tensor(x, mesh, list(placements(spec, mesh)))
-
-    for g in logical:
-        trees[g] = map_logical(put, logical[g], trees[g])
+    shardings = {g: (mesh, tree_shardings(logical[g], like[g], mesh, rules))
+                 for g in logical}
+    trees, man = restore(directory, step, like, shardings, device="cpu")
     return step, trees, man

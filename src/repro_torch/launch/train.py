@@ -29,7 +29,18 @@ mesh: without a process group this starts a one-rank group itself
 (2, 16, 16) need a process group of 256 or 512 ranks, started by the
 launcher (``torch.distributed.init_process_group``, e.g. from
 ``torchrun``'s environment); any other world size raises. Under
-``--mesh`` the run keeps no checkpoints (``--checkpoint-dir`` raises).
+``--mesh`` the run checkpoints and resumes as the one-card run does:
+every rank gathers the trees and rank 0 writes the file (so a run over
+several hosts needs ``--checkpoint-dir`` on a shared filesystem), and
+every rank reads it back onto its own blocks. The file holds global
+values, so it resumes on any mesh, on one card and in the JAX package,
+and the one-card run's file or the JAX package's resumes here.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b \
+        --smoke --steps 3 --mesh host --checkpoint-dir DIR --device cpu
+
+A step's checkpoint keeps the step's loss in its manifest's metadata
+(``{"loss": ...}``).
 """
 from __future__ import annotations
 
@@ -122,7 +133,8 @@ def train_loop(frozen: dict, train: Any, cfg: Any, kind: str,
         print(f"step {step + 1}: loss={losses[-1]:.4f} "
               f"({time.time() - t0:.2f}s)", flush=True)
         if ckpt and (step + 1) % args.checkpoint_every == 0:
-            ckpt.save(step + 1, {"train": train, "opt": opt_state})
+            ckpt.save(step + 1, {"train": train, "opt": opt_state},
+                      metadata={"loss": losses[-1]})
     print("done")
     return {"train": train, "opt": opt_state, "losses": losses,
             "start": start}
@@ -175,44 +187,76 @@ def make_mesh(name: str, dev: torch.device):
     return make_production_mesh(multi_pod=name == "multi", device=dev)
 
 
+def sharded_step(cfg: Any, kind: str, args: argparse.Namespace, mesh):
+    """The sharded train step over ``mesh`` (``launch/steps.py``, one
+    microbatch of ``args.batch`` rows, learning rate ``args.lr``):
+    ``step(frozen, train, opt_state, batch)`` with DTensor trees and a
+    batch as ``draw_batch`` gives it. It writes the new ``train`` and
+    ``opt_state`` into their argument buffers and returns (train,
+    opt_state, loss)."""
+    from repro_torch.launch import spmd
+    from repro_torch.launch import steps as S
+    mod = ED if kind == "encdec" else LM
+    axes = spmd.split_axes(mesh, args.batch, mesh.mesh_dim_names,
+                           greedy=False)
+    fn = S._sharded_train(mod, cfg, mesh, axes, 1, 0, adamw(),
+                          S._local_constrain(mesh, S.CellPlan(), "train"),
+                          lr=args.lr)
+
+    def step(frozen, train, opt_state, batch):
+        batch = S._distribute(batch, S._batch_sharding(mesh, batch), mesh)
+        train, opt_state, m = fn(frozen, train, opt_state, batch)
+        return train, opt_state, m["loss"]
+
+    return step
+
+
 def sharded_loop(frozen: dict, train: Any, cfg: Any, entry,
                  args: argparse.Namespace, rng: np.random.Generator,
                  mesh) -> dict:
-    """``train_loop`` over ``mesh``: steps 1 .. ``args.steps``, each the
-    sharded train step. Returns {'train', 'opt', 'losses', 'start'},
-    the trees as DTensors."""
-    from repro_torch.launch import spmd
+    """``train_loop`` over ``mesh``: steps ``start + 1 .. args.steps``,
+    each the sharded train step, from ``train`` or from the newest
+    checkpoint in ``args.checkpoint_dir`` restored onto the run's own
+    placements. Every rank calls it. Returns {'train', 'opt', 'losses',
+    'start'}, the trees as DTensors."""
     from repro_torch.launch import steps as S
     from repro_torch.utils.sharding import tree_shardings
-    if args.checkpoint_dir:
-        raise NotImplementedError("--mesh runs keep no checkpoints")
     mod = ED if entry.kind == "encdec" else LM
     logical = mod.logical(cfg)
     frozen = S._distribute(frozen, tree_shardings(
         logical["frozen"], frozen, mesh), mesh)
     sh_train = tree_shardings(logical["train"], train, mesh)
-    opt = adamw()
-    opt_state = S._distribute(opt.init(train),
-                              S._opt_shardings(mesh, sh_train), mesh)
-    train = S._distribute(train, sh_train, mesh)
-    plan = S.CellPlan()
-    axes = spmd.split_axes(mesh, args.batch, mesh.mesh_dim_names,
-                           greedy=False)
-    step_fn = S._sharded_train(mod, cfg, mesh, axes, 1, 0, opt,
-                               S._local_constrain(mesh, plan, "train"),
-                               lr=args.lr)
+    shardings = {"train": (mesh, sh_train),
+                 "opt": (mesh, S._opt_shardings(mesh, sh_train))}
+    opt_state = adamw().init(train)
+    ckpt = CheckpointManager(args.checkpoint_dir) \
+        if args.checkpoint_dir else None
+    got = ckpt.restore_latest({"train": train, "opt": opt_state},
+                              shardings) if ckpt else None
+    start = 0
+    if got:
+        start, trees, _ = got
+        train, opt_state = trees["train"], trees["opt"]
+        print(f"resumed from step {start}")
+    else:
+        train = S._distribute(train, sh_train, mesh)
+        opt_state = S._distribute(opt_state, shardings["opt"][1], mesh)
+    step_fn = sharded_step(cfg, entry.kind, args, mesh)
     dev = LM.param_device(frozen)
     losses = []
-    for step in range(args.steps):
+    for step in range(start, args.steps):
         batch = draw_batch(rng, cfg, entry.kind, args.batch, args.seq, dev)
-        batch = S._distribute(batch, S._batch_sharding(mesh, batch), mesh)
         t0 = time.time()
-        train, opt_state, m = step_fn(frozen, train, opt_state, batch)
-        losses.append(float(m["loss"]))
+        train, opt_state, loss = step_fn(frozen, train, opt_state, batch)
+        losses.append(float(loss))
         print(f"step {step + 1}: loss={losses[-1]:.4f} "
               f"({time.time() - t0:.2f}s)", flush=True)
+        if ckpt and (step + 1) % args.checkpoint_every == 0:
+            ckpt.save(step + 1, {"train": train, "opt": opt_state},
+                      metadata={"loss": losses[-1]})
     print("done")
-    return {"train": train, "opt": opt_state, "losses": losses, "start": 0}
+    return {"train": train, "opt": opt_state, "losses": losses,
+            "start": start}
 
 
 def main(argv=None) -> dict:
